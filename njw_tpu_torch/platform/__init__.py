@@ -1,0 +1,3 @@
+from njw_tpu_torch.platform.device import (
+    DeviceCaps, detect, get_device_info, require_device,
+)

@@ -1,0 +1,107 @@
+"""Time integrators as higher-order functions.
+
+Counterpart of ``njw_tpu/weather/integrators.py``. An integrator is a
+``Stepper``:
+
+    carry0 = stepper.init(state)
+    carry, state = stepper.step(carry, state, dt)
+
+The carry holds multi-step history (AB2) and is an empty tuple for the
+single-step methods. The combine arithmetic (order and constants) is the
+JAX package's, so the two agree to float32 rounding.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from njw_tpu_torch.weather.grid import WeatherState
+
+TendencyFn = Callable  # state -> d(state)/dt
+
+
+def _axpy(a, x: WeatherState, y: WeatherState) -> WeatherState:
+    """y + a * x field-wise."""
+    return y.map(lambda yi, xi: yi + a * xi, x)
+
+
+class Stepper(NamedTuple):
+    init: Callable  # state -> carry
+    step: Callable  # (carry, state, dt) -> (carry, state)
+    name: str
+    stages: int     # tendency evaluations per step
+
+
+def euler(tendency: TendencyFn) -> Stepper:
+    """Explicit Euler."""
+
+    def step(carry, s, dt):
+        return carry, _axpy(dt, tendency(s), s)
+
+    return Stepper(lambda s: (), step, "euler", 1)
+
+
+def rk2(tendency: TendencyFn) -> Stepper:
+    """Midpoint RK2."""
+
+    def step(carry, s, dt):
+        k1 = tendency(s)
+        mid = _axpy(0.5 * dt, k1, s)
+        k2 = tendency(mid)
+        return carry, _axpy(dt, k2, s)
+
+    return Stepper(lambda s: (), step, "rk2", 2)
+
+
+def rk4(tendency: TendencyFn) -> Stepper:
+    """Classic RK4: s + dt * (k1 + 2 k2 + 2 k3 + k4) / 6."""
+
+    def step(carry, s, dt):
+        k1 = tendency(s)
+        k2 = tendency(_axpy(0.5 * dt, k1, s))
+        k3 = tendency(_axpy(0.5 * dt, k2, s))
+        k4 = tendency(_axpy(dt, k3, s))
+        incr = k1.map(
+            lambda a, b, c, d: (a + 2.0 * b + 2.0 * c + d) * (1.0 / 6.0),
+            k2, k3, k4,
+        )
+        return carry, _axpy(dt, incr, s)
+
+    return Stepper(lambda s: (), step, "rk4", 4)
+
+
+def ab2(tendency: TendencyFn) -> Stepper:
+    """2nd-order Adams-Bashforth, s' = s + dt (3/2 T_n - 1/2 T_{n-1}),
+    bootstrapped with T_{-1} := T_0 (the first step is Euler)."""
+
+    def init(s):
+        return tendency(s)  # carry = previous tendency
+
+    def step(t_prev, s, dt):
+        t_now = tendency(s)
+        incr = t_now.map(lambda a, b: 1.5 * a - 0.5 * b, t_prev)
+        return t_now, _axpy(dt, incr, s)
+
+    return Stepper(init, step, "ab2", 1)
+
+
+INTEGRATORS: dict[str, Callable[[TendencyFn], Stepper]] = {
+    "euler": euler,
+    "rk2": rk2,
+    "rk4": rk4,
+    "adams_bashforth": ab2,
+}
+
+
+def make_stepper(method: str, tendency: TendencyFn) -> Stepper:
+    """Look up an explicit integrator by name."""
+    if method == "semi_implicit":
+        raise NotImplementedError(
+            "integration_method='semi_implicit' is not yet ported "
+            "(ROADMAP: open items, 1.4 rest of weather)")
+    try:
+        return INTEGRATORS[method](tendency)
+    except KeyError:
+        raise ValueError(
+            f"unknown integration method {method!r}; "
+            f"available: {sorted(INTEGRATORS) + ['semi_implicit']}"
+        ) from None

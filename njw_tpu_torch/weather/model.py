@@ -1,0 +1,271 @@
+"""Simulation: a device-resident step loop with metrics.
+
+Counterpart of ``njw_tpu/weather/model.py``. ``Simulation.step(n)`` runs
+n steps as a Python loop over the stepper (the JAX package's chunked
+``lax.scan``), then synchronises the device before it reads the clock, so
+the metrics time finished work. CUDA graphs of the chunk are later work.
+
+Backend selection (``SimConfig.backend``):
+  auto    the fused kernel when the configuration is eligible and the
+          device is CUDA; the plain integrators otherwise
+  kernel  the fused kernel (its plain version for CPU tensors); raises
+          for an ineligible configuration
+  plain   the plain integrators over ``dynamics.swe_tendencies``
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.weather.dynamics import diagnostics, make_tendency_fn
+from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
+from njw_tpu_torch.weather.ics import make_initial_state
+from njw_tpu_torch.weather.integrators import make_stepper
+
+BACKENDS = ("auto", "plain", "kernel")
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Run configuration (the JAX package's ``SimConfig`` with ``device``
+    added and backends auto | plain | kernel)."""
+
+    model: str = "shallow_water"     # shallow_water | general (ported)
+    integration_method: str = "rk4"  # euler | rk2 | rk4 | adams_bashforth
+    boundary_condition: str = "periodic"  # periodic | clamped | outflow | reflective
+    grid_type: str = "cartesian"
+
+    grid_width: int = 256
+    grid_height: int = 256
+    num_levels: int = 1
+    dx: float = 1.0
+    dy: float = 1.0
+    dt: float = 0.01
+
+    gravity: float = 9.81
+    coriolis_f: float = 0.0
+    beta: float = 0.0
+    viscosity: float = 0.0
+    diffusivity: float = 0.0
+
+    backend: str = "auto"
+    max_steps: int = 1000
+    output_interval: int = 10
+    random_seed: int = 0
+    device: str = "cuda"
+
+    def grid_spec(self) -> GridSpec:
+        return GridSpec(
+            nx=self.grid_width, ny=self.grid_height, levels=self.num_levels,
+            dx=self.dx, dy=self.dy, bc=self.boundary_condition,
+            grid_type=self.grid_type,
+        )
+
+    def physics(self) -> PhysicsParams:
+        return PhysicsParams(
+            gravity=self.gravity, coriolis_f=self.coriolis_f, beta=self.beta,
+            viscosity=self.viscosity, diffusivity=self.diffusivity,
+        )
+
+
+@dataclass
+class PerformanceMetrics:
+    """Wall-clock metrics plus throughput (grid-points/s, MCUPS)."""
+
+    total_time_ms: float = 0.0
+    compute_time_ms: float = 0.0
+    io_time_ms: float = 0.0
+    num_steps: int = 0
+    grid_points: int = 0
+
+    @property
+    def steps_per_second(self) -> float:
+        t = self.compute_time_ms or self.total_time_ms
+        return self.num_steps / (t / 1e3) if t else 0.0
+
+    @property
+    def grid_points_per_second(self) -> float:
+        return self.grid_points * self.steps_per_second
+
+    @property
+    def mcups(self) -> float:
+        """Million cell updates per second."""
+        return self.grid_points_per_second / 1e6
+
+    def reset(self) -> None:
+        self.total_time_ms = self.compute_time_ms = self.io_time_ms = 0.0
+        self.num_steps = 0
+
+    def as_dict(self) -> dict[str, float]:
+        return {
+            "total_time_ms": self.total_time_ms,
+            "compute_time_ms": self.compute_time_ms,
+            "io_time_ms": self.io_time_ms,
+            "num_steps": self.num_steps,
+            "steps_per_second": self.steps_per_second,
+            "grid_points_per_second": self.grid_points_per_second,
+            "mcups": self.mcups,
+        }
+
+
+def _prognostic_only(state: WeatherState, model: str) -> WeatherState:
+    """Strip a full state down to the model's prognostic variables."""
+    if model in ("shallow_water", "general"):
+        return WeatherState(u=state.u, v=state.v, h=state.h)
+    return state
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Simulation:
+    """Generic step loop over a ``WeatherState``.
+
+    Weather-specific construction goes through :meth:`from_config`; the
+    loop itself needs only ``(state0, tendency_fn, method, dt)``.
+    """
+
+    def __init__(
+        self,
+        state0: WeatherState,
+        tendency_fn: Callable,
+        *,
+        dt: float,
+        method: str = "rk4",
+        grid: Optional[GridSpec] = None,
+        stepper_factory: Optional[Callable] = None,
+        output_fn: Optional[Callable[[WeatherState], dict]] = None,
+    ):
+        self.grid = grid
+        self.dt = float(dt)
+        self.state = state0
+        self.device = state0.device
+        self.time = 0.0
+        self.step_count = 0
+        shape = state0.u.shape
+        self.metrics = PerformanceMetrics(grid_points=int(shape[-1] * shape[-2]))
+        self.output_fn = output_fn
+        self.snapshots: list[dict[str, Any]] = []
+
+        if stepper_factory is not None:
+            self.stepper = stepper_factory(tendency_fn)
+        else:
+            self.stepper = make_stepper(method, tendency_fn)
+        self._carry = self.stepper.init(state0)
+        # dt enters the steppers as a float32 value, as in the JAX package
+        self._dt_f32 = float(np.float32(self.dt))
+
+    @classmethod
+    def from_config(cls, config: SimConfig, initial_condition: str = "uniform",
+                    **ic_params) -> "Simulation":
+        device = require_device(config.device)
+        if config.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {config.backend!r}; "
+                             f"available: {list(BACKENDS)}")
+        grid = config.grid_spec()
+        params = config.physics()
+        model = config.model
+        # raises NotImplementedError for the cores not yet ported
+        tendency = make_tendency_fn(model, grid, params)
+        if config.integration_method == "semi_implicit":
+            make_stepper("semi_implicit", tendency)  # raises: not yet ported
+
+        gen = torch.Generator().manual_seed(config.random_seed)
+        full0 = make_initial_state(initial_condition, grid, device=device,
+                                   generator=gen, **ic_params)
+        state0 = _prognostic_only(full0, model)
+
+        def output_fn(s):
+            out = {"u": s.u, "v": s.v, "h": s.h}
+            out.update(diagnostics(s, grid))
+            return out
+
+        sim = cls(
+            state0, tendency, dt=config.dt, method=config.integration_method,
+            grid=grid, stepper_factory=_maybe_kernel_stepper(
+                config, grid, params, device),
+            output_fn=output_fn,
+        )
+        sim.config = config
+        return sim
+
+    def step(self, n: int = 1) -> WeatherState:
+        """Advance n steps on the device, then synchronise."""
+        t0 = time.perf_counter()
+        carry, state, step, dt = self._carry, self.state, self.stepper.step, \
+            self._dt_f32
+        for _ in range(n):
+            carry, state = step(carry, state, dt)
+        self._carry, self.state = carry, state
+        _sync(self.device)
+        elapsed = (time.perf_counter() - t0) * 1e3
+        self.metrics.compute_time_ms += elapsed
+        self.metrics.total_time_ms += elapsed
+        self.metrics.num_steps += n
+        self.step_count += n
+        self.time += n * self.dt
+        return self.state
+
+    def run(self, n_steps: Optional[int] = None, output_interval: int = 0,
+            callback: Optional[Callable] = None) -> WeatherState:
+        """Run n_steps, snapshotting every output_interval steps."""
+        if n_steps is None:
+            n_steps = getattr(self, "config", SimConfig()).max_steps
+        remaining = n_steps
+        chunk = output_interval if output_interval > 0 else n_steps
+        while remaining > 0:
+            n = min(chunk, remaining)
+            self.step(n)
+            remaining -= n
+            if output_interval > 0:
+                self._store_output()
+            if callback is not None:
+                callback(self)
+        return self.state
+
+    def run_until(self, t_end: float, output_interval: int = 0,
+                  callback=None) -> WeatherState:
+        """Advance until the simulated time reaches t_end."""
+        n = max(int(round((t_end - self.time) / self.dt)), 0)
+        return self.run(n, output_interval=output_interval, callback=callback)
+
+    def _store_output(self) -> None:
+        t0 = time.perf_counter()
+        fields = (self.output_fn(self.state) if self.output_fn is not None
+                  else dict(self.state.items()))
+        snap: dict[str, Any] = {k: v.detach().cpu().numpy()
+                                for k, v in fields.items() if v is not None}
+        snap["step"] = self.step_count
+        snap["time"] = self.time
+        self.snapshots.append(snap)
+        elapsed = (time.perf_counter() - t0) * 1e3
+        self.metrics.io_time_ms += elapsed
+        self.metrics.total_time_ms += elapsed
+
+
+def _maybe_kernel_stepper(config: SimConfig, grid: GridSpec,
+                          params: PhysicsParams, device: torch.device):
+    """Stepper factory for the fused kernel, or None for the plain
+    integrators (see the module docstring for the rule)."""
+    from njw_tpu_torch.ops.stencil import kernel_supported, \
+        make_kernel_rk4_stepper
+
+    if config.backend == "plain":
+        return None
+    if not kernel_supported(grid, params, config.model,
+                            config.integration_method):
+        if config.backend == "kernel":
+            raise ValueError(
+                "backend='kernel' requires shallow_water + rk4 + periodic "
+                "BC + cartesian grid + constant f (beta=0)")
+        return None
+    if config.backend == "auto" and device.type != "cuda":
+        return None
+    return lambda _tendency: make_kernel_rk4_stepper(grid, params, config.dt)

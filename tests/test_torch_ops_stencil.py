@@ -1,0 +1,197 @@
+"""The port's fused RK4 step (njw_tpu_torch.ops.stencil) against the JAX
+package's Pallas kernel (interpret mode on the CPU) and the plain RK4
+integrator. The CUDA kernel itself runs only on a GPU: its tests are in
+tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from njw_tpu.ops.stencil import swe_rk4_step_pallas  # noqa: E402
+from njw_tpu.weather import GridSpec as JGrid  # noqa: E402
+
+from njw_tpu_torch.ops import _build, stencil  # noqa: E402
+from njw_tpu_torch.ops.stencil import (  # noqa: E402
+    kernel_supported, make_kernel_rk4_stepper, swe_rk4_step,
+    swe_rk4_step_cuda, swe_rk4_step_plain,
+)
+from njw_tpu_torch.weather import (  # noqa: E402
+    GridSpec, PhysicsParams, SimConfig, Simulation, make_stepper,
+    make_tendency_fn,
+)
+from njw_tpu_torch.weather.convert import (  # noqa: E402
+    grid_from_jax_fields, state_from_numpy,
+)
+
+CPU = "cpu"
+
+
+def _fields(ny, nx, seed=0, amp=0.5):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-amp, amp, (ny, nx)).astype(np.float32),
+            rng.uniform(-amp, amp, (ny, nx)).astype(np.float32),
+            (10.0 + rng.uniform(-amp, amp, (ny, nx))).astype(np.float32))
+
+
+def _torch(fields, device=CPU):
+    return tuple(torch.from_numpy(f.copy()).to(device) for f in fields)
+
+
+class TestPlainVersionAgainstPallas:
+    @pytest.mark.parametrize("nu", [0.0, 0.02])
+    def test_matches_pallas_interpret(self, nu):
+        """The JAX kernel's own tolerance (tests/test_ops_stencil.py)."""
+        jg = JGrid(nx=128, ny=64)
+        f = _fields(64, 128, seed=1)
+        kw = dict(dt=0.01, gravity=9.81, coriolis_f=1e-4, viscosity=nu)
+        ref = swe_rk4_step_pallas(*(jnp.asarray(a) for a in f), grid=jg,
+                                  by=16, interpret=True, **kw)
+        out = swe_rk4_step_plain(*_torch(f), grid=grid_from_jax_fields(jg),
+                                 **kw)
+        for a, b in zip(out, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       rtol=1e-5, atol=1e-6)
+
+
+class TestPlainVersionAgainstIntegrator:
+    @pytest.mark.parametrize("ny,nx,nu", [
+        (64, 64, 0.0), (37, 29, 0.0), (3, 5, 0.0), (20, 33, 0.05)])
+    def test_accumulator_form_equals_k_sum_rk4(self, ny, nx, nu):
+        """State-form RK4 == the integrator's k-sum RK4 to rounding, on
+        ragged and tiny periodic grids too."""
+        grid = GridSpec(nx=nx, ny=ny, dx=1.25, dy=0.8)
+        params = PhysicsParams(coriolis_f=1e-3, viscosity=nu)
+        f = _fields(ny, nx, seed=ny)
+        dt = 0.01
+        out = swe_rk4_step_plain(*_torch(f), grid=grid, dt=dt,
+                                 coriolis_f=1e-3, viscosity=nu)
+        st = make_stepper("rk4", make_tendency_fn("shallow_water", grid,
+                                                  params))
+        _, ref = st.step((), state_from_numpy(dict(zip("uvh", f)), CPU),
+                         float(np.float32(dt)))
+        for a, b in zip(out, (ref.u, ref.v, ref.h)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+class TestWrapper:
+    def test_cpu_tensors_take_the_plain_version(self):
+        grid = GridSpec(nx=16, ny=12)
+        f = _torch(_fields(12, 16))
+        before = swe_rk4_step_cuda.launches
+        out = tuple(torch.empty_like(t) for t in f)
+        res = swe_rk4_step(*f, grid=grid, dt=0.01, coriolis_f=1e-4, out=out)
+        assert all(r is o for r, o in zip(res, out))
+        ref = swe_rk4_step_plain(*f, grid=grid, dt=0.01, coriolis_f=1e-4)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        assert swe_rk4_step_cuda.launches == before  # no kernel launch
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self, monkeypatch):
+        """No fallback: the CUDA wrapper raises before it builds anything."""
+        def no_build(name):
+            raise AssertionError("the kernel must not be built for CPU input")
+
+        monkeypatch.setattr(_build, "load", no_build)
+        f = _torch(_fields(8, 8))
+        before = swe_rk4_step_cuda.launches
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            swe_rk4_step_cuda(*f, grid=GridSpec(nx=8, ny=8), dt=0.01)
+        assert swe_rk4_step_cuda.launches == before
+
+    @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "alias",
+                                     "bc", "out_shared"])
+    def test_checks_refuse_bad_input(self, bad):
+        grid = GridSpec(nx=8, ny=6)
+        u, v, h = _torch(_fields(6, 8))
+        out = None
+        if bad == "dtype":
+            u = u.double()
+        elif bad == "shape":
+            grid = GridSpec(nx=6, ny=8)
+        elif bad == "contiguous":
+            u = torch.zeros(8, 6).t()
+        elif bad == "alias":
+            out = (u, torch.empty_like(v), torch.empty_like(h))
+        elif bad == "bc":
+            grid = GridSpec(nx=8, ny=6, bc="clamped")
+        elif bad == "out_shared":
+            o = torch.empty_like(u)
+            out = (o, o, torch.empty_like(h))
+        with pytest.raises((TypeError, ValueError)):
+            swe_rk4_step(u, v, h, grid=grid, dt=0.01, out=out)
+
+    def test_stepper_ping_pongs_two_buffers(self):
+        grid = GridSpec(nx=16, ny=16)
+        st = make_kernel_rk4_stepper(grid, PhysicsParams(coriolis_f=1e-4), 0.01)
+        s = state_from_numpy(dict(zip("uvh", _fields(16, 16))), CPU)
+        carry = st.init(s)
+        ptrs = []
+        for _ in range(4):
+            carry, s = st.step(carry, s, 0.01)
+            ptrs.append(s.h.data_ptr())
+        assert ptrs[0] == ptrs[2] and ptrs[1] == ptrs[3] != ptrs[0]
+        assert st.name == "rk4_kernel"
+
+    def test_constants_rounded_to_float32_once(self):
+        k = stencil.rk4_constants(GridSpec(dx=3.0, dy=7.0), 0.001, 9.81,
+                                  1e-4, 0.02)
+        assert k["sixth"] == float(np.float32(0.001 / 6.0))
+        assert k["cx"] == float(np.float32(0.5 / 3.0))
+        assert k["iy2"] == float(np.float32(0.02 / 49.0))
+
+
+class TestEligibility:
+    @pytest.mark.parametrize("grid_kw,params_kw,model,method,ok", [
+        ({}, {}, "shallow_water", "rk4", True),
+        ({"nx": 200, "ny": 37}, {"viscosity": 0.1}, "shallow_water", "rk4",
+         True),  # no tile-multiple rule: the kernel masks ragged tiles
+        ({}, {"beta": 0.1}, "shallow_water", "rk4", False),
+        ({"bc": "clamped"}, {}, "shallow_water", "rk4", False),
+        ({"grid_type": "staggered"}, {}, "shallow_water", "rk4", False),
+        ({}, {}, "shallow_water", "rk2", False),
+        ({}, {}, "general", "rk4", False),
+    ])
+    def test_kernel_supported(self, grid_kw, params_kw, model, method, ok):
+        grid = GridSpec(**grid_kw)
+        assert kernel_supported(grid, PhysicsParams(**params_kw), model,
+                                method) is ok
+
+    def test_kernel_backend_on_cpu_uses_the_plain_version(self):
+        cfg = SimConfig(grid_width=24, grid_height=24, backend="kernel",
+                        device=CPU)
+        sim = Simulation.from_config(cfg, "vortex", strength=2.0)
+        assert sim.stepper.name == "rk4_kernel"
+        sim.step(3)
+        assert torch.isfinite(sim.state.h).all()
+
+
+class TestBuild:
+    def test_sources_and_hashed_library_names(self):
+        assert "swe_rk4" in _build.sources()
+        path = _build.library_path("swe_rk4")
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith("libswe_rk4-") and path.suffix == ".so"
+        assert "--use_fast_math" not in _build.NVCC_FLAGS
+        assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+    def test_missing_nvcc_raises(self, monkeypatch):
+        monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+        monkeypatch.setattr(_build, "Path", _NoCudaPath)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.nvcc_path()
+
+    def test_source_note_names_the_tpu_kernel_and_bound(self):
+        src = (_build.CSRC / "swe_rk4.cu").read_text()
+        assert "njw_tpu/ops/stencil.py:60" in src and "swe_rk4_kernel" in src
+        assert "24 B/point" in src
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+        assert "cudaGetLastError" in src
+
+
+class _NoCudaPath(type(_build.CSRC)):
+    def exists(self):
+        return False
