@@ -5,15 +5,29 @@
 
 Phases, one JSON line each; any failure exits nonzero before the last line:
   1 toolchain   card name and power limit, torch / CUDA / nvcc / triton
-  2 build       every kernel under njw_tpu_torch/ops/csrc/, with build time
+  2 build       every kernel under njw_tpu_torch/ops/csrc/ (one nvcc per
+                source, all in parallel), with ptxas registers and spills
   3 kernels     each kernel against its plain PyTorch version on the card
-                (per step rtol 1e-5 / atol 1e-6), and its time beside the
-                plain version's and the card's bound
-  4 parity      512^2, 12 steps: backend kernel vs backend plain, 1e-3
-  5 main path   SWE 2048^2 RK4 vortex through Simulation.from_config, 1000
-                steps after a warm-up; launch counts reset just before and
-                read just after
-  6 cli         the CLI's --json run and its --validate against the oracle
+                (swe_rk4: rtol 1e-5 / atol 1e-6 per step; baro_stage:
+                rtol 1e-5 / atol 1e-5; pe_stage and pe_rk4: rtol 1e-5 /
+                atol 1e-4, and 2e-4 with terrain, the JAX kernel tests'
+                tolerances), and its time beside the plain version's, the
+                card's bound and the wrapper's host cost per launch
+  4 parity      kernel steppers vs backend plain: SWE 512^2 (1e-3),
+                barotropic 256^2 (normalised 1e-3), PE 128^2 x 8 on the
+                whole-step kernel and on the stage kernel (the JAX
+                multi-step tolerances), 12 steps each
+  5 oracle      the barotropic and PE kernel paths against the NumPy
+                oracles, 200 steps (normalised 5e-3 and 1e-3)
+  6 main paths  the main paths of njw_tpu_torch.weather.main_paths through
+                Simulation.from_config with backend auto: SWE 2048^2 (1000
+                steps), barotropic 1024^2 (BASELINE config 3, 1000 steps),
+                PE 512^2 x 20 (config 4, 100 steps, the whole-step kernel);
+                then config 4 on the four-stage path (the stepper's
+                whole_step=False, the path for levels the whole-step kernel
+                does not fit); every launch count is set to 0 just before
+                each and read just after
+  7 cli         the CLI's --json runs of the three cores and its --validate
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -26,17 +40,28 @@ import subprocess
 import sys
 import time
 
-GRID = 2048          # the headline configuration: SWE 2048^2 RK4
-DT = 0.001
-CORIOLIS = 1e-4
-STRENGTH = 1.0       # vortex strength
-MAIN_STEPS = 1000
-WARM_STEPS = 10
 PARITY_GRID, PARITY_STEPS = 512, 12
 RTOL, ATOL = 1e-5, 1e-6   # kernel vs plain version, per step
 FLOP_PER_POINT = 4 * 33 + 24          # four tendencies + the combines
 VISC_FLOP_PER_POINT = 4 * 2 * 10      # 5-point Laplacian on u and v per stage
 BYTES_PER_POINT = 24                  # read u, v, h once, write them once
+
+K3_RTOL, K3_ATOL = 1e-5, 1e-5          # tests/test_weather_barotropic.py
+# K5 and K4: tests/test_weather_primitive.py (stage and fused RK4 kernels)
+PE_RTOL, PE_ATOL, PE_ATOL_TERRAIN = 1e-5, 1e-4, 2e-4
+BARO_FLOP = 34 + 4 + 11       # per point: Arakawa J + combine, beta, nu
+PE_FLOP = {1: 116, 4: 140}    # per column and level, by number of bases
+# a whole RK4 step: three one-base stages and the fused four-base one
+PE_STEP_FLOP = 3 * PE_FLOP[1] + PE_FLOP[4]
+HOST_LAUNCHES = 200           # launches timed on the host clock
+SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's clock: see _events_ms
+
+
+def path(model: str):
+    """The main path of ``model`` (njw_tpu_torch.weather.main_paths)."""
+    from njw_tpu_torch.weather.main_paths import MAIN_PATHS
+
+    return MAIN_PATHS[model]
 
 
 def emit(phase: str, **fields) -> None:
@@ -89,11 +114,16 @@ def build() -> None:
 
 
 def _events_ms(fn, n: int) -> float:
-    """Mean device time of fn() over n calls, by CUDA events."""
+    """Mean device time of fn() over n calls, by CUDA events. The device
+    first spins for ~50 ms while the host queues all n calls, so that the
+    events time the device's work and not the host's pace (a wrapper's
+    host cost can exceed a small kernel's time)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -102,7 +132,7 @@ def _events_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _compare(kern, plain) -> tuple[float, float, bool]:
+def _compare(kern, plain, rtol=RTOL, atol=ATOL) -> tuple[float, float, bool]:
     import torch
 
     max_abs, max_rel, ok = 0.0, 0.0, True
@@ -112,22 +142,71 @@ def _compare(kern, plain) -> tuple[float, float, bool]:
         d = (a - b).abs()
         max_abs = max(max_abs, float(d.max()))
         max_rel = max(max_rel, float((d / b.abs().clamp_min(1e-30)).max()))
-        ok &= bool((d <= ATOL + RTOL * b.abs()).all())
+        ok &= bool((d <= atol + rtol * b.abs()).all())
     return max_abs, max_rel, ok
 
 
-def bound_ms(points: int, viscous: bool) -> tuple[float, str]:
-    """Least time for one fused step on this card, and what bounds it."""
+def roofline_ms(n_bytes: float, n_flop: float) -> tuple[float, str]:
+    """The least time this card can take to move n_bytes and do n_flop
+    float32 operations, and which of the two sets it."""
     import torch
     from njw_tpu_torch.platform.device import spec_for
 
     bw_gbps, fp32_tflops = spec_for(torch.cuda.get_device_name(0))
     if bw_gbps is None:
         fail("kernels", "card not in the spec table of platform/device.py")
-    t_bytes = BYTES_PER_POINT * points / (bw_gbps * 1e9) * 1e3
-    flop = FLOP_PER_POINT + (VISC_FLOP_PER_POINT if viscous else 0)
-    t_ops = flop * points / (fp32_tflops * 1e12) * 1e3
+    t_bytes = n_bytes / (bw_gbps * 1e9) * 1e3
+    t_ops = n_flop / (fp32_tflops * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_ms(points: int, viscous: bool) -> tuple[float, str]:
+    """Least time for one fused SWE step on this card, and what bounds it."""
+    flop = FLOP_PER_POINT + (VISC_FLOP_PER_POINT if viscous else 0)
+    return roofline_ms(BYTES_PER_POINT * points, flop * points)
+
+
+def distinct_bytes(*tensors) -> int:
+    """Bytes of the distinct buffers among ``tensors``: each input read
+    once and each output written once."""
+    seen = {}
+    for t in tensors:
+        if t is not None:
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def reset_counts() -> None:
+    from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
+
+    stencil.swe_rk4_step_cuda.launches = 0
+    baro_stencil.baro_stage_cuda.launches = 0
+    pe_stencil.pe_stage_cuda.launches = 0
+    pe_stencil.pe_rk4_step_cuda.launches = 0
+
+
+def counts() -> dict:
+    from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
+
+    return {"swe_rk4": stencil.swe_rk4_step_cuda.launches,
+            "baro_stage": baro_stencil.baro_stage_cuda.launches,
+            "pe_stage": pe_stencil.pe_stage_cuda.launches,
+            "pe_rk4": pe_stencil.pe_rk4_step_cuda.launches}
+
+
+def host_us_per_launch(launch) -> float:
+    """Host time of one call of a kernel's wrapper: HOST_LAUNCHES calls on
+    the host clock with no synchronise inside (the device runs behind)."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_LAUNCHES):
+        launch()
+    us = (time.perf_counter() - t0) * 1e6 / HOST_LAUNCHES
+    torch.cuda.synchronize()
+    return us
 
 
 def kernels_vs_plain() -> dict:
@@ -135,10 +214,12 @@ def kernels_vs_plain() -> dict:
     from njw_tpu_torch.ops import stencil
     from njw_tpu_torch.weather import GridSpec, make_initial_state
 
+    swe = path("swe")
+    GRID, DT = swe.config["grid_width"], swe.config["dt"]
+    CORIOLIS = swe.config["coriolis_f"]
     cases = [
         # name, ny, nx, ic, ic kwargs, dt, f, nu
-        ("main_2048", GRID, GRID, "vortex", {"strength": STRENGTH}, DT,
-         CORIOLIS, 0.0),
+        ("main_2048", GRID, GRID, swe.ic, swe.ic_params, DT, CORIOLIS, 0.0),
         ("viscous_512", 512, 512, "vortex", {"strength": 2.0}, 0.01,
          CORIOLIS, 0.02),
         ("ragged_200x328", 200, 328, "breaking_wave", {"amplitude": 0.3},
@@ -176,30 +257,27 @@ def kernels_vs_plain() -> dict:
         turn[0] ^= 1
 
     _events_ms(kernel_step, 20)
-    ms = _events_ms(kernel_step, 500)
+    ms = _events_ms(kernel_step, 200)
     plain_call = lambda: stencil.swe_rk4_step_plain(s.u, s.v, s.h, **kw)
     _events_ms(plain_call, 2)
     plain_ms = _events_ms(plain_call, 10)
     b_ms, b_by = bound_ms(GRID * GRID, viscous=False)
+    host_us = host_us_per_launch(kernel_step)
     emit("kernel_time", ok=True, kernel="swe_rk4", shape=[GRID, GRID],
          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-         fraction_of_bound=b_ms / ms, library_ms=None)
+         fraction_of_bound=b_ms / ms, library_ms=None,
+         host_us_per_launch=host_us)
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "host_us": host_us}
 
 
 def parity_gate() -> None:
-    import dataclasses
-
     import torch
-    from njw_tpu_torch.weather import SimConfig, Simulation
 
-    cfg = SimConfig(grid_width=PARITY_GRID, grid_height=PARITY_GRID, dt=DT,
-                    integration_method="rk4", coriolis_f=CORIOLIS,
-                    backend="kernel", device="cuda")
-    ker = Simulation.from_config(cfg, "vortex", strength=STRENGTH)
-    ref = Simulation.from_config(dataclasses.replace(cfg, backend="plain"),
-                                 "vortex", strength=STRENGTH)
+    swe = path("swe")
+    size = dict(grid_width=PARITY_GRID, grid_height=PARITY_GRID)
+    ker = swe.simulation(backend="kernel", **size)
+    ref = swe.simulation(backend="plain", **size)
     if ker.stepper.name != "rk4_kernel" or ref.stepper.name != "rk4":
         fail("parity", f"wrong steppers {ker.stepper.name}/{ref.stepper.name}")
     ker.step(PARITY_STEPS)
@@ -216,48 +294,539 @@ def parity_gate() -> None:
 
 
 def main_path() -> dict:
+    """SWE 2048^2 (the headline configuration) through the auto backend."""
     import torch
-    from njw_tpu_torch.ops import stencil
     from njw_tpu_torch.platform.device import spec_for
-    from njw_tpu_torch.weather import SimConfig, Simulation
 
-    cfg = SimConfig(grid_width=GRID, grid_height=GRID, dt=DT,
-                    integration_method="rk4", coriolis_f=CORIOLIS,
-                    device="cuda")
-    sim = Simulation.from_config(cfg, "vortex", strength=STRENGTH)
+    swe = path("swe")
+    sim = swe.simulation()
     if sim.stepper.name != "rk4_kernel":
         fail("main_path", f"auto backend picked {sim.stepper.name}")
+    r = _drive(sim, swe.warm, swe.steps)
+    n = swe.config["grid_width"] * swe.config["grid_height"]
+    b_ms, b_by = bound_ms(n, viscous=False)
+    bw, _ = spec_for(torch.cuda.get_device_name(0))
+    emit("main_path", ok=r["finite"] and r["launches"]["swe_rk4"] == swe.steps,
+         grid=swe.config["grid_width"], steps=swe.steps, warm_steps=swe.warm,
+         stepper=sim.stepper.name, grid_points_per_s=n / (r["ms_per_step"]
+                                                          / 1e3),
+         bound_us=b_ms * 1e3, bound_by=b_by, hbm_gbps_assumed=bw,
+         fraction_of_bound=b_ms / r["ms_per_step"], **r)
+    _check_main("main_path", r, {"swe_rk4": swe.steps})
+    return r
 
-    stencil.swe_rk4_step_cuda.launches = 0
-    sim.step(WARM_STEPS)
+
+def _baro_main_fields(grid):
+    """psi and zeta of the barotropic main path's initial state."""
+    from njw_tpu_torch.ops.spectral import poisson_solve
+    from njw_tpu_torch.weather import diagnostics, make_initial_state
+
+    baro = path("barotropic")
+    s = make_initial_state(baro.ic, grid, device="cuda", **baro.ic_params)
+    zeta = diagnostics(s, grid)["vorticity"].contiguous()
+    return poisson_solve(zeta, grid.dx, grid.dy), zeta
+
+
+def baro_kernel() -> dict:
+    """K3 against its plain version, its time and its host cost."""
+    import torch
+    from njw_tpu_torch.ops import baro_stencil as bs
+    from njw_tpu_torch.weather import GridSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(ny, nx):
+        return torch.rand(ny, nx, device="cuda", generator=gen) * 2.0 - 1.0
+
+    cfg = path("barotropic").config
+    n, dt = cfg["grid_width"], cfg["dt"]
+    main_grid = GridSpec(nx=n, ny=n)
+    psi, zeta = _baro_main_fields(main_grid)
+    cases = [  # name, grid, psi, zeta, base, c_dt, beta, nu
+        ("main_1024", main_grid, psi, zeta, zeta, 0.5 * dt, cfg["beta"],
+         cfg["viscosity"]),
+        ("beta_nu_256", GridSpec(nx=256, ny=256, dy=1.3), rand(256, 256),
+         rand(256, 256), rand(256, 256), 0.7, 0.3, 0.02),
+        ("ragged_200x328", GridSpec(nx=328, ny=200), rand(200, 328),
+         rand(200, 328), rand(200, 328), 0.7, 0.1, 0.01),
+        ("tiny_3x5", GridSpec(nx=5, ny=3), rand(3, 5), rand(3, 5),
+         rand(3, 5), 0.7, 0.0, 0.0),
+    ]
+    worst = 0.0
+    for name, grid, p, z, b, c_dt, beta, nu in cases:
+        kw = dict(grid=grid, c_dt=c_dt, beta=beta, nu=nu)
+        kern = bs.baro_stage_cuda(p, z, b, **kw)
+        plain = bs.baro_stage_plain(p, z, b, **kw)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = _compare([kern], [plain], K3_RTOL, K3_ATOL)
+        worst = max(worst, max_abs)
+        emit("kernel_vs_plain", ok=ok, kernel="baro_stage", case=name,
+             shape=list(grid.shape), beta=beta, nu=nu, max_abs_err=max_abs,
+             max_rel_err=max_rel, rtol=K3_RTOL, atol=K3_ATOL)
+        if not ok:
+            fail("kernel_vs_plain", f"baro_stage disagrees with its plain "
+                 f"version on {name}")
+        if name == "main_1024":
+            main_err = max_abs
+
+    # time at the main path's shape: psi, zeta, base and out distinct, as
+    # in stages 2-4; four rotating sets (67 MB) so that L2 (50 MB) does
+    # not hold the inputs of the next launch
+    kw = dict(grid=main_grid, c_dt=0.5 * dt, beta=cfg["beta"],
+              nu=cfg["viscosity"])
+    sets = [(psi.clone(), zeta.clone(), zeta + 0.1, torch.empty_like(zeta))
+            for _ in range(4)]
+    turn = [0]
+
+    def launch():
+        p, z, b, o = sets[turn[0]]
+        bs.baro_stage_cuda(p, z, b, out=o, **kw)
+        turn[0] = (turn[0] + 1) % len(sets)
+
+    _events_ms(launch, 20)
+    ms = _events_ms(launch, 200)
+    ms_l2 = _events_ms(lambda: bs.baro_stage_cuda(*sets[0][:3],
+                                                  out=sets[0][3], **kw), 200)
+    plain = lambda: bs.baro_stage_plain(*sets[0][:3], **kw)  # noqa: E731
+    _events_ms(plain, 2)
+    plain_ms = _events_ms(plain, 20)
+    b_ms, b_by = roofline_ms(distinct_bytes(*sets[0]), BARO_FLOP * n * n)
+    host_us = host_us_per_launch(launch)
+    emit("kernel_time", ok=True, kernel="baro_stage", shape=[n, n], ms=ms,
+         ms_inputs_in_l2=ms_l2, plain_ms=plain_ms, bound_ms=b_ms,
+         bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
+         host_us_per_launch=host_us)
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "host_us": host_us}
+
+
+def _pe_grid(L, ny, nx):
+    from njw_tpu_torch.weather import GridSpec
+
+    cfg = path("primitive").config
+    return GridSpec(nx=nx, ny=ny, levels=L, dx=cfg["dx"], dy=cfg["dy"])
+
+
+def _pe_state(grid, seed, phi_s=None):
+    """The baroclinic initial state with a seeded ps perturbation, and
+    seeded noise on the winds and T so that every term is live."""
+    import dataclasses
+
+    import torch
+    from njw_tpu_torch.weather.primitive import pe_initial_state
+
+    s = pe_initial_state(grid, device="cuda", seed=seed, phi_s=phi_s,
+                         **path("primitive").ic_params)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noise(t, amp):
+        return t + amp * torch.randn(t.shape, device="cuda", generator=gen)
+
+    return dataclasses.replace(s, u=noise(s.u, 1.0), v=noise(s.v, 1.0),
+                               T=noise(s.T, 0.5))
+
+
+def _mountain(grid, height=1500.0):
+    import torch
+
+    y = torch.arange(grid.ny, device="cuda", dtype=torch.float32)[:, None]
+    x = torch.arange(grid.nx, device="cuda", dtype=torch.float32)[None, :]
+    cy, cx = (grid.ny - 1) / 2, (grid.nx - 1) / 2
+    sy, sx = max(grid.ny / 8, 1), max(grid.nx / 8, 1)
+    return (height * torch.exp(-(((y - cy) / sy) ** 2
+                                 + ((x - cx) / sx) ** 2))).contiguous()
+
+
+def pe_kernel() -> dict:
+    """K5 against its plain version, its time and its host cost."""
+    import torch
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    third = 1.0 / 3.0
+    rk4 = (-third, third, 2.0 * third, third)
+    cfg = path("primitive").config
+    L, n, dt = cfg["num_levels"], cfg["grid_width"], cfg["dt"]
+    main_grid = _pe_grid(L, n, n)
+    cases = [  # name, grid, number of bases, terrain
+        ("main_512x512x20", main_grid, 1, False),
+        ("main_4_bases", main_grid, 4, False),
+        ("terrain_512x512x20", main_grid, 1, True),
+        ("ragged_200x328x5", _pe_grid(5, 200, 328), 4, True),
+        ("tiny_3x5x2", _pe_grid(2, 3, 5), 1, False),
+    ]
+    worst, main_err = 0.0, None
+    for name, grid, nbase, terrain in cases:
+        phi_s = _mountain(grid) if terrain else None
+        cur = _pe_state(grid, 1, phi_s)
+        bases = [_pe_state(grid, 2 + g) for g in range(nbase - 1)] + [cur]
+        kw = dict(grid=grid, c_dt=0.5 * dt if nbase == 1 else dt / 6.0,
+                  coriolis_f=cfg["coriolis_f"],
+                  base_coeffs=(1.0,) if nbase == 1 else rk4, phi_s=phi_s)
+        kern = ps.pe_stage_cuda(cur, bases, **kw)
+        plain = ps.pe_stage_plain(cur, bases, **kw)
+        torch.cuda.synchronize()
+        atol = PE_ATOL_TERRAIN if terrain else PE_ATOL
+        max_abs, max_rel, ok = _compare([t for _, t in kern.items()],
+                                        [t for _, t in plain.items()],
+                                        PE_RTOL, atol)
+        worst = max(worst, max_abs)
+        emit("kernel_vs_plain", ok=ok, kernel="pe_stage", case=name,
+             shape=[grid.levels, grid.ny, grid.nx], bases=nbase,
+             terrain=terrain, max_abs_err=max_abs, max_rel_err=max_rel,
+             rtol=PE_RTOL, atol=atol)
+        if not ok:
+            fail("kernel_vs_plain", f"pe_stage disagrees with its plain "
+                 f"version on {name}")
+        if name == "main_512x512x20":
+            main_err = max_abs
+        del kern, plain, cur, bases
+
+    # time at the main path's shape, in its two forms: one base distinct
+    # from cur (stages 2 and 3) and the fused last stage, whose bases are
+    # (s, s1, s2, cur)
+    s, s1, s2, cur = (_pe_state(main_grid, 10 + g) for g in range(4))
+    out = cur.map(torch.empty_like)
+    kw = dict(grid=main_grid, coriolis_f=cfg["coriolis_f"])
+    forms = {1: ((s,), (1.0,), 0.5 * dt), 4: ((s, s1, s2, cur), rk4, dt / 6)}
+    res = {}
+    for nbase, (bases, coeffs, c_dt) in forms.items():
+        def launch():
+            ps.pe_stage_cuda(cur, bases, out=out, c_dt=c_dt,
+                             base_coeffs=coeffs, **kw)
+
+        _events_ms(launch, 3)
+        ms = _events_ms(launch, 50)
+        plain = lambda: ps.pe_stage_plain(  # noqa: E731
+            cur, bases, c_dt=c_dt, base_coeffs=coeffs, **kw)
+        _events_ms(plain, 1)
+        plain_ms = _events_ms(plain, 3)
+        tensors = [t for st in (cur, *bases, out) for _, t in st.items()]
+        b_ms, b_by = roofline_ms(distinct_bytes(*tensors),
+                                 PE_FLOP[nbase] * L * n * n)
+        host_us = host_us_per_launch(launch)
+        emit("kernel_time", ok=True, kernel="pe_stage", bases=nbase,
+             shape=[L, n, n], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
+             host_us_per_launch=host_us)
+        res[nbase] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "host_us": host_us}
+    out = dict(res[1])
+    out.update({"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+                "ms_4_bases": res[4]["ms"],
+                "plain_ms_4_bases": res[4]["plain_ms"],
+                "bound_ms_4_bases": res[4]["bound_ms"],
+                "host_us_4_bases": res[4]["host_us"]})
+    return out
+
+
+def pe_rk4_kernel() -> dict:
+    """K4 against its plain version, its time and its host cost."""
+    import torch
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    cfg = path("primitive").config
+    L, n, dt = cfg["num_levels"], cfg["grid_width"], cfg["dt"]
+    main_grid = _pe_grid(L, n, n)
+    cases = [  # name, grid, terrain
+        ("main_512x512x20", main_grid, False),
+        ("terrain_512x512x20", main_grid, True),
+        ("ragged_200x328x5", _pe_grid(5, 200, 328), True),
+        ("tiny_3x5x2", _pe_grid(2, 3, 5), False),
+    ]
+    worst, main_err = 0.0, None
+    for name, grid, terrain in cases:
+        phi_s = _mountain(grid) if terrain else None
+        s = _pe_state(grid, 1, phi_s)
+        kw = dict(grid=grid, dt=dt, coriolis_f=cfg["coriolis_f"], phi_s=phi_s)
+        kern = ps.pe_rk4_step_cuda(s, **kw)
+        plain = ps.pe_rk4_step_plain(s, **kw)
+        torch.cuda.synchronize()
+        atol = PE_ATOL_TERRAIN if terrain else PE_ATOL
+        max_abs, max_rel, ok = _compare([t for _, t in kern.items()],
+                                        [t for _, t in plain.items()],
+                                        PE_RTOL, atol)
+        worst = max(worst, max_abs)
+        emit("kernel_vs_plain", ok=ok, kernel="pe_rk4", case=name,
+             shape=[grid.levels, grid.ny, grid.nx], terrain=terrain,
+             max_abs_err=max_abs, max_rel_err=max_rel, rtol=PE_RTOL,
+             atol=atol)
+        if not ok:
+            fail("kernel_vs_plain", f"pe_rk4 disagrees with its plain "
+                 f"version on {name}")
+        if name == "main_512x512x20":
+            main_err = max_abs
+        del kern, plain, s
+
+    # time at the main path's shape, ping-ponging two states as the stepper
+    # does (its scratch comes from the allocator's cache after the first)
+    s = _pe_state(main_grid, 10)
+    bufs = [s, s.map(torch.empty_like)]
+    kw = dict(grid=main_grid, dt=dt, coriolis_f=cfg["coriolis_f"])
+    turn = [0]
+
+    def launch():
+        ps.pe_rk4_step_cuda(bufs[turn[0]], out=bufs[1 - turn[0]], **kw)
+        turn[0] ^= 1
+
+    _events_ms(launch, 3)
+    ms = _events_ms(launch, 50)
+    for (_, a), (_, b) in zip(bufs[0].items(), _pe_state(main_grid, 10).items()):
+        a.copy_(b)
+    plain = lambda: ps.pe_rk4_step_plain(bufs[0], **kw)  # noqa: E731
+    _events_ms(plain, 1)
+    plain_ms = _events_ms(plain, 3)
+    tensors = [t for st in bufs for _, t in st.items()]
+    b_ms, b_by = roofline_ms(distinct_bytes(*tensors),
+                             PE_STEP_FLOP * L * n * n)
+    host_us = host_us_per_launch(launch)
+    emit("kernel_time", ok=True, kernel="pe_rk4", shape=[L, n, n], ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+         fraction_of_bound=b_ms / ms, library_ms=None,
+         host_us_per_launch=host_us, tile=ps.RK4_TILE)
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "host_us": host_us}
+
+
+def _normalised_diff(a, b) -> float:
+    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+
+
+def _pe_stage_simulation(**overrides):
+    """The PE main path on the four-stage stepper: a ``Simulation`` built
+    with the stepper factory ``make_pe_kernel_rk4_stepper(...,
+    whole_step=False)``, the path the auto backend takes for levels the
+    whole-step kernel does not fit."""
+    from njw_tpu_torch.ops.pe_stencil import make_pe_kernel_rk4_stepper
+    from njw_tpu_torch.weather import Simulation
+    from njw_tpu_torch.weather.primitive import (
+        pe_initial_state, pe_tendencies,
+    )
+
+    pe = path("primitive")
+    cfg = pe.sim_config(device="cuda", **overrides)
+    grid, params = cfg.grid_spec(), cfg.physics()
+    sim = Simulation(
+        pe_initial_state(grid, device="cuda", **pe.ic_params),
+        lambda s: pe_tendencies(s, grid, params), dt=cfg.dt, grid=grid,
+        stepper_factory=lambda _tendency: make_pe_kernel_rk4_stepper(
+            grid, params, cfg.dt, whole_step=False))
+    sim.config = cfg
+    return sim
+
+
+def parity_cores() -> None:
+    """The kernel steppers against backend plain on the card, 12 steps."""
+    import torch
+
+    baro, pe = path("barotropic"), path("primitive")
+    small_pe = dict(grid_width=128, grid_height=128, num_levels=8)
+    runs = [  # kernel run, plain run, expected stepper name
+        (baro.simulation(backend="kernel", grid_width=256, grid_height=256),
+         baro.simulation(backend="plain", grid_width=256, grid_height=256),
+         "baro_rk4_kernel"),
+        (pe.simulation(backend="kernel", **small_pe),
+         pe.simulation(backend="plain", **small_pe), "pe_rk4_kernel_fused"),
+        (_pe_stage_simulation(**small_pe),
+         pe.simulation(backend="plain", **small_pe), "pe_rk4_kernel"),
+    ]
+    for ker, ref, name in runs:
+        cfg = ker.config
+        if ker.stepper.name != name or ref.stepper.name != "rk4":
+            fail("parity", f"wrong steppers {ker.stepper.name}/"
+                 f"{ref.stepper.name}")
+        ker.step(PARITY_STEPS)
+        ref.step(PARITY_STEPS)
+        diffs, ok = {}, True
+        for (field, a), (_, b) in zip(ker.state.items(), ref.state.items()):
+            diffs[field] = _normalised_diff(a, b)
+            if cfg.model == "barotropic":
+                ok &= diffs[field] <= 1e-3
+            elif field == "ps":     # tests/test_weather_primitive.py:215-218
+                ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-3))
+            else:
+                ok &= bool(torch.allclose(a, b, rtol=1e-3, atol=1e-3))
+        emit("parity", ok=ok, model=cfg.model, stepper=name,
+             shape=[cfg.num_levels, cfg.grid_height, cfg.grid_width]
+             if cfg.model == "primitive" else [cfg.grid_height,
+                                                cfg.grid_width],
+             steps=PARITY_STEPS, normalised_max_diff=diffs)
+        if not ok:
+            fail("parity", f"{cfg.model} {name}: kernel path diverged from "
+                 "the plain integrators")
+
+
+def oracle_cores() -> None:
+    """The kernel paths on the card against the port's NumPy oracles."""
+    import numpy as np
+    from njw_tpu_torch.weather import SimConfig, Simulation
+    from njw_tpu_torch.weather.oracle import BarotropicOracle, PEOracle
+
+    steps = 200
+    baro = SimConfig(model="barotropic", grid_width=64, grid_height=64,
+                     dt=0.05, beta=1e-3, viscosity=1e-3, backend="kernel",
+                     device="cuda")
+    sim = Simulation.from_config(baro, "vortex", strength=2.0)
+    z0 = sim.state.zeta.cpu().numpy()
+    sim.step(steps)
+    ref = {"zeta": BarotropicOracle(dx=1.0, dy=1.0, beta=1e-3,
+                                    viscosity=1e-3).run(z0, 0.05, steps)}
+    runs = [("barotropic", sim, ref, 5e-3)]
+
+    pe = SimConfig(model="primitive", grid_width=48, grid_height=48,
+                   num_levels=4, dx=1e5, dy=1e5, dt=30.0, coriolis_f=1e-4,
+                   backend="kernel", device="cuda")
+    sim = Simulation.from_config(pe, "baroclinic", u_jet=10.0, perturb=0.5)
+    s0 = sim.state.to_numpy()
+    sim.step(steps)
+    names = ("u", "v", "T", "q", "ps")
+    ref = dict(zip(names, PEOracle(dx=1e5, dy=1e5, coriolis_f=1e-4).run(
+        tuple(s0[k] for k in names), 30.0, steps)))
+    runs.append(("primitive", sim, ref, 1e-3))
+
+    for model, sim, ref, tol in runs:
+        got = sim.state.to_numpy()
+        diffs = {k: float(np.abs(got[k] - r).max()
+                          / (np.abs(r).max() + 1e-30)) for k, r in ref.items()}
+        ok = all(np.isfinite(got[k]).all() for k in ref) and \
+            max(diffs.values()) <= tol
+        emit("oracle", ok=ok, model=model, stepper=sim.stepper.name,
+             steps=steps, normalised_max_diff=diffs, tol=tol)
+        if not ok:
+            fail("oracle", f"{model} kernel path disagrees with its oracle")
+
+
+def _drive(sim, warm: int, steps: int) -> dict:
+    """Warm up, set every launch count to 0, run ``steps`` steps timed by
+    CUDA events and the host clock, and read the counts."""
+    import torch
+
+    sim.step(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     sim.metrics.reset()
+    reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    sim.step(MAIN_STEPS)
+    sim.step(steps)
     end.record()
     end.synchronize()
-    launches = stencil.swe_rk4_step_cuda.launches
-
+    launched = counts()
     finite = all(bool(torch.isfinite(t).all()) for _, t in sim.state.items())
-    ms_step = start.elapsed_time(end) / MAIN_STEPS
-    b_ms, b_by = bound_ms(GRID * GRID, viscous=False)
-    bw, _ = spec_for(torch.cuda.get_device_name(0))
-    emit("main_path", ok=finite and launches == WARM_STEPS + MAIN_STEPS,
-         grid=GRID, steps=MAIN_STEPS, warm_steps=WARM_STEPS,
-         stepper=sim.stepper.name, finite=finite, launches=launches,
-         ms_per_step=ms_step, host_ms_per_step=(
-             sim.metrics.compute_time_ms / MAIN_STEPS),
-         grid_points_per_s=GRID * GRID / (ms_step / 1e3),
-         bound_us=b_ms * 1e3, bound_by=b_by, hbm_gbps_assumed=bw,
-         fraction_of_bound=b_ms / ms_step,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    if not finite:
-        fail("main_path", "non-finite fields")
-    if launches != WARM_STEPS + MAIN_STEPS:
-        fail("main_path", f"swe_rk4 launched {launches} times for "
-             f"{WARM_STEPS + MAIN_STEPS} steps")
-    return {"launches": launches, "ms_per_step": ms_step}
+    ms_step = start.elapsed_time(end) / steps
+    host_ms = sim.metrics.compute_time_ms / steps
+    # host cost of one step: enqueued with no synchronise inside
+    n_host = 20
+    t0 = time.perf_counter()
+    sim.step(n_host, synchronize=False)
+    host_enqueue_ms = (time.perf_counter() - t0) * 1e3 / n_host
+    torch.cuda.synchronize()
+    return {"launches": launched, "finite": finite, "ms_per_step": ms_step,
+            "host_ms_per_step": host_ms,
+            "host_enqueue_ms_per_step": host_enqueue_ms,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _check_main(phase: str, r: dict, want: dict) -> None:
+    """Fail on non-finite fields or launch counts other than ``want``
+    (kernels not named there: 0)."""
+    want = {k: want.get(k, 0) for k in r["launches"]}
+    if not r["finite"]:
+        fail(phase, "non-finite fields")
+    if r["launches"] != want:
+        fail(phase, f"launch counts {r['launches']}, expected {want}")
+
+
+def main_path_baro() -> dict:
+    """Barotropic 1024^2 (BASELINE config 3) through the auto backend."""
+    import math
+
+    baro = path("barotropic")
+    sim = baro.simulation()
+    if sim.stepper.name != "baro_rk4_kernel":
+        fail("main_path_baro", f"auto backend picked {sim.stepper.name}")
+    r = _drive(sim, baro.warm, baro.steps)
+    n = baro.config["grid_width"] * baro.config["grid_height"]
+    # the step's function: zeta read and written once; four K3 stages, two
+    # complex FFTs (5 N log2 N each) and a spectral divide per stage, and
+    # the accumulator pass
+    fft_flop = 5.0 * n * math.log2(n)
+    b_ms, b_by = roofline_ms(8 * n, 4 * (BARO_FLOP * n + 2 * fft_flop + 2 * n)
+                             + 5 * n)
+    want = {"baro_stage": 4 * baro.steps}
+    emit("main_path_baro", ok=r["finite"] and r["launches"]["baro_stage"]
+         == want["baro_stage"],
+         grid=[baro.config["grid_height"], baro.config["grid_width"]],
+         steps=baro.steps, warm_steps=baro.warm, stepper=sim.stepper.name,
+         grid_points_per_s=n / (r["ms_per_step"] / 1e3),
+         step_bound_ms=b_ms, step_bound_by=b_by,
+         fraction_of_bound=b_ms / r["ms_per_step"], **r)
+    _check_main("main_path_baro", r, want)
+    return r
+
+
+def _pe_step_bound(cfg) -> tuple:
+    """(bound of the step's function, bound of the four-stage path), ms."""
+    L = cfg["num_levels"]
+    n = cfg["grid_width"] * cfg["grid_height"]
+    state_bytes = (4 * L + 1) * n * 4
+    flop = PE_STEP_FLOP * L * n
+    # the step's function: the state read and written once
+    step_ms, step_by = roofline_ms(2 * state_bytes, flop)
+    # the stage path: stage 1 reads s and writes s1, stages 2-3 read
+    # (s_k, s) and write, the fused last stage reads (s3, s, s1, s2)
+    stages_ms, _ = roofline_ms((2 + 3 + 3 + 5) * state_bytes, flop)
+    return step_ms, step_by, stages_ms
+
+
+def main_path_pe() -> dict:
+    """PE 512^2 x 20 (BASELINE config 4) through the auto backend: one
+    whole-step kernel launch per step."""
+    pe = path("primitive")
+    sim = pe.simulation()
+    if sim.stepper.name != "pe_rk4_kernel_fused":
+        fail("main_path_pe", f"auto backend picked {sim.stepper.name}")
+    r = _drive(sim, pe.warm, pe.steps)
+    cfg = pe.config
+    n = cfg["grid_width"] * cfg["grid_height"]
+    b_ms, b_by, stages_ms = _pe_step_bound(cfg)
+    want = {"pe_rk4": pe.steps}
+    emit("main_path_pe", ok=r["finite"] and r["launches"] == {
+        **{k: 0 for k in r["launches"]}, **want},
+         grid=[cfg["num_levels"], cfg["grid_height"], cfg["grid_width"]],
+         steps=pe.steps, warm_steps=pe.warm, stepper=sim.stepper.name,
+         grid_points_per_s=n / (r["ms_per_step"] / 1e3),
+         step_bound_ms=b_ms, step_bound_by=b_by,
+         fraction_of_bound=b_ms / r["ms_per_step"],
+         stage_path_bound_ms=stages_ms, **r)
+    _check_main("main_path_pe", r, want)
+    return r
+
+
+def main_path_pe_stages() -> dict:
+    """PE config 4 on the four-stage path (four K5 launches per step)."""
+    pe = path("primitive")
+    sim = _pe_stage_simulation()
+    if sim.stepper.name != "pe_rk4_kernel":
+        fail("main_path_pe_stages", f"stepper {sim.stepper.name}")
+    r = _drive(sim, pe.warm, pe.steps)
+    cfg = pe.config
+    n = cfg["grid_width"] * cfg["grid_height"]
+    b_ms, b_by, stages_ms = _pe_step_bound(cfg)
+    want = {"pe_stage": 4 * pe.steps}
+    emit("main_path_pe_stages", ok=r["finite"] and r["launches"] == {
+        **{k: 0 for k in r["launches"]}, **want},
+         grid=[cfg["num_levels"], cfg["grid_height"], cfg["grid_width"]],
+         steps=pe.steps, warm_steps=pe.warm, stepper=sim.stepper.name,
+         grid_points_per_s=n / (r["ms_per_step"] / 1e3),
+         step_bound_ms=b_ms, step_bound_by=b_by,
+         fraction_of_bound=b_ms / r["ms_per_step"],
+         stage_path_bound_ms=stages_ms,
+         fraction_of_stage_path_bound=stages_ms / r["ms_per_step"], **r)
+    _check_main("main_path_pe_stages", r, want)
+    return r
 
 
 def cli() -> None:
@@ -268,6 +837,12 @@ def cli() -> None:
                  "--coriolis", "1e-4", "--json"],
         "validate": ["--validate", "--width", "128", "--height", "128",
                      "--steps", "200", "--method", "rk4"],
+        "barotropic": ["--model", "barotropic", "--width", "256", "--height",
+                       "256", "--steps", "100", "--json"],
+        "primitive": ["--model", "primitive", "--levels", "8", "--width",
+                      "128", "--height", "128", "--dx", "1e5", "--dy", "1e5",
+                      "--dt", "30", "--coriolis", "1e-4", "--steps", "50",
+                      "--json"],
     }
     for name, argv in runs.items():
         buf = io.StringIO()
@@ -291,22 +866,54 @@ def main() -> int:
 
     card = toolchain()
     build()
-    k = kernels_vs_plain()
+    k1 = kernels_vs_plain()
+    k3 = baro_kernel()
+    k5 = pe_kernel()
+    k4 = pe_rk4_kernel()
     parity_gate()
-    m = main_path()
+    parity_cores()
+    oracle_cores()
+    m1 = main_path()
+    m3 = main_path_baro()
+    m4 = main_path_pe()
+    m5 = main_path_pe_stages()
     cli()
-    kernel = {
-        "name": "swe_rk4", "route": "cuda",
-        "source": "njw_tpu_torch/ops/csrc/swe_rk4.cu",
-        "replaces": "njw_tpu/ops/stencil.py:60",
-        "replaces_function": "swe_rk4_kernel",
-        "launches": m["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None,
-        "max_err": k["max_abs_err"], "us_per_step": m["ms_per_step"] * 1e3,
-        "bound_us": k["bound_ms"] * 1e3,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+
+    def row(name, source, replaces, function, k, launches, run, **extra):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"njw_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "replaces_function": function,
+            "launches": launches, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "max_err": k["max_abs_err"],
+            "us_per_step": run["ms_per_step"] * 1e3,
+            "bound_us": k["bound_ms"] * 1e3,
+            "host_us_per_launch": k["host_us"], **extra}
+
+    kernels = [
+        row("swe_rk4", "swe_rk4.cu", "njw_tpu/ops/stencil.py:60",
+            "swe_rk4_kernel", k1, m1["launches"]["swe_rk4"], m1,
+            main_path="main_path"),
+        row("baro_stage", "baro_stage.cu", "njw_tpu/ops/baro_stencil.py:34",
+            "_baro_stage_kernel", k3, m3["launches"]["baro_stage"], m3,
+            main_path="main_path_baro",
+            max_abs_err_all_cases=k3["max_abs_err_all_cases"]),
+        row("pe_stage", "pe_stage.cu", "njw_tpu/ops/pe_stencil.py:55",
+            "_pe_stage_kernel", k5, m5["launches"]["pe_stage"], m5,
+            main_path="main_path_pe_stages",
+            max_abs_err_all_cases=k5["max_abs_err_all_cases"],
+            ms_4_bases=k5["ms_4_bases"],
+            plain_ms_4_bases=k5["plain_ms_4_bases"],
+            bound_ms_4_bases=k5["bound_ms_4_bases"],
+            host_us_per_launch_4_bases=k5["host_us_4_bases"]),
+        row("pe_rk4", "pe_rk4.cu", "njw_tpu/ops/pe_stencil.py:617",
+            "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
+            main_path="main_path_pe",
+            max_abs_err_all_cases=k4["max_abs_err_all_cases"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

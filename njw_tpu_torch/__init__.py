@@ -5,10 +5,13 @@ module layout so each counterpart is easy to find, and is held against it
 by ``tests/test_torch_*.py``. It imports ``torch``, ``numpy`` and the
 standard library only, never ``jax`` or ``njw_tpu``.
 
-Ported so far: the shallow-water main path (grid, initial conditions,
-tendencies, integrators, the ``Simulation`` loop, the NumPy oracle and
-the CLI) with one hand-written CUDA kernel for the fused RK4 step
-(``ops/csrc/swe_rk4.cu``). Entry points run on the CUDA device unless the
+Ported so far: the three planar weather cores through ``Simulation`` and
+the CLI: shallow water (grid, initial conditions, tendencies, integrators,
+the NumPy oracles) with the fused RK4 kernel ``ops/csrc/swe_rk4.cu``; the
+barotropic vorticity core (``torch.fft`` Poisson solve) with the Arakawa
+stage kernel ``ops/csrc/baro_stage.cu``; the primitive equations with the
+stage kernel ``ops/csrc/pe_stage.cu``. All three kernels are CUDA C++
+written by hand for sm_90a. Entry points run on the CUDA device unless the
 caller passes ``device="cpu"``.
 """
 

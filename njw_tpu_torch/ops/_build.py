@@ -46,8 +46,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` lives (content-hashed)."""
+    """Where the library for ``csrc/<name>.cu`` lives, named by a hash of
+    the source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -94,6 +96,26 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and spill report) for ``name``."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_bound: dict[str, tuple] = {}
+
+
+def bind(name: str, argtypes: list) -> tuple:
+    """(launch, error_string) of ``csrc/<name>.cu``: its C entries
+    ``<name>_launch`` (returning a CUDA error code) and
+    ``<name>_error_string``, with ``argtypes`` set once at load."""
+    entry = _bound.get(name)
+    if entry is None:
+        lib = load(name)
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = argtypes
+        launch.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        entry = _bound[name] = (launch, err)
+    return entry
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,563 @@
+"""The primitive-equation kernels: one RK stage, and one whole RK4 step.
+
+Counterpart of ``njw_tpu/ops/pe_stencil.py`` (``pe_stage_pallas``,
+``pe_rk4_step_pallas``, ``make_pe_pallas_rk4_stepper``,
+``pe_pallas_supported``), for periodic float32 states (u, v, T, q of shape
+(L, ny, nx), ps of shape (ny, nx)) with an optional surface geopotential
+``phi_s``:
+
+* ``csrc/pe_stage.cu`` replaces the TPU kernel ``_pe_stage_kernel``:
+  out = sum_g coef_g * base_g + c_dt * T(cur), with one base or four (the
+  RK4 combine fused into the last stage);
+* ``csrc/pe_rk4.cu`` replaces the TPU kernel ``_pe_rk4_kernel``: the four
+  stages of an RK4 step in one launch, the state read and written once.
+
+Their sources say what bounds them and how the work is laid out. As in
+the TPU package, the RK4 stepper takes the whole-step kernel when it fits
+(here: when its shared memory, L floats per thread, fits a block) and four
+stage launches otherwise.
+
+Each public wrapper (``pe_stage``, ``pe_rk4_step``) dispatches once, in
+``_stage_runner`` / ``_rk4_runner``: the kernel's launch for CUDA tensors,
+its plain PyTorch version (the kernel's arithmetic) for CPU tensors, and
+nothing else. The steppers use the same runners. Nothing catches a build
+or launch failure and falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import numbers
+from functools import lru_cache
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from njw_tpu_torch.ops import _build
+from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
+from njw_tpu_torch.weather.integrators import Stepper
+from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
+
+MAX_BASES = 4
+STAGE_THREADS = 128          # csrc/pe_stage.cu NT
+RK4_THREADS = 256            # csrc/pe_rk4.cu NT
+SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
+RK4_TILE = 16                # output tile edge of the whole-step kernel
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STAGE_ARGTYPES = ([_P] * 6 + [_P] * 5 * MAX_BASES + [_I] + [_F] * MAX_BASES
+                   + [_P] * 5 + [_P] + [_I] * 3 + [_F] * 8 + [_P])
+_RK4_ARGTYPES = ([_P] * 6 + [_P] * 5 + [_P, _P] + [_I] * 5 + [_F] * 11
+                 + [_P])
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class ColumnConsts(NamedTuple):
+    """The column arithmetic's scalars, folded in double and rounded to
+    float32 once (``pe::Consts`` in ``csrc/pe_column.cuh``)."""
+
+    cx: float      # 0.5/dx
+    cy: float      # 0.5/dy
+    f: float
+    dsig: float    # 1/L
+    r_dry: float
+    kappa: float
+    phibot: float  # R ln(1/sig_{L-1})
+
+
+class Rk4Consts(NamedTuple):
+    """The whole step's RK4 scalars, rounded to float32 once."""
+
+    c_half: float  # dt/2
+    c_full: float  # dt
+    third: float   # 1/3
+    sixth: float   # dt/6
+
+
+@lru_cache(maxsize=64)
+def column_constants(grid: GridSpec, coriolis_f: float) -> ColumnConsts:
+    L = grid.levels
+    sig_bottom = (L - 0.5) / L
+    return ColumnConsts(_f32(0.5 / grid.dx), _f32(0.5 / grid.dy),
+                        _f32(coriolis_f), _f32(1.0 / L), _f32(R_DRY),
+                        _f32(KAPPA), _f32(R_DRY * (-math.log(sig_bottom))))
+
+
+def rk4_constants(dt: float) -> Rk4Consts:
+    return Rk4Consts(_f32(0.5 * dt), _f32(dt), _f32(1.0 / 3.0),
+                     _f32(dt / 6.0))
+
+
+@lru_cache(maxsize=16)
+def level_constants(L: int, device: str) -> torch.Tensor:
+    """float32 [thick_0..thick_{L-1}, 1/(k+1/2) for k < L] on ``device``:
+    thick_k = R/2 ln(sig_k / sig_{k-1}) (thick_0 unused), the factors of
+    the hydrostatic step and of omega/p, as the Pallas kernel folds them."""
+    sig = [(k + 0.5) / L for k in range(L)]
+    thick = [0.0] + [R_DRY * 0.5 * math.log(sig[k] / sig[k - 1])
+                     for k in range(1, L)]
+    inv_kh = [1.0 / (k + 0.5) for k in range(L)]
+    return torch.tensor(thick + inv_kh, dtype=torch.float32, device=device)
+
+
+def _as_bases(bases) -> tuple:
+    return (bases,) if isinstance(bases, PEState) else tuple(bases)
+
+
+def _check(cur: PEState, bases: tuple, grid: GridSpec, coeffs, phi_s,
+           out: Optional[PEState], name: str = "pe_stage") -> None:
+    if grid.bc != "periodic":
+        raise ValueError(f"{name}: periodic boundary condition required")
+    if grid.ny < 3 or grid.nx < 3:
+        raise ValueError(f"{name}: grid must be at least 3x3")
+    if not 1 <= len(bases) <= MAX_BASES or len(bases) != len(coeffs):
+        raise ValueError(f"{name}: {len(bases)} bases for "
+                         f"{len(coeffs)} coefficients (1 to {MAX_BASES})")
+    shape3, shape2 = (grid.levels, grid.ny, grid.nx), grid.shape
+    dev = cur.ps.device
+    states = (cur, *bases) if out is None else (cur, *bases, out)
+    # the common case in few operations; the message is built on failure
+    for st in states:
+        for t, want in ((st.u, shape3), (st.v, shape3), (st.T, shape3),
+                        (st.q, shape3), (st.ps, shape2)):
+            if (t.dtype != torch.float32 or t.shape != want
+                    or not t.is_contiguous() or t.device != dev):
+                _refuse(name, t, want, dev)
+    if phi_s is not None and (phi_s.dtype != torch.float32
+                              or phi_s.shape != shape2
+                              or not phi_s.is_contiguous()
+                              or phi_s.device != dev):
+        _refuse(name, phi_s, shape2, dev, "phi_s")
+    if out is not None:
+        ins = {t.data_ptr() for _, t in cur.items()}
+        if any(t.data_ptr() in ins for _, t in out.items()):
+            raise ValueError(f"{name}: out must not alias cur")
+
+
+def _refuse(name: str, t: torch.Tensor, want: tuple, dev,
+            what: str = "a field"):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(want):
+        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(want)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+    raise ValueError(f"{name}: {what} is on {t.device}, cur on {dev}")
+
+
+def _device_kind(t: torch.Tensor, name: str) -> str:
+    kind = t.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return kind
+
+
+def _require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":  # _check puts the others beside it
+        raise ValueError(f"{name}: the kernel takes CUDA tensors only")
+
+
+def _raise_on(err: int, err_string, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{err_string(err).decode()} ({err})")
+
+
+# ---------------------------------------------------------------- one stage
+
+def pe_stage(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
+             coriolis_f: float = 0.0, base_coeffs: Sequence[float] = (1.0,),
+             phi_s: Optional[torch.Tensor] = None,
+             out: Optional[PEState] = None) -> PEState:
+    """out = sum_g base_coeffs[g] * bases[g] + c_dt * T(cur), one pass.
+
+    ``bases``: a PEState or a sequence of 1 to 4. CUDA tensors go to the
+    kernel, CPU tensors to the plain version."""
+    bases = _as_bases(bases)
+    run = _stage_runner(_device_kind(cur.ps, "pe_stage"))
+    return _stage_call(run, cur, bases, grid, c_dt, coriolis_f, base_coeffs,
+                       phi_s, out)
+
+
+def pe_stage_cuda(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
+                  coriolis_f: float = 0.0,
+                  base_coeffs: Sequence[float] = (1.0,),
+                  phi_s: Optional[torch.Tensor] = None,
+                  out: Optional[PEState] = None) -> PEState:
+    """Launch the CUDA kernel on the current stream. Refuses tensors that
+    are not on a CUDA device. ``pe_stage_cuda.launches`` counts the
+    launches."""
+    _require_cuda(cur.ps, "pe_stage_cuda")
+    return _stage_call(_launch_stage, cur, _as_bases(bases), grid, c_dt,
+                       coriolis_f, base_coeffs, phi_s, out)
+
+
+def pe_stage_plain(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
+                   coriolis_f: float = 0.0,
+                   base_coeffs: Sequence[float] = (1.0,),
+                   phi_s: Optional[torch.Tensor] = None,
+                   out: Optional[PEState] = None) -> PEState:
+    """The kernel's function in plain PyTorch (periodic rolls), on any
+    device, with the kernel's operation order and float32 constants."""
+    return _stage_call(_plain_stage, cur, _as_bases(bases), grid, c_dt,
+                       coriolis_f, base_coeffs, phi_s, out)
+
+
+def _stage_call(run, cur, bases, grid, c_dt, coriolis_f, base_coeffs,
+                phi_s, out) -> PEState:
+    _check(cur, bases, grid, base_coeffs, phi_s, out)
+    if out is None:
+        out = cur.map(torch.empty_like)
+    return run(cur, bases, tuple(_f32(c) for c in base_coeffs), out, phi_s,
+               grid, column_constants(grid, float(coriolis_f)), _f32(c_dt),
+               level_constants(grid.levels, str(cur.ps.device)))
+
+
+def _stage_runner(kind: str) -> Callable:
+    """The one dispatch point of the stage: the launch for "cuda", the
+    plain version for "cpu". Both take states already checked (``_check``)
+    and constants already folded."""
+    return _launch_stage if kind == "cuda" else _plain_stage
+
+
+def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
+                  phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
+                  levc: torch.Tensor) -> PEState:
+    base_ptrs = [t.data_ptr() for b in bases
+                 for t in (b.u, b.v, b.T, b.q, b.ps)]
+    base_ptrs += [None] * (5 * MAX_BASES - len(base_ptrs))
+    launch, err_string = _build.bind("pe_stage", _STAGE_ARGTYPES)
+    with torch.cuda.device(cur.ps.device):
+        err = launch(
+            cur.u.data_ptr(), cur.v.data_ptr(), cur.T.data_ptr(),
+            cur.q.data_ptr(), cur.ps.data_ptr(),
+            phi_s.data_ptr() if phi_s is not None else None,
+            *base_ptrs, len(bases), *coeffs,
+            *(0.0,) * (MAX_BASES - len(coeffs)),
+            out.u.data_ptr(), out.v.data_ptr(), out.T.data_ptr(),
+            out.q.data_ptr(), out.ps.data_ptr(),
+            levc.data_ptr(), grid.levels, grid.ny, grid.nx, *k, c_dt,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, err_string, "pe_stage")
+    pe_stage_cuda.launches += 1
+    return out
+
+
+pe_stage_cuda.launches = 0
+
+
+def _tendency_plain(cur: PEState, phi_s, k: ColumnConsts,
+                    levc: torch.Tensor) -> tuple:
+    """(du, dv, dT, dq, dps) of the column arithmetic in plain PyTorch:
+    the flux divergence summed top-down level by level, phi integrated
+    bottom-up, sigma-dot pre-scaled by L/2."""
+    L = cur.u.shape[0]
+    thick, inv_kh = levc[:L], levc[L:, None, None]
+
+    def ddx(a):
+        return (torch.roll(a, -1, -1) - torch.roll(a, 1, -1)) * k.cx
+
+    def ddy(a):
+        return (torch.roll(a, -1, -2) - torch.roll(a, 1, -2)) * k.cy
+
+    u, v, T, q, ps = cur.u, cur.v, cur.T, cur.q, cur.ps
+    lnps = torch.log(ps)
+    lnps_x, lnps_y = ddx(lnps), ddy(lnps)
+
+    # top-down: cumulative flux divergence
+    fd = ddx(ps * u) + ddy(ps * v)
+    cum = [fd[0]]
+    for kk in range(1, L):
+        cum.append(cum[-1] + fd[kk])
+    dps = -cum[-1] * k.dsig
+    inv_ps = 1.0 / ps
+    dps_over_ps = dps * inv_ps
+
+    # sigma-dot scaled by L/2 at the interfaces 0..L (zero at both ends)
+    zero = torch.zeros_like(ps)
+    sd = [zero] + [-0.5 * (float(kk) * dps_over_ps + cum[kk - 1] * inv_ps)
+                   for kk in range(1, L)] + [zero]
+    sd_up, sd_dn = torch.stack(sd[:-1]), torch.stack(sd[1:])
+
+    # bottom-up: hydrostatic geopotential
+    phi = [None] * L
+    phi[L - 1] = k.phibot * T[L - 1]
+    if phi_s is not None:
+        phi[L - 1] = phi[L - 1] + phi_s
+    for kk in range(L - 1, 0, -1):
+        phi[kk - 1] = phi[kk] + thick[kk] * (T[kk - 1] + T[kk])
+    phi = torch.stack(phi)
+
+    def up_dn(X):
+        z = torch.zeros_like(X[:1])
+        d = X[1:] - X[:-1]
+        return torch.cat([z, d]), torch.cat([d, z])  # X_k - X_{k-1}, X_{k+1} - X_k
+
+    def vadv(X):
+        x_up, x_dn = up_dn(X)
+        return sd_dn * x_dn + sd_up * x_up
+
+    du = (-u * ddx(u) - v * ddy(u) - vadv(u) + k.f * v
+          - ddx(phi) - k.r_dry * T * lnps_x)
+    dv = (-u * ddx(v) - v * ddy(v) - vadv(v) - k.f * u
+          - ddy(phi) - k.r_dry * T * lnps_y)
+    dlnps_adv = dps_over_ps + u * lnps_x + v * lnps_y
+    omega_over_p = (sd_up + sd_dn) * inv_kh + dlnps_adv
+    dT = -u * ddx(T) - v * ddy(T) - vadv(T) + k.kappa * T * omega_over_p
+    dq = -u * ddx(q) - v * ddy(q) - vadv(q)
+    return du, dv, dT, dq, dps
+
+
+def _plain_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
+                 phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
+                 levc: torch.Tensor) -> PEState:
+    tend = _tendency_plain(cur, phi_s, k, levc)
+    for (name, o), d in zip(out.items(), tend):
+        acc = coeffs[0] * getattr(bases[0], name)
+        for c, b in zip(coeffs[1:], bases[1:]):
+            acc = acc + c * getattr(b, name)
+        o.copy_(acc + c_dt * d)
+    return out
+
+
+# ------------------------------------------------------------ one RK4 step
+
+def pe_rk4_kernel_fits(levels: int) -> bool:
+    """The whole-step kernel keeps L floats per thread in shared memory."""
+    return levels * RK4_THREADS * 4 <= SMEM_PER_BLOCK
+
+
+def pe_rk4_step(s: PEState, *, grid: GridSpec, dt: float,
+                coriolis_f: float = 0.0, phi_s: Optional[torch.Tensor] = None,
+                out: Optional[PEState] = None) -> PEState:
+    """One RK4 step in one pass (the combine of the TPU ``_rk4_chain``).
+    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
+    return _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out)
+
+
+def pe_rk4_step_cuda(s: PEState, *, grid: GridSpec, dt: float,
+                     coriolis_f: float = 0.0,
+                     phi_s: Optional[torch.Tensor] = None,
+                     out: Optional[PEState] = None,
+                     tile: int = RK4_TILE) -> PEState:
+    """Launch the whole-step kernel on the current stream (its scratch
+    allocated per call; the stepper keeps one). Refuses tensors that are
+    not on a CUDA device. ``pe_rk4_step_cuda.launches`` counts the
+    launches. ``tile``: the output tile edge."""
+    _require_cuda(s.ps, "pe_rk4_step_cuda")
+    return _rk4_call(_launch_rk4, s, grid, dt, coriolis_f, phi_s, out,
+                     tile=tile)
+
+
+def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
+                      coriolis_f: float = 0.0,
+                      phi_s: Optional[torch.Tensor] = None,
+                      out: Optional[PEState] = None) -> PEState:
+    """The kernel's function in plain PyTorch, on any device: four plain
+    tendencies chained with the kernel's accumulator."""
+    return _rk4_call(_plain_rk4, s, grid, dt, coriolis_f, phi_s, out)
+
+
+class Rk4Scratch(NamedTuple):
+    """The whole-step kernel's per-block scratch: ``slots`` blocks of
+    ``tile`` x ``tile`` output columns, one slot each."""
+
+    buf: torch.Tensor
+    slots: int
+    tile: int
+
+
+def rk4_scratch(levels: int, device: torch.device,
+                tile: int = RK4_TILE) -> Rk4Scratch:
+    """One slot for each block the device holds at once."""
+    if not pe_rk4_kernel_fits(levels):
+        raise ValueError(f"pe_rk4_step: {levels} levels do not fit a block")
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    slots, slot_floats = _rk4_layout(levels, index, tile)
+    buf = torch.empty(slots * slot_floats, dtype=torch.float32,
+                      device=torch.device("cuda", index))
+    return Rk4Scratch(buf, slots, tile)
+
+
+@lru_cache(maxsize=16)
+def _rk4_layout(levels: int, index: int, tile: int) -> tuple:
+    """(slots, floats per slot) of the whole-step kernel on CUDA device
+    ``index``."""
+    lib = _build.load("pe_rk4")
+    slot_floats_of, blocks_per_sm = lib.pe_rk4_slot_floats, \
+        lib.pe_rk4_blocks_per_sm
+    slot_floats_of.argtypes, slot_floats_of.restype = [_I, _I], \
+        ctypes.c_longlong
+    blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
+    blocks_per_sm.restype = ctypes.c_int
+    slot_floats = slot_floats_of(levels, tile)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = blocks_per_sm(levels, ctypes.byref(blocks))
+        _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
+                  "pe_rk4 occupancy")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * max(blocks.value, 1), slot_floats
+
+
+def _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out, *,
+              tile: int = RK4_TILE) -> PEState:
+    _check(s, (s,), grid, (1.0,), phi_s, out, "pe_rk4_step")
+    if out is None:
+        out = s.map(torch.empty_like)
+    scratch = (rk4_scratch(grid.levels, s.ps.device, tile)
+               if run is _launch_rk4 else None)
+    return run(s, out, phi_s, grid, column_constants(grid, float(coriolis_f)),
+               rk4_constants(float(dt)),
+               level_constants(grid.levels, str(s.ps.device)), scratch)
+
+
+def _rk4_runner(kind: str) -> Callable:
+    """The one dispatch point of the whole step: the launch for "cuda",
+    the plain version for "cpu"."""
+    return _launch_rk4 if kind == "cuda" else _plain_rk4
+
+
+def _launch_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
+                k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
+                scratch: Rk4Scratch) -> PEState:
+    launch, err_string = _build.bind("pe_rk4", _RK4_ARGTYPES)
+    with torch.cuda.device(s.ps.device):
+        err = launch(
+            s.u.data_ptr(), s.v.data_ptr(), s.T.data_ptr(), s.q.data_ptr(),
+            s.ps.data_ptr(), phi_s.data_ptr() if phi_s is not None else None,
+            out.u.data_ptr(), out.v.data_ptr(), out.T.data_ptr(),
+            out.q.data_ptr(), out.ps.data_ptr(), levc.data_ptr(),
+            scratch.buf.data_ptr(), scratch.slots, scratch.tile,
+            grid.levels, grid.ny, grid.nx, *k, *r,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, err_string, "pe_rk4")
+    pe_rk4_step_cuda.launches += 1
+    return out
+
+
+pe_rk4_step_cuda.launches = 0
+
+
+def _plain_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
+               k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
+               _scratch=None) -> PEState:
+    def axpy(c, tend):  # s + c T
+        return PEState(*(x + c * d for (_, x), d in zip(s.items(), tend)))
+
+    s1 = axpy(r.c_half, _tendency_plain(s, phi_s, k, levc))
+    acc = [a - x for (_, a), (_, x) in zip(s1.items(), s.items())]
+    s2 = axpy(r.c_half, _tendency_plain(s1, phi_s, k, levc))
+    acc = [a + 2.0 * b for a, (_, b) in zip(acc, s2.items())]
+    s3 = axpy(r.c_full, _tendency_plain(s2, phi_s, k, levc))
+    acc = [a + b for a, (_, b) in zip(acc, s3.items())]
+    t4 = _tendency_plain(s3, phi_s, k, levc)
+    for (_, o), a, d in zip(out.items(), acc, t4):
+        o.copy_(a * r.third + r.sixth * d)
+    return out
+
+
+# ----------------------------------------------------------------- steppers
+
+def pe_kernel_supported(grid: GridSpec, params: PhysicsParams) -> bool:
+    """Eligibility for the kernels: the TPU rule without its tile and VMEM
+    terms (the kernels mask ragged edges). The stage kernel keeps L floats
+    per thread in shared memory, which bounds L at 454; the whole-step
+    kernel's own bound (227) only decides between the two paths."""
+    return (
+        grid.bc == "periodic"
+        and grid.grid_type == "cartesian"
+        and 2 <= grid.levels
+        and grid.levels * STAGE_THREADS * 4 <= SMEM_PER_BLOCK
+        and isinstance(params.coriolis_f, numbers.Number)
+        and isinstance(params.beta, numbers.Number)
+        and float(params.beta) == 0.0
+        and isinstance(params.viscosity, numbers.Number)
+        and float(params.viscosity) == 0.0
+    )
+
+
+def make_pe_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
+                               dt: float,
+                               phi_s: Optional[torch.Tensor] = None,
+                               whole_step: Optional[bool] = None) -> Stepper:
+    """RK4 on the kernels. ``whole_step`` None: the whole-step kernel when
+    it fits (``pe_rk4_kernel_fits``), as the TPU stepper does; True or
+    False force one of the two paths.
+
+    Both are in place by design and allocate nothing per step: a state
+    returned by one step is overwritten by the step after next; callers
+    that keep a state copy it (``Simulation._store_output`` does)."""
+    if whole_step is None:
+        whole_step = pe_rk4_kernel_fits(grid.levels)
+    if whole_step:
+        return _whole_step_stepper(grid, params, dt, phi_s)
+    return _stage_stepper(grid, params, dt, phi_s)
+
+
+def _whole_step_stepper(grid, params, dt, phi_s) -> Stepper:
+    """One whole-step launch per step into a spare state; the incoming
+    state becomes the next spare. The carry holds the spare and the
+    kernel's scratch (None on the CPU)."""
+    k = column_constants(grid, float(params.coriolis_f))
+    r = rk4_constants(float(dt))
+
+    def init(s):
+        kind = _device_kind(s.ps, "pe_rk4_step")
+        scratch = (rk4_scratch(grid.levels, s.ps.device) if kind == "cuda"
+                   else None)
+        return s.map(torch.empty_like), scratch
+
+    def step(carry, s, _dt_ignored):
+        spare, scratch = carry
+        _check(s, (s,), grid, (1.0,), phi_s, None, "pe_rk4_step")
+        run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
+        new = run(s, spare, phi_s, grid, k, r,
+                  level_constants(grid.levels, str(s.ps.device)), scratch)
+        return (s, scratch), new
+
+    return Stepper(init, step, "pe_rk4_kernel_fused", 4)
+
+
+def _stage_stepper(grid, params, dt, phi_s) -> Stepper:
+    """Four stage launches per step, the combine fused into the last (the
+    values equal the separate accumulator pass up to rounding):
+
+        s1 = s + dt/2 T(s);  s2 = s + dt/2 T(s1);  s3 = s + dt T(s2)
+        s' = (-s + s1 + 2 s2 + s3)/3 + dt/6 T(s3)
+
+    The carry holds three spare states for s1, s2 and s3; the last stage
+    writes s' over s1 (a base, which the kernel reads at each point before
+    it writes there), and the incoming state becomes a spare."""
+    k = column_constants(grid, float(params.coriolis_f))
+    dt = float(dt)
+    third = 1.0 / 3.0
+    one = (1.0,)
+    combine = tuple(_f32(c) for c in (-third, third, 2.0 * third, third))
+    half, full, sixth = _f32(0.5 * dt), _f32(dt), _f32(dt / 6.0)
+
+    def init(s):
+        return tuple(s.map(torch.empty_like) for _ in range(3))
+
+    def step(carry, s, _dt_ignored):
+        a, b, c = carry
+        # s is checked here; the spares were made from a checked state
+        _check(s, (s,), grid, one, phi_s, None)
+        run = _stage_runner(_device_kind(s.ps, "pe_stage"))
+        levc = level_constants(grid.levels, str(s.ps.device))
+        s1 = run(s, (s,), one, a, phi_s, grid, k, half, levc)
+        s2 = run(s1, (s,), one, b, phi_s, grid, k, half, levc)
+        s3 = run(s2, (s,), one, c, phi_s, grid, k, full, levc)
+        new = run(s3, (s, s1, s2, s3), combine, a, phi_s, grid, k, sixth,
+                  levc)
+        return (s, b, c), new
+
+    return Stepper(init, step, "pe_rk4_kernel", 4)

@@ -92,17 +92,8 @@ def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
     raise ValueError(f"swe_rk4_step: unsupported device {u.device}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("swe_rk4")
-    fn = lib.swe_rk4_launch
-    if fn.argtypes is None:
-        ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 6 + [c_int, c_int] + [c_float] * 10
-                       + [c_int, ptr])
-        fn.restype = c_int
-        lib.swe_rk4_error_string.argtypes = [c_int]
-        lib.swe_rk4_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+             + [ctypes.c_float] * 10 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
@@ -121,17 +112,17 @@ def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
     if out is None:
         out = (torch.empty_like(u), torch.empty_like(v), torch.empty_like(h))
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
-    lib = _kernel_lib()
+    launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
-        err = lib.swe_rk4_launch(
+        err = launch(
             u.data_ptr(), v.data_ptr(), h.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             grid.ny, grid.nx, k["cx"], k["cy"], k["g"], k["f"], k["half"],
             k["dt"], k["sixth"], k["third"], k["ix2"], k["iy2"],
             int(k["nu"] != 0.0), stream)
     if err != 0:
-        msg = lib.swe_rk4_error_string(err).decode()
+        msg = err_string(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
     swe_rk4_step_cuda.launches += 1
     return out

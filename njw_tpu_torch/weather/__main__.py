@@ -2,8 +2,10 @@
 
 Counterpart of ``python -m njw_tpu.weather``: the same argument surface,
 plus ``--device {cuda,cpu}`` (default cuda, which fails without a CUDA
-device) and backends auto | plain | kernel. Options of cores that are not
-yet ported exit with code 2.
+device) and backends auto | plain | kernel. The shallow-water,
+barotropic and primitive-equation cores run; options that are not yet
+ported exit with code 2. ``--validate`` checks the shallow-water core
+against its NumPy oracle, whatever ``--model`` says, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -17,13 +19,16 @@ NOT_PORTED = "not yet ported (ROADMAP)"
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="njw_tpu_torch.weather",
-        description="Shallow-water weather solver on an NVIDIA GPU (PyTorch "
-        "+ a hand-written CUDA kernel for the fused RK4 step)",
+        description="Weather solver (shallow water, barotropic vorticity, "
+        "primitive equations) on an NVIDIA GPU: PyTorch plus hand-written "
+        "CUDA kernels",
     )
     p.add_argument("--model", default="shallow_water",
                    choices=["shallow_water", "barotropic", "primitive"])
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=256)
+    p.add_argument("--levels", type=int, default=1,
+                   help="sigma levels of the primitive-equation core")
     p.add_argument("--dx", type=float, default=1.0)
     p.add_argument("--dy", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=0.01)
@@ -44,6 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coriolis", type=float, default=0.0)
     p.add_argument("--beta", type=float, default=0.0)
     p.add_argument("--viscosity", type=float, default=0.0)
+    p.add_argument("--mountain-height", type=float, default=0.0,
+                   help="primitive only: a Gaussian mountain of this "
+                        "surface geopotential at the domain centre")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "plain", "kernel"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -65,8 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> str | None:
-    if args.model != "shallow_water":
-        return f"--model {args.model}"
     if args.grid_type != "cartesian":
         return f"--grid-type {args.grid_type}"
     if args.method == "semi_implicit":
@@ -102,13 +108,29 @@ def main(argv=None) -> int:
 
     cfg = SimConfig(
         model=args.model, grid_width=args.width, grid_height=args.height,
-        dx=args.dx, dy=args.dy, dt=args.dt, integration_method=args.method,
+        num_levels=args.levels, dx=args.dx, dy=args.dy, dt=args.dt,
+        integration_method=args.method,
         boundary_condition=args.bc, grid_type=args.grid_type,
         coriolis_f=args.coriolis, beta=args.beta, viscosity=args.viscosity,
         backend=args.backend, max_steps=args.steps,
         output_interval=args.output_interval, device=args.device,
     )
-    sim = Simulation.from_config(cfg, args.initial)
+    if args.model == "primitive" and args.initial == "vortex":
+        args.initial = "baroclinic"  # the PE default (vortex is SWE-only)
+    sim_kw = {}
+    if args.mountain_height > 0.0:
+        if args.model != "primitive":
+            print("error: --mountain-height requires --model primitive",
+                  file=sys.stderr)
+            return 2
+        import numpy as np
+
+        y, x = np.mgrid[0:args.height, 0:args.width].astype(np.float32)
+        cy, cx = (args.height - 1) / 2, (args.width - 1) / 2
+        sy, sx = max(args.height / 8, 1), max(args.width / 8, 1)
+        sim_kw["orography"] = args.mountain_height * np.exp(
+            -(((y - cy) / sy) ** 2 + ((x - cx) / sx) ** 2))
+    sim = Simulation.from_config(cfg, args.initial, **sim_kw)
     # Warm-up (kernel build and load) outside the timed region.
     sim.step(1)
     sim.metrics.reset()

@@ -1,10 +1,12 @@
 """Carry states, grids and physical constants across from the JAX package.
 
 Both packages exchange plain values only: a state travels as the dict of
-NumPy arrays that ``WeatherState.to_numpy()`` returns in either package,
-and a grid or parameter set is read field by field from any object that
-has the fields (a JAX ``GridSpec`` / ``PhysicsParams``, a namespace, ...),
-so this module imports nothing of JAX.
+NumPy arrays that ``WeatherState.to_numpy()`` returns in either package
+(the barotropic and PE states are read field by field from a dict or from
+any object with the fields, such as a JAX ``BarotropicState`` or
+``PEState``), and a grid or parameter set is read field by field from any
+object that has the fields (a JAX ``GridSpec`` / ``PhysicsParams``, a
+namespace, ...), so this module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -14,19 +16,52 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from njw_tpu_torch.weather.barotropic import BarotropicState
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
+from njw_tpu_torch.weather.primitive import PEState
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A contiguous float32 tensor on ``device`` (a field such as phi_s)."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
 def state_from_numpy(d: Mapping[str, np.ndarray], device) -> WeatherState:
     """A float32 ``WeatherState`` on ``device`` from a dict of arrays."""
     return WeatherState(**{
-        name: torch.from_numpy(np.array(val, dtype=np.float32)).to(device)
-        for name, val in d.items()
+        name: tensor_from_numpy(val, device) for name, val in d.items()
     })
 
 
 def state_to_numpy(s: WeatherState) -> dict[str, np.ndarray]:
     """The dict of NumPy arrays the JAX ``WeatherState.to_numpy`` gives."""
+    return s.to_numpy()
+
+
+def _fields_from(cls, src, device):
+    get = src.__getitem__ if isinstance(src, Mapping) else \
+        (lambda name: getattr(src, name))
+    return cls(**{name: tensor_from_numpy(np.asarray(get(name)), device)
+                  for name in cls.FIELDS})
+
+
+def baro_state_from_numpy(src, device) -> BarotropicState:
+    """A ``BarotropicState`` on ``device`` from {"zeta": array} or from
+    any object with a ``zeta`` field."""
+    return _fields_from(BarotropicState, src, device)
+
+
+def baro_state_to_numpy(s: BarotropicState) -> dict[str, np.ndarray]:
+    return s.to_numpy()
+
+
+def pe_state_from_numpy(src, device) -> PEState:
+    """A ``PEState`` on ``device`` from a dict of u, v, T, q, ps arrays or
+    from any object with those fields."""
+    return _fields_from(PEState, src, device)
+
+
+def pe_state_to_numpy(s: PEState) -> dict[str, np.ndarray]:
     return s.to_numpy()
 
 

@@ -11,6 +11,8 @@ with central differences, a beta-plane Coriolis f = f0 + beta (y_n - 1/2)
 and the four boundary conditions. The physics is written once against a
 ``shift(f, dxi, dyi)`` accessor (``swe_tendencies_from_shifts``), as in the
 JAX package. Tendency functions are pure: ``T(state) -> d(state)/dt``.
+``make_tendency_fn`` also hands out the barotropic and primitive-equation
+cores' tendencies (``barotropic.py``, ``primitive.py``).
 """
 from __future__ import annotations
 
@@ -80,6 +82,13 @@ def d_dx(f: Tensor, dx: float, bc: str) -> Tensor:
 def d_dy(f: Tensor, dy: float, bc: str) -> Tensor:
     """Central difference along y."""
     return (_shift(f, 1, _Y, bc) - _shift(f, -1, _Y, bc)) * (0.5 / dy)
+
+
+def laplacian(f: Tensor, dx: float, dy: float, bc: str) -> Tensor:
+    """5-point Laplacian (the viscosity terms)."""
+    fxx = (_shift(f, 1, _X, bc) - 2.0 * f + _shift(f, -1, _X, bc)) / (dx * dx)
+    fyy = (_shift(f, 1, _Y, bc) - 2.0 * f + _shift(f, -1, _Y, bc)) / (dy * dy)
+    return fxx + fyy
 
 
 def swe_tendencies_from_shifts(u, v, h, shift, grid: GridSpec,
@@ -165,9 +174,12 @@ def make_tendency_fn(model: str, grid: GridSpec, params: PhysicsParams
                 f"grid_type={grid.grid_type!r} is not yet ported "
                 "(ROADMAP: open items, 1.4 rest of weather)")
         return lambda s: swe_tendencies(s, grid, params)
-    if model in ("barotropic", "primitive"):
-        item = "1.2 barotropic core" if model == "barotropic" \
-            else "1.3 primitive equations"
-        raise NotImplementedError(
-            f"model={model!r} is not yet ported (ROADMAP: open items, {item})")
+    if model == "barotropic":
+        from njw_tpu_torch.weather.barotropic import barotropic_tendencies
+
+        return lambda s: barotropic_tendencies(s, grid, params)
+    if model == "primitive":
+        from njw_tpu_torch.weather.primitive import pe_tendencies
+
+        return lambda s: pe_tendencies(s, grid, params)
     raise ValueError(f"unknown model: {model!r}")

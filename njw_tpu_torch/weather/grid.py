@@ -8,7 +8,7 @@ package) on one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+from typing import ClassVar, Iterator, Optional
 
 import numpy as np
 import torch
@@ -67,11 +67,42 @@ class PhysicsParams:
         return dataclasses.replace(self, **updates)
 
 
+class FieldState:
+    """The state protocol the steppers and ``Simulation`` rely on, for a
+    frozen dataclass of tensors whose field names are ``FIELDS`` (a field
+    set to ``None`` is skipped)."""
+
+    FIELDS: ClassVar[tuple[str, ...]] = ()
+
+    def items(self) -> Iterator[tuple[str, torch.Tensor]]:
+        """(name, tensor) for each field that is set."""
+        for name in self.FIELDS:
+            val = getattr(self, name)
+            if val is not None:
+                yield name, val
+
+    def map(self, fn, *others):
+        """Apply ``fn`` field-wise over the fields set in ``self``."""
+        return type(self)(**{
+            name: fn(val, *(getattr(o, name) for o in others))
+            for name, val in self.items()
+        })
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.items())[1].device
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        return {name: val.detach().cpu().numpy() for name, val in self.items()}
+
+
 @dataclasses.dataclass(frozen=True)
-class WeatherState:
+class WeatherState(FieldState):
     """Prognostic state: velocity (u, v) and height h, plus the optional
     pressure p, temperature T, humidity q and surface pressure ps (``None``
     when unused)."""
+
+    FIELDS: ClassVar[tuple[str, ...]] = STATE_FIELDS
 
     u: torch.Tensor
     v: torch.Tensor
@@ -96,24 +127,3 @@ class WeatherState:
 
     def replace(self, **updates) -> "WeatherState":
         return dataclasses.replace(self, **updates)
-
-    def items(self) -> Iterator[tuple[str, torch.Tensor]]:
-        """(name, tensor) for each field that is set."""
-        for name in STATE_FIELDS:
-            val = getattr(self, name)
-            if val is not None:
-                yield name, val
-
-    def map(self, fn, *others: "WeatherState") -> "WeatherState":
-        """Apply ``fn`` field-wise over the fields set in ``self``."""
-        return WeatherState(**{
-            name: fn(val, *(getattr(o, name) for o in others))
-            for name, val in self.items()
-        })
-
-    @property
-    def device(self) -> torch.device:
-        return self.u.device
-
-    def to_numpy(self) -> dict[str, np.ndarray]:
-        return {name: val.detach().cpu().numpy() for name, val in self.items()}

@@ -14,13 +14,14 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from njw_tpu_torch.weather.grid import WeatherState
+from njw_tpu_torch.weather.grid import FieldState
 
 TendencyFn = Callable  # state -> d(state)/dt
 
 
-def _axpy(a, x: WeatherState, y: WeatherState) -> WeatherState:
-    """y + a * x field-wise."""
+def _axpy(a, x: FieldState, y: FieldState) -> FieldState:
+    """y + a * x field-wise, on any state with ``map`` (``WeatherState``,
+    ``BarotropicState``, ``PEState``)."""
     return y.map(lambda yi, xi: yi + a * xi, x)
 
 

@@ -5,12 +5,17 @@ n steps as a Python loop over the stepper (the JAX package's chunked
 ``lax.scan``), then synchronises the device before it reads the clock, so
 the metrics time finished work. CUDA graphs of the chunk are later work.
 
-Backend selection (``SimConfig.backend``):
-  auto    the fused kernel when the configuration is eligible and the
-          device is CUDA; the plain integrators otherwise
-  kernel  the fused kernel (its plain version for CPU tensors); raises
+Models: shallow_water (and its alias general), barotropic
+(``weather/barotropic.py``) and primitive (``weather/primitive.py``).
+
+Backend selection (``SimConfig.backend``), the same for every model:
+  auto    the model's kernel stepper (SWE: the fused RK4 kernel; the
+          barotropic and PE cores: four stage kernels per RK4 step) when
+          the configuration is eligible and the device is CUDA; the plain
+          integrators otherwise
+  kernel  the kernel stepper (its plain versions for CPU tensors); raises
           for an ineligible configuration
-  plain   the plain integrators over ``dynamics.swe_tendencies``
+  plain   the plain integrators over the model's tendencies
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ import torch
 
 from njw_tpu_torch.platform.device import require_device
 from njw_tpu_torch.weather.dynamics import diagnostics, make_tendency_fn
-from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
+from njw_tpu_torch.weather.grid import (
+    FieldState, GridSpec, PhysicsParams, WeatherState,
+)
 from njw_tpu_torch.weather.ics import make_initial_state
 from njw_tpu_torch.weather.integrators import make_stepper
 
@@ -35,14 +42,14 @@ class SimConfig:
     """Run configuration (the JAX package's ``SimConfig`` with ``device``
     added and backends auto | plain | kernel)."""
 
-    model: str = "shallow_water"     # shallow_water | general (ported)
+    model: str = "shallow_water"     # shallow_water | general | barotropic | primitive
     integration_method: str = "rk4"  # euler | rk2 | rk4 | adams_bashforth
     boundary_condition: str = "periodic"  # periodic | clamped | outflow | reflective
     grid_type: str = "cartesian"
 
     grid_width: int = 256
     grid_height: int = 256
-    num_levels: int = 1
+    num_levels: int = 1              # primitive: sigma levels L
     dx: float = 1.0
     dy: float = 1.0
     dt: float = 0.01
@@ -126,7 +133,8 @@ def _sync(device: torch.device) -> None:
 
 
 class Simulation:
-    """Generic step loop over a ``WeatherState``.
+    """Generic step loop over a state with the ``FieldState`` protocol
+    (``WeatherState``, ``BarotropicState``, ``PEState``).
 
     Weather-specific construction goes through :meth:`from_config`; the
     loop itself needs only ``(state0, tendency_fn, method, dt)``.
@@ -134,14 +142,14 @@ class Simulation:
 
     def __init__(
         self,
-        state0: WeatherState,
+        state0: FieldState,
         tendency_fn: Callable,
         *,
         dt: float,
         method: str = "rk4",
         grid: Optional[GridSpec] = None,
         stepper_factory: Optional[Callable] = None,
-        output_fn: Optional[Callable[[WeatherState], dict]] = None,
+        output_fn: Optional[Callable[[FieldState], dict]] = None,
     ):
         self.grid = grid
         self.dt = float(dt)
@@ -149,8 +157,13 @@ class Simulation:
         self.device = state0.device
         self.time = 0.0
         self.step_count = 0
-        shape = state0.u.shape
-        self.metrics = PerformanceMetrics(grid_points=int(shape[-1] * shape[-2]))
+        # grid points: the horizontal grid (every field shares it)
+        if grid is not None:
+            points = grid.nx * grid.ny
+        else:
+            shape = next(state0.items())[1].shape
+            points = int(shape[-1] * shape[-2])
+        self.metrics = PerformanceMetrics(grid_points=points)
         self.output_fn = output_fn
         self.snapshots: list[dict[str, Any]] = []
 
@@ -169,10 +182,22 @@ class Simulation:
         if config.backend not in BACKENDS:
             raise ValueError(f"unknown backend {config.backend!r}; "
                              f"available: {list(BACKENDS)}")
+        model = config.model
+        if model == "barotropic":
+            from njw_tpu_torch.weather.barotropic import make_barotropic_sim
+
+            config.grid_spec().validate()
+            return make_barotropic_sim(cls, config, initial_condition,
+                                       device=device, **ic_params)
+        if model == "primitive":
+            from njw_tpu_torch.weather.primitive import make_primitive_sim
+
+            return make_primitive_sim(cls, config, initial_condition,
+                                      device=device, **ic_params)
+
         grid = config.grid_spec()
         params = config.physics()
-        model = config.model
-        # raises NotImplementedError for the cores not yet ported
+        # raises NotImplementedError for the grids not yet ported
         tendency = make_tendency_fn(model, grid, params)
         if config.integration_method == "semi_implicit":
             make_stepper("semi_implicit", tendency)  # raises: not yet ported
@@ -189,22 +214,25 @@ class Simulation:
 
         sim = cls(
             state0, tendency, dt=config.dt, method=config.integration_method,
-            grid=grid, stepper_factory=_maybe_kernel_stepper(
+            grid=grid, stepper_factory=_swe_kernel_factory(
                 config, grid, params, device),
             output_fn=output_fn,
         )
         sim.config = config
         return sim
 
-    def step(self, n: int = 1) -> WeatherState:
-        """Advance n steps on the device, then synchronise."""
+    def step(self, n: int = 1, synchronize: bool = True) -> FieldState:
+        """Advance n steps on the device, then synchronise. With
+        ``synchronize=False`` it returns once the steps are enqueued, and
+        the metrics time the host's part alone."""
         t0 = time.perf_counter()
         carry, state, step, dt = self._carry, self.state, self.stepper.step, \
             self._dt_f32
         for _ in range(n):
             carry, state = step(carry, state, dt)
         self._carry, self.state = carry, state
-        _sync(self.device)
+        if synchronize:
+            _sync(self.device)
         elapsed = (time.perf_counter() - t0) * 1e3
         self.metrics.compute_time_ms += elapsed
         self.metrics.total_time_ms += elapsed
@@ -214,7 +242,7 @@ class Simulation:
         return self.state
 
     def run(self, n_steps: Optional[int] = None, output_interval: int = 0,
-            callback: Optional[Callable] = None) -> WeatherState:
+            callback: Optional[Callable] = None) -> FieldState:
         """Run n_steps, snapshotting every output_interval steps."""
         if n_steps is None:
             n_steps = getattr(self, "config", SimConfig()).max_steps
@@ -231,7 +259,7 @@ class Simulation:
         return self.state
 
     def run_until(self, t_end: float, output_interval: int = 0,
-                  callback=None) -> WeatherState:
+                  callback=None) -> FieldState:
         """Advance until the simulated time reaches t_end."""
         n = max(int(round((t_end - self.time) / self.dt)), 0)
         return self.run(n, output_interval=output_interval, callback=callback)
@@ -250,22 +278,33 @@ class Simulation:
         self.metrics.total_time_ms += elapsed
 
 
-def _maybe_kernel_stepper(config: SimConfig, grid: GridSpec,
-                          params: PhysicsParams, device: torch.device):
-    """Stepper factory for the fused kernel, or None for the plain
-    integrators (see the module docstring for the rule)."""
-    from njw_tpu_torch.ops.stencil import kernel_supported, \
-        make_kernel_rk4_stepper
-
+def kernel_stepper_factory(config: SimConfig, device: torch.device,
+                           supported: bool, make: Callable[[], Any],
+                           requirement: str) -> Optional[Callable]:
+    """The backend rule of every core (see the module docstring): a
+    stepper factory around ``make`` for the kernel stepper, or None for
+    the plain integrators. ``supported``: the configuration is eligible;
+    ``requirement``: what eligibility needs, for the error message."""
     if config.backend == "plain":
         return None
-    if not kernel_supported(grid, params, config.model,
-                            config.integration_method):
+    if not supported:
         if config.backend == "kernel":
-            raise ValueError(
-                "backend='kernel' requires shallow_water + rk4 + periodic "
-                "BC + cartesian grid + constant f (beta=0)")
+            raise ValueError(f"backend='kernel' requires {requirement}")
         return None
     if config.backend == "auto" and device.type != "cuda":
         return None
-    return lambda _tendency: make_kernel_rk4_stepper(grid, params, config.dt)
+    return lambda _tendency: make()
+
+
+def _swe_kernel_factory(config: SimConfig, grid: GridSpec,
+                        params: PhysicsParams, device: torch.device):
+    from njw_tpu_torch.ops.stencil import kernel_supported, \
+        make_kernel_rk4_stepper
+
+    return kernel_stepper_factory(
+        config, device,
+        kernel_supported(grid, params, config.model,
+                         config.integration_method),
+        lambda: make_kernel_rk4_stepper(grid, params, config.dt),
+        "shallow_water + rk4 + periodic BC + cartesian grid + constant f "
+        "(beta=0)")

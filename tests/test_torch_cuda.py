@@ -11,10 +11,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from njw_tpu_torch.ops.baro_stencil import (  # noqa: E402
+    baro_stage, baro_stage_cuda, baro_stage_plain,
+)
+from njw_tpu_torch.ops.pe_stencil import (  # noqa: E402
+    make_pe_kernel_rk4_stepper, pe_rk4_step, pe_rk4_step_cuda,
+    pe_rk4_step_plain, pe_stage, pe_stage_cuda, pe_stage_plain,
+)
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
     swe_rk4_step, swe_rk4_step_cuda, swe_rk4_step_plain,
 )
-from njw_tpu_torch.weather import GridSpec, SimConfig, Simulation  # noqa: E402
+from njw_tpu_torch.weather import (  # noqa: E402
+    GridSpec, PhysicsParams, SimConfig, Simulation,
+)
+from njw_tpu_torch.weather.primitive import PEState  # noqa: E402
 
 
 def _fields(ny, nx, seed=0, amp=0.5):
@@ -63,3 +73,129 @@ class TestKernelOnCard:
         ref.step(12)
         torch.testing.assert_close(ker.state.h, ref.state.h, rtol=1e-3,
                                    atol=1e-3)
+
+
+def _pe_state(L, ny, nx, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def f(lo, hi, *shape):
+        return torch.from_numpy(
+            rng.uniform(lo, hi, shape).astype(np.float32)).to(device)
+
+    return PEState(u=f(-10, 10, L, ny, nx), v=f(-10, 10, L, ny, nx),
+                   T=f(250, 300, L, ny, nx), q=f(0, 0.01, L, ny, nx),
+                   ps=f(990, 1020, ny, nx))
+
+
+@pytest.mark.cuda
+class TestStageKernelsOnCard:
+    @pytest.mark.parametrize("ny,nx,beta,nu", [
+        (1024, 1024, 1e-3, 1e-4), (200, 328, 0.3, 0.02), (3, 5, 0.0, 0.0),
+        (33, 65, 0.0, 0.0)])
+    def test_baro_kernel_matches_plain_version(self, cuda_device, ny, nx,
+                                               beta, nu):
+        grid = GridSpec(nx=nx, ny=ny, dy=1.3)
+        psi, z, base = _torch(_fields(ny, nx, seed=ny), cuda_device)
+        kw = dict(grid=grid, c_dt=0.7, beta=beta, nu=nu)
+        before = baro_stage_cuda.launches
+        out = baro_stage(psi, z, base, **kw)
+        ref = baro_stage_plain(psi, z, base, **kw)
+        torch.cuda.synchronize()
+        assert baro_stage_cuda.launches == before + 1
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("L,ny,nx,nbase,terrain", [
+        (20, 128, 96, 1, False), (5, 200, 328, 4, False), (2, 3, 5, 1, False),
+        (4, 64, 48, 1, True), (5, 200, 328, 4, True)])
+    def test_pe_kernel_matches_plain_version(self, cuda_device, L, ny, nx,
+                                             nbase, terrain):
+        grid = GridSpec(nx=nx, ny=ny, levels=L, dx=1e5, dy=1e5)
+        cur = _pe_state(L, ny, nx, 0, cuda_device)
+        bases = [_pe_state(L, ny, nx, g + 1, cuda_device)
+                 for g in range(nbase)]
+        coeffs = (1.0,) if nbase == 1 else (-1 / 3, 1 / 3, 2 / 3, 1 / 3)
+        phi_s = (torch.rand(ny, nx, device=cuda_device) * 5000.0
+                 if terrain else None)
+        kw = dict(grid=grid, c_dt=60.0, coriolis_f=1e-4, base_coeffs=coeffs,
+                  phi_s=phi_s)
+        before = pe_stage_cuda.launches
+        out = pe_stage(cur, bases, **kw)
+        ref = pe_stage_plain(cur, bases, **kw)
+        torch.cuda.synchronize()
+        assert pe_stage_cuda.launches == before + 1
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=2e-4 if terrain else 1e-4,
+                                       msg=name)
+
+    @pytest.mark.parametrize("L,ny,nx,terrain,tile", [
+        (20, 128, 96, False, 12), (5, 200, 328, True, 12),
+        (2, 3, 5, False, 12), (4, 64, 48, True, 8), (6, 70, 90, False, 16)])
+    def test_pe_rk4_kernel_matches_plain_version(self, cuda_device, L, ny,
+                                                 nx, terrain, tile):
+        grid = GridSpec(nx=nx, ny=ny, levels=L, dx=1e5, dy=1e5)
+        s = _pe_state(L, ny, nx, 7, cuda_device)
+        phi_s = (torch.rand(ny, nx, device=cuda_device) * 5000.0
+                 if terrain else None)
+        kw = dict(grid=grid, dt=60.0, coriolis_f=1e-4, phi_s=phi_s)
+        before = pe_rk4_step_cuda.launches
+        out = (pe_rk4_step(s, **kw) if tile == 12
+               else pe_rk4_step_cuda(s, tile=tile, **kw))
+        ref = pe_rk4_step_plain(s, **kw)
+        torch.cuda.synchronize()
+        assert pe_rk4_step_cuda.launches == before + 1
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=2e-4 if terrain else 1e-4,
+                                       msg=name)
+
+    def test_pe_stage_stepper_vs_plain(self, cuda_device):
+        grid = GridSpec(nx=64, ny=48, levels=4, dx=1e5, dy=1e5)
+        params = PhysicsParams(coriolis_f=1e-4)
+        s0 = _pe_state(4, 48, 64, 3, cuda_device)
+        runs = {}
+        for whole_step in (True, False):
+            st = make_pe_kernel_rk4_stepper(grid, params, 30.0,
+                                            whole_step=whole_step)
+            carry, s = st.init(s0), s0.map(torch.clone)
+            before = (pe_rk4_step_cuda.launches, pe_stage_cuda.launches)
+            for _ in range(12):
+                carry, s = st.step(carry, s, None)
+            torch.cuda.synchronize()
+            runs[whole_step] = s.map(torch.clone)
+            launched = (pe_rk4_step_cuda.launches - before[0],
+                        pe_stage_cuda.launches - before[1])
+            assert launched == ((12, 0) if whole_step else (0, 48))
+        for (name, a), (_, b) in zip(runs[False].items(),
+                                     runs[True].items()):
+            scale = float(b.abs().max()) + 1e-30
+            torch.testing.assert_close(a / scale, b / scale, rtol=0,
+                                       atol=1e-5, msg=name)
+
+    @pytest.mark.parametrize("model,cfg_kw,ic_kw,stepper", [
+        ("barotropic", dict(grid_width=128, grid_height=96, dt=0.01,
+                            beta=1e-3, viscosity=1e-4),
+         {"strength": 3.0}, "baro_rk4_kernel"),
+        ("primitive", dict(grid_width=64, grid_height=48, num_levels=4,
+                           dx=1e5, dy=1e5, dt=30.0, coriolis_f=1e-4),
+         {"u_jet": 5.0, "perturb": 0.5}, "pe_rk4_kernel_fused"),
+    ])
+    def test_simulation_kernel_vs_plain(self, cuda_device, model, cfg_kw,
+                                        ic_kw, stepper):
+        ic = "vortex" if model == "barotropic" else "baroclinic"
+        ker = Simulation.from_config(SimConfig(model=model, device="cuda",
+                                               **cfg_kw), ic, **ic_kw)
+        ref = Simulation.from_config(SimConfig(model=model, device="cuda",
+                                               backend="plain", **cfg_kw),
+                                     ic, **ic_kw)
+        assert ker.stepper.name == stepper and ref.stepper.name == "rk4"
+        counter, per_step = ((baro_stage_cuda, 4) if model == "barotropic"
+                             else (pe_rk4_step_cuda, 1))
+        before = counter.launches
+        ker.step(12)
+        ref.step(12)
+        assert counter.launches == before + per_step * 12
+        for (name, a), (_, b) in zip(ker.state.items(), ref.state.items()):
+            scale = float(b.abs().max()) + 1e-30
+            torch.testing.assert_close(a / scale, b / scale, rtol=0,
+                                       atol=1e-3, msg=name)

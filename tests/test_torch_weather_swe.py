@@ -151,8 +151,7 @@ class TestTendencies:
                                        rtol=1e-6, atol=1e-6)
 
     @pytest.mark.parametrize("model,grid_type", [
-        ("barotropic", "cartesian"), ("primitive", "cartesian"),
-        ("shallow_water", "staggered")])
+        ("general", "staggered"), ("shallow_water", "staggered")])
     def test_unported_cores_raise(self, model, grid_type):
         grid = GridSpec(nx=8, ny=8, grid_type=grid_type)
         with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -241,7 +240,8 @@ class TestSimulation:
         ({"backend": "kernel", "boundary_condition": "clamped"}, ValueError),
         ({"backend": "kernel", "beta": 0.1}, ValueError),
         ({"integration_method": "semi_implicit"}, NotImplementedError),
-        ({"model": "barotropic"}, NotImplementedError),
+        ({"model": "primitive", "num_levels": 4,
+          "integration_method": "semi_implicit"}, NotImplementedError),
     ])
     def test_bad_configs_raise(self, cfg_kw, exc):
         cfg = SimConfig(grid_width=16, grid_height=16, device=CPU, **cfg_kw)
@@ -324,7 +324,8 @@ class TestCLI:
             assert "final_vorticity" in z
 
     @pytest.mark.parametrize("flags", [
-        ["--model", "barotropic"], ["--model", "primitive"],
+        ["--model", "barotropic", "--grid-type", "spherical_harmonic"],
+        ["--model", "primitive", "--method", "semi_implicit"],
         ["--grid-type", "staggered"], ["--grid-type", "icosahedral"],
         ["--method", "semi_implicit"], ["--nest-patch", "1,2,3,4"],
         ["--output-format", "csv"]])
@@ -351,7 +352,7 @@ def _imports(path: Path) -> list[str]:
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((REPO / "njw_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "njw_tpu")]
