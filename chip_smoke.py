@@ -28,6 +28,30 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 does not fit); every launch count is set to 0 just before
                 each and read just after
   7 cli         the CLI's --json runs of the three cores and its --validate
+  8 fir kernels fir_band (K7, also serving K9 and K10) against its plain
+                version for passes 0, 1, 2, 3 and 6 at the fir_batch shape,
+                the fir_suite shape (16 x 10^6) and at (3, 1000), (9, 4096),
+                (2, 300), (3, 1000) with NaN in memory past the last row,
+                and (5, 1280) through the flat wrapper (rtol 1e-5 /
+                atol 1e-5, or the float32
+                summation spread measured against a float64 evaluation of
+                the same products, whichever is larger), and against the
+                NumPy oracle (np.convolve, a few rows; atol 2e-4 at passes
+                0, 3, 6, and 5e-3 of max|ref| at passes 1 and 2, the JAX
+                tests' bands); fir_band_bf16 (K8) against its plain version
+                within one bf16 ulp (+ that spread) and against the oracle
+                within 1.5e-2 of max|ref|; each kernel's time beside its
+                plain version's, the bound (bytes, or tensor-core
+                operations at the bf16 peak), the wrapper's host cost and
+                the one PyTorch call that computes the same function
+                (F.conv1d: float32 with cuDNN's TF32 off, and bf16)
+  9 fir paths   the main paths of njw_tpu_torch.signal.main_paths: fir_batch
+                (FIRFilter on 1000 x 100000), fir_suite (16 x 10^6) and
+                fir_bf16 (fir_batch_bf16 on 1000 x 100000); each launch
+                count is set to 0 just before each and must read one launch
+                per call just after; the last call's output is held against
+                the kernel's plain version on the same input (the
+                tolerances of phase 8)
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -54,6 +78,13 @@ PE_FLOP = {1: 116, 4: 140}    # per column and level, by number of bases
 # a whole RK4 step: three one-base stages and the fused four-base one
 PE_STEP_FLOP = 3 * PE_FLOP[1] + PE_FLOP[4]
 HOST_LAUNCHES = 200           # launches timed on the host clock
+FIR_RTOL, FIR_ATOL = 1e-5, 1e-5       # fir_band vs its plain version
+FIR_ORACLE_ATOL = 2e-4                # tests/test_signal.py:158
+FIR_ORACLE_REL_1PASS = 5e-3           # passes 1, 2: tests/test_signal.py:225
+FIR_BF16_ORACLE_REL = 1.5e-2          # tests/test_signal.py:206
+FIR_ORACLE_ROWS = 4                   # rows held against np.convolve
+FIR_SPREAD_ROWS = 16                  # rows of the float64 evaluation
+FIR_FRAME_FLOP = 2 * 256 * 128        # one pass of one frame's product
 SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's clock: see _events_ms
 
 
@@ -146,17 +177,21 @@ def _compare(kern, plain, rtol=RTOL, atol=ATOL) -> tuple[float, float, bool]:
     return max_abs, max_rel, ok
 
 
-def roofline_ms(n_bytes: float, n_flop: float) -> tuple[float, str]:
+def roofline_ms(n_bytes: float, n_flop: float,
+                tensor_cores: bool = False) -> tuple[float, str]:
     """The least time this card can take to move n_bytes and do n_flop
-    float32 operations, and which of the two sets it."""
+    operations (float32 outside the tensor cores, or bf16 on them with
+    ``tensor_cores``), and which of the two sets it."""
     import torch
     from njw_tpu_torch.platform.device import spec_for
 
-    bw_gbps, fp32_tflops = spec_for(torch.cuda.get_device_name(0))
+    bw_gbps, fp32_tflops, bf16_tc_tflops = spec_for(
+        torch.cuda.get_device_name(0))
     if bw_gbps is None:
         fail("kernels", "card not in the spec table of platform/device.py")
     t_bytes = n_bytes / (bw_gbps * 1e9) * 1e3
-    t_ops = n_flop / (fp32_tflops * 1e12) * 1e3
+    peak = bf16_tc_tflops if tensor_cores else fp32_tflops
+    t_ops = n_flop / (peak * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -176,22 +211,26 @@ def distinct_bytes(*tensors) -> int:
     return sum(seen.values())
 
 
-def reset_counts() -> None:
+def _counted():
+    """{name: the wrapper that carries the kernel's launch count}."""
     from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
+    from njw_tpu_torch.signal import fir_cuda
 
-    stencil.swe_rk4_step_cuda.launches = 0
-    baro_stencil.baro_stage_cuda.launches = 0
-    pe_stencil.pe_stage_cuda.launches = 0
-    pe_stencil.pe_rk4_step_cuda.launches = 0
+    return {"swe_rk4": stencil.swe_rk4_step_cuda,
+            "baro_stage": baro_stencil.baro_stage_cuda,
+            "pe_stage": pe_stencil.pe_stage_cuda,
+            "pe_rk4": pe_stencil.pe_rk4_step_cuda,
+            "fir_band": fir_cuda.fir_band_cuda,
+            "fir_band_bf16": fir_cuda.fir_band_bf16_cuda}
+
+
+def reset_counts() -> None:
+    for wrapper in _counted().values():
+        wrapper.launches = 0
 
 
 def counts() -> dict:
-    from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
-
-    return {"swe_rk4": stencil.swe_rk4_step_cuda.launches,
-            "baro_stage": baro_stencil.baro_stage_cuda.launches,
-            "pe_stage": pe_stencil.pe_stage_cuda.launches,
-            "pe_rk4": pe_stencil.pe_rk4_step_cuda.launches}
+    return {name: w.launches for name, w in _counted().items()}
 
 
 def host_us_per_launch(launch) -> float:
@@ -305,7 +344,7 @@ def main_path() -> dict:
     r = _drive(sim, swe.warm, swe.steps)
     n = swe.config["grid_width"] * swe.config["grid_height"]
     b_ms, b_by = bound_ms(n, viscous=False)
-    bw, _ = spec_for(torch.cuda.get_device_name(0))
+    bw = spec_for(torch.cuda.get_device_name(0))[0]
     emit("main_path", ok=r["finite"] and r["launches"]["swe_rk4"] == swe.steps,
          grid=swe.config["grid_width"], steps=swe.steps, warm_steps=swe.warm,
          stepper=sim.stepper.name, grid_points_per_s=n / (r["ms_per_step"]
@@ -855,6 +894,334 @@ def cli() -> None:
             fail("cli", f"CLI {name} run failed")
 
 
+def _fir_path(name: str):
+    """A main path of njw_tpu_torch.signal.main_paths."""
+    from njw_tpu_torch.signal.main_paths import MAIN_PATHS
+
+    return MAIN_PATHS[name]
+
+
+def _fir_signal(shape, seed: int):
+    """Standard normal float32 samples on the card."""
+    import numpy as np
+    import torch
+
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+def _nan_after(t):
+    """``t`` at the start of a buffer whose rest is NaN (a view of it), so
+    that a kernel that reads past the last sample (the ragged last frame)
+    turns valid outputs NaN."""
+    import torch
+
+    buf = torch.full((t.numel() + 4096,), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    buf[:t.numel()] = t.flatten()
+    return buf[:t.numel()].view(t.shape)
+
+
+def _fir_spread(x, taps, plan) -> float:
+    """The float32 summation spread of the plain version: twice its
+    largest distance from a float64 evaluation of the same bf16 products,
+    on the first FIR_SPREAD_ROWS rows."""
+    import torch
+    from njw_tpu_torch.signal import fir_cuda as fc
+    from njw_tpu_torch.signal.filters import fir_bands, split_terms
+
+    xs = x[:FIR_SPREAD_ROWS]
+    na = 1 + max(a for a, _ in plan)
+    nb = 1 + max(b for _, b in plan)
+    terms_x = split_terms(xs.float(), na) if xs.dtype == torch.float32 \
+        else [xs.float()]
+    terms_h = fir_bands(taps, x.device).terms[:nb].float()
+    f32 = fc._product(terms_x, terms_h, plan, x.shape[1])
+    f64 = fc._product([t.double() for t in terms_x], terms_h.double(), plan,
+                      x.shape[1])
+    return 2.0 * float((f32.double() - f64).abs().max())
+
+
+def _fir_oracle(x, taps, rows: int = FIR_ORACLE_ROWS):
+    """np.convolve of the first ``rows`` rows of x, in float64."""
+    import numpy as np
+
+    xr = x[:rows].float().cpu().numpy().astype(np.float64)
+    ref = np.stack([np.convolve(r, taps.astype(np.float64))[:x.shape[1]]
+                    for r in xr])
+    return ref
+
+
+def _fir_vs_plain(kern, x, taps, passes) -> tuple[dict, bool]:
+    """fir_band's output ``kern`` against its plain version on the same x:
+    rtol FIR_RTOL and atol FIR_ATOL or the float32 summation spread,
+    whichever is larger. Returns the fields to emit and whether it agrees."""
+    from njw_tpu_torch.signal import fir_cuda as fc
+
+    plain = fc.fir_band_plain(x, taps, passes=passes)
+    spread = _fir_spread(x, taps, fc.PLANS[passes])
+    atol = max(FIR_ATOL, spread)
+    max_abs, max_rel, ok = _compare([kern], [plain], FIR_RTOL, atol)
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": FIR_RTOL,
+            "atol": atol, "f32_sum_spread": spread}, ok
+
+
+def _fir_bf16_vs_plain(kern, x, taps, taps_passes, out_dtype
+                       ) -> tuple[dict, bool]:
+    """fir_band_bf16's output ``kern`` against its plain version on the same
+    x: one bf16 ulp (+ the float32 summation spread) for bf16 output, rtol
+    FIR_RTOL and that atol for float32 output."""
+    import torch
+    from njw_tpu_torch.signal import fir_cuda as fc
+
+    plain = fc.fir_band_bf16_plain(x, taps, taps_passes=taps_passes,
+                                   out_dtype=out_dtype)
+    spread = _fir_spread(x, taps, fc.TAPS_PLANS[taps_passes])
+    d = (kern.float() - plain.float()).abs()
+    if out_dtype == torch.bfloat16:
+        _, e = torch.frexp(plain.float())
+        ulp = torch.ldexp(torch.ones_like(d), e - 8)
+        ok = bool((d <= ulp + spread).all())
+        tol = {"bf16_ulps": 1, "plus_f32_sum_spread": spread}
+    else:
+        ok = bool((d <= max(FIR_ATOL, spread)
+                   + FIR_RTOL * plain.abs()).all())
+        tol = {"rtol": FIR_RTOL, "atol": max(FIR_ATOL, spread)}
+    ok &= bool(torch.isfinite(kern).all())
+    return {"max_abs_err": float(d.max()), "tol": tol}, ok
+
+
+def _fir_time(kernel, x, taps, launch, plain, products, library_call,
+              **fields) -> dict:
+    """One FIR kernel at a main path's shape: ms per launch by events, its
+    plain version's ms, the bound (x read once, an output of x's type
+    written once; ``products`` band products per frame on the tensor
+    cores),
+    the wrapper's host cost and F.conv1d in x's type, the one PyTorch call
+    that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    _events_ms(launch, 3)
+    ms = _events_ms(launch, 20)
+    _events_ms(plain, 1)
+    plain_ms = _events_ms(plain, 3)
+    k = len(taps)
+    w = torch.from_numpy(taps[::-1].copy()).to(x.device, x.dtype)
+    w = w.view(1, 1, k)
+    torch.backends.cudnn.allow_tf32 = False
+    conv = lambda: F.conv1d(x[:, None], w, padding=k - 1)[..., :x.shape[1]]  # noqa: E731,E501
+    _events_ms(conv, 2)
+    library_ms = _events_ms(conv, 10)
+    rows, n = x.shape
+    frames = -(-n // 128)
+    n_bytes = distinct_bytes(x) * 2
+    b_ms, b_by = roofline_ms(n_bytes,
+                             rows * frames * FIR_FRAME_FLOP * products,
+                             tensor_cores=True)
+    host_us = host_us_per_launch(launch)
+    emit("kernel_time", ok=True, kernel=kernel, shape=[rows, n], taps=k,
+         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+         fraction_of_bound=b_ms / ms, gbps=n_bytes / (ms * 1e6),
+         library_ms=library_ms, library_call=library_call,
+         host_us_per_launch=host_us, **fields)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "host_us": host_us, "library_ms": library_ms}
+
+
+def fir_kernel() -> dict:
+    """fir_band (K7, serving K9 and K10) against its plain version and the
+    NumPy oracle on the card, at the shapes of the fir_batch and fir_suite
+    paths and at small ragged ones; its time, bound, host cost and library
+    time."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.signal import fir_cuda as fc
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain: float32 products
+    path_, suite = _fir_path("fir_batch"), _fir_path("fir_suite")
+    taps_main = path_.taps()
+    rnd_taps = (np.random.default_rng(7).standard_normal(101)
+                .astype(np.float32) * 0.1)        # tests/test_signal.py:154
+    cases = [  # name, x, taps, wrapper
+        ("main_1000x100000", _fir_signal(path_.shape, 1), taps_main,
+         fc.fir_batch_lanes),
+        ("suite_16x1000000", _fir_signal(suite.shape, 8), suite.taps(),
+         fc.fir_batch_lanes),
+        ("3x1000", _fir_signal((3, 1000), 2), rnd_taps, fc.fir_batch_lanes),
+        ("9x4096", _fir_signal((9, 4096), 3), rnd_taps, fc.fir_batch_lanes),
+        ("2x300", _fir_signal((2, 300), 4), rnd_taps, fc.fir_batch_lanes),
+        ("nan_after_3x1000", _nan_after(_fir_signal((3, 1000), 6)),
+         rnd_taps, fc.fir_batch_lanes),
+        ("flat_5x1280", _fir_signal((5, 1280), 5), rnd_taps,
+         fc.fir_batch_flat),
+    ]
+    main_err, worst = None, 0.0
+    for name, x, taps, wrapper in cases:
+        oracle = _fir_oracle(x, taps)
+        scale = float(np.abs(oracle).max())
+        for passes in (fc.PLANS if wrapper is fc.fir_batch_lanes
+                       else (1, 2, 3)):
+            kern = wrapper(x, taps, passes=passes)
+            torch.cuda.synchronize()
+            check, ok = _fir_vs_plain(kern, x, taps, passes)
+            got = kern[:FIR_ORACLE_ROWS].cpu().numpy()
+            oracle_err = float(np.abs(got - oracle).max())
+            if passes in (0, 3, 6):
+                oracle_ok = oracle_err <= FIR_ORACLE_ATOL
+                oracle_tol = {"atol": FIR_ORACLE_ATOL}
+            else:
+                oracle_ok = oracle_err <= FIR_ORACLE_REL_1PASS * scale
+                oracle_tol = {"rel_to_max_ref": FIR_ORACLE_REL_1PASS}
+            emit("kernel_vs_plain", ok=ok and oracle_ok, kernel="fir_band",
+                 case=name, wrapper=wrapper.__name__, shape=list(x.shape),
+                 taps=len(taps), passes=passes, **check,
+                 oracle_max_abs_err=oracle_err, oracle_max_ref=scale,
+                 oracle_tol=oracle_tol)
+            if not (ok and oracle_ok):
+                fail("kernel_vs_plain", f"fir_band disagrees with its plain "
+                     f"version or the oracle on {name}, passes {passes}")
+            worst = max(worst, check["max_abs_err"])
+            if name.startswith("main") and passes == 3:
+                main_err = check["max_abs_err"]
+            del kern
+        torch.cuda.empty_cache()
+
+    # time at the main path's shape (400 MB in, 400 MB out: past L2)
+    x = cases[0][1]
+    del cases
+    torch.cuda.empty_cache()
+    t = _fir_time(
+        "fir_band", x, taps_main,
+        lambda: fc.fir_band_cuda(x, taps_main, passes=3),
+        lambda: fc.fir_band_plain(x, taps_main, passes=3), 3,
+        "F.conv1d float32, cudnn.allow_tf32=False", passes=3)
+    del x
+    torch.cuda.empty_cache()
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst, **t}
+
+
+def fir_bf16_kernel() -> dict:
+    """fir_band_bf16 (K8) against its plain version and the oracle; its
+    time, bound, host cost and library time."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.signal import fir_cuda as fc
+
+    path_ = _fir_path("fir_bf16")
+    taps_main = path_.taps()
+    rnd_taps = (np.random.default_rng(7).standard_normal(101)
+                .astype(np.float32) * 0.1)
+    cases = [("main_1000x100000", _fir_signal(path_.shape, 1), taps_main),
+             ("3x1000", _fir_signal((3, 1000), 2), rnd_taps),
+             ("2x300", _fir_signal((2, 300), 4), rnd_taps),
+             ("nan_after_3x1000", _fir_signal((3, 1000), 6), rnd_taps)]
+    main_err, worst = None, 0.0
+    for name, x32, taps in cases:
+        oracle = _fir_oracle(x32, taps)
+        scale = float(np.abs(oracle).max())
+        x = x32.to(torch.bfloat16)
+        if name.startswith("nan_after"):
+            x = _nan_after(x)
+        for taps_passes, out_dtype in ((1, torch.bfloat16),
+                                       (2, torch.bfloat16),
+                                       (1, torch.float32)):
+            kern = fc.fir_batch_bf16(x, taps, taps_passes=taps_passes,
+                                     out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            check, ok = _fir_bf16_vs_plain(kern, x, taps, taps_passes,
+                                           out_dtype)
+            oracle_rel = float(np.abs(kern[:FIR_ORACLE_ROWS].float().cpu()
+                                      .numpy() - oracle).max()) / scale
+            oracle_ok = oracle_rel < FIR_BF16_ORACLE_REL
+            emit("kernel_vs_plain", ok=ok and oracle_ok,
+                 kernel="fir_band_bf16", case=name, shape=list(x.shape),
+                 taps=len(taps), taps_passes=taps_passes,
+                 out_dtype=str(out_dtype), **check,
+                 oracle_rel_err=oracle_rel,
+                 oracle_tol_rel_to_max_ref=FIR_BF16_ORACLE_REL)
+            if not (ok and oracle_ok):
+                fail("kernel_vs_plain", f"fir_band_bf16 disagrees with its "
+                     f"plain version or the oracle on {name}, taps_passes "
+                     f"{taps_passes}, {out_dtype}")
+            worst = max(worst, check["max_abs_err"])
+            if name.startswith("main") and taps_passes == 1 and \
+                    out_dtype == torch.bfloat16:
+                main_err = check["max_abs_err"]
+            del kern
+        torch.cuda.empty_cache()
+
+    x = cases[0][1].to(torch.bfloat16)
+    del cases
+    torch.cuda.empty_cache()
+    t = _fir_time(
+        "fir_band_bf16", x, taps_main,
+        lambda: fc.fir_band_bf16_cuda(x, taps_main),
+        lambda: fc.fir_band_bf16_plain(x, taps_main), 1,
+        "F.conv1d bfloat16", taps_passes=1)
+    del x
+    torch.cuda.empty_cache()
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst, **t}
+
+
+def main_path_fir(name: str) -> dict:
+    """One FIR main path as a user calls it: launches, ms per call by
+    events, host enqueue per call, the bound, whether host or device sets
+    the pace, and the last timed call's output against the kernel's plain
+    version on the same input."""
+    import torch
+
+    p = _fir_path(name)
+    x = p.signal(seed=0)
+    call = p.call()
+    for _ in range(p.warm):
+        y = call(x)
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(p.calls):
+        y = call(x)
+    end.record()
+    end.synchronize()
+    launched = counts()
+    ms = start.elapsed_time(end) / p.calls
+    finite = bool(torch.isfinite(y).all()) and tuple(y.shape) == p.shape
+    t0 = time.perf_counter()
+    for _ in range(p.calls):
+        call(x)
+    host_ms = (time.perf_counter() - t0) * 1e3 / p.calls
+    torch.cuda.synchronize()
+    rows, n = p.shape
+    frames = -(-n // 128)
+    n_bytes = distinct_bytes(x) + y.numel() * y.element_size()
+    passes = 3 if p.dtype == torch.float32 else 1
+    b_ms, b_by = roofline_ms(n_bytes, rows * frames * FIR_FRAME_FLOP * passes,
+                             tensor_cores=True)
+    if p.dtype == torch.float32:
+        check, agrees = _fir_vs_plain(y, x, p.taps(), passes)
+    else:
+        check, agrees = _fir_bf16_vs_plain(y, x, p.taps(), passes,
+                                           torch.bfloat16)
+    want = {p.kernel: p.calls}
+    r = {"launches": launched, "finite": finite, "ms_per_call": ms,
+         "host_enqueue_ms_per_call": host_ms,
+         "paced_by": "host" if host_ms >= 0.9 * ms else "device"}
+    emit(f"main_path_{name}", ok=finite and agrees and launched == {
+        **{k: 0 for k in launched}, **want}, shape=[rows, n],
+         dtype=str(p.dtype), taps=p.num_taps, calls=p.calls, warm=p.warm,
+         gbps=n_bytes / (ms * 1e6), bound_ms=b_ms, bound_by=b_by,
+         fraction_of_bound=b_ms / ms, vs_plain=check, **r)
+    _check_main(f"main_path_{name}", r, want)
+    if not agrees:
+        fail(f"main_path_{name}", "the path's output disagrees with the "
+             "kernel's plain version on the same input")
+    del x, y
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -878,8 +1245,14 @@ def main() -> int:
     m4 = main_path_pe()
     m5 = main_path_pe_stages()
     cli()
+    k7 = fir_kernel()
+    k8 = fir_bf16_kernel()
+    m7 = main_path_fir("fir_batch")
+    main_path_fir("fir_suite")
+    m8 = main_path_fir("fir_bf16")
 
-    def row(name, source, replaces, function, k, launches, run, **extra):
+    def row(name, source, replaces, function, k, launches, run, per="step",
+            **extra):
         return {
             "name": name, "route": "cuda",
             "source": f"njw_tpu_torch/ops/csrc/{source}",
@@ -887,11 +1260,12 @@ def main() -> int:
             "launches": launches, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "max_err": k["max_abs_err"],
-            "us_per_step": run["ms_per_step"] * 1e3,
+            "library_ms": k.get("library_ms"), "max_err": k["max_abs_err"],
+            f"us_per_{per}": run[f"ms_per_{per}"] * 1e3,
             "bound_us": k["bound_ms"] * 1e3,
             "host_us_per_launch": k["host_us"], **extra}
 
+    fir = "njw_tpu/signal/fir_pallas.py"
     kernels = [
         row("swe_rk4", "swe_rk4.cu", "njw_tpu/ops/stencil.py:60",
             "swe_rk4_kernel", k1, m1["launches"]["swe_rk4"], m1,
@@ -912,6 +1286,18 @@ def main() -> int:
             "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
             main_path="main_path_pe",
             max_abs_err_all_cases=k4["max_abs_err_all_cases"]),
+        row("fir_band", "fir_band.cu", f"{fir}:192",
+            "_fir_lanes_scratch_kernel", k7, m7["launches"]["fir_band"], m7,
+            per="call", main_path="main_path_fir_batch",
+            also_replaces=[f"{fir}:250 _fir_lanes_kernel",
+                           f"{fir}:37 _fir_batch_kernel",
+                           f"{fir}:110 _fir_flat_kernel"],
+            max_abs_err_all_cases=k7["max_abs_err_all_cases"]),
+        row("fir_band_bf16", "fir_band_bf16.cu", f"{fir}:418",
+            "_fir_lanes_bf16_kernel", k8, m8["launches"]["fir_band_bf16"],
+            m8, per="call", main_path="main_path_fir_bf16",
+            also_replaces=[f"{fir}:384 _fir_lanes_bf16_nonscratch_kernel"],
+            max_abs_err_all_cases=k8["max_abs_err_all_cases"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -10,9 +10,13 @@ the CLI: shallow water (grid, initial conditions, tendencies, integrators,
 the NumPy oracles) with the fused RK4 kernel ``ops/csrc/swe_rk4.cu``; the
 barotropic vorticity core (``torch.fft`` Poisson solve) with the Arakawa
 stage kernel ``ops/csrc/baro_stage.cu``; the primitive equations with the
-stage kernel ``ops/csrc/pe_stage.cu``. All three kernels are CUDA C++
-written by hand for sm_90a. Entry points run on the CUDA device unless the
-caller passes ``device="cpu"``.
+whole-step kernel ``ops/csrc/pe_rk4.cu`` and the stage kernel
+``ops/csrc/pe_stage.cu``; and the FIR half of ``signal`` (windows, FIR
+design, ``fir_apply``, ``FIRFilter``, ``MultirateFilter``,
+``StreamingFIR``) with the banded-product tensor-core kernels
+``ops/csrc/fir_band.cu`` and ``ops/csrc/fir_band_bf16.cu``. All kernels are
+CUDA C++ written by hand for sm_90a. Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,8 @@ Counterpart of ``njw_tpu/platform/device.py`` (``DeviceCaps``, ``detect``,
 ``get_device_info``). What the CUDA runtime reports (name, SM count,
 opt-in shared memory per block, L2 size, memory size) comes from
 ``torch.cuda.get_device_properties``; what it does not report (memory
-bandwidth, fp32 peak) comes from a small spec table keyed by the device
-name.
+bandwidth, fp32 and bf16 tensor-core peaks) comes from a small spec table
+keyed by the device name.
 """
 from __future__ import annotations
 
@@ -15,15 +15,17 @@ from typing import Optional
 import torch
 
 # Published per-card figures (NVIDIA H100 Tensor Core GPU datasheet, SXM /
-# PCIe / NVL columns; NVIDIA H200 datasheet): memory bandwidth in GB/s and
-# dense fp32 (non-tensor-core) peak in TFLOP/s. Matched by substring of
-# ``torch.cuda.get_device_name``, most specific first.
+# PCIe / NVL columns; NVIDIA H200 datasheet): memory bandwidth in GB/s,
+# dense fp32 (non-tensor-core) peak and dense bf16 tensor-core peak in
+# TFLOP/s (the data sheets' bf16 figures are with sparsity, twice these).
+# Matched by substring of ``torch.cuda.get_device_name``, most specific
+# first.
 _SPEC_TABLE = (
-    # substring     bw_gbps  fp32_tflops
-    ("H100 PCIe", 2000.0, 51.0),
-    ("H100 NVL", 3900.0, 60.0),
-    ("H200", 4800.0, 67.0),
-    ("H100", 3350.0, 67.0),  # SXM5 (reports as "NVIDIA H100 80GB HBM3")
+    # substring     bw_gbps  fp32_tflops  bf16_tc_tflops
+    ("H100 PCIe", 2000.0, 51.0, 756.0),
+    ("H100 NVL", 3900.0, 60.0, 835.0),
+    ("H200", 4800.0, 67.0, 989.0),
+    ("H100", 3350.0, 67.0, 989.0),  # SXM5 ("NVIDIA H100 80GB HBM3")
 )
 
 
@@ -40,18 +42,21 @@ class DeviceCaps:
     total_memory_bytes: int = 0
     hbm_bandwidth_gbps: Optional[float] = None  # None: not in the spec table
     peak_fp32_tflops: Optional[float] = None
+    peak_bf16_tensor_tflops: Optional[float] = None
 
     @property
     def is_cuda(self) -> bool:
         return self.platform == "cuda"
 
 
-def spec_for(name: str) -> tuple[Optional[float], Optional[float]]:
-    """(memory GB/s, fp32 TFLOP/s) for a device name, or (None, None)."""
-    for key, bw, fp32 in _SPEC_TABLE:
+def spec_for(name: str) -> tuple[Optional[float], Optional[float],
+                                 Optional[float]]:
+    """(memory GB/s, fp32 TFLOP/s, bf16 tensor-core TFLOP/s) for a device
+    name, or Nones."""
+    for key, *spec in _SPEC_TABLE:
         if key in name:
-            return bw, fp32
-    return None, None
+            return tuple(spec)
+    return None, None, None
 
 
 def detect(device: str | torch.device = "cuda") -> DeviceCaps:
@@ -60,7 +65,7 @@ def detect(device: str | torch.device = "cuda") -> DeviceCaps:
     if dev.type == "cuda":
         require_device(dev)
         props = torch.cuda.get_device_properties(dev.index or 0)
-        bw, fp32 = spec_for(props.name)
+        bw, fp32, bf16_tc = spec_for(props.name)
         return DeviceCaps(
             platform="cuda", name=props.name,
             num_devices=torch.cuda.device_count(),
@@ -69,6 +74,7 @@ def detect(device: str | torch.device = "cuda") -> DeviceCaps:
             l2_bytes=getattr(props, "L2_cache_size", 0),
             total_memory_bytes=props.total_memory,
             hbm_bandwidth_gbps=bw, peak_fp32_tflops=fp32,
+            peak_bf16_tensor_tflops=bf16_tc,
         )
     if dev.type == "cpu":
         return DeviceCaps(platform="cpu", name="cpu", num_devices=1)

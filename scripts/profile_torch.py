@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main paths goes, on one GPU.
 
-    python scripts/profile_torch.py [--model swe|barotropic|primitive|all]
+    python scripts/profile_torch.py [--model swe|barotropic|primitive|fir|all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -17,7 +17,12 @@ power limit:
     with the bandwidth its 24 B/point minimum traffic implies;
   * primitive ``layouts``: the whole-step kernel alone at the main path's
     shape for several output tiles, beside the four-stage path's ms/step
-    (CUDA events).
+    (CUDA events);
+  * fir ``profile``: the fir_batch path of
+    ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
+    101 taps) called ``--steps`` times: device time by kernel, busy share
+    and host enqueue per call; and ``fir_passes``: each FIR kernel alone at
+    that shape for every precision it offers (CUDA events).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from njw_tpu_torch.weather import GridSpec, make_initial_state  # noqa: E402
 from njw_tpu_torch.weather.main_paths import MAIN_PATHS  # noqa: E402
 
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
-                "pe_rk4_kernel")
+                "pe_rk4_kernel", "band_kernel")
 
 
 def card() -> str:
@@ -64,6 +69,31 @@ def group(name: str) -> str:
     return "cufft" if "fft" in name.lower() else "other_torch"
 
 
+def device_ms_by_kernel(prof) -> dict[str, float]:
+    by_name: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0)
+        if us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+    return by_name
+
+
+def summary(by_name: dict[str, float], count: int, wall_ms: float,
+            per: str) -> dict:
+    """Device ms per step or call, by kernel group, and the busy share."""
+    groups: dict[str, float] = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms / count
+    device_ms = sum(by_name.values())
+    return {f"wall_ms_per_{per}": wall_ms / count,
+            f"device_ms_per_{per}": device_ms / count,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            f"device_ms_per_{per}_by_group": groups,
+            "device_ms_by_kernel": by_name}
+
+
 def profile_path(model: str, steps: int, gpu: str) -> dict:
     sim = MAIN_PATHS[model].simulation()
     sim.step(3)
@@ -72,17 +102,7 @@ def profile_path(model: str, steps: int, gpu: str) -> dict:
         t0 = time.perf_counter()
         sim.step(steps)  # ends in torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", 0.0)
-        if us > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
-    groups: dict[str, float] = {}
-    for name, ms in by_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms / steps
-    device_ms = sum(by_name.values())
+    by_name = device_ms_by_kernel(prof)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -91,12 +111,38 @@ def profile_path(model: str, steps: int, gpu: str) -> dict:
     torch.cuda.synchronize()
     return {"phase": "profile", "card": gpu, "model": model,
             "stepper": sim.stepper.name, "steps": steps,
-            "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": device_ms / steps,
-            "device_busy_share": device_ms / wall_ms if wall_ms else None,
-            "device_ms_per_step_by_group": groups,
-            "host_enqueue_ms_per_step": enqueue_ms,
-            "device_ms_by_kernel": by_name}
+            **summary(by_name, steps, wall_ms, "step"),
+            "host_enqueue_ms_per_step": enqueue_ms}
+
+
+def profile_fir(calls: int, gpu: str) -> dict:
+    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
+
+    path = SIGNAL_PATHS["fir_batch"]
+    x = path.signal()
+    call = path.call()
+    for _ in range(path.warm):
+        call(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_kernel(prof)
+
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call(x)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    return {"phase": "profile", "card": gpu, "model": "fir",
+            "path": "fir_batch", "shape": list(path.shape),
+            "taps": path.num_taps, "calls": calls,
+            **summary(by_name, calls, wall_ms, "call"),
+            "host_enqueue_ms_per_call": enqueue_ms}
 
 
 def swe_extras(steps: int, gpu: str) -> None:
@@ -178,18 +224,49 @@ def primitive_extras(gpu: str) -> None:
           flush=True)
 
 
+def fir_extras(gpu: str) -> None:
+    from njw_tpu_torch.signal import fir_cuda as fc
+    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
+
+    path = SIGNAL_PATHS["fir_batch"]
+    x, taps = path.signal(), path.taps()
+    rows = {}
+    for passes in (1, 2, 3, 0):
+        def launch():
+            fc.fir_band_cuda(x, taps, passes=passes)
+
+        events_ms(launch, 3)
+        rows[f"fir_band passes={passes}"] = events_ms(launch, 20)
+    xb = x.to(torch.bfloat16)
+    del x
+    for taps_passes in (1, 2):
+        def launch():
+            fc.fir_band_bf16_cuda(xb, taps, taps_passes=taps_passes)
+
+        events_ms(launch, 3)
+        rows[f"fir_band_bf16 taps_passes={taps_passes}"] = events_ms(launch,
+                                                                    20)
+    print(json.dumps({"phase": "fir_passes", "card": gpu,
+                      "shape": list(path.shape), "taps": path.num_taps,
+                      "ms": rows}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
-                    choices=[*MAIN_PATHS, "all"])
+                    choices=[*MAIN_PATHS, "fir", "all"])
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
         return 1
     gpu = card()
-    models = list(MAIN_PATHS) if args.model == "all" else [args.model]
+    models = [*MAIN_PATHS, "fir"] if args.model == "all" else [args.model]
     for model in models:
+        if model == "fir":
+            print(json.dumps(profile_fir(args.steps, gpu)), flush=True)
+            fir_extras(gpu)
+            continue
         print(json.dumps(profile_path(model, args.steps, gpu)), flush=True)
         if model == "swe":
             swe_extras(args.steps, gpu)

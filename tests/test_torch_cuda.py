@@ -21,6 +21,11 @@ from njw_tpu_torch.ops.pe_stencil import (  # noqa: E402
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
     swe_rk4_step, swe_rk4_step_cuda, swe_rk4_step_plain,
 )
+from njw_tpu_torch.signal import FIRFilter, fir_batch_bf16  # noqa: E402
+from njw_tpu_torch.signal.fir_cuda import (  # noqa: E402
+    fir_band_bf16_cuda, fir_band_bf16_plain, fir_band_cuda, fir_band_plain,
+    fir_batch_lanes,
+)
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation,
 )
@@ -199,3 +204,92 @@ class TestStageKernelsOnCard:
             scale = float(b.abs().max()) + 1e-30
             torch.testing.assert_close(a / scale, b / scale, rtol=0,
                                        atol=1e-3, msg=name)
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each element of ``t``."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+# bf16 outputs agree within one bf16 ulp of the rounding, plus the float32
+# summation-order spread of the sums before it (where a sum cancels to
+# near zero, that spread is larger than the ulp of the result)
+BF16_SUM_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+class TestFIRKernelsOnCard:
+    # ragged last frames, one-row and one-sample rows, rows whose length
+    # is no multiple of 4 (scalar loads and stores), the band's extremes
+    @pytest.mark.parametrize("shape,k", [
+        ((3, 1000), 101), ((9, 4096), 101), ((2, 300), 101), ((5, 1280), 101),
+        ((1, 1), 101), ((17, 8193), 128), ((4, 9000), 1), ((2, 70000), 16)])
+    @pytest.mark.parametrize("passes", [0, 1, 2, 3, 6])
+    def test_fir_band_matches_plain_version(self, cuda_device, shape, k,
+                                            passes):
+        rng = np.random.default_rng(k + shape[1])
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        taps = rng.standard_normal(k).astype(np.float32) * 0.1
+        x = x.to(cuda_device)
+        before = fir_band_cuda.launches
+        out = fir_batch_lanes(x, taps, passes=passes)
+        ref = fir_band_plain(x, taps, passes=passes)
+        torch.cuda.synchronize()
+        assert fir_band_cuda.launches == before + 1
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        oracle = np.stack([np.convolve(r, taps)[:shape[1]]
+                           for r in x.cpu().numpy().astype(np.float64)])
+        tol = 2e-4 if passes in (0, 3, 6) else 3e-2
+        assert np.abs(out.cpu().numpy() - oracle).max() < tol
+
+    @pytest.mark.parametrize("passes", [0, 3])
+    def test_fir_band_never_reads_past_the_rows(self, cuda_device, passes):
+        """The rows lie at the start of a NaN-filled buffer: a kernel that
+        loaded the ragged last frame's missing samples would turn valid
+        outputs NaN (0 * NaN in the band product)."""
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((3, 1000)).astype(
+            np.float32)).to(cuda_device)
+        taps = rng.standard_normal(101).astype(np.float32) * 0.1
+        buf = torch.full((x.numel() + 4096,), float("nan"),
+                         device=cuda_device)
+        buf[:x.numel()] = x.flatten()
+        out = fir_batch_lanes(buf[:x.numel()].view(3, 1000), taps,
+                              passes=passes)
+        torch.testing.assert_close(out, fir_band_plain(x, taps, passes=passes),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("shape", [(3, 1000), (2, 300), (7, 777),
+                                       (9, 4096)])
+    @pytest.mark.parametrize("taps_passes", [1, 2])
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    def test_fir_band_bf16_matches_plain_version(self, cuda_device, shape,
+                                                 taps_passes, out_dtype):
+        rng = np.random.default_rng(shape[1])
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        taps = rng.standard_normal(101).astype(np.float32) * 0.1
+        xb = x.to(cuda_device, torch.bfloat16)
+        before = fir_band_bf16_cuda.launches
+        out = fir_batch_bf16(xb, taps, taps_passes=taps_passes,
+                             out_dtype=out_dtype)
+        ref = fir_band_bf16_plain(xb, taps, taps_passes=taps_passes,
+                                  out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert fir_band_bf16_cuda.launches == before + 1
+        assert out.dtype == out_dtype
+        if out_dtype == torch.bfloat16:
+            assert bool(((out.float() - ref.float()).abs()
+                         <= _bf16_ulp(ref) + BF16_SUM_ATOL).all())
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+    def test_fir_apply_batch_branch_launches_the_kernel(self, cuda_device):
+        x = torch.randn(8, 65536 + 40, device=cuda_device)
+        filt = FIRFilter(num_taps=101, cutoff=0.25)
+        before = fir_band_cuda.launches
+        y = filt(x)
+        torch.cuda.synchronize()
+        assert fir_band_cuda.launches == before + 1
+        torch.testing.assert_close(y, fir_band_plain(x, filt.taps),
+                                   rtol=1e-5, atol=1e-5)
