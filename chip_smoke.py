@@ -52,12 +52,37 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 per call just after; the last call's output is held against
                 the kernel's plain version on the same input (the
                 tolerances of phase 8)
+  10 sharded kernels  the padded launches of K1 (local, carry, local2d),
+                K5 (local, local2d; one base and four) and K4 (local, carry,
+                local2d, carry2d: the last serves K6) on the card against
+                their plain versions at the full-width shard shapes of
+                njw_tpu_torch.weather.main_paths.SHARDED_PATHS (the
+                tolerances of phase 3), again with NaN around the block and
+                in each of its cells no interior output depends on; each
+                form's time per launch, plain time, bytes bound (interior
+                read and written once plus the halo band read) and host
+                cost per launch
+  11 sharded paths  every SHARDED_PATHS entry on a LocalMesh on cuda:0: SWE
+                2048^2 on (4, 1) and (2, 2), PE config 5 (2048^2 x 40) fused
+                on (2, 2), (2, 2) with carry=True, (4, 1), and on the stage
+                path on (4, 1) and (2, 2); each held against the
+                whole-domain path from the same state over the same steps
+                (Simulation, backend auto, at the JAX sharded tests'
+                tolerances; and the whole-domain run of the same kernel,
+                where identical arithmetic gives 0 or a few ulps); launch
+                counts exactly shards x steps (x 4 on the stage path); ms
+                and grid-points/s per step by CUDA events beside the
+                whole-domain path's in this call, the host's and the
+                device's time per step (which of the two sets the pace),
+                the device time of the halo exchanges, and the card's clock,
+                power and temperature beside the timed window
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -102,6 +127,16 @@ def emit(phase: str, **fields) -> None:
 def fail(phase: str, msg: str) -> None:
     emit(phase, ok=False, error=msg)
     raise SystemExit(1)
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi),
+    to read beside a timed window."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip()
 
 
 def nvidia_smi_line() -> str:
@@ -765,7 +800,19 @@ def _drive(sim, warm: int, steps: int) -> dict:
     return {"launches": launched, "finite": finite, "ms_per_step": ms_step,
             "host_ms_per_step": host_ms,
             "host_enqueue_ms_per_step": host_enqueue_ms,
+            "paced_by": paced_by(ms_step, host_enqueue_ms),
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def paced_by(ms: float, host_ms: float, device_ms: float = None) -> str:
+    """Which clock set the pace of a timed run, one rule for every phase:
+    "host" when the run took more than 1.1x the device's own work per step
+    (``device_ms``, where measured: the device waited), or when the host
+    took at least 0.9 of the run's time per step or call to enqueue it;
+    else "device"."""
+    if device_ms is not None and ms > 1.1 * device_ms:
+        return "host"
+    return "host" if host_ms >= 0.9 * ms else "device"
 
 
 def _check_main(phase: str, r: dict, want: dict) -> None:
@@ -1207,7 +1254,7 @@ def main_path_fir(name: str) -> dict:
     want = {p.kernel: p.calls}
     r = {"launches": launched, "finite": finite, "ms_per_call": ms,
          "host_enqueue_ms_per_call": host_ms,
-         "paced_by": "host" if host_ms >= 0.9 * ms else "device"}
+         "paced_by": paced_by(ms, host_ms)}
     emit(f"main_path_{name}", ok=finite and agrees and launched == {
         **{k: 0 for k in launched}, **want}, shape=[rows, n],
          dtype=str(p.dtype), taps=p.num_taps, calls=p.calls, warm=p.warm,
@@ -1220,6 +1267,410 @@ def main_path_fir(name: str) -> dict:
     del x, y
     torch.cuda.empty_cache()
     return r
+
+
+def _sharded_path(name: str):
+    """A sharded path of njw_tpu_torch.weather.main_paths."""
+    from njw_tpu_torch.weather.main_paths import SHARDED_PATHS
+
+    return SHARDED_PATHS[name]
+
+
+def _nan_framed(a, halo, reach: int, margin: int = 8):
+    """``a``, a padded block (interior at ``halo``; hx = 0: x whole), as a
+    view inside a NaN buffer ``margin`` cells wider on every side, with NaN
+    also in each of the block's cells that no interior output depends on
+    (distances dy, dx outside the interior with dy + dx > ``reach``: 4 for
+    the whole-step kernels, 1 for the stage kernel)."""
+    import torch
+
+    hy, hx = halo
+    rows, cols = a.shape[-2:]
+    buf = torch.full(a.shape[:-2] + (rows + 2 * margin, cols + 2 * margin),
+                     float("nan"), device=a.device)
+    view = buf[..., margin:margin + rows, margin:margin + cols]
+    view.copy_(a)
+
+    def dist(n, h):
+        i = torch.arange(n, device=a.device)
+        return torch.clamp(torch.maximum(h - i, i - (n - h - 1)), min=0)
+
+    view.masked_fill_(dist(rows, hy)[:, None] + dist(cols, hx)[None, :]
+                      > reach, float("nan"))
+    return view
+
+
+def _padded_bound(planes: int, ly: int, lx: int, reach: int, two_d: bool,
+                  extra_planes: int, flop: float) -> tuple:
+    """Bound of one padded launch: ``planes`` planes of the block read over
+    the interior and the halo band the kernel reads (``reach`` rows, and
+    columns when ``two_d``), ``extra_planes`` more interior planes read
+    (the bases), the interior written once; ``flop`` operations."""
+    cells = ly * lx + 2 * reach * lx + (2 * reach * ly if two_d else 0)
+    n_bytes = 4 * (planes * cells + extra_planes * ly * lx
+                   + planes * ly * lx)
+    return roofline_ms(n_bytes, flop)
+
+
+def sharded_kernels() -> dict:
+    """Phase 10: each padded launch of K1, K5 and K4 against its plain
+    version at the full-width shard shapes, clean and NaN-framed; its time,
+    plain time, bound and host cost. Returns {kernel: {form: numbers}}."""
+    import torch
+    from njw_tpu_torch.ops import pe_stencil as ps
+    from njw_tpu_torch.ops import stencil
+    from njw_tpu_torch.weather import GridSpec, make_initial_state
+
+    swe_path, pe_path = _sharded_path("swe_2x2"), _sharded_path(
+        "pe5_fused_2x2")
+    swe_cfg, pe_cfg = swe_path.sim_config(), pe_path.sim_config()
+    N, L = pe_cfg.grid_width, pe_cfg.num_levels
+    swe_kw = dict(dt=swe_cfg.dt, dx=swe_cfg.dx, dy=swe_cfg.dy,
+                  coriolis_f=swe_cfg.coriolis_f)
+    pe_kw = dict(dx=pe_cfg.dx, dy=pe_cfg.dy, coriolis_f=pe_cfg.coriolis_f)
+    third = 1.0 / 3.0
+    rk4 = (-third, third, 2.0 * third, third)
+    res: dict = {"swe_rk4": {}, "pe_stage": {}, "pe_rk4": {}}
+
+    def shard(mesh):
+        return N // mesh[0], N // mesh[1]
+
+    def report(kernel, form, mesh, halo, kern, plain, run, plain_run, tol,
+               bound, **extra):
+        """Compare (clean and NaN), time, emit; ``kern(framed)`` and
+        ``plain()`` give lists of interior tensors, ``run``/``plain_run``
+        launch once into preallocated outputs."""
+        rtol, atol = tol
+        want = plain()
+        checks = {}
+        for case, arg in (("clean", False), ("nan", True)):
+            got = kern(arg)
+            torch.cuda.synchronize()
+            checks[case] = _compare(got, want, rtol, atol)
+            del got
+        ok = all(c[2] for c in checks.values())
+        emit("sharded_kernel_vs_plain", ok=ok, kernel=kernel, form=form,
+             mesh=list(mesh), halo=list(halo), rtol=rtol, atol=atol,
+             max_abs_err=checks["clean"][0], max_rel_err=checks["clean"][1],
+             max_abs_err_nan=checks["nan"][0], **extra)
+        if not ok:
+            fail("sharded_kernel_vs_plain", f"{kernel} {form} disagrees with "
+                 "its plain version (clean or NaN-framed)")
+        del want
+        _events_ms(run, 3)
+        ms = _events_ms(run, 20)
+        _events_ms(plain_run, 1)
+        plain_ms = _events_ms(plain_run, 2)
+        b_ms, b_by = bound
+        host_us = host_us_per_launch(run)
+        emit("sharded_kernel_time", ok=True, kernel=kernel, form=form,
+             mesh=list(mesh), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, fraction_of_bound=b_ms / ms,
+             host_us_per_launch=host_us, **extra)
+        torch.cuda.empty_cache()
+        return {"max_abs_err": checks["clean"][0],
+                "max_abs_err_nan": checks["nan"][0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "host_us": host_us}
+
+    # K1: local and carry on a (4, 1) shard, local2d on a (2, 2) shard
+    for form, mesh, halo in (("local", (4, 1), (4, 0)),
+                             ("carry", (4, 1), (4, 0)),
+                             ("local2d", (2, 2), (4, 4))):
+        ly, lx = shard(mesh)
+        hy, hx = halo
+        g = GridSpec(nx=lx + 2 * hx, ny=ly + 2 * hy)
+        # seeded noise: every halo row and column differs from the rows a
+        # wrapped index would read in its place
+        s = make_initial_state("random", g, device="cuda", amplitude=0.1,
+                               seed=ly + hx)
+        blk = (s.u, s.v, s.h)
+        dst = tuple(torch.empty_like(t) for t in blk)
+        inner = tuple(t[hy:hy + ly] for t in dst) if form == "carry" else \
+            tuple(torch.empty(ly, lx, device="cuda") for _ in blk)
+
+        def kern(nan, blk=blk, halo=halo, form=form):
+            ins = tuple(_nan_framed(t, halo, 4) for t in blk) if nan else blk
+            if form == "carry":
+                out = stencil.swe_rk4_step_carry(*ins, hy=halo[0], **swe_kw)
+                return [o[halo[0]:halo[0] + ly] for o in out]
+            if form == "local":
+                return stencil.swe_rk4_step_local(*ins, hy=halo[0], **swe_kw)
+            return stencil.swe_rk4_step_local2d(*ins, hy=halo[0],
+                                                hx=halo[1], **swe_kw)
+
+        def plain(blk=blk, halo=halo):
+            return stencil.swe_rk4_step_padded_plain(*blk, halo=halo,
+                                                     **swe_kw)
+
+        def run(blk=blk, halo=halo, inner=inner):
+            stencil.swe_rk4_step_padded(*blk, halo=halo, out=inner, **swe_kw)
+
+        res["swe_rk4"][form] = report(
+            "swe_rk4", form, mesh, halo, kern, plain, run, plain,
+            (RTOL, ATOL), _padded_bound(3, ly, lx, 4, bool(hx), 0,
+                                        FLOP_PER_POINT * ly * lx))
+        del s, blk, dst, inner
+
+    # K5: local on a (4, 1) shard, local2d on a (2, 2) shard; one base
+    # (stages 1-3) and four (the last stage, bases s, s1, s2, s3)
+    for form, mesh, halo in (("local", (4, 1), (1, 0)),
+                             ("local2d", (2, 2), (1, 1))):
+        ly, lx = shard(mesh)
+        hy, hx = halo
+        cur = _pe_state(_pe_grid(L, ly + 2 * hy, lx + 2 * hx), 21)
+        grid_i = _pe_grid(L, ly, lx)
+        for nbase in (1, 4):
+            bases = [_pe_state(grid_i, 22 + g) for g in range(nbase)]
+            kw = dict(halo=halo, c_dt=0.5 * pe_cfg.dt if nbase == 1
+                      else pe_cfg.dt / 6.0,
+                      base_coeffs=(1.0,) if nbase == 1 else rk4, **pe_kw)
+            out = bases[0].map(torch.empty_like)
+
+            def kern(nan, cur=cur, bases=bases, kw=kw, form=form):
+                c = cur.map(lambda a: _nan_framed(a, kw["halo"], 1)) \
+                    if nan else cur
+                f = ps.pe_stage_local if form == "local" else \
+                    ps.pe_stage_local2d
+                extra = {} if form == "local" else {"hx": kw["halo"][1]}
+                k = {key: v for key, v in kw.items() if key != "halo"}
+                return [t for _, t in f(c, bases, hy=kw["halo"][0], **extra,
+                                        **k).items()]
+
+            def plain(cur=cur, bases=bases, kw=kw):
+                return [t for _, t in ps.pe_stage_padded_plain(
+                    cur, bases, **kw).items()]
+
+            def run(cur=cur, bases=bases, kw=kw, out=out):
+                ps.pe_stage_padded(cur, bases, out=out, **kw)
+
+            res["pe_stage"][f"{form}_{nbase}_bases"] = report(
+                "pe_stage", form, mesh, halo, kern, plain, run, plain,
+                (PE_RTOL, PE_ATOL),
+                _padded_bound(4 * L + 1, ly, lx, 1, bool(hx),
+                              nbase * (4 * L + 1),
+                              PE_FLOP[nbase] * L * ly * lx),
+                bases=nbase)
+            del bases, out
+        del cur
+
+    # K4: local and carry on a (4, 1) shard, local2d and carry2d (K6) on a
+    # (2, 2) shard; one scratch, as the steppers share it
+    scratch = ps.rk4_scratch(L, torch.device("cuda"))
+    for form, mesh, halo in (("local", (4, 1), (4, 0)),
+                             ("carry", (4, 1), (4, 0)),
+                             ("local2d", (2, 2), (4, 4)),
+                             ("carry2d", (2, 2), (4, 4))):
+        ly, lx = shard(mesh)
+        hy, hx = halo
+        s = _pe_state(_pe_grid(L, ly + 2 * hy, lx + 2 * hx), 31)
+        kw = dict(dt=pe_cfg.dt, **pe_kw)
+        carry = form.startswith("carry")
+        nxt = s.map(torch.empty_like) if carry else None
+        out = ps.interior(nxt, halo) if carry else \
+            _pe_state(_pe_grid(L, ly, lx), 32)
+
+        def kern(nan, s=s, halo=halo, form=form, kw=kw):
+            x = s.map(lambda a: _nan_framed(a, halo, 4)) if nan else s
+            hy, hx = halo
+            f = {"local": ps.pe_rk4_local, "carry": ps.pe_rk4_carry,
+                 "local2d": ps.pe_rk4_local2d,
+                 "carry2d": ps.pe_rk4_carry2d}[form]
+            extra = {"hx": hx} if form.endswith("2d") else {}
+            got = f(x, hy=hy, scratch=scratch, **extra, **kw)
+            if form.startswith("carry"):
+                got = ps.interior(got, halo)
+            return [t for _, t in got.items()]
+
+        def plain(s=s, halo=halo, kw=kw):
+            return [t for _, t in ps.pe_rk4_padded_plain(
+                s, halo=halo, **kw).items()]
+
+        def run(s=s, halo=halo, kw=kw, out=out):
+            ps.pe_rk4_padded(s, halo=halo, out=out, scratch=scratch, **kw)
+
+        res["pe_rk4"][form] = report(
+            "pe_rk4", form, mesh, halo, kern, plain, run, plain,
+            (PE_RTOL, PE_ATOL),
+            _padded_bound(4 * L + 1, ly, lx, 4, bool(hx), 0,
+                          PE_STEP_FLOP * L * ly * lx))
+        del s, nxt, out
+    del scratch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _max_abs(a_state, b_state) -> float:
+    return max(float((a - b).abs().max()) for (_, a), (_, b) in
+               zip(a_state.items(), b_state.items()))
+
+
+def _within(a_state, b_state, tol: dict) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(a).all()) and bool(
+        torch.allclose(a, b, rtol=tol[n][0], atol=tol[n][1]))
+        for (n, a), (_, b) in zip(a_state.items(), b_state.items()))
+
+
+# the JAX sharded tests' tolerances (tests/test_parallel_halo.py:398-424,
+# :270-305): SWE h 1e-5 / 1e-5, u and v 1e-5 / 1e-4; PE 1e-3 / 5e-4
+SHARD_TOL = {"h": (1e-5, 1e-5), "u": (1e-5, 1e-4), "v": (1e-5, 1e-4)}
+SHARD_TOL_PE = {n: (1e-3, 5e-4) for n in ("u", "v", "T", "q", "ps")}
+
+
+def _whole_domain(p, stage_path: bool):
+    """The whole-domain run of a sharded path's configuration: Simulation
+    with backend auto, or the four-stage stepper."""
+    if stage_path:
+        return _pe_stage_simulation(**p.overrides)
+    return p.simulation()
+
+
+def _time_steps(step, steps: int) -> tuple:
+    """(ms per step by events, host ms per step) of ``step()``, which runs
+    ``steps`` steps; the host time is that of the whole call, until it
+    returns."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps, host_ms
+
+
+def _step_costs(stepper, shards, reps: int = 3) -> tuple:
+    """(host ms, device ms) of one step: a two-step call less a one-step
+    call, which cancels the call's copies of the shards in and out; the
+    median of ``reps`` pairs. Host: the enqueue on the host clock after a
+    synchronise. Device: CUDA events with the device kept busy first
+    (``_events_ms``), so that they time the device's work and not the
+    host's pace (two steps stay well inside the launch queue)."""
+    import statistics
+
+    import torch
+
+    n = stepper.n_steps
+    host, dev = [], []
+    try:
+        for _ in range(reps):
+            h, d = {}, {}
+            for k in (1, 2):
+                stepper.n_steps = k
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stepper(shards)
+                h[k] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                d[k] = _events_ms(lambda: stepper(shards), 1)
+            host.append(h[2] - h[1])
+            dev.append(d[2] - d[1])
+    finally:
+        stepper.n_steps = n
+    return statistics.median(host), statistics.median(dev)
+
+
+def sharded_paths() -> dict:
+    """Phase 11: every SHARDED_PATHS entry on a LocalMesh on cuda:0."""
+    import torch
+    from njw_tpu_torch.parallel import LocalMesh
+    from njw_tpu_torch.weather.main_paths import SHARDED_PATHS
+
+    results = {}
+    refs: dict = {}   # (model, overrides, stage_path) -> whole-domain runs
+    for name, p in SHARDED_PATHS.items():
+        cfg = p.sim_config()
+        stage_path = p.kernel == "pe_stage"
+        key = (p.model, tuple(sorted(p.overrides.items())))
+        if key not in refs:
+            refs.clear()
+            torch.cuda.empty_cache()
+            refs[key] = {}
+        bucket = refs[key]
+        for kind in ("auto", "same"):
+            want_stage = stage_path and kind == "same"
+            if want_stage in bucket:
+                continue
+            sim = _whole_domain(p, want_stage)
+            s0 = sim.state.map(torch.clone)
+            sim.step(p.steps)
+            ref = sim.state.map(torch.clone)
+            whole_ms, _ = _time_steps(lambda: sim.step(p.steps), p.steps)
+            emit("sharded_path_reference", ok=True, model=cfg.model,
+                 stepper=sim.stepper.name, ms_per_step=whole_ms,
+                 card=card_state())
+            bucket[want_stage] = (s0, ref, whole_ms, sim.stepper.name)
+            del sim
+            torch.cuda.empty_cache()
+        s0, ref_auto, auto_ms, auto_name = bucket[False]
+        _, ref_same, same_ms, same_name = bucket[stage_path]
+
+        mesh = LocalMesh(*p.mesh)
+        stepper = p.make_stepper(mesh)
+        shards = mesh.shard_state(s0)
+        reset_counts()
+        got = mesh.gather_state(stepper(shards))
+        torch.cuda.synchronize()
+        launched = counts()
+        want = {k: 0 for k in launched}
+        want[p.kernel] = mesh.size * p.steps * p.launches_per_step
+        diff_same = _max_abs(got, ref_same)
+        diff_auto = _max_abs(got, ref_auto)
+        tol = SHARD_TOL_PE if cfg.model == "primitive" else SHARD_TOL
+        ok_auto = _within(got, ref_auto, tol)
+        ok_same = _within(got, ref_same, tol)
+        del got
+
+        card_before = card_state()
+        ms, call_host_ms = _time_steps(lambda: stepper(shards), p.steps)
+        card_after = card_state()
+        host_ms, device_ms = _step_costs(stepper, shards)
+        _events_ms(stepper.exchange, 2)
+        exchange_ms = _events_ms(stepper.exchange, 10)
+        # the stage path exchanges before each of its four stages
+        exchange_ms_step = exchange_ms * p.launches_per_step
+        n = cfg.grid_width * cfg.grid_height
+        if cfg.model == "primitive":
+            b_ms, b_by, _ = _pe_step_bound(dataclasses.asdict(cfg))
+        else:
+            b_ms, b_by = bound_ms(n, viscous=False)
+        ok = ok_auto and ok_same and launched == want
+        r = {"stepper": stepper.name, "mesh": list(p.mesh),
+             "shards": mesh.size, "steps": p.steps, "launches": launched,
+             "expected_launches": want, "max_abs_diff_vs_same_kernel":
+             diff_same, "same_kernel_path": same_name,
+             "max_abs_diff_vs_auto": diff_auto, "auto_path": auto_name,
+             "ms_per_step": ms, "grid_points_per_s": n / (ms / 1e3),
+             "whole_domain_ms_per_step": same_ms,
+             "whole_domain_auto_ms_per_step": auto_ms,
+             "host_enqueue_ms_per_step": host_ms,
+             "host_ms_per_step_of_call": call_host_ms,
+             "device_ms_per_step": device_ms,
+             "paced_by": paced_by(ms, call_host_ms, device_ms),
+             "exchange_ms": exchange_ms,
+             "exchange_ms_per_step": exchange_ms_step,
+             "exchange_share": exchange_ms_step / ms, "step_bound_ms": b_ms,
+             "step_bound_by": b_by, "fraction_of_bound": b_ms / ms,
+             "card_before_after": [card_before, card_after]}
+        emit(f"sharded_path_{name}", ok=ok, tol=tol, **r)
+        if launched != want:
+            fail(f"sharded_path_{name}", f"launch counts {launched}, "
+                 f"expected {want}")
+        if not ok:
+            fail(f"sharded_path_{name}", "the sharded run disagrees with the "
+                 "whole-domain run")
+        results[name] = r
+        del stepper, shards
+        torch.cuda.empty_cache()
+    refs.clear()
+    torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -1250,6 +1701,18 @@ def main() -> int:
     m7 = main_path_fir("fir_batch")
     main_path_fir("fir_suite")
     m8 = main_path_fir("fir_bf16")
+    ks = sharded_kernels()
+    sp = sharded_paths()
+
+    def sharded(kernel):
+        """The padded forms' numbers and the sharded paths' launches."""
+        paths = {n: r for n, r in sp.items()
+                 if r["expected_launches"][kernel]}
+        return {"forms": ks[kernel],
+                "launches": {n: r["launches"][kernel]
+                             for n, r in paths.items()},
+                "ms_per_step": {n: r["ms_per_step"]
+                                for n, r in paths.items()}}
 
     def row(name, source, replaces, function, k, launches, run, per="step",
             **extra):
@@ -1266,10 +1729,15 @@ def main() -> int:
             "host_us_per_launch": k["host_us"], **extra}
 
     fir = "njw_tpu/signal/fir_pallas.py"
+    st, pe = "njw_tpu/ops/stencil.py", "njw_tpu/ops/pe_stencil.py"
     kernels = [
         row("swe_rk4", "swe_rk4.cu", "njw_tpu/ops/stencil.py:60",
             "swe_rk4_kernel", k1, m1["launches"]["swe_rk4"], m1,
-            main_path="main_path"),
+            main_path="main_path",
+            also_replaces=[f"{st}:321 swe_rk4_step_pallas_local",
+                           f"{st}:377 swe_rk4_step_pallas_carry",
+                           f"{st}:433 swe_rk4_step_pallas_local2d"],
+            sharded=sharded("swe_rk4")),
         row("baro_stage", "baro_stage.cu", "njw_tpu/ops/baro_stencil.py:34",
             "_baro_stage_kernel", k3, m3["launches"]["baro_stage"], m3,
             main_path="main_path_baro",
@@ -1281,11 +1749,20 @@ def main() -> int:
             ms_4_bases=k5["ms_4_bases"],
             plain_ms_4_bases=k5["plain_ms_4_bases"],
             bound_ms_4_bases=k5["bound_ms_4_bases"],
-            host_us_per_launch_4_bases=k5["host_us_4_bases"]),
+            host_us_per_launch_4_bases=k5["host_us_4_bases"],
+            also_replaces=[f"{pe}:397 pe_stage_pallas_local",
+                           f"{pe}:1271 pe_stage_pallas_local2d"],
+            sharded=sharded("pe_stage")),
         row("pe_rk4", "pe_rk4.cu", "njw_tpu/ops/pe_stencil.py:617",
             "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
             main_path="main_path_pe",
-            max_abs_err_all_cases=k4["max_abs_err_all_cases"]),
+            max_abs_err_all_cases=k4["max_abs_err_all_cases"],
+            also_replaces=[f"{pe}:847 pe_rk4_pallas_local",
+                           f"{pe}:989 pe_rk4_pallas_carry",
+                           f"{pe}:1078 pe_rk4_pallas_local2d",
+                           f"{pe}:1376 _pe_rk4_carry2d_kernel (K6, launched "
+                           "by pe_rk4_pallas_carry2d :1437)"],
+            sharded=sharded("pe_rk4")),
         row("fir_band", "fir_band.cu", f"{fir}:192",
             "_fir_lanes_scratch_kernel", k7, m7["launches"]["fir_band"], m7,
             per="call", main_path="main_path_fir_batch",

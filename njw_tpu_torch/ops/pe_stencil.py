@@ -22,6 +22,15 @@ Each public wrapper (``pe_stage``, ``pe_rk4_step``) dispatches once, in
 its plain PyTorch version (the kernel's arithmetic) for CPU tensors, and
 nothing else. The steppers use the same runners. Nothing catches a build
 or launch failure and falls back.
+
+The sharded launchers of the two TPU kernels run the same kernels on a
+halo-padded block (one launch each, with a plain version on the padded
+block) and go through the same runners: ``pe_stage_local`` and
+``pe_stage_local2d`` (``pe_stage_pallas_local``, ``_local2d``), and
+``pe_rk4_local``, ``pe_rk4_carry``, ``pe_rk4_local2d`` and
+``pe_rk4_carry2d`` (``pe_rk4_pallas_local``, ``_carry``, ``_local2d`` and
+``pe_rk4_pallas_carry2d``, the launcher of the TPU kernel
+``_pe_rk4_carry2d_kernel``, which the whole-step kernel serves here).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from njw_tpu_torch.ops import _build
+from njw_tpu_torch.ops.stencil import frame
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
 from njw_tpu_torch.weather.integrators import Stepper
 from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
@@ -44,12 +54,16 @@ STAGE_THREADS = 128          # csrc/pe_stage.cu NT
 RK4_THREADS = 256            # csrc/pe_rk4.cu NT
 SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
 RK4_TILE = 16                # output tile edge of the whole-step kernel
+STAGE_HALO, RK4_HALO = 1, 4  # halo rows (columns) each kernel reads
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_STAGE_ARGTYPES = ([_P] * 6 + [_P] * 5 * MAX_BASES + [_I] + [_F] * MAX_BASES
-                   + [_P] * 5 + [_P] + [_I] * 3 + [_F] * 8 + [_P])
-_RK4_ARGTYPES = ([_P] * 6 + [_P] * 5 + [_P, _P] + [_I] * 5 + [_F] * 11
-                 + [_P])
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+_STAGE_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 * MAX_BASES
+                   + [_I] + [_F] * MAX_BASES + [_P] * 5 + [_L, _L] + [_P]
+                   + [_I] * 5 + [_F] * 8 + [_P])
+_RK4_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 + [_L, _L]
+                 + [_P, _P] + [_I] * 7 + [_F] * 11 + [_P])
+NO_HALO = (0, 0)             # the whole periodic domain: both axes wrap
 
 
 def _f32(x: float) -> float:
@@ -225,24 +239,35 @@ def _stage_runner(kind: str) -> Callable:
     return _launch_stage if kind == "cuda" else _plain_stage
 
 
+def _pitches(st: PEState) -> tuple[int, int]:
+    """(row pitch, plane pitch) of a state's fields, in elements."""
+    return st.u.stride(1), st.u.stride(0)
+
+
+def _ptrs(st: PEState) -> list:
+    return [t.data_ptr() for t in (st.u, st.v, st.T, st.q, st.ps)]
+
+
 def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
                   phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
-                  levc: torch.Tensor) -> PEState:
-    base_ptrs = [t.data_ptr() for b in bases
-                 for t in (b.u, b.v, b.T, b.q, b.ps)]
+                  levc: torch.Tensor, halo: tuple = NO_HALO) -> PEState:
+    """Launch on the current stream. ``cur``: the input block, whose
+    interior starts at ``halo`` = (hy, hx) (0: that axis wraps); the bases
+    and ``out``: interior-shaped views of one layout; ``grid``: the
+    interior's."""
+    base_ptrs = [p for b in bases for p in _ptrs(b)]
     base_ptrs += [None] * (5 * MAX_BASES - len(base_ptrs))
+    hy, hx = halo
     launch, err_string = _build.bind("pe_stage", _STAGE_ARGTYPES)
     with torch.cuda.device(cur.ps.device):
         err = launch(
-            cur.u.data_ptr(), cur.v.data_ptr(), cur.T.data_ptr(),
-            cur.q.data_ptr(), cur.ps.data_ptr(),
-            phi_s.data_ptr() if phi_s is not None else None,
+            *_ptrs(cur), phi_s.data_ptr() if phi_s is not None else None,
+            *_pitches(cur), hy, hx,
             *base_ptrs, len(bases), *coeffs,
             *(0.0,) * (MAX_BASES - len(coeffs)),
-            out.u.data_ptr(), out.v.data_ptr(), out.T.data_ptr(),
-            out.q.data_ptr(), out.ps.data_ptr(),
-            levc.data_ptr(), grid.levels, grid.ny, grid.nx, *k, c_dt,
-            torch.cuda.current_stream().cuda_stream)
+            *_ptrs(out), *_pitches(out),
+            levc.data_ptr(), grid.levels, grid.ny, grid.nx, int(hy > 0),
+            int(hx > 0), *k, c_dt, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, err_string, "pe_stage")
     pe_stage_cuda.launches += 1
     return out
@@ -251,19 +276,44 @@ def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
 pe_stage_cuda.launches = 0
 
 
+def _rolls() -> tuple:
+    """Neighbour accessors (east, west, north, south, centre) of a field
+    on the whole periodic domain, and the crop between stages (none)."""
+    def ident(a):
+        return a
+
+    return (lambda a: torch.roll(a, -1, -1), lambda a: torch.roll(a, 1, -1),
+            lambda a: torch.roll(a, -1, -2), lambda a: torch.roll(a, 1, -2),
+            ident), ident
+
+
+def _slices() -> tuple:
+    """Neighbour accessors on a padded frame whose valid region shrinks by
+    one point per side per stage, and the crop to the next region."""
+    def mid(a):
+        return a[..., 1:-1, 1:-1]
+
+    return (lambda a: a[..., 1:-1, 2:], lambda a: a[..., 1:-1, :-2],
+            lambda a: a[..., 2:, 1:-1], lambda a: a[..., :-2, 1:-1], mid), mid
+
+
 def _tendency_plain(cur: PEState, phi_s, k: ColumnConsts,
-                    levc: torch.Tensor) -> tuple:
+                    levc: torch.Tensor, nbrs: Optional[tuple] = None
+                    ) -> tuple:
     """(du, dv, dT, dq, dps) of the column arithmetic in plain PyTorch:
     the flux divergence summed top-down level by level, phi integrated
-    bottom-up, sigma-dot pre-scaled by L/2."""
+    bottom-up, sigma-dot pre-scaled by L/2. ``nbrs``: the neighbour
+    accessors (``_rolls`` by default, ``_slices`` on a padded frame, where
+    the result covers the frame less one point per side)."""
     L = cur.u.shape[0]
     thick, inv_kh = levc[:L], levc[L:, None, None]
+    e, w, n, s, c = nbrs if nbrs is not None else _rolls()[0]
 
     def ddx(a):
-        return (torch.roll(a, -1, -1) - torch.roll(a, 1, -1)) * k.cx
+        return (e(a) - w(a)) * k.cx
 
     def ddy(a):
-        return (torch.roll(a, -1, -2) - torch.roll(a, 1, -2)) * k.cy
+        return (n(a) - s(a)) * k.cy
 
     u, v, T, q, ps = cur.u, cur.v, cur.T, cur.q, cur.ps
     lnps = torch.log(ps)
@@ -275,11 +325,11 @@ def _tendency_plain(cur: PEState, phi_s, k: ColumnConsts,
     for kk in range(1, L):
         cum.append(cum[-1] + fd[kk])
     dps = -cum[-1] * k.dsig
-    inv_ps = 1.0 / ps
+    inv_ps = 1.0 / c(ps)
     dps_over_ps = dps * inv_ps
 
     # sigma-dot scaled by L/2 at the interfaces 0..L (zero at both ends)
-    zero = torch.zeros_like(ps)
+    zero = torch.zeros_like(inv_ps)
     sd = [zero] + [-0.5 * (float(kk) * dps_over_ps + cum[kk - 1] * inv_ps)
                    for kk in range(1, L)] + [zero]
     sd_up, sd_dn = torch.stack(sd[:-1]), torch.stack(sd[1:])
@@ -302,21 +352,29 @@ def _tendency_plain(cur: PEState, phi_s, k: ColumnConsts,
         x_up, x_dn = up_dn(X)
         return sd_dn * x_dn + sd_up * x_up
 
-    du = (-u * ddx(u) - v * ddy(u) - vadv(u) + k.f * v
-          - ddx(phi) - k.r_dry * T * lnps_x)
-    dv = (-u * ddx(v) - v * ddy(v) - vadv(v) - k.f * u
-          - ddy(phi) - k.r_dry * T * lnps_y)
-    dlnps_adv = dps_over_ps + u * lnps_x + v * lnps_y
+    uc, vc, Tc, qc = c(u), c(v), c(T), c(q)
+    du = (-uc * ddx(u) - vc * ddy(u) - vadv(uc) + k.f * vc
+          - ddx(phi) - k.r_dry * Tc * lnps_x)
+    dv = (-uc * ddx(v) - vc * ddy(v) - vadv(vc) - k.f * uc
+          - ddy(phi) - k.r_dry * Tc * lnps_y)
+    dlnps_adv = dps_over_ps + uc * lnps_x + vc * lnps_y
     omega_over_p = (sd_up + sd_dn) * inv_kh + dlnps_adv
-    dT = -u * ddx(T) - v * ddy(T) - vadv(T) + k.kappa * T * omega_over_p
-    dq = -u * ddx(q) - v * ddy(q) - vadv(q)
+    dT = -uc * ddx(T) - vc * ddy(T) - vadv(Tc) + k.kappa * Tc * omega_over_p
+    dq = -uc * ddx(q) - vc * ddy(q) - vadv(qc)
     return du, dv, dT, dq, dps
 
 
 def _plain_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
                  phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
-                 levc: torch.Tensor) -> PEState:
-    tend = _tendency_plain(cur, phi_s, k, levc)
+                 levc: torch.Tensor, halo: tuple = NO_HALO) -> PEState:
+    """The stage in plain PyTorch: rolls on the whole domain; on a padded
+    block, slices of the block cut to a one-point halo (no roll)."""
+    if halo == NO_HALO:
+        tend = _tendency_plain(cur, phi_s, k, levc)
+    else:
+        tend = _tendency_plain(
+            cur.map(lambda a: frame(a, halo, STAGE_HALO)), None, k, levc,
+            _slices()[0])
     for (name, o), d in zip(out.items(), tend):
         acc = coeffs[0] * getattr(bases[0], name)
         for c, b in zip(coeffs[1:], bases[1:]):
@@ -428,17 +486,19 @@ def _rk4_runner(kind: str) -> Callable:
 
 def _launch_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                 k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-                scratch: Rk4Scratch) -> PEState:
+                scratch: Rk4Scratch, halo: tuple = NO_HALO) -> PEState:
+    """Launch on the current stream. ``s``: the input block, whose
+    interior starts at ``halo`` = (hy, hx) (0: that axis wraps); ``out``:
+    interior-shaped views; ``grid``: the interior's."""
+    hy, hx = halo
     launch, err_string = _build.bind("pe_rk4", _RK4_ARGTYPES)
     with torch.cuda.device(s.ps.device):
         err = launch(
-            s.u.data_ptr(), s.v.data_ptr(), s.T.data_ptr(), s.q.data_ptr(),
-            s.ps.data_ptr(), phi_s.data_ptr() if phi_s is not None else None,
-            out.u.data_ptr(), out.v.data_ptr(), out.T.data_ptr(),
-            out.q.data_ptr(), out.ps.data_ptr(), levc.data_ptr(),
-            scratch.buf.data_ptr(), scratch.slots, scratch.tile,
-            grid.levels, grid.ny, grid.nx, *k, *r,
-            torch.cuda.current_stream().cuda_stream)
+            *_ptrs(s), phi_s.data_ptr() if phi_s is not None else None,
+            *_pitches(s), hy, hx, *_ptrs(out), *_pitches(out),
+            levc.data_ptr(), scratch.buf.data_ptr(), scratch.slots,
+            scratch.tile, grid.levels, grid.ny, grid.nx, int(hy > 0),
+            int(hx > 0), *k, *r, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, err_string, "pe_rk4")
     pe_rk4_step_cuda.launches += 1
     return out
@@ -449,19 +509,273 @@ pe_rk4_step_cuda.launches = 0
 
 def _plain_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-               _scratch=None) -> PEState:
-    def axpy(c, tend):  # s + c T
-        return PEState(*(x + c * d for (_, x), d in zip(s.items(), tend)))
+               _scratch=None, halo: tuple = NO_HALO) -> PEState:
+    """The whole step in plain PyTorch: rolls on the whole domain; on a
+    padded block, slices of the block cut to a four-point halo, the valid
+    region shrinking by one point per side per stage (no roll)."""
+    if halo == NO_HALO:
+        nbrs, mid = _rolls()
+    else:
+        nbrs, mid = _slices()
+        s = s.map(lambda a: frame(a, halo, RK4_HALO))
 
-    s1 = axpy(r.c_half, _tendency_plain(s, phi_s, k, levc))
-    acc = [a - x for (_, a), (_, x) in zip(s1.items(), s.items())]
-    s2 = axpy(r.c_half, _tendency_plain(s1, phi_s, k, levc))
-    acc = [a + 2.0 * b for a, (_, b) in zip(acc, s2.items())]
-    s3 = axpy(r.c_full, _tendency_plain(s2, phi_s, k, levc))
-    acc = [a + b for a, (_, b) in zip(acc, s3.items())]
-    t4 = _tendency_plain(s3, phi_s, k, levc)
+    def tend(x):
+        return _tendency_plain(x, phi_s, k, levc, nbrs)
+
+    def axpy(base, c, d):  # base + c T
+        return PEState(*(x + c * t for (_, x), t in zip(base.items(), d)))
+
+    base = s.map(mid)
+    s1 = axpy(base, r.c_half, tend(s))
+    acc = [a - x for (_, a), (_, x) in zip(s1.items(), base.items())]
+    base = base.map(mid)
+    s2 = axpy(base, r.c_half, tend(s1))
+    acc = [mid(a) + 2.0 * b for a, (_, b) in zip(acc, s2.items())]
+    base = base.map(mid)
+    s3 = axpy(base, r.c_full, tend(s2))
+    acc = [mid(a) + b for a, (_, b) in zip(acc, s3.items())]
+    t4 = tend(s3)
     for (_, o), a, d in zip(out.items(), acc, t4):
-        o.copy_(a * r.third + r.sixth * d)
+        o.copy_(mid(a) * r.third + r.sixth * d)
+    return out
+
+
+# ------------------------------------------------------- the padded forms
+
+def _refuse_layout(name: str, what: str, st: PEState, shape3: tuple,
+                   dev) -> None:
+    """Refuse a state whose u, v, T, q are not (L, rows, cols) float32
+    views sharing one layout with contiguous rows, or whose ps is not the
+    (rows, cols) view of the same row pitch, or not on ``dev``."""
+    ref = st.u.stride()
+    for n, t in st.items():
+        want = shape3 if n != "ps" else shape3[1:]
+        strides = ref if n != "ps" else ref[1:]
+        if (t.dtype != torch.float32 or tuple(t.shape) != want
+                or t.stride() != strides or t.device != dev):
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: {what}.{n} must be float32")
+            if t.device != dev:
+                raise ValueError(f"{name}: {what}.{n} is on {t.device}, "
+                                 f"the block on {dev}")
+            raise ValueError(
+                f"{name}: {what}.{n} has shape {tuple(t.shape)} and strides "
+                f"{t.stride()}; expected shape {want} with contiguous rows "
+                "and the layout of u")
+    if ref[-1] != 1:
+        raise ValueError(f"{name}: {what} must have contiguous rows")
+
+
+def _padded_grid(name: str, block: PEState, halo: tuple, need: int,
+                 dx: float, dy: float, bases: tuple = (),
+                 out: Optional[PEState] = None) -> GridSpec:
+    """Check a padded call and return the interior's grid. ``block``: the
+    (L, ly + 2 hy, lx + 2 hx) input; ``need``: the halo the kernel reads
+    (hx = 0: x whole and periodic); ``bases``, ``out``: (L, ly, lx) views
+    of one layout."""
+    hy, hx = halo
+    if block.u.dim() != 3:
+        raise ValueError(f"{name}: u, v, T, q must be (L, rows, cols)")
+    L, rows, cols = block.u.shape
+    ly, lx = rows - 2 * hy, cols - 2 * hx
+    if hy < need or (hx and hx < need):
+        raise ValueError(f"{name}: halo {halo}: the kernel reads {need} "
+                         "rows (and columns unless hx = 0)")
+    if ly < 1 or lx < (1 if hx else 3) or L < 1:
+        raise ValueError(f"{name}: interior {L}x{ly}x{lx} too small")
+    dev = block.ps.device
+    _refuse_layout(name, "the block", block, (L, rows, cols), dev)
+    views = [(f"base {g}", b) for g, b in enumerate(bases)]
+    if out is not None:
+        views.append(("out", out))
+    for what, b in views:
+        _refuse_layout(name, what, b, (L, ly, lx), dev)
+        if b.u.stride() != views[0][1].u.stride():
+            raise ValueError(f"{name}: the bases and out must share one "
+                             "layout")
+    if out is not None:
+        ins = {t.untyped_storage().data_ptr() for _, t in block.items()}
+        if any(t.untyped_storage().data_ptr() in ins for _, t in out.items()):
+            raise ValueError(f"{name}: out must not alias the block")
+    return GridSpec(nx=lx, ny=ly, levels=L, dx=dx, dy=dy)
+
+
+def _interior_empty(grid: GridSpec, device,
+                    like: Optional[PEState] = None) -> PEState:
+    """A new interior-shaped state; with ``like``, of its layout (strides)
+    too."""
+    L, ny, nx = grid.levels, grid.ny, grid.nx
+
+    def e(name, *shape):
+        if like is None:
+            return torch.empty(shape, dtype=torch.float32, device=device)
+        return torch.empty_strided(shape, getattr(like, name).stride(),
+                                   dtype=torch.float32, device=device)
+
+    return PEState(u=e("u", L, ny, nx), v=e("v", L, ny, nx),
+                   T=e("T", L, ny, nx), q=e("q", L, ny, nx),
+                   ps=e("ps", ny, nx))
+
+
+def interior(st: PEState, halo: tuple) -> PEState:
+    """The interior views of a padded state (interior at ``halo``)."""
+    hy, hx = halo
+
+    def crop(a):
+        return a[..., hy:a.shape[-2] - hy, hx:a.shape[-1] - hx]
+
+    return st.map(crop)
+
+
+def pe_stage_padded(cur_p: PEState, bases, *, halo: tuple, c_dt: float,
+                    dx: float = 1.0, dy: float = 1.0,
+                    coriolis_f: float = 0.0,
+                    base_coeffs: Sequence[float] = (1.0,),
+                    out: Optional[PEState] = None) -> PEState:
+    """out = sum_g base_coeffs[g] * bases[g] + c_dt * T(cur) on the
+    (L, ly, lx) interior of a halo-padded state.
+
+    ``halo`` = (hy, hx): the interior of each (L, ly + 2 hy, lx + 2 hx)
+    field of ``cur_p`` starts at row hy, column hx, with neighbour data in
+    the hy >= 1 rows (hx >= 1 columns) around it; hx = 0: x is whole and
+    periodic. ``bases`` (a PEState or 1 to 4) and ``out`` are
+    interior-shaped views of one layout with contiguous rows (arrays, or
+    the interiors of padded states of one shape; a new ``out`` takes the
+    bases' layout); ``out`` may alias a base. CUDA tensors go to the
+    kernel, CPU tensors to the plain version."""
+    args = _stage_padded_args(cur_p, bases, halo=halo, c_dt=c_dt, dx=dx,
+                              dy=dy, coriolis_f=coriolis_f,
+                              base_coeffs=base_coeffs, out=out)
+    return _stage_runner(_device_kind(cur_p.ps, "pe_stage_padded"))(*args)
+
+
+def pe_stage_padded_plain(cur_p: PEState, bases, **kw) -> PEState:
+    """``pe_stage_padded``'s plain version, on any device."""
+    return _plain_stage(*_stage_padded_args(cur_p, bases, **kw))
+
+
+def _stage_padded_args(cur_p: PEState, bases, *, halo: tuple, c_dt: float,
+                       dx: float = 1.0, dy: float = 1.0,
+                       coriolis_f: float = 0.0,
+                       base_coeffs: Sequence[float] = (1.0,),
+                       out: Optional[PEState] = None) -> tuple:
+    """Check a padded stage call; return the arguments of
+    ``_launch_stage`` and ``_plain_stage``."""
+    bases = _as_bases(bases)
+    if not 1 <= len(bases) <= MAX_BASES or len(bases) != len(base_coeffs):
+        raise ValueError(f"pe_stage_padded: {len(bases)} bases for "
+                         f"{len(base_coeffs)} coefficients (1 to {MAX_BASES})")
+    grid = _padded_grid("pe_stage_padded", cur_p, tuple(halo), STAGE_HALO,
+                        dx, dy, bases, out)
+    if grid.levels * STAGE_THREADS * 4 > SMEM_PER_BLOCK:
+        raise ValueError(f"pe_stage_padded: {grid.levels} levels do not fit "
+                         "a block")
+    dev = cur_p.ps.device
+    if out is None:
+        out = _interior_empty(grid, dev, like=bases[0])
+    return (cur_p, bases, tuple(_f32(c) for c in base_coeffs), out, None,
+            grid, column_constants(grid, float(coriolis_f)), _f32(c_dt),
+            level_constants(grid.levels, str(dev)), tuple(halo))
+
+
+def pe_stage_local(cur_p: PEState, bases, *, hy: int = STAGE_HALO,
+                   **kw) -> PEState:
+    """Counterpart of ``pe_stage_pallas_local``: the stage on the (L, ly,
+    nx) interior of a state padded by hy rows, x whole and periodic."""
+    return pe_stage_padded(cur_p, bases, halo=(hy, 0), **kw)
+
+
+def pe_stage_local2d(cur_p: PEState, bases, *, hy: int = STAGE_HALO,
+                     hx: int = STAGE_HALO, **kw) -> PEState:
+    """Counterpart of ``pe_stage_pallas_local2d``: the stage on the (L, ly,
+    lx) interior of a state padded by hy rows and hx columns."""
+    return pe_stage_padded(cur_p, bases, halo=(hy, hx), **kw)
+
+
+def pe_rk4_padded(s_p: PEState, *, halo: tuple, dt: float, dx: float = 1.0,
+                  dy: float = 1.0, coriolis_f: float = 0.0,
+                  out: Optional[PEState] = None,
+                  scratch: Optional[Rk4Scratch] = None) -> PEState:
+    """One whole RK4 step of the (L, ly, lx) interior of a halo-padded
+    state (the fields of ``s_p`` padded by hy >= 4 rows and hx >= 4
+    columns, or hx = 0: x whole and periodic), into ``out`` (new when None:
+    interior-shaped views with contiguous rows). ``scratch``: the kernel's
+    (``rk4_scratch``), new for each call when None; shared by launches on
+    one stream. CUDA tensors go to the kernel, CPU tensors to the plain
+    version."""
+    s_p, out, phi_s, grid, k, r, levc, halo = _rk4_padded_args(
+        s_p, halo=halo, dt=dt, dx=dx, dy=dy, coriolis_f=coriolis_f, out=out)
+    kind = _device_kind(s_p.ps, "pe_rk4_padded")
+    if kind == "cuda" and scratch is None:
+        scratch = rk4_scratch(grid.levels, s_p.ps.device)
+    return _rk4_runner(kind)(s_p, out, phi_s, grid, k, r, levc, scratch,
+                             halo)
+
+
+def pe_rk4_padded_plain(s_p: PEState, **kw) -> PEState:
+    """``pe_rk4_padded``'s plain version, on any device."""
+    s_p, out, phi_s, grid, k, r, levc, halo = _rk4_padded_args(s_p, **kw)
+    return _plain_rk4(s_p, out, phi_s, grid, k, r, levc, None, halo)
+
+
+def _rk4_padded_args(s_p: PEState, *, halo: tuple, dt: float,
+                     dx: float = 1.0, dy: float = 1.0,
+                     coriolis_f: float = 0.0,
+                     out: Optional[PEState] = None) -> tuple:
+    """Check a padded whole-step call; return (s_p, out, phi_s, grid,
+    column constants, RK4 constants, level constants, halo), the arguments
+    of ``_launch_rk4`` and ``_plain_rk4`` less the scratch."""
+    grid = _padded_grid("pe_rk4_padded", s_p, tuple(halo), RK4_HALO, dx,
+                        dy, (), out)
+    if not pe_rk4_kernel_fits(grid.levels):
+        raise ValueError(f"pe_rk4_padded: {grid.levels} levels do not fit "
+                         "a block")
+    dev = s_p.ps.device
+    if out is None:
+        out = _interior_empty(grid, dev)
+    return (s_p, out, None, grid, column_constants(grid, float(coriolis_f)),
+            rk4_constants(float(dt)), level_constants(grid.levels, str(dev)),
+            tuple(halo))
+
+
+def _padded_out(s_p: PEState, out: Optional[PEState]) -> PEState:
+    return s_p.map(torch.empty_like) if out is None else out
+
+
+def pe_rk4_local(s_p: PEState, *, hy: int = RK4_HALO, **kw) -> PEState:
+    """Counterpart of ``pe_rk4_pallas_local``: the step of the (L, ly, nx)
+    interior of a state padded by hy rows, x whole and periodic."""
+    return pe_rk4_padded(s_p, halo=(hy, 0), **kw)
+
+
+def pe_rk4_carry(s_p: PEState, *, hy: int = RK4_HALO,
+                 out: Optional[PEState] = None, **kw) -> PEState:
+    """Counterpart of ``pe_rk4_pallas_carry``: the step of the interior of
+    a state padded by hy rows (x whole and periodic), written into the
+    interior of the padded state ``out`` (new when None), which is
+    returned. Its halo rows are not written: the next step's exchange
+    refreshes them."""
+    out = _padded_out(s_p, out)
+    pe_rk4_padded(s_p, halo=(hy, 0), out=interior(out, (hy, 0)), **kw)
+    return out
+
+
+def pe_rk4_local2d(s_p: PEState, *, hy: int = RK4_HALO, hx: int = RK4_HALO,
+                   **kw) -> PEState:
+    """Counterpart of ``pe_rk4_pallas_local2d``: the step of the (L, ly,
+    lx) interior of a state padded by hy rows and hx columns."""
+    return pe_rk4_padded(s_p, halo=(hy, hx), **kw)
+
+
+def pe_rk4_carry2d(s_p: PEState, *, hy: int = RK4_HALO, hx: int = RK4_HALO,
+                   out: Optional[PEState] = None, **kw) -> PEState:
+    """Counterpart of ``pe_rk4_pallas_carry2d`` (the TPU kernel
+    ``_pe_rk4_carry2d_kernel``, served here by the whole-step kernel): the
+    step of the interior of a state padded by hy rows and hx columns,
+    written into the interior of the padded state ``out`` (new when None),
+    which is returned; its halo rows and columns are not written."""
+    out = _padded_out(s_p, out)
+    pe_rk4_padded(s_p, halo=(hy, hx), out=interior(out, (hy, hx)), **kw)
     return out
 
 

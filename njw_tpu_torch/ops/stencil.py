@@ -13,6 +13,13 @@ runs ``swe_rk4_step_plain``, the same function in plain PyTorch (the
 counterpart of Pallas interpret mode); the tests use it, and the chip
 smoke test holds the kernel against it. No path catches a build or launch
 failure and falls back.
+
+The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
+``_carry``, ``_local2d``) have their counterparts here too:
+``swe_rk4_step_local``, ``swe_rk4_step_carry`` and ``swe_rk4_step_local2d``,
+thin wrappers over one padded launch (``swe_rk4_step_padded``) of the same
+kernel, with a plain version on the padded block. All forms dispatch in
+one place (``_runner``).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
 from njw_tpu_torch.weather.integrators import Stepper
 
 Fields = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+HALO = 4  # rows (columns) of halo the kernel reads: one per chained stage
 
 
 def rk4_constants(grid: GridSpec, dt: float, gravity: float,
@@ -48,28 +56,52 @@ def rk4_constants(grid: GridSpec, dt: float, gravity: float,
     }
 
 
+def _refuse_fields(name: str, ins: Fields, out: Optional[Fields],
+                   shape: tuple, out_shape: tuple) -> None:
+    """Type, shape, layout and device checks of the kernel's operands: the
+    three inputs share one layout (shape and strides), so do the three
+    outputs, and each row is contiguous."""
+    dev = ins[0].device
+    groups = [(("u", "v", "h"), ins, shape)]
+    if out is not None:
+        groups.append((("u_out", "v_out", "h_out"), out, out_shape))
+    for names, ts, want in groups:
+        for n, t in zip(names, ts):
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: {n} must be float32, got {t.dtype}")
+            if tuple(t.shape) != tuple(want):
+                raise ValueError(f"{name}: {n} has shape {tuple(t.shape)}, "
+                                 f"expected {tuple(want)}")
+            if t.stride(-1) != 1 or t.stride() != ts[0].stride():
+                raise ValueError(f"{name}: {n} must have contiguous rows "
+                                 "and the strides of the other fields")
+            if t.device != dev:
+                raise ValueError(f"{name}: {n} is on {t.device}, u on {dev}")
+    if out is not None:
+        stores = {t.untyped_storage().data_ptr() for t in ins}
+        if any(o.untyped_storage().data_ptr() in stores for o in out) or len(
+                {o.data_ptr() for o in out}) != 3:
+            raise ValueError(f"{name}: outputs must be three distinct "
+                             "buffers that do not alias the inputs")
+
+
 def _check(u, v, h, grid: GridSpec, out: Optional[Fields]) -> None:
     if grid.bc != "periodic":
         raise ValueError("swe_rk4_step: periodic boundary condition required")
     if grid.ny < 3 or grid.nx < 3:
         raise ValueError("swe_rk4_step: grid must be at least 3x3")
-    for name, t in (("u", u), ("v", v), ("h", h)) + tuple(
+    _refuse_fields("swe_rk4_step", (u, v, h), out, grid.shape, grid.shape)
+    for n, t in (("u", u), ("v", v), ("h", h)) + tuple(
             zip(("u_out", "v_out", "h_out"), out or ())):
-        if t.dtype != torch.float32:
-            raise TypeError(f"swe_rk4_step: {name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != grid.shape:
-            raise ValueError(f"swe_rk4_step: {name} has shape {tuple(t.shape)}, "
-                             f"grid is {grid.shape}")
         if not t.is_contiguous():
-            raise ValueError(f"swe_rk4_step: {name} must be contiguous")
-        if t.device != u.device:
-            raise ValueError(f"swe_rk4_step: {name} is on {t.device}, u on {u.device}")
-    if out is not None:
-        ins = {u.data_ptr(), v.data_ptr(), h.data_ptr()}
-        if any(o.data_ptr() in ins for o in out) or len(
-                {o.data_ptr() for o in out}) != 3:
-            raise ValueError("swe_rk4_step: outputs must be three distinct "
-                             "buffers that do not alias the inputs")
+            raise ValueError(f"swe_rk4_step: {n} must be contiguous")
+
+
+def _device_kind(t: torch.Tensor, name: str) -> str:
+    kind = t.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return kind
 
 
 def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
@@ -80,20 +112,9 @@ def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
     CUDA tensors go to the kernel, CPU tensors to the plain version.
     ``out``: three preallocated result buffers (not aliasing the inputs).
     """
-    if u.device.type == "cuda":
-        return swe_rk4_step_cuda(u, v, h, grid=grid, dt=dt, gravity=gravity,
-                                 coriolis_f=coriolis_f, viscosity=viscosity,
-                                 out=out)
-    _check(u, v, h, grid, out)
-    if u.device.type == "cpu":
-        return swe_rk4_step_plain(u, v, h, grid=grid, dt=dt, gravity=gravity,
-                                  coriolis_f=coriolis_f, viscosity=viscosity,
-                                  out=out)
-    raise ValueError(f"swe_rk4_step: unsupported device {u.device}")
-
-
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-             + [ctypes.c_float] * 10 + [ctypes.c_int, ctypes.c_void_p])
+    run = _runner(_device_kind(u, "swe_rk4_step"))
+    return _call(run, (u, v, h), out, (0, 0), grid, dt, gravity, coriolis_f,
+                 viscosity)
 
 
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
@@ -102,25 +123,63 @@ def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
                       out: Optional[Fields] = None) -> Fields:
     """Launch the CUDA kernel on the current stream. Refuses any tensor that
     is not on a CUDA device. ``swe_rk4_step_cuda.launches`` counts the
-    launches."""
+    launches of every form (whole-domain and padded)."""
     for name, t in (("u", u), ("v", v), ("h", h)) + tuple(
             zip(("u_out", "v_out", "h_out"), out or ())):
         if t.device.type != "cuda":
             raise ValueError(f"swe_rk4_step_cuda: {name} is on {t.device}; "
                              "the kernel takes CUDA tensors only")
-    _check(u, v, h, grid, out)
-    if out is None:
-        out = (torch.empty_like(u), torch.empty_like(v), torch.empty_like(h))
+    return _call(_launch, (u, v, h), out, (0, 0), grid, dt, gravity,
+                 coriolis_f, viscosity)
+
+
+def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
+                       gravity: float = 9.81, coriolis_f: float = 0.0,
+                       viscosity: float = 0.0,
+                       out: Optional[Fields] = None) -> Fields:
+    """The kernel's function in plain PyTorch, in the kernel's accumulator
+    form (state-form RK4, periodic rolls), on any device."""
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
+    return _plain((u, v, h), out, (0, 0), k)
+
+
+def _call(run, ins: Fields, out, halo, grid, dt, gravity, coriolis_f,
+          viscosity) -> Fields:
+    _check(*ins, grid, out)
+    if out is None:
+        out = tuple(torch.empty_like(t) for t in ins)
+    k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
+    return run(ins, out, halo, k)
+
+
+def _runner(kind: str):
+    """The one dispatch point of the kernel, whole-domain and padded: the
+    launch for "cuda", the plain version for "cpu". Both take operands
+    already checked and constants already folded."""
+    return _launch if kind == "cuda" else _plain
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
+             + [ctypes.c_float] * 10 + [_I, _P])
+
+
+def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
+    """Launch on the current stream. ``ins``: (u, v, h) views of the input
+    block (its first element, its row pitch), whose interior starts at
+    ``halo`` = (hy, hx); an axis whose halo is 0 wraps. ``out``: views of
+    the interior-shaped result."""
+    hy, hx = halo
+    ny, nx = out[0].shape
     launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
+    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+    with torch.cuda.device(ins[0].device):
         err = launch(
-            u.data_ptr(), v.data_ptr(), h.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            grid.ny, grid.nx, k["cx"], k["cy"], k["g"], k["f"], k["half"],
-            k["dt"], k["sixth"], k["third"], k["ix2"], k["iy2"],
-            int(k["nu"] != 0.0), stream)
+            *(t.data_ptr() for t in ins), ins[0].stride(0), hy, hx,
+            *(t.data_ptr() for t in out), out[0].stride(0), 0, 0,
+            ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"], k["g"],
+            k["f"], k["half"], k["dt"], k["sixth"], k["third"], k["ix2"],
+            k["iy2"], int(k["nu"] != 0.0), stream)
     if err != 0:
         msg = err_string(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
@@ -131,57 +190,188 @@ def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
 swe_rk4_step_cuda.launches = 0
 
 
-def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
-                       gravity: float = 9.81, coriolis_f: float = 0.0,
-                       viscosity: float = 0.0,
-                       out: Optional[Fields] = None) -> Fields:
-    """The kernel's function in plain PyTorch, in the kernel's accumulator
-    form (state-form RK4, periodic rolls), on any device."""
-    k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
+def _tendency(uu, vv, hh, nbrs, k: dict):
+    """(du, dv, dh) in the kernel's operation order. ``nbrs``: the five
+    accessors (east, west, north, south, centre) of a field: rolls on the
+    whole periodic domain, slices on a padded frame."""
+    e, w, n, s, c = nbrs
     cx, cy, g, f = k["cx"], k["cy"], k["g"], k["f"]
+    uc, vc, hc = c(uu), c(vv), c(hh)
+    u_x = (e(uu) - w(uu)) * cx
+    u_y = (n(uu) - s(uu)) * cy
+    v_x = (e(vv) - w(vv)) * cx
+    v_y = (n(vv) - s(vv)) * cy
+    h_x = (e(hh) - w(hh)) * cx
+    h_y = (n(hh) - s(hh)) * cy
+    du = -uc * u_x - vc * u_y - g * h_x + f * vc
+    dv = -uc * v_x - vc * v_y - g * h_y - f * uc
+    dh = -hc * (u_x + v_y) - uc * h_x - vc * h_y
+    if k["nu"] != 0.0:
+        ix2, iy2 = k["ix2"], k["iy2"]
+        du = du + (e(uu) + w(uu) - 2.0 * uc) * ix2 \
+            + (n(uu) + s(uu) - 2.0 * uc) * iy2
+        dv = dv + (e(vv) + w(vv) - 2.0 * vc) * ix2 \
+            + (n(vv) + s(vv) - 2.0 * vc) * iy2
+    return du, dv, dh
 
-    def sx(a, s):  # result[.., x] = a[.., x + s], periodic
-        return torch.roll(a, -s, dims=1)
 
-    def sy(a, s):
-        return torch.roll(a, -s, dims=0)
+def _rolls():
+    def e(a):  # a[.., x + 1], periodic
+        return torch.roll(a, -1, dims=1)
 
-    def tendency(uu, vv, hh):
-        u_x = (sx(uu, 1) - sx(uu, -1)) * cx
-        u_y = (sy(uu, 1) - sy(uu, -1)) * cy
-        v_x = (sx(vv, 1) - sx(vv, -1)) * cx
-        v_y = (sy(vv, 1) - sy(vv, -1)) * cy
-        h_x = (sx(hh, 1) - sx(hh, -1)) * cx
-        h_y = (sy(hh, 1) - sy(hh, -1)) * cy
-        du = -uu * u_x - vv * u_y - g * h_x + f * vv
-        dv = -uu * v_x - vv * v_y - g * h_y - f * uu
-        dh = -hh * (u_x + v_y) - uu * h_x - vv * h_y
-        if k["nu"] != 0.0:
-            ix2, iy2 = k["ix2"], k["iy2"]
-            du = du + (sx(uu, 1) + sx(uu, -1) - 2.0 * uu) * ix2 \
-                + (sy(uu, 1) + sy(uu, -1) - 2.0 * uu) * iy2
-            dv = dv + (sx(vv, 1) + sx(vv, -1) - 2.0 * vv) * ix2 \
-                + (sy(vv, 1) + sy(vv, -1) - 2.0 * vv) * iy2
-        return du, dv, dh
+    def w(a):
+        return torch.roll(a, 1, dims=1)
 
+    def n(a):
+        return torch.roll(a, -1, dims=0)
+
+    def s(a):
+        return torch.roll(a, 1, dims=0)
+
+    return (e, w, n, s, lambda a: a), (lambda a: a)
+
+
+def _slices():
+    """Neighbour accessors on a frame whose valid region shrinks by one
+    point per side per stage, and the crop to the next region."""
+    def mid(a):
+        return a[1:-1, 1:-1]
+
+    return (lambda a: a[1:-1, 2:], lambda a: a[1:-1, :-2],
+            lambda a: a[2:, 1:-1], lambda a: a[:-2, 1:-1], mid), mid
+
+
+def frame(a: torch.Tensor, halo: tuple, width: int) -> torch.Tensor:
+    """The padded block ``a`` (interior at ``halo`` = (hy, hx)) cut to
+    ``width`` rows and columns of halo; an axis with halo 0 (whole and
+    periodic) is extended by ``width`` by its wrap. Leading axes (levels)
+    pass through."""
+    hy, hx = halo
+    rows = a.shape[-2] - 2 * hy
+    a = a[..., hy - width:hy + rows + width, :]
+    if hx:
+        cols = a.shape[-1] - 2 * hx
+        return a[..., hx - width:hx + cols + width]
+    idx = torch.arange(-width, a.shape[-1] + width, device=a.device) \
+        % a.shape[-1]
+    return a.index_select(-1, idx)
+
+
+def _plain(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
+    """The kernel's function in plain PyTorch, in its accumulator form:
+    periodic rolls on the whole domain (halo (0, 0)); on a padded block,
+    slices of the block cut to a 4-point halo, the valid region shrinking
+    by one point per side per stage (no roll, nothing wraps)."""
+    if halo == (0, 0):
+        nbrs, mid = _rolls()
+        s = ins
+    else:
+        nbrs, mid = _slices()
+        s = tuple(frame(t, halo, HALO) for t in ins)
     half, step_dt = k["half"], k["dt"]
-    s = (u, v, h)
-    d = tendency(*s)                                      # k1
-    c = tuple(si + half * di for si, di in zip(s, d))     # s1
-    acc = tuple(ci - si for ci, si in zip(c, s))          # acc = -s + s1
-    d = tendency(*c)                                      # k2
-    c = tuple(si + half * di for si, di in zip(s, d))     # s2
-    acc = tuple(ai + 2.0 * ci for ai, ci in zip(acc, c))
-    d = tendency(*c)                                      # k3
-    c = tuple(si + step_dt * di for si, di in zip(s, d))  # s3
-    acc = tuple(ai + ci for ai, ci in zip(acc, c))
-    d = tendency(*c)                                      # k4
-    new = tuple(ai * k["third"] + k["sixth"] * di for ai, di in zip(acc, d))
+    base = tuple(mid(x) for x in s)                         # s, region 1
+    d = _tendency(*s, nbrs, k)                              # k1
+    c = tuple(b + half * di for b, di in zip(base, d))      # s1
+    acc = tuple(ci - b for ci, b in zip(c, base))           # acc = -s + s1
+    d = _tendency(*c, nbrs, k)                              # k2
+    base = tuple(mid(b) for b in base)
+    c = tuple(b + half * di for b, di in zip(base, d))      # s2
+    acc = tuple(mid(a) + 2.0 * ci for a, ci in zip(acc, c))
+    d = _tendency(*c, nbrs, k)                              # k3
+    base = tuple(mid(b) for b in base)
+    c = tuple(b + step_dt * di for b, di in zip(base, d))   # s3
+    acc = tuple(mid(a) + ci for a, ci in zip(acc, c))
+    d = _tendency(*c, nbrs, k)                              # k4
+    new = tuple(mid(a) * k["third"] + k["sixth"] * di
+                for a, di in zip(acc, d))
     if out is None:
         return new
     for o, n in zip(out, new):
         o.copy_(n)
     return out
+
+
+# ------------------------------------------------------- the padded forms
+
+def swe_rk4_step_padded(u_p, v_p, h_p, *, halo: tuple, dt: float,
+                        dx: float = 1.0, dy: float = 1.0,
+                        gravity: float = 9.81, coriolis_f: float = 0.0,
+                        viscosity: float = 0.0,
+                        out: Optional[Fields] = None) -> Fields:
+    """One fused RK4 step of the interior of halo-padded float32 blocks.
+
+    ``halo`` = (hy, hx): the interior of each (ly + 2 hy, lx + 2 hx) block
+    starts at row hy, column hx, and the block holds neighbour data in the
+    hy >= 4 rows (hx >= 4 columns) around it, of which the kernel reads
+    the 4 next to the interior; hx = 0: x is whole and periodic in the
+    block. The blocks may be views with contiguous rows. Returns the
+    (ly, lx) step, in ``out`` when given (any views of that shape with
+    contiguous rows, such as the interior of the next padded block). CUDA
+    tensors go to the kernel, CPU tensors to the plain version."""
+    args = _padded_args(u_p, v_p, h_p, halo=halo, dt=dt, dx=dx, dy=dy,
+                        gravity=gravity, coriolis_f=coriolis_f,
+                        viscosity=viscosity, out=out)
+    return _runner(_device_kind(u_p, "swe_rk4_step_padded"))(*args)
+
+
+def swe_rk4_step_padded_plain(u_p, v_p, h_p, **kw) -> Fields:
+    """``swe_rk4_step_padded``'s plain version, on any device (the chip
+    smoke test holds the kernel against it on the card)."""
+    return _plain(*_padded_args(u_p, v_p, h_p, **kw))
+
+
+def _padded_args(u_p, v_p, h_p, *, halo: tuple, dt: float, dx: float = 1.0,
+                 dy: float = 1.0, gravity: float = 9.81,
+                 coriolis_f: float = 0.0, viscosity: float = 0.0,
+                 out: Optional[Fields] = None) -> tuple:
+    """Check a padded call; return its (ins, out, halo, constants), the
+    arguments of ``_launch`` and ``_plain``."""
+    ins = (u_p, v_p, h_p)
+    hy, hx = (int(x) for x in halo)
+    if u_p.dim() != 2:
+        raise ValueError("swe_rk4_step_padded: 2-D blocks required")
+    ly, lx = u_p.shape[0] - 2 * hy, u_p.shape[1] - 2 * hx
+    if hy < HALO or (hx and hx < HALO):
+        raise ValueError(f"swe_rk4_step_padded: halo {halo}: the kernel "
+                         f"reads {HALO} rows (and columns unless hx = 0)")
+    if ly < 1 or lx < (1 if hx else 3):
+        raise ValueError(f"swe_rk4_step_padded: interior {ly}x{lx} too small")
+    _refuse_fields("swe_rk4_step_padded", ins, out, tuple(u_p.shape),
+                   (ly, lx))
+    if out is None:
+        out = tuple(torch.empty((ly, lx), dtype=torch.float32,
+                                device=u_p.device) for _ in ins)
+    grid = GridSpec(nx=lx, ny=ly, dx=dx, dy=dy)
+    return ins, out, (hy, hx), rk4_constants(grid, dt, gravity, coriolis_f,
+                                             viscosity)
+
+
+def swe_rk4_step_local(u_p, v_p, h_p, *, hy: int = HALO, **kw) -> Fields:
+    """Counterpart of ``swe_rk4_step_pallas_local``: the step of the
+    (ly, nx) interior of (ly + 2 hy, nx) blocks, x whole and periodic."""
+    return swe_rk4_step_padded(u_p, v_p, h_p, halo=(hy, 0), **kw)
+
+
+def swe_rk4_step_carry(u_p, v_p, h_p, *, hy: int = HALO,
+                       out: Optional[Fields] = None, **kw) -> Fields:
+    """Counterpart of ``swe_rk4_step_pallas_carry``: the step of the
+    interior of (ly + 2 hy, nx) blocks (x whole and periodic), written
+    into the interior rows of the padded blocks ``out`` (new ones when
+    None), which are returned. Their halo rows are not written: the next
+    step's exchange refreshes them."""
+    if out is None:
+        out = tuple(torch.empty_like(t) for t in (u_p, v_p, h_p))
+    rows = out[0].shape[0]
+    swe_rk4_step_padded(u_p, v_p, h_p, halo=(hy, 0),
+                        out=tuple(o[hy:rows - hy] for o in out), **kw)
+    return out
+
+
+def swe_rk4_step_local2d(u_p, v_p, h_p, *, hy: int = HALO, hx: int = HALO,
+                         **kw) -> Fields:
+    """Counterpart of ``swe_rk4_step_pallas_local2d``: the step of the
+    (ly, lx) interior of (ly + 2 hy, lx + 2 hx) blocks."""
+    return swe_rk4_step_padded(u_p, v_p, h_p, halo=(hy, hx), **kw)
 
 
 def kernel_supported(grid: GridSpec, params: PhysicsParams, model: str,

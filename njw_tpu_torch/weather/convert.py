@@ -7,6 +7,11 @@ any object with the fields, such as a JAX ``BarotropicState`` or
 ``PEState``), and a grid or parameter set is read field by field from any
 object that has the fields (a JAX ``GridSpec`` / ``PhysicsParams``, a
 namespace, ...), so this module imports nothing of JAX.
+
+A sharded state crosses the same way: the JAX package's sharded result
+read as the global arrays (``np.asarray`` of each field) becomes the
+shards a port mesh holds (``shards_from_numpy``), and the port's shards
+become the global arrays again (``shards_to_numpy``).
 """
 from __future__ import annotations
 
@@ -63,6 +68,29 @@ def pe_state_from_numpy(src, device) -> PEState:
 
 def pe_state_to_numpy(s: PEState) -> dict[str, np.ndarray]:
     return s.to_numpy()
+
+
+def shards_from_numpy(src, mesh) -> list:
+    """The shards ``mesh`` holds (``njw_tpu_torch.parallel``) of a whole
+    state given as a dict of arrays or any object with the fields (a JAX
+    state, sharded or not): a ``PEState`` when it has ps, else the
+    ``WeatherState`` of u, v, h. The fields are read with ``np.asarray``."""
+    get = src.__getitem__ if isinstance(src, Mapping) else \
+        (lambda name: getattr(src, name))
+    has_ps = (("ps" in src) if isinstance(src, Mapping)
+              else getattr(src, "ps", None) is not None)
+    if has_ps:
+        state = _fields_from(PEState, src, "cpu")
+    else:
+        state = WeatherState(**{name: tensor_from_numpy(np.asarray(get(name)),
+                                                        "cpu")
+                                for name in ("u", "v", "h")})
+    return mesh.shard_state(state)
+
+
+def shards_to_numpy(shards, mesh) -> dict[str, np.ndarray]:
+    """The global arrays of a sharded state (``mesh.gather_state``)."""
+    return mesh.gather_state(shards).to_numpy()
 
 
 def _fields_of(cls, obj: Any) -> dict[str, Any]:

@@ -293,3 +293,175 @@ class TestFIRKernelsOnCard:
         assert fir_band_cuda.launches == before + 1
         torch.testing.assert_close(y, fir_band_plain(x, filt.taps),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _nan_framed(a: torch.Tensor, halo: tuple, reach: int,
+                margin: int = 8) -> torch.Tensor:
+    """``a``, a padded block (interior at ``halo``; hx = 0: x whole), as a
+    view inside a NaN buffer ``margin`` cells wider on every side, with NaN
+    also in each of the block's cells that no interior output depends on:
+    those whose distances dy, dx outside the interior have dy + dx >
+    ``reach`` (4 for the whole-step kernels, 1 for the stage kernel)."""
+    hy, hx = halo
+    rows, cols = a.shape[-2:]
+    buf = torch.full(a.shape[:-2] + (rows + 2 * margin, cols + 2 * margin),
+                     float("nan"), device=a.device)
+    view = buf[..., margin:margin + rows, margin:margin + cols]
+    view.copy_(a)
+
+    def dist(n, h):
+        i = torch.arange(n, device=a.device)
+        return torch.clamp(torch.maximum(h - i, i - (n - h - 1)), min=0)
+
+    view.masked_fill_(dist(rows, hy)[:, None] + dist(cols, hx)[None, :]
+                      > reach, float("nan"))
+    return view
+
+
+def _padded_pe(L, ly, lx, halo, seed, device):
+    hy, hx = halo
+    return _pe_state(L, ly + 2 * hy, lx + 2 * hx, seed, device)
+
+
+@pytest.mark.cuda
+class TestShardedKernelsOnCard:
+    """The padded launches of K1, K4 and K5 against their plain versions,
+    with NaN in every cell the kernel must not read, and each sharded
+    stepper on a LocalMesh against the whole-domain kernel path."""
+
+    @pytest.mark.parametrize("form,halo", [
+        ("local", (4, 0)), ("carry", (4, 0)), ("local2d", (4, 4)),
+        ("local2d", (8, 128)), ("local", (5, 0))])
+    @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
+    def test_swe_padded_matches_plain(self, cuda_device, form, halo, nan):
+        from njw_tpu_torch.ops.stencil import (
+            swe_rk4_step_carry, swe_rk4_step_local, swe_rk4_step_local2d,
+            swe_rk4_step_padded,
+        )
+        hy, hx = halo
+        ly, lx = 45, 70
+        f = _torch(_fields(ly + 2 * hy, lx + 2 * hx, seed=ly + hx),
+                   cuda_device)
+        kw = dict(dt=0.01, dx=1.3, dy=0.7, coriolis_f=1e-4, viscosity=0.02)
+        ref = swe_rk4_step_padded(*(t.cpu() for t in f), halo=halo, **kw)
+        ins = tuple(_nan_framed(t, halo, 4) for t in f) if nan else f
+        before = swe_rk4_step_cuda.launches
+        if form == "carry":
+            out = swe_rk4_step_carry(*ins, hy=hy, **kw)
+            out = tuple(o[hy:hy + ly] for o in out)
+        elif form == "local":
+            out = swe_rk4_step_local(*ins, hy=hy, **kw)
+        else:
+            out = swe_rk4_step_local2d(*ins, hy=hy, hx=hx, **kw)
+        torch.cuda.synchronize()
+        assert swe_rk4_step_cuda.launches == before + 1
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("halo,nbase", [((1, 0), 1), ((1, 1), 4),
+                                            ((3, 2), 4)])
+    @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
+    def test_pe_stage_padded_matches_plain(self, cuda_device, halo, nbase,
+                                           nan):
+        from njw_tpu_torch.ops.pe_stencil import pe_stage_padded
+
+        L, ly, lx = 5, 37, 70
+        cur = _padded_pe(L, ly, lx, halo, 1, cuda_device)
+        bases = [_pe_state(L, ly, lx, 2 + g, cuda_device)
+                 for g in range(nbase)]
+        coeffs = (1.0,) if nbase == 1 else (-1 / 3, 1 / 3, 2 / 3, 1 / 3)
+        kw = dict(halo=halo, c_dt=60.0, dx=1e5, dy=1.2e5, coriolis_f=1e-4,
+                  base_coeffs=coeffs)
+        ref = pe_stage_padded(cur.map(torch.Tensor.cpu),
+                              [b.map(torch.Tensor.cpu) for b in bases], **kw)
+        if nan:
+            cur = cur.map(lambda a: _nan_framed(a, halo, 1))
+        before = pe_stage_cuda.launches
+        out = pe_stage_padded(cur, bases, **kw)
+        torch.cuda.synchronize()
+        assert pe_stage_cuda.launches == before + 1
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4,
+                                       msg=name)
+
+    @pytest.mark.parametrize("form,halo", [
+        ("local", (4, 0)), ("carry", (4, 0)), ("local2d", (4, 4)),
+        ("carry2d", (4, 4)), ("local2d", (6, 5))])
+    @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
+    def test_pe_rk4_padded_matches_plain(self, cuda_device, form, halo, nan):
+        from njw_tpu_torch.ops.pe_stencil import (
+            interior, pe_rk4_carry, pe_rk4_carry2d, pe_rk4_local,
+            pe_rk4_local2d, pe_rk4_padded,
+        )
+        L, ly, lx = 4, 37, 50
+        s = _padded_pe(L, ly, lx, halo, 3, cuda_device)
+        kw = dict(dt=60.0, dx=1e5, dy=1.2e5, coriolis_f=1e-4)
+        ref = pe_rk4_padded(s.map(torch.Tensor.cpu), halo=halo, **kw)
+        if nan:
+            s = s.map(lambda a: _nan_framed(a, halo, 4))
+        hy, hx = halo
+        before = pe_rk4_step_cuda.launches
+        if form == "local":
+            out = pe_rk4_local(s, hy=hy, **kw)
+        elif form == "local2d":
+            out = pe_rk4_local2d(s, hy=hy, hx=hx, **kw)
+        elif form == "carry":
+            out = interior(pe_rk4_carry(s, hy=hy, **kw), halo)
+        else:
+            out = interior(pe_rk4_carry2d(s, hy=hy, hx=hx, **kw), halo)
+        torch.cuda.synchronize()
+        assert pe_rk4_step_cuda.launches == before + 1
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4,
+                                       msg=name)
+
+    @pytest.mark.parametrize("shape", [(4, 1), (2, 2), (3, 2)])
+    def test_swe_stepper_matches_whole_domain(self, cuda_device, shape):
+        from njw_tpu_torch.parallel import LocalMesh, sharded_swe_step_kernel
+
+        cfg = SimConfig(grid_width=96, grid_height=48, dt=0.01,
+                        coriolis_f=1e-4, device="cuda")
+        sim = Simulation.from_config(cfg, "vortex", strength=2.0)
+        mesh = LocalMesh(*shape)
+        shards = mesh.shard_state(sim.state)
+        step = sharded_swe_step_kernel(cfg.grid_spec(), cfg.physics(), mesh,
+                                       dt=cfg.dt, n_steps=3)
+        before = swe_rk4_step_cuda.launches
+        got = mesh.gather_state(step(shards))
+        torch.cuda.synchronize()
+        assert swe_rk4_step_cuda.launches == before + 3 * mesh.size
+        sim.step(3)
+        for (name, a), (_, b) in zip(got.items(), sim.state.items()):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+
+    @pytest.mark.parametrize("ctor,shape,kw,counter,per_step", [
+        ("sharded_pe_step_kernel_fused", (4, 1), {}, "rk4", 1),
+        ("sharded_pe_step_kernel_fused", (2, 2), {}, "rk4", 1),
+        ("sharded_pe_step_kernel_fused_2d", (2, 2), {"carry": True}, "rk4",
+         1),
+        ("sharded_pe_step_kernel", (4, 1), {}, "stage", 4),
+        ("sharded_pe_step_kernel", (2, 2), {}, "stage", 4)])
+    def test_pe_stepper_matches_whole_domain(self, cuda_device, ctor, shape,
+                                             kw, counter, per_step):
+        from njw_tpu_torch import parallel
+        from njw_tpu_torch.weather.primitive import pe_initial_state
+
+        grid = GridSpec(nx=64, ny=48, levels=4, dx=1e5, dy=1e5)
+        params = PhysicsParams(coriolis_f=1e-4)
+        s0 = pe_initial_state(grid, device="cuda", u_jet=15.0, perturb=0.5)
+        mesh = parallel.LocalMesh(*shape)
+        step = getattr(parallel, ctor)(grid, params, mesh, dt=30.0,
+                                       n_steps=3, **kw)
+        wrapper = pe_rk4_step_cuda if counter == "rk4" else pe_stage_cuda
+        before = wrapper.launches
+        got = mesh.gather_state(step(mesh.shard_state(s0)))
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 3 * per_step * mesh.size
+        ref = make_pe_kernel_rk4_stepper(grid, params, 30.0,
+                                         whole_step=counter == "rk4")
+        s = s0.map(torch.clone)
+        carry = ref.init(s)
+        for _ in range(3):
+            carry, s = ref.step(carry, s, None)
+        for (name, a), (_, b) in zip(got.items(), s.items()):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4, msg=name)
