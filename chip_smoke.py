@@ -76,6 +76,33 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 device's time per step (which of the two sets the pace),
                 the device time of the halo exchanges, and the card's clock,
                 power and temperature beside the timed window
+  12 variant kernels  the bf16 kernel (K1-bf16) against its plain version
+                at 2048^2, a ragged 1000 x 1500 and 5 x 7, with and without
+                viscosity (within 1e-3 of max|h| per step, 1/20 of the JAX
+                band; its RMS distance from the plain version at most 3e-4
+                of the float32 kernel's, which fails a kernel that rounds
+                some operations otherwise, such as one fma.bf16; and
+                different from the float32 kernel); the multistep
+                kernel (K2) with N = 2 bit-equal to two K1 launches (N = 1
+                to one) and within rtol 1e-5 / atol 1e-6 per step of its
+                plain version; each one's time per launch at 2048^2 beside
+                K1's in this call, plain time, bytes bound (24 B/point per
+                launch: 12 per step for K2) and host cost per launch
+  13 variant paths  VARIANT_PATHS swe_bf16 (1000 steps, 1000 bf16 launches)
+                and swe_multistep (1000 steps as 500 K2 launches) at the SWE
+                main path's configuration, launch counts exact, ms per RK4
+                step beside the float32 main path's; swe_multistep equal to
+                the K1 run of the same steps bit for bit, swe_bf16 within the
+                JAX band (2e-2 of max|h|) of it
+  14 semi-implicit  VARIANT_PATHS swe_si (SWE 512^2) and pe_si (PE 512^2 x
+                20), 100 steps each, finite, every launch count 0 (no kernel
+                of the port), ms/step and simulated seconds per wall second
+                beside their RK4 partners (dt 0.05 on K1, 240 s on K4); the
+                same SI runs on the card against the port on the CPU (SWE
+                512^2, PE 128^2 x 20, 20 steps, normalised 1e-4, the winds
+                sharing one scale); PE SI against the K4 path at dt 5 s, 40
+                steps (ps rtol 2e-4, u atol 2e-2:
+                tests/test_weather_primitive.py:470-484)
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -247,25 +274,28 @@ def distinct_bytes(*tensors) -> int:
 
 
 def _counted():
-    """{name: the wrapper that carries the kernel's launch count}."""
+    """{name: (the wrapper that carries the kernel's launch count, the
+    count's attribute)}."""
     from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
     from njw_tpu_torch.signal import fir_cuda
 
-    return {"swe_rk4": stencil.swe_rk4_step_cuda,
-            "baro_stage": baro_stencil.baro_stage_cuda,
-            "pe_stage": pe_stencil.pe_stage_cuda,
-            "pe_rk4": pe_stencil.pe_rk4_step_cuda,
-            "fir_band": fir_cuda.fir_band_cuda,
-            "fir_band_bf16": fir_cuda.fir_band_bf16_cuda}
+    return {"swe_rk4": (stencil.swe_rk4_step_cuda, "launches"),
+            "swe_rk4_bf16": (stencil.swe_rk4_step_cuda, "bf16_launches"),
+            "swe_rk4_multi": (stencil.swe_rk4_multistep_cuda, "launches"),
+            "baro_stage": (baro_stencil.baro_stage_cuda, "launches"),
+            "pe_stage": (pe_stencil.pe_stage_cuda, "launches"),
+            "pe_rk4": (pe_stencil.pe_rk4_step_cuda, "launches"),
+            "fir_band": (fir_cuda.fir_band_cuda, "launches"),
+            "fir_band_bf16": (fir_cuda.fir_band_bf16_cuda, "launches")}
 
 
 def reset_counts() -> None:
-    for wrapper in _counted().values():
-        wrapper.launches = 0
+    for wrapper, attr in _counted().values():
+        setattr(wrapper, attr, 0)
 
 
 def counts() -> dict:
-    return {name: w.launches for name, w in _counted().items()}
+    return {name: getattr(w, attr) for name, (w, attr) in _counted().items()}
 
 
 def host_us_per_launch(launch) -> float:
@@ -1673,6 +1703,339 @@ def sharded_paths() -> dict:
     return results
 
 
+BF16_VS_PLAIN = 1e-3    # of max|h| per step: 1/20 of the JAX band below
+# RMS of (bf16 kernel - plain) over RMS of (float32 kernel - plain). On an
+# H100 a sound kernel reads <= 1.5e-4 over the smoke's cases; one
+# product-difference contracted into fma.bf16, or done in float32 and
+# rounded once, reads 1.6e-3 to 2.0e-3 at 2048^2 (PERF.md)
+BF16_RMS_SHARE = 3e-4
+JAX_BF16_BAND = 2e-2    # of max|h|: tests/test_ops_stencil.py:93
+SI_VS_CPU = 1e-4        # normalised: the SI runs on the card against the CPU
+
+
+def _variant(name: str):
+    """A path of njw_tpu_torch.weather.main_paths.VARIANT_PATHS."""
+    from njw_tpu_torch.weather.main_paths import VARIANT_PATHS
+
+    return VARIANT_PATHS[name]
+
+
+def _swe_case(ny, nx, ic, ic_kw):
+    """(u, v, h) of a named initial condition on the card."""
+    from njw_tpu_torch.weather import GridSpec, make_initial_state
+
+    s = make_initial_state(ic, GridSpec(nx=nx, ny=ny), device="cuda", **ic_kw)
+    return s.u, s.v, s.h
+
+
+def _ping_pong(launch, fields):
+    """A call that runs ``launch(src, dst)`` between two buffer sets in
+    turn, as the steppers do."""
+    import torch
+
+    bufs = [fields, tuple(torch.empty_like(t) for t in fields)]
+    turn = [0]
+
+    def call():
+        launch(bufs[turn[0]], bufs[1 - turn[0]])
+        turn[0] ^= 1
+
+    return call
+
+
+def _swe_bf16_vs_plain(kern, plain, f32) -> tuple[dict, bool]:
+    """The bf16 kernel's outputs against its plain version's: the largest
+    distance over max|h| (at most BF16_VS_PLAIN), and the RMS distance over
+    the float32 kernel's from the same plain version (at most
+    BF16_RMS_SHARE; each the largest over u, v, h); the output must differ
+    from the float32 kernel's."""
+    import torch
+
+    def rms(a, b):
+        return max(float((x.double() - y.double()).pow(2).mean().sqrt())
+                   for x, y in zip(a, b))
+
+    scale = float(plain[2].abs().max())
+    err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+    control = rms(f32, plain)
+    share = rms(kern, plain) / control if control else float("inf")
+    vs_f32 = float((kern[2] - f32[2]).abs().max())
+    ok = all(bool(torch.isfinite(t).all()) for t in kern) and \
+        err <= BF16_VS_PLAIN * scale and share <= BF16_RMS_SHARE and \
+        vs_f32 > 0
+    return {"max_abs_err": err, "max_abs_err_rel_to_max_h": err / scale,
+            "tol_rel_to_max_h": BF16_VS_PLAIN,
+            "rms_err_share_of_f32_kernel": share,
+            "tol_rms_share": BF16_RMS_SHARE,
+            "max_abs_diff_from_f32_kernel": vs_f32}, ok
+
+
+def variant_kernels() -> dict:
+    """Phase 12: the bf16 kernel (K1-bf16) and the multistep kernel (K2)
+    against their plain versions, and K2 with N = 2 against two K1
+    launches, at the main path's 2048^2, a ragged 1000 x 1500 and 5 x 7;
+    then each one's time at 2048^2 beside K1's in this call."""
+    import torch
+    from njw_tpu_torch.ops import stencil
+    from njw_tpu_torch.weather import GridSpec
+
+    swe = path("swe")
+    n, dt, f = swe.config["grid_width"], swe.config["dt"], \
+        swe.config["coriolis_f"]
+    cases = [  # name, ny, nx, ic, ic kwargs, dt
+        ("main_2048", n, n, swe.ic, swe.ic_params, dt),
+        ("ragged_1000x1500", 1000, 1500, "breaking_wave", {"amplitude": 0.3},
+         0.005),
+        ("tiny_5x7", 5, 7, "random", {"amplitude": 0.1, "seed": 2}, 0.001),
+    ]
+    res = {"bf16": {}, "multi": {}}
+    for name, ny, nx, ic, ic_kw, step_dt in cases:
+        fields = _swe_case(ny, nx, ic, ic_kw)
+        grid = GridSpec(nx=nx, ny=ny)
+        for nu in (0.0, 0.02):
+            kw = dict(grid=grid, dt=step_dt, coriolis_f=f, viscosity=nu)
+            kern = stencil.swe_rk4_step_cuda(*fields, variant="bf16", **kw)
+            plain = stencil.swe_rk4_step_plain(*fields, variant="bf16", **kw)
+            f32 = stencil.swe_rk4_step_cuda(*fields, **kw)
+            torch.cuda.synchronize()
+            check, ok = _swe_bf16_vs_plain(kern, plain, f32)
+            emit("kernel_vs_plain", ok=ok, kernel="swe_rk4_bf16", case=name,
+                 shape=[ny, nx], viscosity=nu, **check)
+            if not ok:
+                fail("kernel_vs_plain", f"swe_rk4_bf16 disagrees with its "
+                     f"plain version, or equals float32, on {name}")
+            res["bf16"][f"{name}_nu{nu}"] = check["max_abs_err"]
+        kw = dict(grid=grid, dt=step_dt, coriolis_f=f)
+        two = stencil.swe_rk4_multistep_cuda(*fields, n_fused=2, **kw)
+        one = stencil.swe_rk4_multistep_cuda(*fields, n_fused=1, **kw)
+        k1 = stencil.swe_rk4_step_cuda(*fields, **kw)
+        k1k1 = stencil.swe_rk4_step_cuda(*k1, **kw)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(two, k1k1)) and \
+            all(torch.equal(a, b) for a, b in zip(one, k1))
+        errs, ok = {}, exact
+        for nf, got in ((1, one), (2, two)):
+            plain = stencil.swe_rk4_multistep_plain(*fields, n_fused=nf, **kw)
+            max_abs, _, agree = _compare(got, plain, nf * RTOL, nf * ATOL)
+            errs[nf] = max_abs
+            ok &= agree
+        emit("kernel_vs_plain", ok=ok, kernel="swe_rk4_multi", case=name,
+             shape=[ny, nx], equals_k1_launches=exact,
+             max_abs_err_n1=errs[1], max_abs_err_n2=errs[2],
+             rtol_per_step=RTOL, atol_per_step=ATOL,
+             max_abs_diff_n2_vs_two_k1=max(
+                 float((a - b).abs().max()) for a, b in zip(two, k1k1)))
+        if not ok:
+            fail("kernel_vs_plain", f"swe_rk4_multi disagrees with two K1 "
+                 f"launches or its plain version on {name}")
+        res["multi"][name] = errs[2]
+        del fields, kern, plain, f32, two, one, k1, k1k1
+
+    # times at the main path's shape, each kernel ping-ponging two buffer
+    # sets as its stepper does; K1 beside them in this call
+    fields = _swe_case(n, n, swe.ic, swe.ic_params)
+    grid = GridSpec(nx=n, ny=n)
+    kw = dict(grid=grid, dt=dt, coriolis_f=f)
+    forms = {
+        "swe_rk4": lambda src, dst: stencil.swe_rk4_step_cuda(
+            *src, out=dst, **kw),
+        "swe_rk4_bf16": lambda src, dst: stencil.swe_rk4_step_cuda(
+            *src, out=dst, variant="bf16", **kw),
+        "swe_rk4_multi": lambda src, dst: stencil.swe_rk4_multistep_cuda(
+            *src, out=dst, n_fused=2, **kw),
+    }
+    plains = {
+        "swe_rk4": lambda: stencil.swe_rk4_step_plain(*fields, **kw),
+        "swe_rk4_bf16": lambda: stencil.swe_rk4_step_plain(
+            *fields, variant="bf16", **kw),
+        "swe_rk4_multi": lambda: stencil.swe_rk4_multistep_plain(
+            *fields, n_fused=2, **kw),
+    }
+    times = {}
+    for kernel, launch in forms.items():
+        call = _ping_pong(launch, tuple(t.clone() for t in fields))
+        _events_ms(call, 20)
+        ms = _events_ms(call, 200)
+        _events_ms(plains[kernel], 2)
+        plain_ms = _events_ms(plains[kernel], 10)
+        steps = 2 if kernel == "swe_rk4_multi" else 1
+        b_ms, b_by = roofline_ms(BYTES_PER_POINT * n * n,
+                                 steps * FLOP_PER_POINT * n * n)
+        host_us = host_us_per_launch(call)
+        times[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "host_us": host_us,
+                         "ms_per_step": ms / steps,
+                         "bound_ms_per_step": b_ms / steps}
+        emit("kernel_time", ok=True, kernel=kernel, shape=[n, n],
+             steps_per_launch=steps, ms=ms, ms_per_step=ms / steps,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_ms_per_step=b_ms / steps,
+             bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
+             host_us_per_launch=host_us, card=card_state())
+    return {
+        "bf16": {"max_abs_err": res["bf16"]["main_2048_nu0.0"],
+                 "max_abs_err_all_cases": max(res["bf16"].values()),
+                 **times["swe_rk4_bf16"]},
+        "multi": {"max_abs_err": res["multi"]["main_2048"],
+                  "max_abs_err_all_cases": max(res["multi"].values()),
+                  **times["swe_rk4_multi"]},
+        "k1_same_call": times["swe_rk4"]}
+
+
+def variant_paths(m1: dict) -> dict:
+    """Phase 13: swe_bf16 and swe_multistep (VARIANT_PATHS) at full width,
+    each launch count set to 0 just before the timed run and read just
+    after; the multistep run held to the float32 run of the same steps bit
+    for bit, the bf16 run to the JAX band of it."""
+    import torch
+
+    out = {}
+    for name, stepper in (("swe_bf16", "rk4_kernel_bf16"),
+                          ("swe_multistep", "rk4_kernel_x2")):
+        p = _variant(name)
+        sim = p.simulation()
+        if sim.stepper.name != stepper:
+            fail(f"variant_path_{name}", f"stepper {sim.stepper.name}")
+        r = _drive(sim, p.main.warm, p.main.steps)
+        want = {p.kernel: p.main.steps * p.launches_per_step}
+        steps = sim.step_count * p.steps_per_call
+        ref = path("swe").simulation(backend="kernel")   # K1, float32
+        ref.step(steps)
+        scale = float(ref.state.h.abs().max())
+        diff = _max_abs(sim.state, ref.state)
+        if name == "swe_multistep":
+            agrees = all(torch.equal(a, b) for (_, a), (_, b) in
+                         zip(sim.state.items(), ref.state.items()))
+            check = {"equals_f32_run": agrees}
+        else:
+            agrees = 0 < diff <= JAX_BF16_BAND * scale
+            check = {"max_abs_diff_rel_to_max_h": diff / scale,
+                     "band_rel_to_max_h": JAX_BF16_BAND}
+        r["ms_per_call"] = r["ms_per_step"]
+        ms_rk4_step = r["ms_per_step"] / p.steps_per_call
+        emit(f"variant_path_{name}", ok=r["finite"] and agrees,
+             grid=[p.main.config["grid_height"], p.main.config["grid_width"]],
+             stepper=stepper, calls=p.main.steps,
+             rk4_steps=p.main.steps * p.steps_per_call,
+             ms_per_rk4_step=ms_rk4_step,
+             f32_main_path_ms_per_step=m1["ms_per_step"],
+             vs_f32_main_path=ms_rk4_step / m1["ms_per_step"],
+             steps_compared=steps, max_abs_diff_vs_f32_run=diff, **check, **r)
+        _check_main(f"variant_path_{name}", r, want)
+        if not agrees:
+            fail(f"variant_path_{name}", "the run disagrees with the float32 "
+                 "run of the same steps")
+        out[name] = r
+        del sim, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _normalised_groups(a_state, b_state) -> dict:
+    """max |a - b| per field over the scale of b's group: the winds u, v
+    share one, every other field has its own."""
+    bs = dict(b_state.items())
+
+    def scale(name):
+        group = ("u", "v") if name in ("u", "v") else (name,)
+        return max(float(bs[g].abs().max()) for g in group) + 1e-30
+
+    return {name: float((a.cpu() - bs[name].cpu()).abs().max()) / scale(name)
+            for name, a in a_state.items()}
+
+
+def semi_implicit() -> dict:
+    """Phase 14: swe_si and pe_si (VARIANT_PATHS) at full width with their
+    RK4 partners; the SI runs on the card against the port on the CPU; PE
+    SI against the RK4 kernel path at a small dt."""
+    import torch
+    from njw_tpu_torch.weather import SimConfig, Simulation
+
+    res = {}
+    partners = {"swe_si": 0.05, "pe_si": 240.0}
+    for name, rk4_dt in partners.items():
+        p = _variant(name)
+        sim = p.simulation()
+        if sim.stepper.name != "semi_implicit":
+            fail(f"semi_implicit_{name}", f"stepper {sim.stepper.name}")
+        r = _drive(sim, p.main.warm, p.main.steps)
+        _check_main(f"semi_implicit_{name}", r, {})
+        del sim
+        torch.cuda.empty_cache()
+        rk = p.main.simulation(integration_method="rk4", dt=rk4_dt)
+        rr = _drive(rk, p.main.warm, p.main.steps)
+        si_dt = p.main.config["dt"]
+        emit(f"semi_implicit_{name}", ok=True, config=p.main.config,
+             ic=p.main.ic, ic_params=p.main.ic_params, steps=p.main.steps,
+             sim_seconds_per_wall_second=si_dt / r["ms_per_step"] * 1e3,
+             rk4_partner={"dt": rk4_dt, "stepper": rk.stepper.name,
+                          "ms_per_step": rr["ms_per_step"],
+                          "host_enqueue_ms_per_step":
+                              rr["host_enqueue_ms_per_step"],
+                          "paced_by": rr["paced_by"],
+                          "launches": rr["launches"],
+                          "finite": rr["finite"],
+                          "sim_seconds_per_wall_second":
+                              rk4_dt / rr["ms_per_step"] * 1e3},
+             card=card_state(), **r)
+        res[name] = {"si": r, "rk4": rr, "si_dt": si_dt, "rk4_dt": rk4_dt}
+        del rk
+        torch.cuda.empty_cache()
+
+    # the card against the port on the CPU (cuFFT and cuBLAS against
+    # pocketfft and the CPU's matmul)
+    for name, size, steps in (("swe_si", {}, 20),
+                              ("pe_si", {"grid_width": 128,
+                                         "grid_height": 128}, 20)):
+        main = _variant(name).main
+        card = main.simulation(**size)
+        host = main.simulation(device="cpu", **size)
+        card.step(steps)
+        host.step(steps)
+        diffs = _normalised_groups(card.state, host.state)
+        ok = all(bool(torch.isfinite(t).all()) for _, t in card.state.items())
+        ok &= max(diffs.values()) <= SI_VS_CPU
+        emit("semi_implicit_vs_cpu", ok=ok, path=name,
+             shape=[main.config.get("num_levels", 1),
+                    size.get("grid_height", main.config["grid_height"]),
+                    size.get("grid_width", main.config["grid_width"])],
+             steps=steps, normalised_max_diff=diffs, tol=SI_VS_CPU)
+        if not ok:
+            fail("semi_implicit_vs_cpu", f"{name} on the card disagrees "
+                 "with the port on the CPU")
+        res[f"{name}_vs_cpu"] = diffs
+
+    # small dt: the SI and RK4 kernel paths integrate the same equations
+    # (tests/test_weather_primitive.py:470-484)
+    pe = dict(model="primitive", grid_width=48, grid_height=32, num_levels=5,
+              dx=1e5, dy=1e5, dt=5.0, coriolis_f=1e-4, device="cuda")
+    si = Simulation.from_config(SimConfig(integration_method="semi_implicit",
+                                          **pe), "baroclinic", u_jet=8.0,
+                                perturb=0.5)
+    rk = Simulation.from_config(SimConfig(backend="kernel", **pe),
+                                "baroclinic", u_jet=8.0, perturb=0.5)
+    reset_counts()
+    si.step(40)
+    si_launches = counts()
+    rk.step(40)
+    rk_launches = counts()
+    ok_ps = bool(torch.allclose(si.state.ps, rk.state.ps, rtol=2e-4, atol=0))
+    ok_u = bool(torch.allclose(si.state.u, rk.state.u, rtol=0, atol=2e-2))
+    ok = ok_ps and ok_u and not any(si_launches.values()) and \
+        rk_launches["pe_rk4"] == 40 and rk.stepper.name == \
+        "pe_rk4_kernel_fused"
+    emit("semi_implicit_vs_rk4_kernel", ok=ok, shape=[5, 32, 48], dt=5.0,
+         steps=40, rk4_stepper=rk.stepper.name,
+         ps_max_rel_diff=float(((si.state.ps - rk.state.ps).abs()
+                                / rk.state.ps.abs()).max()),
+         u_max_abs_diff=float((si.state.u - rk.state.u).abs().max()),
+         tol={"ps_rtol": 2e-4, "u_atol": 2e-2}, si_launches=si_launches,
+         rk4_launches=rk_launches)
+    if not ok:
+        fail("semi_implicit_vs_rk4_kernel", "PE semi-implicit and the RK4 "
+             "kernel path disagree at small dt")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1703,6 +2066,9 @@ def main() -> int:
     m8 = main_path_fir("fir_bf16")
     ks = sharded_kernels()
     sp = sharded_paths()
+    kv = variant_kernels()
+    mv = variant_paths(m1)
+    si = semi_implicit()
 
     def sharded(kernel):
         """The padded forms' numbers and the sharded paths' launches."""
@@ -1775,7 +2141,30 @@ def main() -> int:
             m8, per="call", main_path="main_path_fir_bf16",
             also_replaces=[f"{fir}:384 _fir_lanes_bf16_nonscratch_kernel"],
             max_abs_err_all_cases=k8["max_abs_err_all_cases"]),
+        row("swe_rk4_bf16", "swe_rk4.cu", f"{st}:155-174",
+            "swe_rk4_kernel variant bf16/bf16s (tendency_bf16)", kv["bf16"],
+            mv["swe_bf16"]["launches"]["swe_rk4_bf16"], mv["swe_bf16"],
+            main_path="variant_path_swe_bf16",
+            max_abs_err_all_cases=kv["bf16"]["max_abs_err_all_cases"],
+            k1_ms_same_call=kv["k1_same_call"]["ms"]),
+        row("swe_rk4_multi", "swe_rk4.cu", f"{st}:484",
+            "_swe_rk4_multi_kernel (n_fused=2)", kv["multi"],
+            mv["swe_multistep"]["launches"]["swe_rk4_multi"],
+            mv["swe_multistep"], per="call",
+            main_path="variant_path_swe_multistep",
+            max_abs_err_all_cases=kv["multi"]["max_abs_err_all_cases"],
+            ms_per_rk4_step=kv["multi"]["ms_per_step"],
+            bound_ms_per_rk4_step=kv["multi"]["bound_ms_per_step"],
+            k1_ms_same_call=kv["k1_same_call"]["ms"]),
     ]
+    emit("semi_implicit_summary", ok=True, **{
+        name: {"si_ms_per_step": v["si"]["ms_per_step"],
+               "rk4_ms_per_step": v["rk4"]["ms_per_step"],
+               "si_sim_seconds_per_wall_second":
+                   v["si_dt"] / v["si"]["ms_per_step"] * 1e3,
+               "rk4_sim_seconds_per_wall_second":
+                   v["rk4_dt"] / v["rk4"]["ms_per_step"] * 1e3}
+        for name, v in si.items() if "si" in v})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

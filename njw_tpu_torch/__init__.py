@@ -6,17 +6,21 @@ by ``tests/test_torch_*.py``. It imports ``torch``, ``numpy`` and the
 standard library only, never ``jax`` or ``njw_tpu``.
 
 Ported so far: the three planar weather cores through ``Simulation`` and
-the CLI: shallow water (grid, initial conditions, tendencies, integrators,
-the NumPy oracles) with the fused RK4 kernel ``ops/csrc/swe_rk4.cu``; the
-barotropic vorticity core (``torch.fft`` Poisson solve) with the Arakawa
-stage kernel ``ops/csrc/baro_stage.cu``; the primitive equations with the
-whole-step kernel ``ops/csrc/pe_rk4.cu`` and the stage kernel
-``ops/csrc/pe_stage.cu``; and the FIR half of ``signal`` (windows, FIR
-design, ``fir_apply``, ``FIRFilter``, ``MultirateFilter``,
-``StreamingFIR``) with the banded-product tensor-core kernels
-``ops/csrc/fir_band.cu`` and ``ops/csrc/fir_band_bf16.cu``. All kernels are
-CUDA C++ written by hand for sm_90a. Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+the CLI: shallow water (grid, initial conditions, tendencies, integrators
+including the semi-implicit ones, the NumPy oracles) with the fused RK4
+kernel ``ops/csrc/swe_rk4.cu`` (float32 and bf16 tendencies, one or two
+steps per pass); the barotropic vorticity core (``torch.fft`` Poisson
+solve) with the Arakawa stage kernel ``ops/csrc/baro_stage.cu``; the
+primitive equations with the whole-step kernel ``ops/csrc/pe_rk4.cu``,
+the stage kernel ``ops/csrc/pe_stage.cu`` and the semi-implicit stepper;
+the kernel-backed sharded weather steppers of ``parallel``; and the FIR
+half of ``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
+``MultirateFilter``, ``StreamingFIR``) with the banded-product
+tensor-core kernels ``ops/csrc/fir_band.cu`` and
+``ops/csrc/fir_band_bf16.cu``. All kernels are CUDA C++ written by hand
+for sm_90a, and every Pallas kernel of the JAX package has its
+counterpart. Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from njw_tpu_torch.platform.device import require_device
+
 
 @lru_cache(maxsize=64)
 def _fd_wavenumbers_np(n: int, d: float, kind: str) -> np.ndarray:
@@ -37,8 +39,11 @@ def _fd_wavenumbers_np(n: int, d: float, kind: str) -> np.ndarray:
 
 
 def fd_wavenumbers(n: int, d: float, kind: str = "central",
-                   device="cpu") -> torch.Tensor:
-    return torch.from_numpy(_fd_wavenumbers_np(n, float(d), kind)).to(device)
+                   device="cuda") -> torch.Tensor:
+    """``_fd_wavenumbers_np`` as a tensor on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+    return torch.from_numpy(_fd_wavenumbers_np(n, float(d), kind)).to(
+        require_device(device))
 
 
 @lru_cache(maxsize=16)

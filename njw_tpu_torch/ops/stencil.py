@@ -1,29 +1,40 @@
-"""Fused RK4 step of the shallow-water core: CUDA kernel and plain version.
+"""Fused RK4 steps of the shallow-water core: CUDA kernel and plain versions.
 
 Counterpart of ``njw_tpu/ops/stencil.py`` (``swe_rk4_step_pallas``,
-``make_pallas_rk4_stepper``, ``pallas_supported``). The kernel,
-``csrc/swe_rk4.cu``, replaces the TPU kernel ``swe_rk4_kernel``: one whole
-RK4 step (four central-difference SWE tendencies, the accumulator-form
-combine, optional 5-point viscosity on u and v) for periodic float32
-``(ny, nx)`` fields in one pass over device memory. Its source says what
-bounds it and how its tiles are laid out.
+``make_pallas_rk4_stepper``, ``swe_rk4_multistep_pallas``,
+``pallas_supported``). The kernel source, ``csrc/swe_rk4.cu``, replaces
+the TPU kernels ``swe_rk4_kernel`` (K1: one whole RK4 step, four
+central-difference SWE tendencies, the accumulator-form combine, optional
+5-point viscosity on u and v, for periodic float32 ``(ny, nx)`` fields in
+one pass over device memory), its bf16 variant (K1-bf16: the advection
+differences and products in bf16) and ``_swe_rk4_multi_kernel`` (K2: one
+or two chained steps per pass). Its header says what bounds each and how
+its tiles are laid out.
 
 ``swe_rk4_step`` launches the kernel for CUDA tensors. For CPU tensors it
 runs ``swe_rk4_step_plain``, the same function in plain PyTorch (the
 counterpart of Pallas interpret mode); the tests use it, and the chip
 smoke test holds the kernel against it. No path catches a build or launch
-failure and falls back.
+failure and falls back. ``variant`` takes the JAX package's names:
+``slices`` (the default), ``base`` and ``folded`` run the float32 kernel
+(in JAX they differ only in rounding order), ``bf16`` and ``bf16s`` the
+bf16 one. ``swe_rk4_multistep`` is K2's counterpart.
+
+Launch counters: ``swe_rk4_step_cuda.launches`` (K1, float32, every form),
+``swe_rk4_step_cuda.bf16_launches`` (K1-bf16) and
+``swe_rk4_multistep_cuda.launches`` (K2).
 
 The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
 ``_carry``, ``_local2d``) have their counterparts here too:
 ``swe_rk4_step_local``, ``swe_rk4_step_carry`` and ``swe_rk4_step_local2d``,
 thin wrappers over one padded launch (``swe_rk4_step_padded``) of the same
-kernel, with a plain version on the padded block. All forms dispatch in
-one place (``_runner``).
+kernel, with a plain version on the padded block. As in the JAX package,
+they take no variant. All forms dispatch in one place (``_runner``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
 from typing import Optional
 
@@ -36,17 +47,38 @@ from njw_tpu_torch.weather.integrators import Stepper
 
 Fields = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 HALO = 4  # rows (columns) of halo the kernel reads: one per chained stage
+# the JAX package's variant names; the last two take the bf16 tendency
+VARIANTS = ("slices", "base", "folded", "bf16", "bf16s")
+
+
+def _is_bf16(variant: str) -> bool:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; available: "
+                         f"{list(VARIANTS)}")
+    return variant in ("bf16", "bf16s")
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_constant(x: float) -> float:
+    """``x`` rounded to bfloat16, as ``jnp.bfloat16(x)`` rounds a Python
+    float for the JAX kernel: both go through float32 first (torch's
+    double-to-bf16 cast, like ml_dtypes', converts to float32 and then
+    rounds to nearest even)."""
+    return float(torch.tensor(x, dtype=torch.float64).to(torch.bfloat16))
 
 
 def rk4_constants(grid: GridSpec, dt: float, gravity: float,
-                  coriolis_f: float, viscosity: float) -> dict[str, float]:
+                  coriolis_f: float, viscosity: float,
+                  bf16: bool = False) -> dict[str, float]:
     """The kernel's scalar constants, folded in double and rounded to
-    float32 once, as JAX folds Python floats into a float32 kernel."""
+    float32 once, as JAX folds Python floats into a float32 kernel. With
+    ``bf16``, also the bf16 tendency's difference scales ``bcx``, ``bcy``
+    (bf16 values) and the flag ``bf16``."""
     def f32(x: float) -> float:
         return float(np.float32(x))
 
     dx, dy, nu = float(grid.dx), float(grid.dy), float(viscosity)
-    return {
+    k = {
         "cx": f32(0.5 / dx), "cy": f32(0.5 / dy),
         "g": f32(gravity), "f": f32(coriolis_f),
         "half": f32(0.5 * dt), "dt": f32(dt), "sixth": f32(dt / 6.0),
@@ -54,6 +86,10 @@ def rk4_constants(grid: GridSpec, dt: float, gravity: float,
         "ix2": f32(nu / (dx * dx)), "iy2": f32(nu / (dy * dy)),
         "nu": nu,
     }
+    if bf16:
+        k.update(bf16=True, bcx=bf16_constant(0.5 / dx),
+                 bcy=bf16_constant(0.5 / dy))
+    return k
 
 
 def _refuse_fields(name: str, ins: Fields, out: Optional[Fields],
@@ -106,69 +142,90 @@ def _device_kind(t: torch.Tensor, name: str) -> str:
 
 def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
                  coriolis_f: float = 0.0, viscosity: float = 0.0,
+                 variant: str = "slices",
                  out: Optional[Fields] = None) -> Fields:
     """One fused RK4 SWE step on periodic float32 (ny, nx) fields.
 
     CUDA tensors go to the kernel, CPU tensors to the plain version.
+    ``variant``: one of ``VARIANTS`` (see the module docstring).
     ``out``: three preallocated result buffers (not aliasing the inputs).
     """
     run = _runner(_device_kind(u, "swe_rk4_step"))
-    return _call(run, (u, v, h), out, (0, 0), grid, dt, gravity, coriolis_f,
-                 viscosity)
+    return _call(run, (u, v, h), out, grid, dt, gravity, coriolis_f,
+                 viscosity, variant)
+
+
+def _refuse_host(name: str, ins: Fields, out: Optional[Fields]) -> None:
+    for n, t in zip(("u", "v", "h", "u_out", "v_out", "h_out"),
+                    ins + tuple(out or ())):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {n} is on {t.device}; the kernel "
+                             "takes CUDA tensors only")
 
 
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
                       gravity: float = 9.81, coriolis_f: float = 0.0,
-                      viscosity: float = 0.0,
+                      viscosity: float = 0.0, variant: str = "slices",
                       out: Optional[Fields] = None) -> Fields:
     """Launch the CUDA kernel on the current stream. Refuses any tensor that
     is not on a CUDA device. ``swe_rk4_step_cuda.launches`` counts the
-    launches of every form (whole-domain and padded)."""
-    for name, t in (("u", u), ("v", v), ("h", h)) + tuple(
-            zip(("u_out", "v_out", "h_out"), out or ())):
-        if t.device.type != "cuda":
-            raise ValueError(f"swe_rk4_step_cuda: {name} is on {t.device}; "
-                             "the kernel takes CUDA tensors only")
-    return _call(_launch, (u, v, h), out, (0, 0), grid, dt, gravity,
-                 coriolis_f, viscosity)
+    float32 launches of every form (whole-domain and padded),
+    ``swe_rk4_step_cuda.bf16_launches`` those of the bf16 variant."""
+    _refuse_host("swe_rk4_step_cuda", (u, v, h), out)
+    return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
+                 viscosity, variant)
 
 
 def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
                        gravity: float = 9.81, coriolis_f: float = 0.0,
-                       viscosity: float = 0.0,
+                       viscosity: float = 0.0, variant: str = "slices",
                        out: Optional[Fields] = None) -> Fields:
     """The kernel's function in plain PyTorch, in the kernel's accumulator
-    form (state-form RK4, periodic rolls), on any device."""
-    k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
-    return _plain((u, v, h), out, (0, 0), k)
+    form (state-form RK4, periodic rolls), on any device; the bf16
+    variant in torch bf16 operations, each rounded, in the kernel's
+    order."""
+    return _call(_plain, (u, v, h), out, grid, dt, gravity, coriolis_f,
+                 viscosity, variant)
 
 
-def _call(run, ins: Fields, out, halo, grid, dt, gravity, coriolis_f,
-          viscosity) -> Fields:
+def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
+          variant: str = "slices", n_fused: Optional[int] = None) -> Fields:
+    """Check a whole-domain call, fold its constants and hand it to
+    ``run``. ``n_fused`` (the multistep entry points only) is stored in the
+    constants as ``fused``: K2's launch and its counter."""
     _check(*ins, grid, out)
+    k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity,
+                      _is_bf16(variant))
+    if n_fused is not None:
+        if n_fused not in (1, 2):
+            raise ValueError(f"n_fused must be 1 or 2, got {n_fused} (the "
+                             "JAX kernel's 8-row slab halo bound)")
+        k["fused"] = n_fused
     if out is None:
         out = tuple(torch.empty_like(t) for t in ins)
-    k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity)
-    return run(ins, out, halo, k)
+    return run(ins, out, (0, 0), k)
 
 
 def _runner(kind: str):
-    """The one dispatch point of the kernel, whole-domain and padded: the
-    launch for "cuda", the plain version for "cpu". Both take operands
-    already checked and constants already folded."""
+    """The one dispatch point of every form, whole-domain, multistep and
+    padded: the launch for "cuda", the plain version for "cpu". Both take
+    operands already checked and constants already folded."""
     return _launch if kind == "cuda" else _plain
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 _ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
-             + [ctypes.c_float] * 10 + [_I, _P])
+             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_P])
 
 
 def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
-    """Launch on the current stream. ``ins``: (u, v, h) views of the input
-    block (its first element, its row pitch), whose interior starts at
-    ``halo`` = (hy, hx); an axis whose halo is 0 wraps. ``out``: views of
-    the interior-shaped result."""
+    """Launch on the current stream and count it: K2 (``k["fused"]``
+    steps) on ``swe_rk4_multistep_cuda.launches``, K1-bf16 on
+    ``swe_rk4_step_cuda.bf16_launches``, K1 on ``.launches``. ``ins``:
+    (u, v, h) views of the input block (its first element, its row pitch),
+    whose interior starts at ``halo`` = (hy, hx); an axis whose halo is 0
+    wraps. ``out``: views of the interior-shaped result."""
     hy, hx = halo
     ny, nx = out[0].shape
     launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
@@ -179,15 +236,23 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
             *(t.data_ptr() for t in out), out[0].stride(0), 0, 0,
             ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"], k["g"],
             k["f"], k["half"], k["dt"], k["sixth"], k["third"], k["ix2"],
-            k["iy2"], int(k["nu"] != 0.0), stream)
+            k["iy2"], int(k["nu"] != 0.0), k.get("fused", 1),
+            int(k.get("bf16", 0)), k.get("bcx", 0.0), k.get("bcy", 0.0),
+            stream)
     if err != 0:
         msg = err_string(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
-    swe_rk4_step_cuda.launches += 1
+    if "fused" in k:
+        swe_rk4_multistep_cuda.launches += 1
+    elif k.get("bf16"):
+        swe_rk4_step_cuda.bf16_launches += 1
+    else:
+        swe_rk4_step_cuda.launches += 1
     return out
 
 
 swe_rk4_step_cuda.launches = 0
+swe_rk4_step_cuda.bf16_launches = 0
 
 
 def _tendency(uu, vv, hh, nbrs, k: dict):
@@ -195,23 +260,47 @@ def _tendency(uu, vv, hh, nbrs, k: dict):
     accessors (east, west, north, south, centre) of a field: rolls on the
     whole periodic domain, slices on a padded frame."""
     e, w, n, s, c = nbrs
-    cx, cy, g, f = k["cx"], k["cy"], k["g"], k["f"]
     uc, vc, hc = c(uu), c(vv), c(hh)
-    u_x = (e(uu) - w(uu)) * cx
-    u_y = (n(uu) - s(uu)) * cy
-    v_x = (e(vv) - w(vv)) * cx
-    v_y = (n(vv) - s(vv)) * cy
-    h_x = (e(hh) - w(hh)) * cx
-    h_y = (n(hh) - s(hh)) * cy
-    du = -uc * u_x - vc * u_y - g * h_x + f * vc
-    dv = -uc * v_x - vc * v_y - g * h_y - f * uc
-    dh = -hc * (u_x + v_y) - uc * h_x - vc * h_y
+    if k.get("bf16"):
+        du, dv, dh = _advection_bf16(uu, vv, hh, nbrs, k)
+    else:
+        cx, cy, g, f = k["cx"], k["cy"], k["g"], k["f"]
+        u_x = (e(uu) - w(uu)) * cx
+        u_y = (n(uu) - s(uu)) * cy
+        v_x = (e(vv) - w(vv)) * cx
+        v_y = (n(vv) - s(vv)) * cy
+        h_x = (e(hh) - w(hh)) * cx
+        h_y = (n(hh) - s(hh)) * cy
+        du = -uc * u_x - vc * u_y - g * h_x + f * vc
+        dv = -uc * v_x - vc * v_y - g * h_y - f * uc
+        dh = -hc * (u_x + v_y) - uc * h_x - vc * h_y
     if k["nu"] != 0.0:
         ix2, iy2 = k["ix2"], k["iy2"]
         du = du + (e(uu) + w(uu) - 2.0 * uc) * ix2 \
             + (n(uu) + s(uu) - 2.0 * uc) * iy2
         dv = dv + (e(vv) + w(vv) - 2.0 * vc) * ix2 \
             + (n(vv) + s(vv) - 2.0 * vc) * iy2
+    return du, dv, dh
+
+
+def _advection_bf16(uu, vv, hh, nbrs, k: dict):
+    """The bf16 variant's (du, dv, dh) before viscosity: u, v, h rounded
+    to bf16; the differences, their products with the bf16 scales and the
+    advection sums in bf16, each operation rounded (torch's bf16
+    arithmetic), in the kernel's order; g h_x and f v in float32."""
+    e, w, n, s, c = nbrs
+    bcx, bcy, g, f = k["bcx"], k["bcy"], k["g"], k["f"]
+    ub, vb, hb = (x.to(torch.bfloat16) for x in (uu, vv, hh))
+    u_x = (e(ub) - w(ub)) * bcx
+    u_y = (n(ub) - s(ub)) * bcy
+    v_x = (e(vb) - w(vb)) * bcx
+    v_y = (n(vb) - s(vb)) * bcy
+    h_x = (e(hb) - w(hb)) * bcx
+    h_y = (n(hb) - s(hb)) * bcy
+    ubc, vbc, hbc = c(ub), c(vb), c(hb)
+    du = (-ubc * u_x - vbc * u_y).float() - g * h_x.float() + f * c(vv)
+    dv = (-ubc * v_x - vbc * v_y).float() - g * h_y.float() - f * c(uu)
+    dh = (-hbc * (u_x + v_y) - ubc * h_x - vbc * h_y).float()
     return du, dv, dh
 
 
@@ -258,7 +347,16 @@ def frame(a: torch.Tensor, halo: tuple, width: int) -> torch.Tensor:
 
 
 def _plain(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
-    """The kernel's function in plain PyTorch, in its accumulator form:
+    """The kernel's function in plain PyTorch: ``k["fused"]`` (else one)
+    applications of the one-step plain version."""
+    for _ in range(k.get("fused", 1) - 1):
+        ins = _plain_step(ins, None, halo, k)
+    return _plain_step(ins, out, halo, k)
+
+
+def _plain_step(ins: Fields, out: Optional[Fields], halo: tuple,
+                k: dict) -> Fields:
+    """One step in plain PyTorch, in the kernel's accumulator form:
     periodic rolls on the whole domain (halo (0, 0)); on a padded block,
     slices of the block cut to a 4-point halo, the valid region shrinking
     by one point per side per stage (no roll, nothing wraps)."""
@@ -289,6 +387,46 @@ def _plain(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
     for o, n in zip(out, new):
         o.copy_(n)
     return out
+
+
+# ----------------------------------------------- several steps per pass (K2)
+
+def swe_rk4_multistep(u, v, h, *, grid: GridSpec, dt: float,
+                      gravity: float = 9.81, coriolis_f: float = 0.0,
+                      n_fused: int = 2,
+                      out: Optional[Fields] = None) -> Fields:
+    """``n_fused`` (1 or 2) chained RK4 SWE steps in one pass over
+    periodic float32 (ny, nx) fields, without viscosity (the counterpart of
+    ``swe_rk4_multistep_pallas``; no tile-multiple conditions: the kernel
+    masks ragged tiles). CUDA tensors go to the kernel, CPU tensors to the
+    plain version."""
+    run = _runner(_device_kind(u, "swe_rk4_multistep"))
+    return _call(run, (u, v, h), out, grid, dt, gravity, coriolis_f, 0.0,
+                 n_fused=n_fused)
+
+
+def swe_rk4_multistep_cuda(u, v, h, *, grid: GridSpec, dt: float,
+                           gravity: float = 9.81, coriolis_f: float = 0.0,
+                           n_fused: int = 2,
+                           out: Optional[Fields] = None) -> Fields:
+    """Launch the multistep kernel (K2) on the current stream; CUDA tensors
+    only. ``swe_rk4_multistep_cuda.launches`` counts its launches."""
+    _refuse_host("swe_rk4_multistep_cuda", (u, v, h), out)
+    return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
+                 0.0, n_fused=n_fused)
+
+
+swe_rk4_multistep_cuda.launches = 0
+
+
+def swe_rk4_multistep_plain(u, v, h, *, grid: GridSpec, dt: float,
+                            gravity: float = 9.81, coriolis_f: float = 0.0,
+                            n_fused: int = 2,
+                            out: Optional[Fields] = None) -> Fields:
+    """The multistep kernel's function in plain PyTorch: ``n_fused``
+    applications of the one-step plain version, on any device."""
+    return _call(_plain, (u, v, h), out, grid, dt, gravity, coriolis_f, 0.0,
+                 n_fused=n_fused)
 
 
 # ------------------------------------------------------- the padded forms
@@ -394,27 +532,45 @@ def kernel_supported(grid: GridSpec, params: PhysicsParams, model: str,
     )
 
 
-def make_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
-                            dt: float) -> Stepper:
-    """Stepper around ``swe_rk4_step`` for ``Simulation``.
-
-    In place by design: the carry is a second state buffer, and each step
-    writes the new state into it and hands the old state back as the next
-    carry. Two buffers ping-pong and a step allocates nothing, so a state
-    returned by one step is overwritten by the step after next; callers
-    that keep a state copy it (``Simulation._store_output`` does).
-    """
-    kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
-              coriolis_f=float(params.coriolis_f),
-              viscosity=float(params.viscosity))
-
+def _ping_pong_stepper(advance, name: str, stages: int) -> Stepper:
+    """A Stepper whose step is ``advance(u, v, h, out=...)``, in place by
+    design: the carry is a second state buffer, and each step writes the
+    new state into it and hands the old state back as the next carry. Two
+    buffers ping-pong and a step allocates nothing, so a state returned by
+    one step is overwritten by the step after next; callers that keep a
+    state copy it (``Simulation._store_output`` does)."""
     def init(s):
         return WeatherState(u=torch.empty_like(s.u), v=torch.empty_like(s.v),
                             h=torch.empty_like(s.h))
 
     def step(spare, s, _dt_ignored):
-        u, v, h = swe_rk4_step(s.u, s.v, s.h, out=(spare.u, spare.v, spare.h),
-                               **kw)
+        u, v, h = advance(s.u, s.v, s.h, out=(spare.u, spare.v, spare.h))
         return s, WeatherState(u=u, v=v, h=h)
 
-    return Stepper(init, step, "rk4_kernel", 4)
+    return Stepper(init, step, name, stages)
+
+
+def make_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
+                            dt: float, variant: str = "slices") -> Stepper:
+    """Stepper around ``swe_rk4_step`` for ``Simulation`` (the counterpart
+    of ``make_pallas_rk4_stepper(variant=...)``); ``rk4_kernel_bf16`` for
+    the bf16 variants. Two buffers ping-pong (``_ping_pong_stepper``)."""
+    name = "rk4_kernel_bf16" if _is_bf16(variant) else "rk4_kernel"
+    kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
+              coriolis_f=float(params.coriolis_f),
+              viscosity=float(params.viscosity), variant=variant)
+    return _ping_pong_stepper(functools.partial(swe_rk4_step, **kw), name, 4)
+
+
+def make_kernel_multistep_stepper(grid: GridSpec, params: PhysicsParams,
+                                  dt: float, n_fused: int = 2) -> Stepper:
+    """Stepper around ``swe_rk4_multistep``: each of its steps advances
+    ``n_fused`` RK4 steps of ``dt`` in one launch, so a ``Simulation``
+    driving it takes ``dt * n_fused`` as its own step. Viscosity must be 0
+    (the kernel has none, as in the JAX package)."""
+    if float(params.viscosity) != 0.0:
+        raise ValueError("swe_rk4_multistep has no viscosity term")
+    kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
+              coriolis_f=float(params.coriolis_f), n_fused=n_fused)
+    return _ping_pong_stepper(functools.partial(swe_rk4_multistep, **kw),
+                              f"rk4_kernel_x{n_fused}", 4 * n_fused)

@@ -6,14 +6,16 @@
   barotropic.py   barotropic vorticity core (BarotropicState)
   primitive.py    primitive-equations core (PEState, sigma levels)
   integrators.py  euler / rk2 / rk4 / ab2 Steppers
+  semi_implicit.py  semi-implicit SWE and PE steppers (spectral solves)
   model.py        SimConfig, Simulation step loop, PerformanceMetrics
   oracle.py       NumPy references of the three cores (the oracles)
   main_paths.py   each core's main path at full width (MAIN_PATHS)
   convert.py      carry states and parameters across from the JAX package
   __main__.py     CLI: python -m njw_tpu_torch.weather
 
-The staggered, spherical and icosahedral grids, nesting and the
-semi-implicit integrator are not yet ported (ROADMAP).
+Every stepper of the cartesian SWE and PE cores is ported. The staggered,
+spherical and icosahedral grids, nesting and the output writers are not
+yet (ROADMAP).
 """
 from njw_tpu_torch.weather.grid import (
     FieldState, GridSpec, PhysicsParams, WeatherState,

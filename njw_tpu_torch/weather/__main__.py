@@ -3,8 +3,10 @@
 Counterpart of ``python -m njw_tpu.weather``: the same argument surface,
 plus ``--device {cuda,cpu}`` (default cuda, which fails without a CUDA
 device) and backends auto | plain | kernel. The shallow-water,
-barotropic and primitive-equation cores run; options that are not yet
-ported exit with code 2. ``--validate`` checks the shallow-water core
+barotropic and primitive-equation cores run, with every integrator the
+JAX CLI offers (``--method semi_implicit --si-order 1|2`` included);
+options that are not yet ported (``--grid-type`` other than cartesian,
+``--nest-patch``, ``--output-format``) exit with code 2. ``--validate`` checks the shallow-water core
 against its NumPy oracle, whatever ``--model`` says, as in the JAX CLI.
 """
 from __future__ import annotations
@@ -37,6 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--method", default="rk4",
         choices=["euler", "rk2", "rk4", "adams_bashforth", "semi_implicit"],
     )
+    p.add_argument("--si-order", type=int, default=1, choices=[1, 2],
+                   help="semi_implicit only: 1=CN, 2=predictor-corrector "
+                        "(stable explicit advection at several-x-CFL dt)")
     p.add_argument("--initial", default="vortex")
     p.add_argument("--bc", default="periodic",
                    choices=["periodic", "clamped", "outflow", "reflective"])
@@ -75,8 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _unported(args) -> str | None:
     if args.grid_type != "cartesian":
         return f"--grid-type {args.grid_type}"
-    if args.method == "semi_implicit":
-        return "--method semi_implicit"
     if args.nest_patch is not None:
         return "--nest-patch"
     if args.output_format is not None:
@@ -109,7 +112,7 @@ def main(argv=None) -> int:
     cfg = SimConfig(
         model=args.model, grid_width=args.width, grid_height=args.height,
         num_levels=args.levels, dx=args.dx, dy=args.dy, dt=args.dt,
-        integration_method=args.method,
+        integration_method=args.method, si_order=args.si_order,
         boundary_condition=args.bc, grid_type=args.grid_type,
         coriolis_f=args.coriolis, beta=args.beta, viscosity=args.viscosity,
         backend=args.backend, max_steps=args.steps,
@@ -165,6 +168,8 @@ def _validate(args) -> int:
     from njw_tpu_torch.weather.oracle import SWEOracle
 
     if args.method not in ("euler", "rk2", "rk4", "adams_bashforth"):
+        # semi_implicit has no matching oracle integrator: held against an
+        # RK4 oracle run it would fail for the wrong reason
         print(json.dumps({"error": f"--validate does not support "
                           f"--method {args.method}: the oracle integrates "
                           "explicitly; use euler/rk2/rk4/adams_bashforth"}))

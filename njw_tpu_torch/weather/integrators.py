@@ -7,7 +7,8 @@ Counterpart of ``njw_tpu/weather/integrators.py``. An integrator is a
     carry, state = stepper.step(carry, state, dt)
 
 The carry holds multi-step history (AB2) and is an empty tuple for the
-single-step methods. The combine arithmetic (order and constants) is the
+single-step methods. The semi-implicit steppers live in
+``semi_implicit.py``; ``make_stepper`` hands them out too. The combine arithmetic (order and constants) is the
 JAX package's, so the two agree to float32 rounding.
 """
 from __future__ import annotations
@@ -93,12 +94,16 @@ INTEGRATORS: dict[str, Callable[[TendencyFn], Stepper]] = {
 }
 
 
-def make_stepper(method: str, tendency: TendencyFn) -> Stepper:
-    """Look up an explicit integrator by name."""
+def make_stepper(method: str, tendency: TendencyFn, **kwargs) -> Stepper:
+    """Look up an integrator by name. ``semi_implicit`` needs the linear
+    split and a spectral solve, so it is built by
+    :mod:`njw_tpu_torch.weather.semi_implicit` (the shallow-water stepper,
+    from ``grid``, ``params`` and ``order`` in ``kwargs``); the registry
+    holds the four explicit methods."""
     if method == "semi_implicit":
-        raise NotImplementedError(
-            "integration_method='semi_implicit' is not yet ported "
-            "(ROADMAP: open items, 1.4 rest of weather)")
+        from njw_tpu_torch.weather.semi_implicit import semi_implicit_swe
+
+        return semi_implicit_swe(tendency, **kwargs)
     try:
         return INTEGRATORS[method](tendency)
     except KeyError:

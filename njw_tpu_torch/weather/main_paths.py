@@ -14,6 +14,23 @@ timed run of that core:
               scripts/measure_capability_cores.py:232-245); 100 steps stay
               inside the 150-step horizon validated there
 
+``VARIANT_PATHS`` are the cores' other steppers at full width:
+
+  swe_bf16       the swe main path through ``Simulation`` with the stepper
+                 ``make_kernel_rk4_stepper(..., variant="bf16")`` (the
+                 counterpart of handing ``make_pallas_rk4_stepper(variant=)``
+                 to the JAX Simulation): 1000 bf16 launches
+  swe_multistep  the same state and configuration, 1000 steps as 500 calls
+                 of ``swe_rk4_multistep(n_fused=2)`` (BENCH_NOTES.md:637-643;
+                 the stepper ``make_kernel_multistep_stepper``, whose step
+                 is two RK4 steps)
+  swe_si         planar SWE 512^2, semi-implicit order 2, dt 0.25, jet_stream
+                 strength 2.0, viscosity 1e-3, f 1e-4, 100 steps
+                 (scripts/measure_capability_cores.py:199-223)
+  pe_si          the primitive main path's configuration, semi-implicit order
+                 2, dt 450 s, 100 steps (:232-245; inside the 150 steps
+                 validated there)
+
 ``SHARDED_PATHS`` are the sharded runs of ``njw_tpu_torch.parallel`` at
 full width, each a main path's configuration on a mesh:
 
@@ -31,7 +48,7 @@ full width, each a main path's configuration on a mesh:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 from njw_tpu_torch.weather.model import SimConfig, Simulation
 from njw_tpu_torch.weather.primitive import pe_initial_state
@@ -141,4 +158,70 @@ SHARDED_PATHS = {
     "pe5_stage_2x2": ShardedPath(
         "primitive", _CONFIG5, (2, 2), "sharded_pe_step_kernel", {},
         "pe_stage", 4, 10),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantPath:
+    """A core's other stepper at full width: ``main`` gives the
+    configuration, initial condition, warm-up and timed steps (of this
+    path's ``Simulation``, whose step is ``steps_per_call`` RK4 steps for
+    the multistep kernel), ``stepper`` the stepper (``"auto"``: what
+    ``Simulation.from_config`` picks), ``kernel`` the launch counter the
+    path moves (None: no kernel of the port) and ``launches_per_step`` its
+    launches per ``Simulation`` step."""
+
+    main: MainPath
+    stepper: str                 # auto | bf16 | multistep
+    kernel: Optional[str]
+    launches_per_step: int
+    steps_per_call: int = 1
+
+    def simulation(self, **overrides) -> Simulation:
+        """The path's ``Simulation`` (backend auto), on CUDA unless
+        ``device`` is given."""
+        if self.stepper == "auto":
+            return self.main.simulation(**overrides)
+        from njw_tpu_torch.ops.stencil import (
+            make_kernel_multistep_stepper, make_kernel_rk4_stepper,
+        )
+        from njw_tpu_torch.weather.dynamics import make_tendency_fn
+
+        overrides.setdefault("device", "cuda")
+        cfg = self.main.sim_config(**overrides)
+        grid, params = cfg.grid_spec(), cfg.physics()
+        state0 = Simulation.from_config(cfg, self.main.ic,
+                                        **self.main.ic_params).state
+        if self.stepper == "bf16":
+            def factory(_tendency):
+                return make_kernel_rk4_stepper(grid, params, cfg.dt,
+                                               variant="bf16")
+        else:
+            def factory(_tendency):
+                return make_kernel_multistep_stepper(
+                    grid, params, cfg.dt, n_fused=self.steps_per_call)
+        sim = Simulation(state0, make_tendency_fn(cfg.model, grid, params),
+                         dt=cfg.dt * self.steps_per_call, grid=grid,
+                         stepper_factory=factory)
+        sim.config = cfg
+        return sim
+
+
+_SWE = MAIN_PATHS["swe"]
+VARIANT_PATHS = {
+    "swe_bf16": VariantPath(_SWE, "bf16", "swe_rk4_bf16", 1),
+    "swe_multistep": VariantPath(
+        MainPath(_SWE.config, _SWE.ic, _SWE.ic_params, warm=5, steps=500),
+        "multistep", "swe_rk4_multi", 1, steps_per_call=2),
+    "swe_si": VariantPath(MainPath(
+        dict(grid_width=512, grid_height=512, dt=0.25,
+             integration_method="semi_implicit", si_order=2,
+             coriolis_f=1e-4, viscosity=1e-3),
+        "jet_stream", {"strength": 2.0}, warm=2, steps=100),
+        "auto", None, 0),
+    "pe_si": VariantPath(MainPath(
+        {**MAIN_PATHS["primitive"].config, "dt": 450.0,
+         "integration_method": "semi_implicit", "si_order": 2},
+        "baroclinic", {"u_jet": 5.0, "perturb": 0.5}, warm=2, steps=100),
+        "auto", None, 0),
 }

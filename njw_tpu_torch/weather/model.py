@@ -16,6 +16,9 @@ Backend selection (``SimConfig.backend``), the same for every model:
   kernel  the kernel stepper (its plain versions for CPU tensors); raises
           for an ineligible configuration
   plain   the plain integrators over the model's tendencies
+``integration_method='semi_implicit'`` (SWE and PE, ``si_order`` 1 or 2)
+takes the spectral semi-implicit steppers of ``semi_implicit.py``, which
+run no kernel of this package; backend kernel refuses it.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ class SimConfig:
     added and backends auto | plain | kernel)."""
 
     model: str = "shallow_water"     # shallow_water | general | barotropic | primitive
-    integration_method: str = "rk4"  # euler | rk2 | rk4 | adams_bashforth
+    integration_method: str = "rk4"  # euler|rk2|rk4|adams_bashforth|semi_implicit
+    si_order: int = 1                # semi_implicit: 1 (CN) | 2 (predictor-corrector)
     boundary_condition: str = "periodic"  # periodic | clamped | outflow | reflective
     grid_type: str = "cartesian"
 
@@ -199,9 +203,6 @@ class Simulation:
         params = config.physics()
         # raises NotImplementedError for the grids not yet ported
         tendency = make_tendency_fn(model, grid, params)
-        if config.integration_method == "semi_implicit":
-            make_stepper("semi_implicit", tendency)  # raises: not yet ported
-
         gen = torch.Generator().manual_seed(config.random_seed)
         full0 = make_initial_state(initial_condition, grid, device=device,
                                    generator=gen, **ic_params)
@@ -212,11 +213,17 @@ class Simulation:
             out.update(diagnostics(s, grid))
             return out
 
+        # built first for every method: it refuses backend='kernel' for a
+        # configuration the kernel does not take, semi-implicit included
+        factory = _swe_kernel_factory(config, grid, params, device)
+        if config.integration_method == "semi_implicit":
+            def factory(t):
+                return make_stepper("semi_implicit", t, grid=grid,
+                                    params=params, order=config.si_order)
+
         sim = cls(
             state0, tendency, dt=config.dt, method=config.integration_method,
-            grid=grid, stepper_factory=_swe_kernel_factory(
-                config, grid, params, device),
-            output_fn=output_fn,
+            grid=grid, stepper_factory=factory, output_fn=output_fn,
         )
         sim.config = config
         return sim

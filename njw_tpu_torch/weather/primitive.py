@@ -28,6 +28,7 @@ from typing import Callable, ClassVar, Optional
 
 import torch
 
+from njw_tpu_torch.platform.device import require_device
 from njw_tpu_torch.weather.dynamics import pad_and_shift
 from njw_tpu_torch.weather.grid import FieldState, GridSpec, PhysicsParams
 
@@ -49,8 +50,10 @@ class PEState(FieldState):
     ps: torch.Tensor  # (ny, nx)
 
 
-def sigma_levels(L: int, device="cpu"):
-    """Full levels (k + 1/2)/L (k = 0 at the top) and interfaces k/L."""
+def sigma_levels(L: int, device="cuda"):
+    """Full levels (k + 1/2)/L (k = 0 at the top) and interfaces k/L, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = require_device(device)
     full = (torch.arange(L, dtype=torch.float32, device=device) + 0.5) / L
     half = torch.arange(L + 1, dtype=torch.float32, device=device) / L
     return full, half
@@ -165,7 +168,7 @@ def pe_tendencies(s: PEState, grid: GridSpec, params: PhysicsParams,
                                      interior=crop, phi_s=phi_sp)
 
 
-def pe_initial_state(grid: GridSpec, *, device="cpu", T0: float = 288.15,
+def pe_initial_state(grid: GridSpec, *, device="cuda", T0: float = 288.15,
                      ps0: float = 1013.25, u_jet: float = 10.0,
                      lapse: float = 50.0, deltaT_y: float = 20.0,
                      perturb: float = 0.0, seed: int = 0,
@@ -174,7 +177,9 @@ def pe_initial_state(grid: GridSpec, *, device="cpu", T0: float = 288.15,
     with a thermally consistent meridional T gradient, T rising by
     ``lapse`` K down the column, and an optional random ps perturbation.
     The perturbation draws from a ``torch.Generator`` seeded with
-    ``seed``; it cannot reproduce JAX's threefry bits."""
+    ``seed``; it cannot reproduce JAX's threefry bits. The state is made
+    on ``device``: CUDA unless the caller asks for the CPU."""
+    device = require_device(device)
     L, ny, nx = grid.levels, grid.ny, grid.nx
     sig, _ = sigma_levels(L, device)
     y = torch.arange(ny, dtype=torch.float32, device=device)[:, None] \
@@ -219,10 +224,6 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
         raise ValueError("the primitive-equation core needs at least 2 "
                          f"sigma levels, got {grid.levels}")
     params = config.physics()
-    if config.integration_method == "semi_implicit":
-        raise NotImplementedError(
-            "integration_method='semi_implicit' is not yet ported "
-            "(ROADMAP: open items, 4 rest of weather)")
     phi_s = None if orography is None else torch.as_tensor(
         orography, dtype=torch.float32).to(device).contiguous()
     ic_params = dict(ic_params)
@@ -244,6 +245,13 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
                                            phi_s=phi_s),
         "primitive + rk4 + periodic BC + L >= 2 + numeric f, beta = 0, "
         "viscosity = 0")
+    if config.integration_method == "semi_implicit":
+        # after the kernel factory, which refuses backend='kernel' for SI
+        from njw_tpu_torch.weather.semi_implicit import semi_implicit_pe
+
+        def factory(t):
+            return semi_implicit_pe(t, grid=grid, params=params,
+                                    order=config.si_order)
 
     def output_fn(s):
         return dict(s.items())

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main paths goes, on one GPU.
 
-    python scripts/profile_torch.py [--model swe|barotropic|primitive|fir|all]
-                                    [--steps 50]
+    python scripts/profile_torch.py [--model swe|barotropic|primitive|
+                                     swe_bf16|swe_multistep|swe_si|pe_si|
+                                     fir|all] [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
 configurations ``chip_smoke.py`` drives) through ``Simulation.from_config``
-with backend auto and prints JSON lines, each with the card's name and
-power limit:
+with backend auto, or one of its ``VARIANT_PATHS`` (the bf16 and multistep
+SWE kernels, the semi-implicit SWE and PE steppers: the counterpart of
+``scripts/measure_swe.py --variants``), and prints JSON lines, each with
+the card's name and power limit:
   * ``profile``: device time by kernel name from ``torch.profiler`` over a
     steady window, grouped into the hand-written kernels, cuFFT and the
-    remaining PyTorch kernels; the device's busy share of the window; and
-    the host time that enqueueing one step takes (no synchronise);
+    remaining PyTorch kernels (matmuls apart from the elementwise rest;
+    the SWE kernel's bf16 and multistep instantiations apart from K1);
+    the device's busy share of the window; and the host time that
+    enqueueing one step takes (no synchronise). A step of swe_multistep
+    is one launch, two RK4 steps;
   * swe ``steps``: ms/step of backend kernel and backend plain (CUDA
     events), and ``sweep``: the fused kernel alone at several grid sizes,
     with the bandwidth its 24 B/point minimum traffic implies;
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -39,7 +46,9 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from njw_tpu_torch.weather import GridSpec, make_initial_state  # noqa: E402
-from njw_tpu_torch.weather.main_paths import MAIN_PATHS  # noqa: E402
+from njw_tpu_torch.weather.main_paths import (  # noqa: E402
+    MAIN_PATHS, VARIANT_PATHS,
+)
 
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
                 "pe_rk4_kernel", "band_kernel")
@@ -63,10 +72,17 @@ def events_ms(fn, n: int) -> float:
 
 
 def group(name: str) -> str:
+    swe = re.search(r"swe_rk4_kernel<(\d), (true|false)", name)
+    if swe:
+        return {("1", "false"): "swe_rk4_kernel",
+                ("1", "true"): "swe_rk4_kernel_bf16",
+                ("2", "false"): "swe_rk4_kernel_multi"}[swe.groups()]
     for kernel in HAND_WRITTEN:
         if kernel in name:
             return kernel
-    return "cufft" if "fft" in name.lower() else "other_torch"
+    if "fft" in name.lower():
+        return "cufft"
+    return "matmul" if "gemm" in name.lower() else "other_torch"
 
 
 def device_ms_by_kernel(prof) -> dict[str, float]:
@@ -95,7 +111,8 @@ def summary(by_name: dict[str, float], count: int, wall_ms: float,
 
 
 def profile_path(model: str, steps: int, gpu: str) -> dict:
-    sim = MAIN_PATHS[model].simulation()
+    paths = VARIANT_PATHS if model in VARIANT_PATHS else MAIN_PATHS
+    sim = paths[model].simulation()
     sim.step(3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -254,14 +271,15 @@ def fir_extras(gpu: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
-                    choices=[*MAIN_PATHS, "fir", "all"])
+                    choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "all"])
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
         return 1
     gpu = card()
-    models = [*MAIN_PATHS, "fir"] if args.model == "all" else [args.model]
+    models = [*MAIN_PATHS, *VARIANT_PATHS, "fir"] if args.model == "all" \
+        else [args.model]
     for model in models:
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

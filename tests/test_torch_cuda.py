@@ -19,6 +19,7 @@ from njw_tpu_torch.ops.pe_stencil import (  # noqa: E402
     pe_rk4_step_plain, pe_stage, pe_stage_cuda, pe_stage_plain,
 )
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
+    swe_rk4_multistep, swe_rk4_multistep_cuda, swe_rk4_multistep_plain,
     swe_rk4_step, swe_rk4_step_cuda, swe_rk4_step_plain,
 )
 from njw_tpu_torch.signal import FIRFilter, fir_batch_bf16  # noqa: E402
@@ -78,6 +79,90 @@ class TestKernelOnCard:
         ref.step(12)
         torch.testing.assert_close(ker.state.h, ref.state.h, rtol=1e-3,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+class TestVariantKernelsOnCard:
+    """The bf16 instantiation (K1-bf16) and the multistep kernel (K2)."""
+
+    @pytest.mark.parametrize("ny,nx,nu", [(256, 256, 0.0), (200, 328, 0.02),
+                                          (5, 7, 0.0), (33, 65, 0.01)])
+    def test_bf16_kernel_matches_plain_version(self, cuda_device, ny, nx,
+                                               nu):
+        """Within 1e-3 max|h| per step (1/20 of the JAX band); its RMS
+        distance from the plain version at most 3e-4 of the float32
+        kernel's (sound on an H100: <= 1.1e-4 on these cases; one
+        product-difference contracted into fma.bf16: >= 3.6e-4); and
+        unlike the float32 kernel."""
+        grid = GridSpec(nx=nx, ny=ny)
+        f = _torch(_fields(ny, nx, seed=nx + 1), cuda_device)
+        kw = dict(grid=grid, dt=0.01, coriolis_f=1e-4, viscosity=nu)
+        before = (swe_rk4_step_cuda.bf16_launches,
+                  swe_rk4_step_cuda.launches)
+        out = swe_rk4_step(*f, variant="bf16", **kw)
+        ref = swe_rk4_step_plain(*f, variant="bf16", **kw)
+        f32 = swe_rk4_step(*f, **kw)
+        torch.cuda.synchronize()
+        assert (swe_rk4_step_cuda.bf16_launches,
+                swe_rk4_step_cuda.launches) == (before[0] + 1, before[1] + 1)
+        scale = float(ref[2].abs().max())
+        assert max(float((a - b).abs().max()) for a, b in zip(out, ref)) \
+            <= 1e-3 * scale
+
+        def rms(a, b):
+            return max(float((x.double() - y.double()).pow(2).mean().sqrt())
+                       for x, y in zip(a, b))
+
+        assert rms(out, ref) <= 3e-4 * rms(f32, ref)
+        assert float((out[2] - f32[2]).abs().max()) > 0
+
+    @pytest.mark.parametrize("ny,nx", [(256, 256), (200, 328), (5, 7),
+                                       (33, 65)])
+    def test_two_step_kernel_equals_two_launches(self, cuda_device, ny, nx):
+        grid = GridSpec(nx=nx, ny=ny, dx=1.3)
+        f = _torch(_fields(ny, nx, seed=ny + 2), cuda_device)
+        kw = dict(grid=grid, dt=0.01, coriolis_f=1e-4)
+        before = swe_rk4_multistep_cuda.launches
+        two = swe_rk4_multistep(*f, n_fused=2, **kw)
+        one = swe_rk4_multistep(*f, n_fused=1, **kw)
+        torch.cuda.synchronize()
+        assert swe_rk4_multistep_cuda.launches == before + 2
+        ref = swe_rk4_step_cuda(*swe_rk4_step_cuda(*f, **kw), **kw)
+        assert all(torch.equal(a, b) for a, b in zip(two, ref))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(one, swe_rk4_step_cuda(*f, **kw)))
+        for n, got in ((1, one), (2, two)):
+            plain = swe_rk4_multistep_plain(*f, n_fused=n, **kw)
+            for a, b in zip(got, plain):
+                torch.testing.assert_close(a, b, rtol=n * 1e-5,
+                                           atol=n * 1e-6)
+
+    @pytest.mark.parametrize("model", ["shallow_water", "primitive"])
+    def test_semi_implicit_on_card_matches_cpu(self, cuda_device, model):
+        """cuFFT and the card's matmuls against the port on the CPU."""
+        if model == "primitive":
+            cfg = dict(model=model, grid_width=64, grid_height=48,
+                       num_levels=4, dx=1e5, dy=1e5, dt=450.0,
+                       coriolis_f=1e-4, integration_method="semi_implicit",
+                       si_order=2)
+            ic, ic_kw = "baroclinic", {"u_jet": 8.0}
+        else:
+            cfg = dict(grid_width=128, grid_height=96, dt=0.25,
+                       coriolis_f=1e-4, viscosity=1e-3,
+                       integration_method="semi_implicit", si_order=2)
+            ic, ic_kw = "jet_stream", {"strength": 2.0}
+        card = Simulation.from_config(SimConfig(device="cuda", **cfg), ic,
+                                      **ic_kw)
+        host = Simulation.from_config(SimConfig(device="cpu", **cfg), ic,
+                                      **ic_kw)
+        card.step(10)
+        host.step(10)
+        for (name, a), (_, b) in zip(card.state.items(), host.state.items()):
+            scale = float(b.abs().max()) + 1e-30
+            if name in ("u", "v"):
+                scale = max(float(host.state.u.abs().max()),
+                            float(host.state.v.abs().max()))
+            assert float((a.cpu() - b).abs().max()) / scale <= 1e-4, name
 
 
 def _pe_state(L, ny, nx, seed, device):

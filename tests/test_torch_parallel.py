@@ -452,7 +452,7 @@ class TestShapesJaxCannotTake:
     def test_pe_40x24x3_on_2x2(self, ctor, kw):
         grid = GridSpec(nx=40, ny=24, levels=3, dx=1e5, dy=1e5)
         params = PhysicsParams(coriolis_f=1e-4)
-        s0 = pe_initial_state(grid, u_jet=15.0, perturb=0.5)
+        s0 = pe_initial_state(grid, device="cpu", u_jet=15.0, perturb=0.5)
         mesh = LocalMesh(2, 2, device=CPU)
         step = ctor(grid, params, mesh, dt=30.0, n_steps=3, **kw)
         got = shards_to_numpy(step(step(mesh.shard_state(s0))), mesh)
@@ -486,7 +486,7 @@ _RUNS = textwrap.dedent('''
                                            mesh, dt=0.01, n_steps=5)
         else:
             grid = GridSpec(nx=64, ny=32, levels=3, dx=1e5, dy=1e5)
-            s0 = pe_initial_state(grid, u_jet=15.0, perturb=0.5)
+            s0 = pe_initial_state(grid, device="cpu", u_jet=15.0, perturb=0.5)
             step = sharded_pe_step_kernel_fused(
                 grid, PhysicsParams(coriolis_f=1e-4), mesh, dt=30.0,
                 n_steps=5)

@@ -77,8 +77,16 @@ class TestSpectral:
     @pytest.mark.parametrize("kind", ["spectral", "central", "laplacian5"])
     def test_wavenumbers_match_jax(self, kind):
         for n, d in ((64, 1.0), (48, 0.7)):
-            _close(spectral.fd_wavenumbers(n, d, kind),
+            _close(spectral.fd_wavenumbers(n, d, kind, device=CPU),
                    j_spectral.fd_wavenumbers(n, d, kind), 1e-6, 1e-6, kind)
+
+    def test_wavenumbers_default_to_cuda(self):
+        """The default device is the card: without one it raises, and
+        does not fall back to the CPU."""
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default runs there")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            spectral.fd_wavenumbers(64, 1.0)
 
     def test_poisson_single_mode_matches_jax(self):
         n = 64

@@ -90,7 +90,7 @@ def _assert_fields(got, want, rtol, atol, q_atol=None, names=FIELDS):
 class TestBasics:
     @pytest.mark.parametrize("L", [2, 5, 20])
     def test_sigma_levels_match_jax(self, L):
-        for a, b in zip(tp.sigma_levels(L), jp.sigma_levels(L)):
+        for a, b in zip(tp.sigma_levels(L, device=CPU), jp.sigma_levels(L)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
 
     @pytest.mark.parametrize("terrain", [False, True], ids=["flat", "terrain"])
@@ -125,12 +125,24 @@ class TestBasics:
             jg, phi_s=None if phi_s is None else jnp.asarray(phi_s), **kw)
         _assert_fields(got, want, 1e-6, 1e-6)
 
+    @pytest.mark.parametrize("fn", ["sigma_levels", "pe_initial_state"])
+    def test_default_device_is_cuda(self, fn):
+        """The default device is the card: without one it raises, and
+        does not fall back to the CPU."""
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default runs there")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            if fn == "sigma_levels":
+                tp.sigma_levels(4)
+            else:
+                tp.pe_initial_state(GridSpec(nx=8, ny=8, levels=2))
+
     def test_perturbed_initial_state_shape_and_seed(self):
         grid = GridSpec(nx=24, ny=16, levels=3)
-        a = tp.pe_initial_state(grid, perturb=0.5, seed=3)
-        b = tp.pe_initial_state(grid, perturb=0.5, seed=3)
-        c = tp.pe_initial_state(grid, perturb=0.5, seed=4)
-        flat = tp.pe_initial_state(grid)
+        a = tp.pe_initial_state(grid, device=CPU, perturb=0.5, seed=3)
+        b = tp.pe_initial_state(grid, device=CPU, perturb=0.5, seed=3)
+        c = tp.pe_initial_state(grid, device=CPU, perturb=0.5, seed=4)
+        flat = tp.pe_initial_state(grid, device=CPU)
         assert a.u.shape == (3, 16, 24) and a.ps.shape == (16, 24)
         assert all(t.dtype == torch.float32 for _, t in a.items())
         assert torch.equal(a.ps, b.ps) and not torch.equal(a.ps, c.ps)
@@ -176,7 +188,7 @@ class TestTendencies:
     def test_make_tendency_fn_serves_the_core(self):
         grid = GridSpec(nx=16, ny=12, levels=3, dx=1e5, dy=1e5)
         params = PhysicsParams(coriolis_f=1e-4)
-        s = tp.pe_initial_state(grid, u_jet=8.0, perturb=0.5)
+        s = tp.pe_initial_state(grid, device=CPU, u_jet=8.0, perturb=0.5)
         got = make_tendency_fn("primitive", grid, params)(s)
         want = tp.pe_tendencies(s, grid, params)
         for name in FIELDS:
@@ -185,8 +197,8 @@ class TestTendencies:
     def test_resting_isothermal_atmosphere_over_terrain_is_steady(self):
         grid = GridSpec(nx=48, ny=32, levels=5, dx=1e5, dy=1e5)
         phi_s = tensor_from_numpy(_mountain(32, 48, 2000.0), CPU)
-        s = tp.pe_initial_state(grid, u_jet=0.0, lapse=0.0, deltaT_y=0.0,
-                                phi_s=phi_s)
+        s = tp.pe_initial_state(grid, device=CPU, u_jet=0.0, lapse=0.0,
+                                deltaT_y=0.0, phi_s=phi_s)
         t = tp.pe_tendencies(s, grid, PhysicsParams(coriolis_f=1e-4),
                              phi_s=phi_s)
         assert float(t.u.abs().max()) < 1e-3 and float(t.v.abs().max()) < 1e-3
@@ -221,7 +233,7 @@ class TestStage:
 
     def test_plain_equals_tendency_axpy(self):
         grid = GridSpec(nx=24, ny=20, levels=3, dx=1e5, dy=1e5)
-        s = tp.pe_initial_state(grid, u_jet=10.0, perturb=0.5)
+        s = tp.pe_initial_state(grid, device=CPU, u_jet=10.0, perturb=0.5)
         out = s.map(torch.empty_like)
         before = pe_stage_cuda.launches
         got = pe_stage(s, s, grid=grid, c_dt=15.0, coriolis_f=1e-4, out=out)
@@ -234,7 +246,7 @@ class TestStage:
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
         grid = GridSpec(nx=8, ny=8, levels=2)
-        s = tp.pe_initial_state(grid)
+        s = tp.pe_initial_state(grid, device=CPU)
         with pytest.raises(ValueError, match="CUDA tensors only"):
             pe_stage_cuda(s, s, grid=grid, c_dt=1.0)
 
@@ -243,7 +255,7 @@ class TestStage:
         ("shape", "shape"), ("alias", "alias"), ("clamped", "periodic")])
     def test_bad_inputs_raise(self, bad, match):
         grid = GridSpec(nx=8, ny=8, levels=2)
-        s = tp.pe_initial_state(grid)
+        s = tp.pe_initial_state(grid, device=CPU)
         bases, coeffs, out = (s,), (1.0,), None
         if bad == "coeffs":
             coeffs = (1.0, 2.0)
@@ -296,7 +308,7 @@ class TestWholeStep:
 
     def test_plain_equals_four_plain_stages(self):
         grid = GridSpec(nx=24, ny=20, levels=3, dx=1e5, dy=1e5)
-        s = tp.pe_initial_state(grid, u_jet=10.0, perturb=0.5)
+        s = tp.pe_initial_state(grid, device=CPU, u_jet=10.0, perturb=0.5)
         kw = dict(grid=grid, coriolis_f=1e-4)
         s1 = pe_stage_plain(s, s, c_dt=15.0, **kw)
         s2 = pe_stage_plain(s1, s, c_dt=15.0, **kw)
@@ -311,7 +323,7 @@ class TestWholeStep:
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
         grid = GridSpec(nx=8, ny=8, levels=2)
-        s = tp.pe_initial_state(grid)
+        s = tp.pe_initial_state(grid, device=CPU)
         with pytest.raises(ValueError, match="CUDA tensors only"):
             pe_rk4_step_cuda(s, grid=grid, dt=1.0)
 
@@ -320,7 +332,7 @@ class TestWholeStep:
         ("phi_s", "phi_s")])
     def test_bad_inputs_raise(self, bad, match):
         grid = GridSpec(nx=8, ny=8, levels=2)
-        s = tp.pe_initial_state(grid)
+        s = tp.pe_initial_state(grid, device=CPU)
         out, phi_s = None, None
         if bad == "shape":
             grid = GridSpec(nx=8, ny=8, levels=3)
@@ -362,7 +374,7 @@ class TestStepper:
     def test_stepper_reuses_its_buffers(self, whole_step):
         grid = GridSpec(nx=16, ny=12, levels=3, dx=1e5, dy=1e5)
         params = PhysicsParams(coriolis_f=1e-4)
-        s0 = tp.pe_initial_state(grid, u_jet=8.0, perturb=0.5)
+        s0 = tp.pe_initial_state(grid, device=CPU, u_jet=8.0, perturb=0.5)
         keep = s0.map(torch.clone)
         st = make_pe_kernel_rk4_stepper(grid, params, 30.0,
                                         whole_step=whole_step)
@@ -456,8 +468,13 @@ class TestSimulation:
          "backend='kernel' requires"),
         ({"backend": "kernel", "boundary_condition": "outflow"}, "baroclinic",
          ValueError, "backend='kernel' requires"),
-        ({"integration_method": "semi_implicit"}, "baroclinic",
-         NotImplementedError, "not yet ported"),
+        ({"integration_method": "semi_implicit",
+          "boundary_condition": "clamped"}, "baroclinic",
+         NotImplementedError, "periodic boundaries"),
+        ({"integration_method": "semi_implicit", "si_order": 3},
+         "baroclinic", ValueError, "order must be 1 or 2"),
+        ({"integration_method": "semi_implicit", "backend": "kernel"},
+         "baroclinic", ValueError, "backend='kernel' requires"),
     ])
     def test_bad_configs_raise(self, cfg_kw, ic, exc, match):
         with pytest.raises(exc, match=match):

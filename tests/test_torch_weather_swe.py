@@ -176,9 +176,23 @@ class TestIntegrators:
             tc, ts = tst.step(tc, ts, float(np.float32(dt)))
         _assert_states_close(ts, js, rtol=1e-5, atol=1e-6)
 
-    def test_semi_implicit_not_yet_ported(self):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_stepper("semi_implicit", lambda s: s)
+    @pytest.mark.parametrize("order", [1, 2])
+    def test_semi_implicit_matches_jax(self, order):
+        """make_stepper hands out the semi-implicit SWE stepper, as in the
+        JAX package (tests/test_torch_weather_si.py holds it further)."""
+        jg = JGrid(nx=32, ny=24)
+        jp = JParams(coriolis_f=1e-3, viscosity=0.01)
+        js, ts = _both(_random_state(24, 32, seed=6, amp=0.3))
+        kw = dict(grid=grid_from_jax_fields(jg),
+                  params=params_from_jax_fields(jp), order=order)
+        tst = make_stepper("semi_implicit", make_tendency_fn(
+            "shallow_water", kw["grid"], kw["params"]), **kw)
+        jst = j_make_stepper("semi_implicit", j_tendency_fn(
+            "shallow_water", jg, jp), grid=jg, params=jp, order=order)
+        assert tst.name == jst.name == "semi_implicit"
+        _, js = jst.step((), js, jnp.float32(0.2))
+        _, ts = tst.step((), ts, float(np.float32(0.2)))
+        _assert_states_close(ts, js, rtol=1e-5, atol=1e-6)
 
 
 class TestSimulation:
@@ -239,9 +253,10 @@ class TestSimulation:
         ({"backend": "xla"}, ValueError),
         ({"backend": "kernel", "boundary_condition": "clamped"}, ValueError),
         ({"backend": "kernel", "beta": 0.1}, ValueError),
-        ({"integration_method": "semi_implicit"}, NotImplementedError),
-        ({"model": "primitive", "num_levels": 4,
-          "integration_method": "semi_implicit"}, NotImplementedError),
+        ({"integration_method": "semi_implicit",
+          "boundary_condition": "clamped"}, NotImplementedError),
+        ({"integration_method": "semi_implicit", "si_order": 3},
+         ValueError),
     ])
     def test_bad_configs_raise(self, cfg_kw, exc):
         cfg = SimConfig(grid_width=16, grid_height=16, device=CPU, **cfg_kw)
@@ -325,13 +340,31 @@ class TestCLI:
 
     @pytest.mark.parametrize("flags", [
         ["--model", "barotropic", "--grid-type", "spherical_harmonic"],
-        ["--model", "primitive", "--method", "semi_implicit"],
         ["--grid-type", "staggered"], ["--grid-type", "icosahedral"],
-        ["--method", "semi_implicit"], ["--nest-patch", "1,2,3,4"],
-        ["--output-format", "csv"]])
+        ["--nest-patch", "1,2,3,4"], ["--output-format", "csv"]])
     def test_unported_flags_exit_2(self, flags, capsys):
         assert cli_main(["--device", "cpu", *flags]) == 2
         assert "not yet ported (ROADMAP)" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("flags", [
+        ["--model", "primitive", "--levels", "3", "--dx", "1e5", "--dy",
+         "1e5", "--dt", "300", "--coriolis", "1e-4"],
+        ["--dt", "0.2", "--initial", "jet_stream"]],
+        ids=["primitive", "shallow_water"])
+    def test_semi_implicit_runs(self, flags):
+        rc, out = _cli(["--device", "cpu", "--width", "24", "--height",
+                        "16", "--steps", "4", "--method", "semi_implicit",
+                        "--si-order", "2", "--json", *flags])
+        assert rc == 0
+        m = json.loads(out.strip().splitlines()[-1])
+        assert m["num_steps"] == 3 and m["grid_points_per_second"] > 0
+
+    def test_validate_refuses_semi_implicit(self):
+        rc, out = _cli(["--device", "cpu", "--validate", "--width", "16",
+                        "--steps", "2", "--method", "semi_implicit"])
+        assert rc == 2
+        assert "--validate does not support --method semi_implicit" in \
+            json.loads(out.strip().splitlines()[-1])["error"]
 
     def test_default_device_refuses_cpu_fallback(self):
         if torch.cuda.is_available():
