@@ -11,22 +11,26 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 (swe_rk4: rtol 1e-5 / atol 1e-6 per step; baro_stage:
                 rtol 1e-5 / atol 1e-5; pe_stage and pe_rk4: rtol 1e-5 /
                 atol 1e-4, and 2e-4 with terrain, the JAX kernel tests'
-                tolerances), and its time beside the plain version's, the
-                card's bound and the wrapper's host cost per launch
+                tolerances; pe_rk4 also at L = 40 on a ragged grid and at
+                the largest L pe_rk4_kernel_fits admits), and its time
+                beside the plain version's, the card's bound and the
+                wrapper's host cost per launch (pe_rk4: with its ptxas
+                registers, shared memory, blocks per SM and tile)
   4 parity      kernel steppers vs backend plain: SWE 512^2 (1e-3),
                 barotropic 256^2 (normalised 1e-3), PE 128^2 x 8 on the
-                whole-step kernel and on the stage kernel (the JAX
-                multi-step tolerances), 12 steps each
-  5 oracle      the barotropic and PE kernel paths against the NumPy
-                oracles, 200 steps (normalised 5e-3 and 1e-3)
+                auto choice (the stage kernel) and on the whole-step kernel
+                (the JAX multi-step tolerances), 12 steps each
+  5 oracle      the barotropic kernel path against its NumPy oracle over
+                200 steps (normalised 5e-3), the PE core over BASELINE's
+                1000 steps on the whole-step kernel and on the auto choice
+                (normalised 1e-3)
   6 main paths  the main paths of njw_tpu_torch.weather.main_paths through
                 Simulation.from_config with backend auto: SWE 2048^2 (1000
                 steps), barotropic 1024^2 (BASELINE config 3, 1000 steps),
-                PE 512^2 x 20 (config 4, 100 steps, the whole-step kernel);
-                then config 4 on the four-stage path (the stepper's
-                whole_step=False, the path for levels the whole-step kernel
-                does not fit); every launch count is set to 0 just before
-                each and read just after
+                PE 512^2 x 20 (config 4, 100 steps, the four-stage path
+                auto takes); then config 4 on the whole-step kernel
+                (whole_step=True); every launch count is set to 0 just
+                before each and read just after
   7 cli         the CLI's --json runs of the three cores and its --validate
   8 fir kernels fir_band (K7, also serving K9 and K10) against its plain
                 version for passes 0, 1, 2, 3 and 6 at the fir_batch shape,
@@ -69,7 +73,7 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 whole-domain path from the same state over the same steps
                 (Simulation, backend auto, at the JAX sharded tests'
                 tolerances; and the whole-domain run of the same kernel,
-                where identical arithmetic gives 0 or a few ulps); launch
+                which K4's runs must equal exactly); launch
                 counts exactly shards x steps (x 4 on the stage path); ms
                 and grid-points/s per step by CUDA events beside the
                 whole-domain path's in this call, the host's and the
@@ -97,12 +101,13 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
   14 semi-implicit  VARIANT_PATHS swe_si (SWE 512^2) and pe_si (PE 512^2 x
                 20), 100 steps each, finite, every launch count 0 (no kernel
                 of the port), ms/step and simulated seconds per wall second
-                beside their RK4 partners (dt 0.05 on K1, 240 s on K4); the
+                beside their RK4 partners (dt 0.05 on K1, 240 s on the PE
+                auto choice); the
                 same SI runs on the card against the port on the CPU (SWE
                 512^2, PE 128^2 x 20, 20 steps, normalised 1e-4, the winds
                 sharing one scale); PE SI against the K4 path at dt 5 s, 40
                 steps (ps rtol 2e-4, u atol 2e-2:
-                tests/test_weather_primitive.py:470-484)
+                tests/test_weather_primitive.py:470-484), K4 forced
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -204,6 +209,22 @@ def build() -> None:
              for name in libs}
     emit("build", ok=True, seconds=seconds, libraries=sorted(libs),
          ptxas=ptxas)
+
+
+def _ptxas_registers(source: str, kernel: str) -> dict:
+    """{instantiation: registers} of ``kernel`` in ``source``'s ptxas
+    report (the build log): one entry per template instantiation."""
+    from njw_tpu_torch.ops import _build
+
+    regs, current = {}, None
+    for line in _build.build_log(source).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            current = name if kernel in name else None
+        elif current is not None and "registers" in line:
+            regs[current] = int(line.split("Used ")[1].split()[0])
+            current = None
+    return regs
 
 
 def _events_ms(fn, n: int) -> float:
@@ -632,11 +653,16 @@ def pe_rk4_kernel() -> dict:
     cfg = path("primitive").config
     L, n, dt = cfg["num_levels"], cfg["grid_width"], cfg["dt"]
     main_grid = _pe_grid(L, n, n)
+    limit = max(n for n in range(1, 1024) if ps.pe_rk4_kernel_fits(n))
     cases = [  # name, grid, terrain
         ("main_512x512x20", main_grid, False),
         ("terrain_512x512x20", main_grid, True),
         ("ragged_200x328x5", _pe_grid(5, 200, 328), True),
         ("tiny_3x5x2", _pe_grid(2, 3, 5), False),
+        # the new design's limits: config 5's L at a ragged shape (tile 5)
+        # and the largest L a block holds (tile 1)
+        ("ragged_203x141x40", _pe_grid(40, 203, 141), True),
+        (f"limit_37x23x{limit}", _pe_grid(limit, 37, 23), False),
     ]
     worst, main_err = 0.0, None
     for name, grid, terrain in cases:
@@ -653,8 +679,8 @@ def pe_rk4_kernel() -> dict:
         worst = max(worst, max_abs)
         emit("kernel_vs_plain", ok=ok, kernel="pe_rk4", case=name,
              shape=[grid.levels, grid.ny, grid.nx], terrain=terrain,
-             max_abs_err=max_abs, max_rel_err=max_rel, rtol=PE_RTOL,
-             atol=atol)
+             tile=ps.rk4_tile(grid.levels), max_abs_err=max_abs,
+             max_rel_err=max_rel, rtol=PE_RTOL, atol=atol)
         if not ok:
             fail("kernel_vs_plain", f"pe_rk4 disagrees with its plain "
                  f"version on {name}")
@@ -663,7 +689,7 @@ def pe_rk4_kernel() -> dict:
         del kern, plain, s
 
     # time at the main path's shape, ping-ponging two states as the stepper
-    # does (its scratch comes from the allocator's cache after the first)
+    # does
     s = _pe_state(main_grid, 10)
     bufs = [s, s.map(torch.empty_like)]
     kw = dict(grid=main_grid, dt=dt, coriolis_f=cfg["coriolis_f"])
@@ -684,24 +710,33 @@ def pe_rk4_kernel() -> dict:
     b_ms, b_by = roofline_ms(distinct_bytes(*tensors),
                              PE_STEP_FLOP * L * n * n)
     host_us = host_us_per_launch(launch)
+    tile = ps.rk4_tile(L)
+    layout = {"registers": _ptxas_registers("pe_rk4", "pe_rk4_kernel"),
+              "smem_bytes": ps.rk4_smem_bytes_built(L, tile),
+              "blocks_per_sm": ps.rk4_blocks_per_sm(
+                  L, tile, torch.cuda.current_device()),
+              "tile": tile, "threads_per_block": ps.RK4_THREADS}
+    if layout["smem_bytes"] != ps.rk4_smem_bytes(L, tile):
+        fail("kernel_time", "pe_rk4: the wrapper's shared-memory rule "
+             "disagrees with the built kernel's")
     emit("kernel_time", ok=True, kernel="pe_rk4", shape=[L, n, n], ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
          fraction_of_bound=b_ms / ms, library_ms=None,
-         host_us_per_launch=host_us, tile=ps.RK4_TILE)
+         host_us_per_launch=host_us, **layout)
     return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "host_us": host_us}
+            "bound_by": b_by, "host_us": host_us, **layout}
 
 
 def _normalised_diff(a, b) -> float:
     return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
 
 
-def _pe_stage_simulation(**overrides):
-    """The PE main path on the four-stage stepper: a ``Simulation`` built
-    with the stepper factory ``make_pe_kernel_rk4_stepper(...,
-    whole_step=False)``, the path the auto backend takes for levels the
-    whole-step kernel does not fit."""
+def _pe_simulation(whole_step: bool, ic_params=None, **overrides):
+    """The PE main path (or ``overrides`` of it) on one forced stepper: a
+    ``Simulation`` built with the stepper factory
+    ``make_pe_kernel_rk4_stepper(..., whole_step=)``: the whole-step
+    kernel K4 (True) or the four K5 stages (False)."""
     from njw_tpu_torch.ops.pe_stencil import make_pe_kernel_rk4_stepper
     from njw_tpu_torch.weather import Simulation
     from njw_tpu_torch.weather.primitive import (
@@ -712,10 +747,12 @@ def _pe_stage_simulation(**overrides):
     cfg = pe.sim_config(device="cuda", **overrides)
     grid, params = cfg.grid_spec(), cfg.physics()
     sim = Simulation(
-        pe_initial_state(grid, device="cuda", **pe.ic_params),
+        pe_initial_state(grid, device="cuda",
+                         **(pe.ic_params if ic_params is None
+                            else ic_params)),
         lambda s: pe_tendencies(s, grid, params), dt=cfg.dt, grid=grid,
         stepper_factory=lambda _tendency: make_pe_kernel_rk4_stepper(
-            grid, params, cfg.dt, whole_step=False))
+            grid, params, cfg.dt, whole_step=whole_step))
     sim.config = cfg
     return sim
 
@@ -731,9 +768,9 @@ def parity_cores() -> None:
          baro.simulation(backend="plain", grid_width=256, grid_height=256),
          "baro_rk4_kernel"),
         (pe.simulation(backend="kernel", **small_pe),
-         pe.simulation(backend="plain", **small_pe), "pe_rk4_kernel_fused"),
-        (_pe_stage_simulation(**small_pe),
          pe.simulation(backend="plain", **small_pe), "pe_rk4_kernel"),
+        (_pe_simulation(True, **small_pe),
+         pe.simulation(backend="plain", **small_pe), "pe_rk4_kernel_fused"),
     ]
     for ker, ref, name in runs:
         cfg = ker.config
@@ -776,27 +813,41 @@ def oracle_cores() -> None:
     sim.step(steps)
     ref = {"zeta": BarotropicOracle(dx=1.0, dy=1.0, beta=1e-3,
                                     viscosity=1e-3).run(z0, 0.05, steps)}
-    runs = [("barotropic", sim, ref, 5e-3)]
+    runs = [("barotropic", sim, ref, 5e-3, steps)]
 
-    pe = SimConfig(model="primitive", grid_width=48, grid_height=48,
-                   num_levels=4, dx=1e5, dy=1e5, dt=30.0, coriolis_f=1e-4,
-                   backend="kernel", device="cuda")
-    sim = Simulation.from_config(pe, "baroclinic", u_jet=10.0, perturb=0.5)
-    s0 = sim.state.to_numpy()
-    sim.step(steps)
+    # the PE core over BASELINE's 1000 steps (tests/test_weather_primitive.py
+    # :73-97), on K4 (whole_step=True) and on the auto backend's choice
+    pe_steps = 1000
+    small = dict(grid_width=48, grid_height=48, num_levels=4, dx=1e5,
+                 dy=1e5, dt=30.0, coriolis_f=1e-4)
     names = ("u", "v", "T", "q", "ps")
-    ref = dict(zip(names, PEOracle(dx=1e5, dy=1e5, coriolis_f=1e-4).run(
-        tuple(s0[k] for k in names), 30.0, steps)))
-    runs.append(("primitive", sim, ref, 1e-3))
+    pe_ref, pe_s0 = None, None
+    for sim in (_pe_simulation(True, {"u_jet": 10.0, "perturb": 0.5},
+                               **small),
+                Simulation.from_config(SimConfig(
+                    model="primitive", backend="kernel", device="cuda",
+                    **small), "baroclinic", u_jet=10.0, perturb=0.5)):
+        s0 = sim.state.to_numpy()
+        sim.step(pe_steps)
+        if pe_ref is None or any(not np.array_equal(s0[k], pe_s0[k])
+                                 for k in names):
+            pe_s0 = s0
+            pe_ref = dict(zip(names, PEOracle(
+                dx=1e5, dy=1e5, coriolis_f=1e-4).run(
+                    tuple(s0[k] for k in names), 30.0, pe_steps)))
+        runs.append(("primitive", sim, pe_ref, 1e-3, pe_steps))
+    if runs[-1][1].stepper.name != "pe_rk4_kernel" or \
+            runs[-2][1].stepper.name != "pe_rk4_kernel_fused":
+        fail("oracle", "PE oracle runs on the wrong steppers")
 
-    for model, sim, ref, tol in runs:
+    for model, sim, ref, tol, n in runs:
         got = sim.state.to_numpy()
         diffs = {k: float(np.abs(got[k] - r).max()
                           / (np.abs(r).max() + 1e-30)) for k, r in ref.items()}
         ok = all(np.isfinite(got[k]).all() for k in ref) and \
             max(diffs.values()) <= tol
         emit("oracle", ok=ok, model=model, stepper=sim.stepper.name,
-             steps=steps, normalised_max_diff=diffs, tol=tol)
+             steps=n, normalised_max_diff=diffs, tol=tol)
         if not ok:
             fail("oracle", f"{model} kernel path disagrees with its oracle")
 
@@ -897,42 +948,26 @@ def _pe_step_bound(cfg) -> tuple:
     return step_ms, step_by, stages_ms
 
 
-def main_path_pe() -> dict:
-    """PE 512^2 x 20 (BASELINE config 4) through the auto backend: one
-    whole-step kernel launch per step."""
+def main_path_pe(whole_step: bool = False) -> dict:
+    """PE 512^2 x 20 (BASELINE config 4): through the auto backend (four
+    K5 stage launches per step), or with ``whole_step`` on the whole-step
+    kernel K4 (one launch per step, ``_pe_simulation``)."""
     pe = path("primitive")
-    sim = pe.simulation()
-    if sim.stepper.name != "pe_rk4_kernel_fused":
-        fail("main_path_pe", f"auto backend picked {sim.stepper.name}")
-    r = _drive(sim, pe.warm, pe.steps)
     cfg = pe.config
+    if whole_step:
+        phase, sim = "main_path_pe_whole_step", _pe_simulation(True)
+        name = "pe_rk4_kernel_fused"
+    else:
+        phase, sim = "main_path_pe", pe.simulation()
+        name = "pe_rk4_kernel"
+    if sim.stepper.name != name:
+        fail(phase, f"stepper {sim.stepper.name}, expected {name}")
+    r = _drive(sim, pe.warm, pe.steps)
     n = cfg["grid_width"] * cfg["grid_height"]
     b_ms, b_by, stages_ms = _pe_step_bound(cfg)
-    want = {"pe_rk4": pe.steps}
-    emit("main_path_pe", ok=r["finite"] and r["launches"] == {
-        **{k: 0 for k in r["launches"]}, **want},
-         grid=[cfg["num_levels"], cfg["grid_height"], cfg["grid_width"]],
-         steps=pe.steps, warm_steps=pe.warm, stepper=sim.stepper.name,
-         grid_points_per_s=n / (r["ms_per_step"] / 1e3),
-         step_bound_ms=b_ms, step_bound_by=b_by,
-         fraction_of_bound=b_ms / r["ms_per_step"],
-         stage_path_bound_ms=stages_ms, **r)
-    _check_main("main_path_pe", r, want)
-    return r
-
-
-def main_path_pe_stages() -> dict:
-    """PE config 4 on the four-stage path (four K5 launches per step)."""
-    pe = path("primitive")
-    sim = _pe_stage_simulation()
-    if sim.stepper.name != "pe_rk4_kernel":
-        fail("main_path_pe_stages", f"stepper {sim.stepper.name}")
-    r = _drive(sim, pe.warm, pe.steps)
-    cfg = pe.config
-    n = cfg["grid_width"] * cfg["grid_height"]
-    b_ms, b_by, stages_ms = _pe_step_bound(cfg)
-    want = {"pe_stage": 4 * pe.steps}
-    emit("main_path_pe_stages", ok=r["finite"] and r["launches"] == {
+    want = ({"pe_rk4": pe.steps} if name == "pe_rk4_kernel_fused"
+            else {"pe_stage": 4 * pe.steps})
+    emit(phase, ok=r["finite"] and r["launches"] == {
         **{k: 0 for k in r["launches"]}, **want},
          grid=[cfg["num_levels"], cfg["grid_height"], cfg["grid_width"]],
          steps=pe.steps, warm_steps=pe.warm, stepper=sim.stepper.name,
@@ -941,7 +976,7 @@ def main_path_pe_stages() -> dict:
          fraction_of_bound=b_ms / r["ms_per_step"],
          stage_path_bound_ms=stages_ms,
          fraction_of_stage_path_bound=stages_ms / r["ms_per_step"], **r)
-    _check_main("main_path_pe_stages", r, want)
+    _check_main(phase, r, want)
     return r
 
 
@@ -1485,8 +1520,7 @@ def sharded_kernels() -> dict:
         del cur
 
     # K4: local and carry on a (4, 1) shard, local2d and carry2d (K6) on a
-    # (2, 2) shard; one scratch, as the steppers share it
-    scratch = ps.rk4_scratch(L, torch.device("cuda"))
+    # (2, 2) shard
     for form, mesh, halo in (("local", (4, 1), (4, 0)),
                              ("carry", (4, 1), (4, 0)),
                              ("local2d", (2, 2), (4, 4)),
@@ -1507,7 +1541,7 @@ def sharded_kernels() -> dict:
                  "local2d": ps.pe_rk4_local2d,
                  "carry2d": ps.pe_rk4_carry2d}[form]
             extra = {"hx": hx} if form.endswith("2d") else {}
-            got = f(x, hy=hy, scratch=scratch, **extra, **kw)
+            got = f(x, hy=hy, **extra, **kw)
             if form.startswith("carry"):
                 got = ps.interior(got, halo)
             return [t for _, t in got.items()]
@@ -1517,7 +1551,7 @@ def sharded_kernels() -> dict:
                 s, halo=halo, **kw).items()]
 
         def run(s=s, halo=halo, kw=kw, out=out):
-            ps.pe_rk4_padded(s, halo=halo, out=out, scratch=scratch, **kw)
+            ps.pe_rk4_padded(s, halo=halo, out=out, **kw)
 
         res["pe_rk4"][form] = report(
             "pe_rk4", form, mesh, halo, kern, plain, run, plain,
@@ -1525,7 +1559,6 @@ def sharded_kernels() -> dict:
             _padded_bound(4 * L + 1, ly, lx, 4, bool(hx), 0,
                           PE_STEP_FLOP * L * ly * lx))
         del s, nxt, out
-    del scratch
     torch.cuda.empty_cache()
     return res
 
@@ -1549,12 +1582,13 @@ SHARD_TOL = {"h": (1e-5, 1e-5), "u": (1e-5, 1e-4), "v": (1e-5, 1e-4)}
 SHARD_TOL_PE = {n: (1e-3, 5e-4) for n in ("u", "v", "T", "q", "ps")}
 
 
-def _whole_domain(p, stage_path: bool):
+def _whole_domain(p, kind: str):
     """The whole-domain run of a sharded path's configuration: Simulation
-    with backend auto, or the four-stage stepper."""
-    if stage_path:
-        return _pe_stage_simulation(**p.overrides)
-    return p.simulation()
+    with backend auto ("auto"), or on the sharded path's own kernel
+    ("stage": the four-stage stepper, "whole_step": K4)."""
+    if kind == "auto":
+        return p.simulation()
+    return _pe_simulation(kind == "whole_step", **p.overrides)
 
 
 def _time_steps(step, steps: int) -> tuple:
@@ -1613,33 +1647,34 @@ def sharded_paths() -> dict:
     from njw_tpu_torch.weather.main_paths import SHARDED_PATHS
 
     results = {}
-    refs: dict = {}   # (model, overrides, stage_path) -> whole-domain runs
+    refs: dict = {}   # (model, overrides) -> {kind: whole-domain run}
     for name, p in SHARDED_PATHS.items():
         cfg = p.sim_config()
-        stage_path = p.kernel == "pe_stage"
+        # the whole-domain run on the sharded path's own kernel
+        same = {"pe_stage": "stage", "pe_rk4": "whole_step"}.get(p.kernel,
+                                                                "auto")
         key = (p.model, tuple(sorted(p.overrides.items())))
         if key not in refs:
             refs.clear()
             torch.cuda.empty_cache()
             refs[key] = {}
         bucket = refs[key]
-        for kind in ("auto", "same"):
-            want_stage = stage_path and kind == "same"
-            if want_stage in bucket:
+        for kind in ("auto", same):
+            if kind in bucket:
                 continue
-            sim = _whole_domain(p, want_stage)
+            sim = _whole_domain(p, kind)
             s0 = sim.state.map(torch.clone)
             sim.step(p.steps)
             ref = sim.state.map(torch.clone)
             whole_ms, _ = _time_steps(lambda: sim.step(p.steps), p.steps)
             emit("sharded_path_reference", ok=True, model=cfg.model,
-                 stepper=sim.stepper.name, ms_per_step=whole_ms,
+                 stepper=sim.stepper.name, kind=kind, ms_per_step=whole_ms,
                  card=card_state())
-            bucket[want_stage] = (s0, ref, whole_ms, sim.stepper.name)
+            bucket[kind] = (s0, ref, whole_ms, sim.stepper.name)
             del sim
             torch.cuda.empty_cache()
-        s0, ref_auto, auto_ms, auto_name = bucket[False]
-        _, ref_same, same_ms, same_name = bucket[stage_path]
+        s0, ref_auto, auto_ms, auto_name = bucket["auto"]
+        _, ref_same, same_ms, same_name = bucket[same]
 
         mesh = LocalMesh(*p.mesh)
         stepper = p.make_stepper(mesh)
@@ -1654,7 +1689,10 @@ def sharded_paths() -> dict:
         diff_auto = _max_abs(got, ref_auto)
         tol = SHARD_TOL_PE if cfg.model == "primitive" else SHARD_TOL
         ok_auto = _within(got, ref_auto, tol)
-        ok_same = _within(got, ref_same, tol)
+        # K4's sharded runs equal its whole-domain run bit for bit: every
+        # column's arithmetic is the same at every tile position
+        ok_same = _within(got, ref_same, tol) and (
+            p.kernel != "pe_rk4" or diff_same == 0.0)
         del got
 
         card_before = card_state()
@@ -2011,8 +2049,10 @@ def semi_implicit() -> dict:
     si = Simulation.from_config(SimConfig(integration_method="semi_implicit",
                                           **pe), "baroclinic", u_jet=8.0,
                                 perturb=0.5)
-    rk = Simulation.from_config(SimConfig(backend="kernel", **pe),
-                                "baroclinic", u_jet=8.0, perturb=0.5)
+    # the K4 path whatever the auto choice at these levels
+    rk = _pe_simulation(True, {"u_jet": 8.0, "perturb": 0.5},
+                        grid_width=48, grid_height=32, num_levels=5,
+                        dx=1e5, dy=1e5, dt=5.0, coriolis_f=1e-4)
     reset_counts()
     si.step(40)
     si_launches = counts()
@@ -2056,8 +2096,8 @@ def main() -> int:
     oracle_cores()
     m1 = main_path()
     m3 = main_path_baro()
-    m4 = main_path_pe()
-    m5 = main_path_pe_stages()
+    m5 = main_path_pe()
+    m4 = main_path_pe(whole_step=True)
     cli()
     k7 = fir_kernel()
     k8 = fir_bf16_kernel()
@@ -2110,7 +2150,7 @@ def main() -> int:
             max_abs_err_all_cases=k3["max_abs_err_all_cases"]),
         row("pe_stage", "pe_stage.cu", "njw_tpu/ops/pe_stencil.py:55",
             "_pe_stage_kernel", k5, m5["launches"]["pe_stage"], m5,
-            main_path="main_path_pe_stages",
+            main_path="main_path_pe",
             max_abs_err_all_cases=k5["max_abs_err_all_cases"],
             ms_4_bases=k5["ms_4_bases"],
             plain_ms_4_bases=k5["plain_ms_4_bases"],
@@ -2121,7 +2161,9 @@ def main() -> int:
             sharded=sharded("pe_stage")),
         row("pe_rk4", "pe_rk4.cu", "njw_tpu/ops/pe_stencil.py:617",
             "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
-            main_path="main_path_pe",
+            main_path="main_path_pe_whole_step",
+            ptxas_registers=k4["registers"], smem_bytes=k4["smem_bytes"],
+            blocks_per_sm=k4["blocks_per_sm"], tile=k4["tile"],
             max_abs_err_all_cases=k4["max_abs_err_all_cases"],
             also_replaces=[f"{pe}:847 pe_rk4_pallas_local",
                            f"{pe}:989 pe_rk4_pallas_carry",

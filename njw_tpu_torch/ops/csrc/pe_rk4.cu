@@ -14,57 +14,95 @@
 // in one launch, for u, v, T, q of shape (L, ny, nx) and ps of shape
 // (ny, nx), float32, with an optional surface geopotential phi_s. The
 // accumulator is the Pallas kernel's (_rk4_chain): acc = s1 - s, then
-// acc + 2 s2, then acc + s3, then acc/3 + dt/6 T(s3). The column arithmetic
-// is pe_column.cuh's, the stage kernel's.
+// acc + 2 s2, then acc + s3, then acc/3 + dt/6 T(s3). The arithmetic of
+// each column and level is that of pe_column.cuh's walk (the stage
+// kernel's), term by term; only the walk is cut up.
 //
-// Bound on this card: memory. The step must read s (4L + 1 planes) and
-// phi_s once and write s' once: 2 (4L + 1) x 4 B = 648 B per column at
-// L = 20, 170 MB at 512^2, 51 us at the H100 SXM's 3.35 TB/s. The four
-// tendencies are about 4 x 116 flop per column and level plus the combine,
-// 2.6 GFLOP at 512^2 x 20, 38 us at 67 TFLOP/s fp32.
+// Bound on this card. Bytes: s (4L + 1 planes) and phi_s read once, s'
+// written once: 2 (4L + 1) x 4 B = 648 B per column at L = 20, 170 MB at
+// 512^2, 51 us at the H100 SXM's 3.35 TB/s. Operations: about 4 x 116 flop
+// per column and level plus the combine, 2.6 GFLOP at 512^2 x 20 (38 us at
+// 67 TFLOP/s fp32) without recompute; with this design's halo recompute
+// (1.97x at tile 8, below) 5.1 GFLOP, 77 us: the operations are the floor.
 //
-// Why not the Pallas design: that kernel keeps three padded states of all
-// 4L + 1 planes in VMEM for a whole tile. With the 4-point halo that is
-// 3 x 81 x 16^2 x 4 B = 243 KB at an 8 x 8 output tile and L = 20, over the
-// 227 KB of shared memory a block may have, so the stage states cannot
-// live in shared memory.
+// Design. One block of NT threads per output tile of T x T columns (a
+// grid-stride loop over tiles; launched with one block per tile, the
+// tiles in row-major order so that neighbours run together). Everything a
+// tile needs between its stages stays in shared memory:
+//   S     s on the (T+8)^2 source region, 4L+1 planes, brought in with
+//         cp.async (every copy in flight at once); after stage 1 it holds
+//         the auxiliaries of stages 2-4
+//   A     s1 on the (T+6)^2 region, then s3 on (T+2)^2
+//   B     stage 1's auxiliaries, then s2 on (T+4)^2
+//   acc   the RK4 accumulator on the T^2 own columns
+//   goff  s's offset of each source-region column (ints); the 2L level
+//         constants
+// The auxiliaries of a stage are phi (the geopotential of its source
+// region, L planes), cum (the flux divergence of its region summed down
+// the column, L planes) and five per-column planes (d lnps/dx, d lnps/dy,
+// 1/ps, dps/ps, dps). The base s of stages 2 and 3 is re-read at each
+// column from device memory, where the tile's s sits in L2. Shared
+// memory, in 4 B words:
+//   (4L+1) ((T+8)^2 + (T+6)^2 + T^2) + max((4L+1)(T+4)^2,
+//     L ((T+8)^2 + (T+6)^2) + 5 (T+6)^2) + (T+8)^2 + 2L,
+// 215,024 B at L = 20 and T = 8; at L = 40, 209,552 B at T = 4 (T = 5
+// needs 256,020 B, over the 232,448 a block may have). The wrapper takes
+// the largest tile up to 8 that fits (rk4_tile); a one-column tile fits
+// up to L = 87. For config 5's L = 40 a cluster of two blocks splitting
+// the levels (a scan exchange across the pair) would keep T = 8; this
+// design takes the smaller tile instead, and the auto rule the stage path
+// where that loses (PERF.md).
 //
-// Design: the stage states live in a per-block scratch area in device
-// memory. Each block takes output tiles of tile x tile columns in turn (a
-// persistent grid: one block, and one scratch slot, for each block the
-// device holds at once) and runs the four stages over shrinking regions,
-// recomputing the halo as the Pallas kernel does:
-//   stage 1  reads s from device memory (wrapped), writes s1 over the tile
-//            and a 3-column halo into scratch A;
-//   stage 2  reads A, writes s2 over a 2-column halo into scratch B;
-//   stage 3  reads B, writes s3 over a 1-column halo into A (s1 is dead);
-//   stage 4  reads A and finishes s' on the tile.
-// The accumulator lives in the output itself: each block owns its tile's
-// columns of s', so stages 1-3 add into them and stage 4 finishes them. A
-// barrier separates the stages; scratch and output are read with plain
-// (coherent) loads, s and phi_s through the read-only path. Every stage
-// gives one thread one column at a time, as the stage kernel does; cum
-// lives in shared memory, L floats per thread. Ragged tiles compute their
-// wrapped columns but write only the columns inside the grid.
+// Every stage is two rounds over its region, a barrier after each:
+//   1. one thread per column: the geopotential bottom-up over the source
+//      region (once per column, not once per neighbour), and over the
+//      region the ps terms and the flux divergence summed top-down; each
+//      walk is L dependent adds in shared memory, its loads issued in
+//      groups of 8 ahead of the adds;
+//   2. (column, run of levels) items, the runs sized per stage so that
+//      the rounds of NT threads times the levels of a run are fewest
+//      (level_runs); a thread walks its run top-down carrying the centre
+//      values of the level above and sigma-dot at the upper interface, so
+//      a level costs 25 shared loads (the level below, the four side
+//      neighbours of u, v, T, q, phi's four, cum) and the tendency
+//      (pe_column.cuh's body at one level), then y = s + c T into the next
+//      state and the accumulator on the own columns, or in stage 4
+//      s' = acc/3 + dt/6 T on the own columns inside the grid.
+// The regions shrink by one column per side per stage (halo recompute:
+// (196 + 144 + 100 + 64) / 4 / 64 = 1.97x the stage work at T = 8).
+//
+// Against the three costs of the earlier design (stage states in a
+// per-block scratch in device memory, one thread walking a whole column).
+// Bytes: no stage state and no
+// accumulator leaves the chip; device memory sees s about once (a tile's
+// source region is 4x its own columns at T = 8, the re-reads of adjacent
+// tiles' halos, which run together, and of the bases of stages 2 and 3
+// hit L2) and s' once: about 170 MB per step at 512^2 x 20 (reckoned;
+// the L2-to-SM traffic is about 0.66 GB), against about 1.8 GB before.
+// Latency: no thread walks a column through device memory; the heavy
+// work is independent (column, run) items over the region, and the walks
+// left are L adds in shared memory. Occupancy: one 512-thread block per
+// SM (its shared memory), no register cap below 128.
 //
 // Addressing (one launch for every launcher): s and out are each a view
 // (base pointer, row pitch, plane pitch, origin of the (ny, nx) interior).
 // Per axis (a template parameter) s either wraps (the whole periodic
 // domain, and x of a row decomposition) or holds at least HALO = 4 rows
 // (columns) of neighbour data around the interior, read in place of the
-// wrap; there a ragged tile's columns past the last halo row (column) are
-// clamped to it, and they feed only columns outside the interior. out may
-// be an interior-shaped array or the interior of the next padded block.
-// The whole-domain instantiation is the code it was before.
+// wrap; there the source region's columns past the last halo row
+// (column) are clamped to it: stage n's values are exact up to 4 - n
+// rows past the interior, so the clamped ones feed only columns outside
+// it. out may be an interior-shaped array or the interior of the next
+// padded block. Every column's arithmetic is the same in every
+// instantiation and at every tile position (the level runs depend on L
+// and T only; sigma-dot's fma is explicit), so a sharded run equals the
+// whole-domain run bit for bit.
 //
-// What this costs on the H100: the stage work is bound by instruction
-// issue and load latency, not by device memory (the stage kernel moves
-// about half the card's memory rate: chip_smoke.py's pe_stage timing), so
-// the device-memory passes the fusion saves buy little and
-// the halo recompute (1.43x the stage work at tile 16) is paid in full.
-// The registers are capped at 64 so that four blocks share an SM; that
-// and tile 16 were the fastest of the layouts timed
-// (scripts/profile_torch.py --model primitive).
+// ptxas -v (nvcc 12.9, sm_90a), each of the three instantiations: 93
+// registers, 0 bytes of spills, 1 barrier; 215,024 B of dynamic shared
+// memory at L = 20 and tile 8, so one 512-thread block per SM (the
+// occupancy query). chip_smoke.py's build phase and kernel_time line
+// print them anew.
 
 #include <cuda_runtime.h>
 
@@ -72,9 +110,10 @@
 
 namespace {
 
-constexpr int NT = 256;            // threads per block
-constexpr int MIN_BLOCKS = 4;      // blocks per SM the registers allow
+constexpr int NT = 512;            // threads per block
 constexpr int HALO = 4;            // one column per stage
+constexpr int NCOL = 5;            // col planes: lnps_x, lnps_y, 1/ps, dps/ps, dps
+constexpr long long SMEM_MAX = 232448;  // the most a block may have (sm_90)
 
 // Element (k, y, x) of a view is p[k * plane + (oy + y) * pitch + ox + x];
 // a 2-D field (ps, phi_s) of the same view drops the plane term.
@@ -92,7 +131,6 @@ struct Ptrs {
     const float* phi_s;             // s's layout, or null
     float* out[5];
     const float* levc;              // thick[0..L), inv_kh[0..L)
-    float* scratch;                 // gridDim.x x slot_floats
     Layout ls, lout;
 };
 
@@ -101,201 +139,391 @@ struct Consts {
     float c_half, c_full;           // dt/2, dt
     float third, sixth;             // 1/3, dt/6
     int L, ny, nx, tile;
+    int stages;                     // 4; fewer only to time the parts
+    int runs[4];                    // level runs per column, each stage
 };
+
+// Floats of the stage-1 auxiliaries (phi over the (T+8)^2 source region,
+// cum and col over the (T+6)^2 region), which live in B until stage 2
+// writes it.
+long long aux1_floats(int L, int T) {
+    const long long a = T + 6LL, w = T + 8LL;
+    return static_cast<long long>(L) * (w * w + a * a) + NCOL * a * a;
+}
+
+// Floats of shared memory a block takes (goff's ints counted as floats).
+long long smem_floats(int L, int T) {
+    const long long F = 4LL * L + 1;
+    const long long a = T + 6LL, b = T + 4LL, w = T + 8LL;
+    const long long B = F * b * b > aux1_floats(L, T) ? F * b * b
+                                                      : aux1_floats(L, T);
+    return F * (w * w + a * a + static_cast<long long>(T) * T) + B + w * w
+           + 2LL * L;
+}
+
+struct Smem {
+    float* S;      // s on the (T+8)^2 source region; stages 2-4's aux
+    float* A;      // s1 on (T+6)^2, then s3 on (T+2)^2
+    float* B;      // stage 1's aux, then s2 on (T+4)^2
+    float* acc;    // the accumulator on the T^2 own columns
+    int* goff;     // s's offset (in a plane) of each source-region column
+    float* levc;   // thick[0..L), 1/(k + 1/2) for k < L
+};
+
+__device__ __forceinline__ Smem carve(float* base, int L, int T) {
+    const int F = 4 * L + 1;
+    const int a = (T + 6) * (T + 6), b = (T + 4) * (T + 4);
+    const int w = (T + 8) * (T + 8);
+    const int aux1 = L * (w + a) + NCOL * a;
+    Smem m;
+    m.S = base;
+    m.A = m.S + F * w;
+    m.B = m.A + F * a;
+    m.acc = m.B + (F * b > aux1 ? F * b : aux1);
+    m.goff = reinterpret_cast<int*>(m.acc + F * T * T);
+    m.levc = reinterpret_cast<float*>(m.goff + w);
+    return m;
+}
 
 __device__ __forceinline__ int wrap(int a, int n) {
     a %= n;
     return a < 0 ? a + n : a;
 }
 
-// The row (column) a stage computes for the unwrapped index a, and its
-// neighbours: modulo n on a wrap axis; on a halo axis a itself, at most
-// n + HALO - 2 (so that its neighbours stay inside the block).
+// The row (column) of s that holds the unwrapped index a: modulo n on a
+// wrap axis; on a halo axis a itself, at most n + HALO - 1 (the last halo
+// row; the region never starts before -HALO).
 template <bool kHalo>
 __device__ __forceinline__ int column_index(int a, int n) {
     if constexpr (kHalo) {
-        return a < n + HALO - 2 ? a : n + HALO - 2;
+        return a < n + HALO - 1 ? a : n + HALO - 1;
     } else {
         return wrap(a, n);
     }
 }
 
-template <bool kHalo>
-__device__ __forceinline__ int next(int a, int n) {
-    return kHalo ? a + 1 : wrap(a + 1, n);
+// sigma-dot (scaled by L/2) at the upper interface of level kk of a
+// column, from the flux divergence summed down to level kk - 1; one
+// rounding order wherever it is evaluated (the fma is explicit).
+__device__ __forceinline__ float sigma_dot(int kk, float dps_over_ps,
+                                           float cum_above, float inv_ps) {
+    return kk == 0 ? 0.0f
+        : -0.5f * __fmaf_rn(static_cast<float>(kk), dps_over_ps,
+                            cum_above * inv_ps);
 }
 
-template <bool kHalo>
-__device__ __forceinline__ int prev(int a, int n) {
-    return kHalo ? a - 1 : wrap(a - 1, n);
-}
-
-// Stages 1-3: y = s + c d into scratch, and the accumulator on the tile.
-template <int kStage>
-struct StageEmit {
-    const Ptrs& p;
-    const Consts& k;
-    float* dst;          // scratch region of this stage
-    size_t dstP, dl;     // its plane size, this column's offset in it
-    size_t gc, oc;       // this column's offset in s's and out's planes
-    bool own;            // this column is one of the block's outputs
-
-    __device__ __forceinline__ void put(int plane, int field, size_t gi,
-                                        size_t go, float d) {
-        const float c = kStage == 3 ? k.c_full : k.c_half;
-        const float x = __ldg(p.s[field] + gi);
-        const float y = x + c * d;
-        dst[plane * dstP + dl] = y;
-        if (own) {
-            float* a = p.out[field] + go;
-            if (kStage == 1) {
-                *a = y - x;
-            } else if (kStage == 2) {
-                *a = *a + 2.0f * y;
-            } else {
-                *a = *a + y;
-            }
-        }
-    }
-    __device__ __forceinline__ void level(int kk, float du, float dv,
-                                          float dT, float dq) {
-        const size_t gi = kk * p.ls.plane + gc;
-        const size_t go = kk * p.lout.plane + oc;
-        put(kk, 0, gi, go, du);
-        put(k.L + kk, 1, gi, go, dv);
-        put(2 * k.L + kk, 2, gi, go, dT);
-        put(3 * k.L + kk, 3, gi, go, dq);
-    }
-    __device__ __forceinline__ void surface(float dps) {
-        put(4 * k.L, 4, gc, oc, dps);
-    }
-};
-
-// Stage 4: s' = acc/3 + dt/6 d on the block's own columns.
-struct FinalEmit {
-    const Ptrs& p;
-    const Consts& k;
-    size_t oc;           // this column's offset in out's planes
-
-    __device__ __forceinline__ void put(int field, size_t go, float d) {
-        float* a = p.out[field] + go;
-        *a = *a * k.third + k.sixth * d;
-    }
-    __device__ __forceinline__ void level(int kk, float du, float dv,
-                                          float dT, float dq) {
-        const size_t go = kk * p.lout.plane + oc;
-        put(0, go, du);
-        put(1, go, dv);
-        put(2, go, dT);
-        put(3, go, dq);
-    }
-    __device__ __forceinline__ void surface(float dps) { put(4, oc, dps); }
-};
-
-// One stage over the square region of edge E = tile + 2 h whose corner is
-// (y0 - h, x0 - h). The source is s in device memory (kStage == 1) or the
-// previous stage's region of edge E + 2 in scratch `src`.
+// Stage kStage (1..4) of the tile at (y0, x0). Its region has edge
+// E = T + 2h, h = HALO - kStage, and its source region edge E + 2, both
+// centred on the tile; the source is s's region S (stage 1) or the
+// previous stage's buffer, field f at level kk of source column j at
+// src[(f L + kk) Es^2 + j]. The auxiliaries phi (the source region's
+// geopotential, L planes), cum (the region's flux divergence summed down
+// the column, L planes) and col (d lnps/dx, d lnps/dy, 1/ps, dps/ps, dps
+// on the region) live in B in stage 1 and in S after it.
 template <int kStage, bool kHaloY, bool kHaloX>
 __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
-                                          int y0, int x0, const float* src,
-                                          float* dst, float* cum) {
+                                          const Smem& m, int y0, int x0) {
+    const int T = k.tile, L = k.L;
     const int h = HALO - kStage;
-    const int E = k.tile + 2 * h;
-    const int Es = E + 2;                       // the source region's edge
-    const int ny = k.ny, nx = k.nx, L = k.L;
+    const int E = T + 2 * h, Es = E + 2, W = T + 2 * HALO;
+    const int E2 = E * E, Es2 = Es * Es, T2 = T * T;
+    const int FS = L * Es2;                 // field stride of the source
+    const float cx = k.col.cx, cy = k.col.cy;
     const size_t gP = static_cast<size_t>(p.ls.plane);
-    const size_t sP = static_cast<size_t>(Es) * Es;
-    for (int idx = threadIdx.x; idx < E * E; idx += NT) {
-        const int r = idx / E, c = idx - (idx / E) * E;
-        const int yr = y0 - h + r, xr = x0 - h + c;   // unwrapped
-        const int gy = column_index<kHaloY>(yr, ny);
-        const int gx = column_index<kHaloX>(xr, nx);
-        const bool own = r >= h && r < h + k.tile && c >= h
-                         && c < h + k.tile && yr < ny && xr < nx;
-        if (kStage == 4 && !own) continue;
-        const Layout& ls = p.ls;
-        const pe::Nbrs g{ls.at(gy, gx), ls.at(gy, next<kHaloX>(gx, nx)),
-                         ls.at(gy, prev<kHaloX>(gx, nx)),
-                         ls.at(next<kHaloY>(gy, ny), gx),
-                         ls.at(prev<kHaloY>(gy, ny), gx)};
-        // out's offset of the column; meaningful where own
-        const size_t oc = p.lout.at(yr, xr);
-        float phisE = 0.0f, phisW = 0.0f, phisN = 0.0f, phisS = 0.0f;
-        if (p.phi_s != nullptr) {
-            phisE = __ldg(p.phi_s + g.e);
-            phisW = __ldg(p.phi_s + g.w);
-            phisN = __ldg(p.phi_s + g.n);
-            phisS = __ldg(p.phi_s + g.s);
-        }
-        float dps;
-        if constexpr (kStage == 1) {
-            StageEmit<1> emit{p, k, dst, static_cast<size_t>(E) * E,
-                              static_cast<size_t>(idx), g.c, oc, own};
-            dps = pe::column_tendency<true, 1>(
-                p.s[0], p.s[1], p.s[2], p.s[3], p.s[4], gP, g, phisE, phisW,
-                phisN, phisS, cum, NT, p.levc, L, k.col, emit);
-            emit.surface(dps);
-        } else {
-            const size_t lc = static_cast<size_t>(r + 1) * Es + (c + 1);
-            const pe::Nbrs l{lc, lc + 1, lc - 1, lc + Es, lc - Es};
-            const float* su = src;
-            const float* sv = src + L * sP;
-            const float* sT = src + 2 * L * sP;
-            const float* sq = src + 3 * L * sP;
-            const float* sps = src + 4 * L * sP;
-            if constexpr (kStage == 4) {
-                FinalEmit emit{p, k, oc};
-                dps = pe::column_tendency<false, 1>(
-                    su, sv, sT, sq, sps, sP, l, phisE, phisW, phisN, phisS,
-                    cum, NT, p.levc, L, k.col, emit);
-                emit.surface(dps);
-            } else {
-                StageEmit<kStage> emit{p, k, dst, static_cast<size_t>(E) * E,
-                                       static_cast<size_t>(idx), g.c, oc,
-                                       own};
-                dps = pe::column_tendency<false, 1>(
-                    su, sv, sT, sq, sps, sP, l, phisE, phisW, phisN, phisS,
-                    cum, NT, p.levc, L, k.col, emit);
-                emit.surface(dps);
+    const float* src = kStage == 1 ? m.S : kStage == 3 ? m.B : m.A;
+    float* dst = kStage == 2 ? m.B : m.A;           // stages 1-3
+    float* const phi = kStage == 1 ? m.B : m.S;
+    float* const cum = phi + L * Es2;
+    float* const col = cum + L * E2;
+    constexpr int U = 8;                    // loads grouped ahead of a chain
+
+    // 1: one thread per column: phi bottom-up over the source region; over
+    //    the region, the ps terms and the flux divergence div(ps u_k)
+    //    summed top-down
+    for (int idx = threadIdx.x; idx < Es2 + E2; idx += NT) {
+        if (idx < Es2) {
+            const int j = idx;
+            float phis = 0.0f;
+            if (p.phi_s != nullptr) {
+                const int r = j / Es, c = j - (j / Es) * Es;
+                phis = __ldg(p.phi_s + m.goff[(r + kStage - 1) * W + c
+                                              + kStage - 1]);
             }
+            const float* Tj = src + 2 * FS + j;
+            float Tk = Tj[(L - 1) * Es2];
+            float ph = k.col.phibot * Tk + phis;
+            phi[(L - 1) * Es2 + j] = ph;
+            for (int k0 = L - 1; k0 > 0; k0 -= U) {
+                float th[U], tc[U];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int kk = k0 - u;
+                    th[u] = kk > 0 ? Tj[(kk - 1) * Es2] : 0.0f;
+                    tc[u] = kk > 0 ? m.levc[kk] : 0.0f;
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int kk = k0 - u;
+                    if (kk > 0) {
+                        ph = ph + tc[u] * (th[u] + Tk);
+                        phi[(kk - 1) * Es2 + j] = ph;
+                        Tk = th[u];
+                    }
+                }
+            }
+        } else {
+            const int i = idx - Es2;
+            const int r = i / E;
+            const int j = (r + 1) * Es + (i - r * E) + 1;
+            const float* pps = src + 4 * FS + j;
+            const float psE = pps[1], psW = pps[-1];
+            const float psN = pps[Es], psS = pps[-Es];
+            const float inv_ps = 1.0f / pps[0];
+            col[i] = (logf(psE) - logf(psW)) * cx;
+            col[E2 + i] = (logf(psN) - logf(psS)) * cy;
+            col[2 * E2 + i] = inv_ps;
+            const float* pu = src + j;
+            const float* pv = pu + FS;
+            float flux = 0.0f;
+            for (int k0 = 0; k0 < L; k0 += U) {
+                float fd[U];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int o = (k0 + u) * Es2;
+                    fd[u] = k0 + u < L
+                        ? (psE * pu[o + 1] - psW * pu[o - 1]) * cx
+                          + (psN * pv[o + Es] - psS * pv[o - Es]) * cy
+                        : 0.0f;
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int kk = k0 + u;
+                    if (kk < L) {
+                        flux = kk == 0 ? fd[u] : flux + fd[u];
+                        cum[kk * E2 + i] = flux;
+                    }
+                }
+            }
+            const float dps = -flux * k.col.dsig;
+            col[3 * E2 + i] = dps * inv_ps;
+            col[4 * E2 + i] = dps;
         }
     }
+    __syncthreads();
+
+    // 2: (column, run of levels) items, the surface as "level" L of the
+    //    last run: the tendency, then the next state and the accumulator,
+    //    or s'. A thread walks its run top-down, carrying the centre
+    //    values of the level above and sigma-dot at the upper interface.
+    const float c_n = kStage == 3 ? k.c_full : k.c_half;
+    const int runs = k.runs[kStage - 1];
+    const pe::Consts& kc = k.col;
+    for (int idx = threadIdx.x; idx < E2 * runs; idx += NT) {
+        const int q = idx / E2, i = idx - q * E2;
+        const int r = i / E, c = i - r * E;
+        const int k0 = q * (L + 1) / runs, k1 = (q + 1) * (L + 1) / runs;
+        const int j = (r + 1) * Es + c + 1;
+        const bool own = r >= h && r < h + T && c >= h && c < h + T;
+        const int o = (r - h) * T + (c - h);
+        // s's offset of this column (the base of stages 2 and 3)
+        const size_t gb = (kStage == 2 || kStage == 3)
+            ? static_cast<size_t>(m.goff[(r + kStage) * W + c + kStage])
+            : 0;
+        // out's offset of this column (stage 4), -1 outside the grid
+        long long go = -1;
+        if (kStage == 4 && y0 + r < k.ny && x0 + c < k.nx) {
+            go = static_cast<long long>(p.lout.at(y0 + r, x0 + c));
+        }
+        // plane (field f, level lv) of the next state from the source
+        // centre xc (stage 1) or s (stages 2, 3), and its tendency d
+        auto emit = [&](int plane, int f, int lv, float xc, float d) {
+            if constexpr (kStage == 4) {
+                if (go >= 0) {
+                    p.out[f][lv * static_cast<size_t>(p.lout.plane) + go] =
+                        m.acc[plane * T2 + o] * k.third + k.sixth * d;
+                }
+            } else {
+                const float x = kStage == 1
+                    ? xc : __ldg(p.s[f] + lv * gP + gb);
+                const float y = x + c_n * d;
+                dst[plane * E2 + i] = y;
+                if (own) {
+                    float* a = m.acc + plane * T2 + o;
+                    if (kStage == 1) {
+                        *a = y - x;
+                    } else if (kStage == 2) {
+                        *a = *a + 2.0f * y;
+                    } else {
+                        *a = *a + y;
+                    }
+                }
+            }
+        };
+        const float lnps_x = col[i], lnps_y = col[E2 + i];
+        const float inv_ps = col[2 * E2 + i];
+        const float dps_over_ps = col[3 * E2 + i];
+        const float* p0 = src + j;
+        float uk = 0.0f, vk = 0.0f, Tk = 0.0f, qk = 0.0f;
+        float u_hi = 0.0f, v_hi = 0.0f, T_hi = 0.0f, q_hi = 0.0f;
+        float sd_up = 0.0f;
+        if (k0 < L) {
+            const float* pk = p0 + k0 * Es2;
+            uk = pk[0];
+            vk = pk[FS];
+            Tk = pk[2 * FS];
+            qk = pk[3 * FS];
+            if (k0 > 0) {
+                u_hi = pk[-Es2];
+                v_hi = pk[FS - Es2];
+                T_hi = pk[2 * FS - Es2];
+                q_hi = pk[3 * FS - Es2];
+                sd_up = sigma_dot(k0, dps_over_ps, cum[(k0 - 1) * E2 + i],
+                                  inv_ps);
+            }
+        }
+        for (int kk = k0; kk < k1; ++kk) {
+            if (kk == L) {
+                emit(4 * L, 4, 0, kStage == 1 ? src[4 * FS + j] : 0.0f,
+                     col[4 * E2 + i]);
+                break;
+            }
+            const bool top = kk == 0, bottom = kk == L - 1;
+            const float* pk = p0 + kk * Es2;
+            float u_lo = 0.0f, v_lo = 0.0f, T_lo = 0.0f, q_lo = 0.0f;
+            float sd_dn = 0.0f;
+            if (!bottom) {
+                u_lo = pk[Es2];
+                v_lo = pk[FS + Es2];
+                T_lo = pk[2 * FS + Es2];
+                q_lo = pk[3 * FS + Es2];
+                sd_dn = sigma_dot(kk + 1, dps_over_ps, cum[kk * E2 + i],
+                                  inv_ps);
+            }
+            const float* pu = pk;
+            const float* pv = pk + FS;
+            const float* pT = pk + 2 * FS;
+            const float* pq = pk + 3 * FS;
+            const float TE = pT[1], TW = pT[-1], TN = pT[Es], TS = pT[-Es];
+            const float u_x = (pu[1] - pu[-1]) * cx;
+            const float u_y = (pu[Es] - pu[-Es]) * cy;
+            const float v_x = (pv[1] - pv[-1]) * cx;
+            const float v_y = (pv[Es] - pv[-Es]) * cy;
+            const float T_x = (TE - TW) * cx;
+            const float T_y = (TN - TS) * cy;
+            const float q_x = (pq[1] - pq[-1]) * cx;
+            const float q_y = (pq[Es] - pq[-Es]) * cy;
+            const float* ph = phi + kk * Es2 + j;
+            const float phi_x = (ph[1] - ph[-1]) * cx;
+            const float phi_y = (ph[Es] - ph[-Es]) * cy;
+
+            const float u_up = top ? 0.0f : uk - u_hi;
+            const float u_dn = bottom ? 0.0f : u_lo - uk;
+            const float v_up = top ? 0.0f : vk - v_hi;
+            const float v_dn = bottom ? 0.0f : v_lo - vk;
+            const float T_up = top ? 0.0f : Tk - T_hi;
+            const float T_dn = bottom ? 0.0f : T_lo - Tk;
+            const float q_up = top ? 0.0f : qk - q_hi;
+            const float q_dn = bottom ? 0.0f : q_lo - qk;
+            const float vadv_u = sd_dn * u_dn + sd_up * u_up;
+            const float vadv_v = sd_dn * v_dn + sd_up * v_up;
+            const float vadv_T = sd_dn * T_dn + sd_up * T_up;
+            const float vadv_q = sd_dn * q_dn + sd_up * q_up;
+
+            const float du = -uk * u_x - vk * u_y - vadv_u + kc.f * vk
+                             - phi_x - kc.r_dry * Tk * lnps_x;
+            const float dv = -uk * v_x - vk * v_y - vadv_v - kc.f * uk
+                             - phi_y - kc.r_dry * Tk * lnps_y;
+            const float dlnps_adv = dps_over_ps + uk * lnps_x + vk * lnps_y;
+            const float omega_over_p = (sd_up + sd_dn) * m.levc[L + kk]
+                                       + dlnps_adv;
+            const float dT = -uk * T_x - vk * T_y - vadv_T
+                             + kc.kappa * Tk * omega_over_p;
+            const float dq = -uk * q_x - vk * q_y - vadv_q;
+            emit(kk, 0, kk, uk, du);
+            emit(L + kk, 1, kk, vk, dv);
+            emit(2 * L + kk, 2, kk, Tk, dT);
+            emit(3 * L + kk, 3, kk, qk, dq);
+
+            sd_up = sd_dn;
+            u_hi = uk; v_hi = vk; T_hi = Tk; q_hi = qk;
+            uk = u_lo; vk = v_lo; Tk = T_lo; qk = q_lo;
+        }
+    }
+    __syncthreads();
 }
 
 template <bool kHaloY, bool kHaloX>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) pe_rk4_kernel(
-        Ptrs p, Consts k, size_t slot_floats) {
-    extern __shared__ float cum_smem[];
-    float* cum = cum_smem + threadIdx.x;        // stride NT
-    const int fields = 4 * k.L + 1;
-    float* A = p.scratch + blockIdx.x * slot_floats;
-    float* B = A + static_cast<size_t>(fields) * (k.tile + 6) * (k.tile + 6);
-    const int tiles_x = (k.nx + k.tile - 1) / k.tile;
-    const int tiles = tiles_x * ((k.ny + k.tile - 1) / k.tile);
+__global__ void __launch_bounds__(NT, 1) pe_rk4_kernel(Ptrs p, Consts k) {
+    extern __shared__ float smem[];
+    const Smem m = carve(smem, k.L, k.tile);
+    const int T = k.tile, W = T + 2 * HALO, W2 = W * W;
+    const int F = 4 * k.L + 1;
+    const size_t gP = static_cast<size_t>(p.ls.plane);
+    const int tiles_x = (k.nx + T - 1) / T;
+    const int tiles = tiles_x * ((k.ny + T - 1) / T);
+    for (int i = threadIdx.x; i < 2 * k.L; i += NT) m.levc[i] = p.levc[i];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int y0 = (t / tiles_x) * k.tile, x0 = (t % tiles_x) * k.tile;
-        run_stage<1, kHaloY, kHaloX>(p, k, y0, x0, nullptr, A, cum);
+        const int y0 = (t / tiles_x) * T, x0 = (t % tiles_x) * T;
+        // the source region's offsets in s, then s on it (all 4L + 1
+        // planes, the region's columns of a plane contiguous in S)
+        for (int idx = threadIdx.x; idx < W2; idx += NT) {
+            const int r = idx / W, c = idx - (idx / W) * W;
+            const int gy = column_index<kHaloY>(y0 - HALO + r, k.ny);
+            const int gx = column_index<kHaloX>(x0 - HALO + c, k.nx);
+            m.goff[idx] = static_cast<int>(p.ls.at(gy, gx));
+        }
         __syncthreads();
-        run_stage<2, kHaloY, kHaloX>(p, k, y0, x0, A, B, cum);
+        {
+            // cp.async: every copy in flight at once, none through a
+            // register
+            int pl = threadIdx.x / W2, j = threadIdx.x - pl * W2;
+            const int dpl = NT / W2, dj = NT - dpl * W2;
+            for (; pl < F; pl += dpl) {
+                const int f = pl / k.L < 4 ? pl / k.L : 4;
+                const float* base = f == 0 ? p.s[0] : f == 1 ? p.s[1]
+                    : f == 2 ? p.s[2] : f == 3 ? p.s[3] : p.s[4];
+                const int kk = pl - f * k.L;
+                const unsigned dst = static_cast<unsigned>(
+                    __cvta_generic_to_shared(m.S + pl * W2 + j));
+                asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                             :: "r"(dst), "l"(base + kk * gP + m.goff[j])
+                             : "memory");
+                j += dj;
+                if (j >= W2) {
+                    j -= W2;
+                    ++pl;
+                }
+            }
+            asm volatile("cp.async.wait_all;\n" ::: "memory");
+        }
         __syncthreads();
-        run_stage<3, kHaloY, kHaloX>(p, k, y0, x0, B, A, cum);
-        __syncthreads();
-        run_stage<4, kHaloY, kHaloX>(p, k, y0, x0, A, nullptr, cum);
-        __syncthreads();                        // A is refilled next tile
+        run_stage<1, kHaloY, kHaloX>(p, k, m, y0, x0);
+        if (k.stages < 2) continue;
+        run_stage<2, kHaloY, kHaloX>(p, k, m, y0, x0);
+        if (k.stages < 3) continue;
+        run_stage<3, kHaloY, kHaloX>(p, k, m, y0, x0);
+        if (k.stages < 4) continue;
+        run_stage<4, kHaloY, kHaloX>(p, k, m, y0, x0);
     }
 }
 
-size_t smem_bytes(int L) { return static_cast<size_t>(L) * NT * sizeof(float); }
-
-}  // namespace
-
-// Floats of scratch one slot needs: the stage-1 and stage-2 regions.
-extern "C" long long pe_rk4_slot_floats(int L, int tile) {
-    const long long fields = 4LL * L + 1;
-    return fields * ((tile + 6LL) * (tile + 6) + (tile + 4LL) * (tile + 4));
+// Runs of levels per column in a stage over E x E columns: the count that
+// takes the fewest rounds of NT threads times levels per run, a run's
+// setup counted as half a level.
+int level_runs(int L, int E) {
+    const long long E2 = static_cast<long long>(E) * E;
+    int best = 1;
+    long long best_cost = -1;
+    for (int n = 1; n <= L + 1; ++n) {
+        const long long rounds = (E2 * n + NT - 1) / NT;
+        const long long cost = rounds * (2 * ((L + n) / n) + 1);
+        if (best_cost < 0 || cost < best_cost) {
+            best_cost = cost;
+            best = n;
+        }
+    }
+    return best;
 }
-
-namespace {
 
 template <bool kHaloY, bool kHaloX>
 int allow_smem(size_t smem) {
@@ -306,25 +534,26 @@ int allow_smem(size_t smem) {
 }
 
 template <bool kHaloY, bool kHaloX>
-int launch(const Ptrs& p, const Consts& k, int slots, cudaStream_t stream) {
-    const size_t smem = smem_bytes(k.L);
+int launch(const Ptrs& p, const Consts& k, int blocks, cudaStream_t stream) {
+    const size_t smem = static_cast<size_t>(4 * smem_floats(k.L, k.tile));
     const int err = allow_smem<kHaloY, kHaloX>(smem);
     if (err != 0) return err;
-    const long long tiles =
-        static_cast<long long>((k.nx + k.tile - 1) / k.tile)
-        * ((k.ny + k.tile - 1) / k.tile);
-    const int grid = static_cast<int>(tiles < slots ? tiles : slots);
-    pe_rk4_kernel<kHaloY, kHaloX><<<grid, NT, smem, stream>>>(
-        p, k, static_cast<size_t>(pe_rk4_slot_floats(k.L, k.tile)));
+    pe_rk4_kernel<kHaloY, kHaloX><<<blocks, NT, smem, stream>>>(p, k);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of shared memory a block of the kernel takes at L levels and
+// output tile `tile` (njw_tpu_torch.ops.pe_stencil.rk4_smem_bytes).
+extern "C" long long pe_rk4_smem_bytes(int L, int tile) {
+    return 4 * smem_floats(L, tile);
+}
+
 // How many blocks of the kernel one SM of the current device holds at once
 // (into *blocks). Returns the CUDA error code.
-extern "C" int pe_rk4_blocks_per_sm(int L, int* blocks) {
-    const size_t smem = smem_bytes(L);
+extern "C" int pe_rk4_blocks_per_sm(int L, int tile, int* blocks) {
+    const size_t smem = static_cast<size_t>(4 * smem_floats(L, tile));
     const int err = allow_smem<false, false>(smem);
     if (err != 0) return err;
     // every instantiation has the occupancy of the whole-domain one
@@ -333,37 +562,40 @@ extern "C" int pe_rk4_blocks_per_sm(int L, int* blocks) {
         blocks, pe_rk4_kernel<false, false>, NT, smem));
 }
 
-// Launch one step of the (L, ny, nx) interior on `stream`: `slots` blocks
-// (one scratch slot each, at most one per tile). s (u, v, T, q, ps, phi_s)
-// and out are each given as the base pointers of their fields and a
-// layout: row pitch, plane pitch of the 3-D fields, origin (row, column) of
-// the interior. halo_y, halo_x: 1 where s holds at least HALO rows
-// (columns) of neighbour data around the interior, 0 where that axis
-// wraps; a halo in x needs one in y. out must not alias s. Returns the CUDA
-// error code of the launch (0 on success).
+// Launch one step of the (L, ny, nx) interior on `stream`: `blocks` blocks
+// over the tile x tile output tiles. s (u, v, T, q, ps, phi_s) and out are
+// each given as the base pointers of their fields and a layout: row pitch,
+// plane pitch of the 3-D fields, origin (row, column) of the interior.
+// halo_y, halo_x: 1 where s holds at least HALO rows (columns) of
+// neighbour data around the interior, 0 where that axis wraps; a halo in x
+// needs one in y. out must not alias s. stages: 4 (the step); 1-3 run only
+// the first stages and write no output (scripts/profile_torch.py times the
+// parts so). Returns the CUDA error code of the launch (0 on success).
 extern "C" int pe_rk4_launch(
     const float* u, const float* v, const float* T, const float* q,
     const float* ps, const float* phi_s, long long s_pitch,
     long long s_plane, int s_oy, int s_ox,
     float* ou, float* ov, float* oT, float* oq, float* ops,
     long long out_pitch, long long out_plane,
-    const float* levc, float* scratch, int slots, int tile,
+    const float* levc, int blocks, int tile,
     int L, int ny, int nx, int halo_y, int halo_x,
     float cx, float cy, float f, float dsig, float r_dry, float kappa,
     float phibot, float c_half, float c_full, float third, float sixth,
-    void* stream) {
-    if (L < 1 || tile < 1 || slots < 1) {
+    int stages, void* stream) {
+    if (L < 1 || tile < 1 || blocks < 1 || ny < 1 || nx < 1 || stages < 1
+        || stages > 4 || 4 * smem_floats(L, tile) > SMEM_MAX) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Ptrs p{{u, v, T, q, ps}, phi_s, {ou, ov, oT, oq, ops}, levc,
-                 scratch, {s_pitch, s_plane, s_oy, s_ox},
-                 {out_pitch, out_plane, 0, 0}};
+                 {s_pitch, s_plane, s_oy, s_ox}, {out_pitch, out_plane, 0, 0}};
     const Consts k{{cx, cy, f, dsig, r_dry, kappa, phibot}, c_half, c_full,
-                   third, sixth, L, ny, nx, tile};
+                   third, sixth, L, ny, nx, tile, stages,
+                   {level_runs(L, tile + 6), level_runs(L, tile + 4),
+                    level_runs(L, tile + 2), level_runs(L, tile)}};
     const auto st = static_cast<cudaStream_t>(stream);
-    if (!halo_y && !halo_x) return launch<false, false>(p, k, slots, st);
-    if (halo_y && !halo_x) return launch<true, false>(p, k, slots, st);
-    if (halo_y && halo_x) return launch<true, true>(p, k, slots, st);
+    if (!halo_y && !halo_x) return launch<false, false>(p, k, blocks, st);
+    if (halo_y && !halo_x) return launch<true, false>(p, k, blocks, st);
+    if (halo_y && halo_x) return launch<true, true>(p, k, blocks, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

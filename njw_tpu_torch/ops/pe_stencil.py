@@ -12,10 +12,13 @@ Counterpart of ``njw_tpu/ops/pe_stencil.py`` (``pe_stage_pallas``,
 * ``csrc/pe_rk4.cu`` replaces the TPU kernel ``_pe_rk4_kernel``: the four
   stages of an RK4 step in one launch, the state read and written once.
 
-Their sources say what bounds them and how the work is laid out. As in
-the TPU package, the RK4 stepper takes the whole-step kernel when it fits
-(here: when its shared memory, L floats per thread, fits a block) and four
-stage launches otherwise.
+Their sources say what bounds them and how the work is laid out. The
+whole-step kernel keeps a tile's stage states and RK4 accumulator in
+shared memory, so its output tile shrinks as L grows
+(``rk4_tile``); it fits while a one-column tile does
+(``pe_rk4_kernel_fits``). The RK4 stepper's auto choice is the four stage
+launches: the H100 timed the whole-step kernel slower at every L from 8
+to 87 (PERF.md); ``whole_step=True`` takes it.
 
 Each public wrapper (``pe_stage``, ``pe_rk4_step``) dispatches once, in
 ``_stage_runner`` / ``_rk4_runner``: the kernel's launch for CUDA tensors,
@@ -51,9 +54,10 @@ from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
 
 MAX_BASES = 4
 STAGE_THREADS = 128          # csrc/pe_stage.cu NT
-RK4_THREADS = 256            # csrc/pe_rk4.cu NT
+RK4_THREADS = 512            # csrc/pe_rk4.cu NT
 SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
-RK4_TILE = 16                # output tile edge of the whole-step kernel
+RK4_TILE_MAX = 8             # the largest output tile the wrapper picks
+RK4_NCOL = 5                 # csrc/pe_rk4.cu NCOL: per-column planes
 STAGE_HALO, RK4_HALO = 1, 4  # halo rows (columns) each kernel reads
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -62,7 +66,7 @@ _STAGE_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 * MAX_BASES
                    + [_I] + [_F] * MAX_BASES + [_P] * 5 + [_L, _L] + [_P]
                    + [_I] * 5 + [_F] * 8 + [_P])
 _RK4_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 + [_L, _L]
-                 + [_P, _P] + [_I] * 7 + [_F] * 11 + [_P])
+                 + [_P] + [_I] * 7 + [_F] * 11 + [_I, _P])
 NO_HALO = (0, 0)             # the whole periodic domain: both axes wrap
 
 
@@ -385,9 +389,56 @@ def _plain_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
 
 # ------------------------------------------------------------ one RK4 step
 
+def rk4_smem_bytes(levels: int, tile: int) -> int:
+    """Shared memory one block of the whole-step kernel takes at ``levels``
+    and output tile ``tile`` (``pe_rk4_smem_bytes`` in csrc/pe_rk4.cu), in
+    4 B words: s on the (T+8)^2 source region, s1 (then s3) on (T+6)^2
+    and the accumulator on T^2, 4L + 1 planes each; s2 on (T+4)^2, or
+    stage 1's auxiliaries where they are larger (phi on (T+8)^2 and cum on
+    (T+6)^2, L planes each, and five per-column planes on (T+6)^2); the
+    (T+8)^2 source offsets; the 2L level constants."""
+    F, L, T = 4 * levels + 1, levels, tile
+    a, b, w = (T + 6) ** 2, (T + 4) ** 2, (T + 8) ** 2
+    aux1 = L * (w + a) + RK4_NCOL * a
+    return 4 * (F * (w + a + T * T) + max(F * b, aux1) + w + 2 * L)
+
+
+def rk4_tile(levels: int) -> Optional[int]:
+    """The whole-step kernel's output tile at ``levels``: the largest edge
+    up to RK4_TILE_MAX whose block fits the shared memory a block may have
+    (8 at L <= 21, 4 at L = 40, 1 up to L = 87); None where none fits."""
+    for tile in range(RK4_TILE_MAX, 0, -1):
+        if rk4_smem_bytes(levels, tile) <= SMEM_PER_BLOCK:
+            return tile
+    return None
+
+
 def pe_rk4_kernel_fits(levels: int) -> bool:
-    """The whole-step kernel keeps L floats per thread in shared memory."""
-    return levels * RK4_THREADS * 4 <= SMEM_PER_BLOCK
+    """The whole-step kernel holds a tile of ``levels`` in shared memory
+    (L <= 87, where a one-column tile fits)."""
+    return levels >= 1 and rk4_tile(levels) is not None
+
+
+def _rk4_tile_arg(levels: int, tile: Optional[int], name: str) -> int:
+    """``tile``, or the default tile when None; refuses a tile whose block
+    does not fit the shared memory a block may have, and levels that no
+    tile fits."""
+    if tile is None:
+        tile = rk4_tile(levels)
+        if tile is None:
+            raise ValueError(f"{name}: {levels} levels do not fit the "
+                             "whole-step kernel (L <= 87)")
+        return tile
+    if isinstance(tile, bool) or not isinstance(tile, numbers.Integral) \
+            or tile < 1:
+        raise ValueError(f"{name}: tile must be a positive integer, got "
+                         f"{tile!r}")
+    if rk4_smem_bytes(levels, int(tile)) > SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: tile {tile} at {levels} levels needs "
+                         f"{rk4_smem_bytes(levels, int(tile))} B of shared "
+                         f"memory, more than the {SMEM_PER_BLOCK} a block "
+                         "may have")
+    return int(tile)
 
 
 def pe_rk4_step(s: PEState, *, grid: GridSpec, dt: float,
@@ -403,11 +454,11 @@ def pe_rk4_step_cuda(s: PEState, *, grid: GridSpec, dt: float,
                      coriolis_f: float = 0.0,
                      phi_s: Optional[torch.Tensor] = None,
                      out: Optional[PEState] = None,
-                     tile: int = RK4_TILE) -> PEState:
-    """Launch the whole-step kernel on the current stream (its scratch
-    allocated per call; the stepper keeps one). Refuses tensors that are
-    not on a CUDA device. ``pe_rk4_step_cuda.launches`` counts the
-    launches. ``tile``: the output tile edge."""
+                     tile: Optional[int] = None) -> PEState:
+    """Launch the whole-step kernel on the current stream. Refuses tensors
+    that are not on a CUDA device. ``pe_rk4_step_cuda.launches`` counts the
+    launches. ``tile``: the output tile edge (``rk4_tile`` when None; any
+    edge whose block fits)."""
     _require_cuda(s.ps, "pe_rk4_step_cuda")
     return _rk4_call(_launch_rk4, s, grid, dt, coriolis_f, phi_s, out,
                      tile=tile)
@@ -422,60 +473,39 @@ def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
     return _rk4_call(_plain_rk4, s, grid, dt, coriolis_f, phi_s, out)
 
 
-class Rk4Scratch(NamedTuple):
-    """The whole-step kernel's per-block scratch: ``slots`` blocks of
-    ``tile`` x ``tile`` output columns, one slot each."""
-
-    buf: torch.Tensor
-    slots: int
-    tile: int
-
-
-def rk4_scratch(levels: int, device: torch.device,
-                tile: int = RK4_TILE) -> Rk4Scratch:
-    """One slot for each block the device holds at once."""
-    if not pe_rk4_kernel_fits(levels):
-        raise ValueError(f"pe_rk4_step: {levels} levels do not fit a block")
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    slots, slot_floats = _rk4_layout(levels, index, tile)
-    buf = torch.empty(slots * slot_floats, dtype=torch.float32,
-                      device=torch.device("cuda", index))
-    return Rk4Scratch(buf, slots, tile)
-
-
 @lru_cache(maxsize=16)
-def _rk4_layout(levels: int, index: int, tile: int) -> tuple:
-    """(slots, floats per slot) of the whole-step kernel on CUDA device
-    ``index``."""
+def rk4_blocks_per_sm(levels: int, tile: int, index: int) -> int:
+    """Blocks of the whole-step kernel one SM of CUDA device ``index``
+    holds at once (the occupancy query of csrc/pe_rk4.cu)."""
     lib = _build.load("pe_rk4")
-    slot_floats_of, blocks_per_sm = lib.pe_rk4_slot_floats, \
-        lib.pe_rk4_blocks_per_sm
-    slot_floats_of.argtypes, slot_floats_of.restype = [_I, _I], \
-        ctypes.c_longlong
-    blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
-    blocks_per_sm.restype = ctypes.c_int
-    slot_floats = slot_floats_of(levels, tile)
+    fn = lib.pe_rk4_blocks_per_sm
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = blocks_per_sm(levels, ctypes.byref(blocks))
-        _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
-                  "pe_rk4 occupancy")
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * max(blocks.value, 1), slot_floats
+        err = fn(levels, tile, ctypes.byref(blocks))
+    _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
+              "pe_rk4 occupancy")
+    return blocks.value
+
+
+def rk4_smem_bytes_built(levels: int, tile: int) -> int:
+    """``rk4_smem_bytes`` as the built kernel computes it (the card tests
+    hold the two equal)."""
+    fn = _build.load("pe_rk4").pe_rk4_smem_bytes
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
+    return int(fn(levels, tile))
 
 
 def _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out, *,
-              tile: int = RK4_TILE) -> PEState:
+              tile: Optional[int] = None) -> PEState:
     _check(s, (s,), grid, (1.0,), phi_s, out, "pe_rk4_step")
+    if run is _launch_rk4:
+        tile = _rk4_tile_arg(grid.levels, tile, "pe_rk4_step")
     if out is None:
         out = s.map(torch.empty_like)
-    scratch = (rk4_scratch(grid.levels, s.ps.device, tile)
-               if run is _launch_rk4 else None)
     return run(s, out, phi_s, grid, column_constants(grid, float(coriolis_f)),
                rk4_constants(float(dt)),
-               level_constants(grid.levels, str(s.ps.device)), scratch)
+               level_constants(grid.levels, str(s.ps.device)), tile)
 
 
 def _rk4_runner(kind: str) -> Callable:
@@ -486,19 +516,27 @@ def _rk4_runner(kind: str) -> Callable:
 
 def _launch_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                 k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-                scratch: Rk4Scratch, halo: tuple = NO_HALO) -> PEState:
-    """Launch on the current stream. ``s``: the input block, whose
-    interior starts at ``halo`` = (hy, hx) (0: that axis wraps); ``out``:
-    interior-shaped views; ``grid``: the interior's."""
+                tile: int, halo: tuple = NO_HALO, stages: int = 4
+                ) -> PEState:
+    """Launch on the current stream, one block per output tile. ``s``: the
+    input block, whose interior starts at ``halo`` = (hy, hx) (0: that
+    axis wraps); ``out``: interior-shaped views; ``grid``: the interior's;
+    ``tile``: a checked tile edge. ``stages`` < 4 runs only the first
+    stages and writes nothing (``scripts/profile_torch.py`` times the
+    kernel's parts so)."""
     hy, hx = halo
+    if s.ps.stride(0) * s.ps.shape[0] >= 2 ** 31:
+        raise ValueError("pe_rk4: a plane of the block must hold fewer "
+                         "than 2**31 elements")
+    blocks = -(-grid.ny // tile) * -(-grid.nx // tile)
     launch, err_string = _build.bind("pe_rk4", _RK4_ARGTYPES)
     with torch.cuda.device(s.ps.device):
         err = launch(
             *_ptrs(s), phi_s.data_ptr() if phi_s is not None else None,
             *_pitches(s), hy, hx, *_ptrs(out), *_pitches(out),
-            levc.data_ptr(), scratch.buf.data_ptr(), scratch.slots,
-            scratch.tile, grid.levels, grid.ny, grid.nx, int(hy > 0),
-            int(hx > 0), *k, *r, torch.cuda.current_stream().cuda_stream)
+            levc.data_ptr(), blocks, tile, grid.levels, grid.ny, grid.nx,
+            int(hy > 0), int(hx > 0), *k, *r, stages,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, err_string, "pe_rk4")
     pe_rk4_step_cuda.launches += 1
     return out
@@ -509,7 +547,7 @@ pe_rk4_step_cuda.launches = 0
 
 def _plain_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-               _scratch=None, halo: tuple = NO_HALO) -> PEState:
+               _tile=None, halo: tuple = NO_HALO) -> PEState:
     """The whole step in plain PyTorch: rolls on the whole domain; on a
     padded block, slices of the block cut to a four-point halo, the valid
     region shrinking by one point per side per stage (no roll)."""
@@ -695,47 +733,41 @@ def pe_stage_local2d(cur_p: PEState, bases, *, hy: int = STAGE_HALO,
 def pe_rk4_padded(s_p: PEState, *, halo: tuple, dt: float, dx: float = 1.0,
                   dy: float = 1.0, coriolis_f: float = 0.0,
                   out: Optional[PEState] = None,
-                  scratch: Optional[Rk4Scratch] = None) -> PEState:
+                  tile: Optional[int] = None) -> PEState:
     """One whole RK4 step of the (L, ly, lx) interior of a halo-padded
     state (the fields of ``s_p`` padded by hy >= 4 rows and hx >= 4
     columns, or hx = 0: x whole and periodic), into ``out`` (new when None:
-    interior-shaped views with contiguous rows). ``scratch``: the kernel's
-    (``rk4_scratch``), new for each call when None; shared by launches on
-    one stream. CUDA tensors go to the kernel, CPU tensors to the plain
-    version."""
-    s_p, out, phi_s, grid, k, r, levc, halo = _rk4_padded_args(
-        s_p, halo=halo, dt=dt, dx=dx, dy=dy, coriolis_f=coriolis_f, out=out)
-    kind = _device_kind(s_p.ps, "pe_rk4_padded")
-    if kind == "cuda" and scratch is None:
-        scratch = rk4_scratch(grid.levels, s_p.ps.device)
-    return _rk4_runner(kind)(s_p, out, phi_s, grid, k, r, levc, scratch,
-                             halo)
+    interior-shaped views with contiguous rows). ``tile``: the kernel's
+    output tile (``rk4_tile`` when None). CUDA tensors go to the kernel,
+    CPU tensors to the plain version."""
+    args = _rk4_padded_args(s_p, halo=halo, dt=dt, dx=dx, dy=dy,
+                            coriolis_f=coriolis_f, out=out, tile=tile)
+    return _rk4_runner(_device_kind(s_p.ps, "pe_rk4_padded"))(*args)
 
 
 def pe_rk4_padded_plain(s_p: PEState, **kw) -> PEState:
     """``pe_rk4_padded``'s plain version, on any device."""
-    s_p, out, phi_s, grid, k, r, levc, halo = _rk4_padded_args(s_p, **kw)
-    return _plain_rk4(s_p, out, phi_s, grid, k, r, levc, None, halo)
+    return _plain_rk4(*_rk4_padded_args(s_p, **kw))
 
 
 def _rk4_padded_args(s_p: PEState, *, halo: tuple, dt: float,
                      dx: float = 1.0, dy: float = 1.0,
                      coriolis_f: float = 0.0,
-                     out: Optional[PEState] = None) -> tuple:
-    """Check a padded whole-step call; return (s_p, out, phi_s, grid,
-    column constants, RK4 constants, level constants, halo), the arguments
-    of ``_launch_rk4`` and ``_plain_rk4`` less the scratch."""
+                     out: Optional[PEState] = None,
+                     tile: Optional[int] = None) -> tuple:
+    """Check a padded whole-step call (levels the kernel does not hold are
+    refused on every device); return (s_p, out, phi_s, grid, column
+    constants, RK4 constants, level constants, tile, halo), the arguments
+    of ``_launch_rk4`` and ``_plain_rk4``."""
     grid = _padded_grid("pe_rk4_padded", s_p, tuple(halo), RK4_HALO, dx,
                         dy, (), out)
-    if not pe_rk4_kernel_fits(grid.levels):
-        raise ValueError(f"pe_rk4_padded: {grid.levels} levels do not fit "
-                         "a block")
+    tile = _rk4_tile_arg(grid.levels, tile, "pe_rk4_padded")
     dev = s_p.ps.device
     if out is None:
         out = _interior_empty(grid, dev)
     return (s_p, out, None, grid, column_constants(grid, float(coriolis_f)),
             rk4_constants(float(dt)), level_constants(grid.levels, str(dev)),
-            tuple(halo))
+            tile, tuple(halo))
 
 
 def _padded_out(s_p: PEState, out: Optional[PEState]) -> PEState:
@@ -785,7 +817,7 @@ def pe_kernel_supported(grid: GridSpec, params: PhysicsParams) -> bool:
     """Eligibility for the kernels: the TPU rule without its tile and VMEM
     terms (the kernels mask ragged edges). The stage kernel keeps L floats
     per thread in shared memory, which bounds L at 454; the whole-step
-    kernel's own bound (227) only decides between the two paths."""
+    kernel is taken only on request."""
     return (
         grid.bc == "periodic"
         and grid.grid_type == "cartesian"
@@ -803,15 +835,14 @@ def make_pe_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
                                dt: float,
                                phi_s: Optional[torch.Tensor] = None,
                                whole_step: Optional[bool] = None) -> Stepper:
-    """RK4 on the kernels. ``whole_step`` None: the whole-step kernel when
-    it fits (``pe_rk4_kernel_fits``), as the TPU stepper does; True or
-    False force one of the two paths.
+    """RK4 on the kernels. ``whole_step`` None or False: four stage
+    launches, the faster path on the H100 at every L timed (8-87; the TPU
+    stepper takes its whole-step kernel where it fits VMEM); True: the
+    whole-step kernel (``pe_rk4_kernel_fits``).
 
     Both are in place by design and allocate nothing per step: a state
     returned by one step is overwritten by the step after next; callers
     that keep a state copy it (``Simulation._store_output`` does)."""
-    if whole_step is None:
-        whole_step = pe_rk4_kernel_fits(grid.levels)
     if whole_step:
         return _whole_step_stepper(grid, params, dt, phi_s)
     return _stage_stepper(grid, params, dt, phi_s)
@@ -819,24 +850,23 @@ def make_pe_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
 
 def _whole_step_stepper(grid, params, dt, phi_s) -> Stepper:
     """One whole-step launch per step into a spare state; the incoming
-    state becomes the next spare. The carry holds the spare and the
-    kernel's scratch (None on the CPU)."""
+    state becomes the next spare. The carry holds the spare."""
     k = column_constants(grid, float(params.coriolis_f))
     r = rk4_constants(float(dt))
+    tile = rk4_tile(grid.levels)
 
     def init(s):
-        kind = _device_kind(s.ps, "pe_rk4_step")
-        scratch = (rk4_scratch(grid.levels, s.ps.device) if kind == "cuda"
-                   else None)
-        return s.map(torch.empty_like), scratch
+        if _device_kind(s.ps, "pe_rk4_step") == "cuda":
+            _rk4_tile_arg(grid.levels, None, "pe_rk4_step")
+        return (s.map(torch.empty_like),)
 
     def step(carry, s, _dt_ignored):
-        spare, scratch = carry
+        (spare,) = carry
         _check(s, (s,), grid, (1.0,), phi_s, None, "pe_rk4_step")
         run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
         new = run(s, spare, phi_s, grid, k, r,
-                  level_constants(grid.levels, str(s.ps.device)), scratch)
-        return (s, scratch), new
+                  level_constants(grid.levels, str(s.ps.device)), tile)
+        return (s,), new
 
     return Stepper(init, step, "pe_rk4_kernel_fused", 4)
 

@@ -19,14 +19,16 @@ width, so the corners ride along) and launches the kernel on every shard
 in turn. The blocks are made at the first call and reused: a step
 allocates nothing (on a ``ProcessMesh`` the exchange's send and receive
 buffers excepted). On ``LocalMesh`` the shards' launches follow one
-another on one stream, which is what lets them share the whole-step
-kernel's scratch.
+another on one stream.
 
 As in the JAX package: periodic BC and a numeric f only
 (``NotImplementedError`` otherwise); a mesh with px > 1 takes the 2-D
 form; the fused 2-D form falls back to the stage path where the
 whole-step kernel does not fit (here ``pe_rk4_kernel_fits``, the port's
-own rule). Beyond it: beta must be 0 and, for PE, viscosity 0 (the JAX
+own rule: a one-column tile of L levels in a block's shared memory, L <=
+87). The fused steppers take K4 wherever it fits, as a user who names
+them asks (the whole-domain auto choice takes the stage path, which the
+H100 timed faster). Beyond it: beta must be 0 and, for PE, viscosity 0 (the JAX
 sharded kernel paths drop both without a word), and the SWE paths apply
 the viscosity the JAX ones drop (ROADMAP section 3). The TPU's tile
 conditions (ly % 8, lx % 128) do not apply: the kernels mask ragged tiles.
@@ -361,16 +363,9 @@ class _PEFused:
     def _setup(self, grid, params, dt):
         self.kw = dict(dt=float(dt), dx=float(grid.dx), dy=float(grid.dy),
                        coriolis_f=float(params.coriolis_f))
-        self.scratch = None
 
     def _launch(self, src: PEState, out: PEState) -> None:
-        # one scratch for every shard: the launches follow one another on
-        # one stream (never put the shards on concurrent streams)
-        if self.scratch is None and src.ps.device.type == "cuda":
-            self.scratch = pe_stencil.rk4_scratch(src.u.shape[0],
-                                                  src.ps.device)
-        pe_stencil.pe_rk4_padded(src, halo=self.halo, out=out,
-                                 scratch=self.scratch, **self.kw)
+        pe_stencil.pe_rk4_padded(src, halo=self.halo, out=out, **self.kw)
 
 
 class _PEFusedCarry(_PEFused, _CarryStepper):

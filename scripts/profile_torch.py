@@ -21,9 +21,12 @@ the card's name and power limit:
   * swe ``steps``: ms/step of backend kernel and backend plain (CUDA
     events), and ``sweep``: the fused kernel alone at several grid sizes,
     with the bandwidth its 24 B/point minimum traffic implies;
-  * primitive ``layouts``: the whole-step kernel alone at the main path's
-    shape for several output tiles, beside the four-stage path's ms/step
-    (CUDA events);
+  * primitive ``layouts``: the whole-step kernel K4 alone at config 4
+    (the main path's shape) and config 5 (2048^2 x 40): its parts (the
+    first 1, 2, 3 and 4 stages run alone), its three largest output tiles
+    that fit, its shared memory, blocks per SM and ptxas report, beside
+    the four-stage path's ms/step (CUDA events); and ``levels_sweep``:
+    ms/step on K4 and on the stage path at 512^2 for L from 8 to 87;
   * fir ``profile``: the fir_batch path of
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
@@ -33,6 +36,7 @@ the card's name and power limit:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -46,10 +50,13 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from njw_tpu_torch.weather import GridSpec, make_initial_state  # noqa: E402
+from njw_tpu_torch.weather.primitive import pe_initial_state  # noqa: E402
 from njw_tpu_torch.weather.main_paths import (  # noqa: E402
     MAIN_PATHS, VARIANT_PATHS,
 )
 
+SWEEP_LEVELS = (8, 16, 20, 21, 22, 26, 30, 31, 36, 37, 40, 44, 48, 56, 64,
+                72, 87)
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
                 "pe_rk4_kernel", "band_kernel")
 
@@ -198,47 +205,91 @@ def swe_extras(steps: int, gpu: str) -> None:
 
 
 def primitive_extras(gpu: str) -> None:
+    from njw_tpu_torch.ops import _build
     from njw_tpu_torch.ops import pe_stencil as ps
+    from njw_tpu_torch.weather.main_paths import SHARDED_PATHS
 
     path = MAIN_PATHS["primitive"]
-    sim = path.simulation()
-    grid, s = sim.grid, sim.state
-    kw = dict(grid=grid, dt=path.config["dt"],
-              coriolis_f=path.config["coriolis_f"])
-    bufs = [s.map(torch.clone), s.map(torch.empty_like)]
-    rows = []
-    for tile in (8, 12, 16, 24):
-        # every layout starts from the initial state
-        for (_, a), (_, b) in zip(bufs[0].items(), s.items()):
-            a.copy_(b)
-        scratch = ps.rk4_scratch(grid.levels, s.ps.device, tile)
-        turn = [0]
+    config5 = SHARDED_PATHS["pe5_fused_2x2"].sim_config()
+    ptxas = [ln.strip() for ln in _build.build_log("pe_rk4").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for cfg in (path.sim_config(device="cuda"),
+                dataclasses.replace(config5, device="cuda")):
+        grid, params = cfg.grid_spec(), cfg.physics()
+        s = pe_initial_state(grid, device="cuda", **path.ic_params)
+        k = ps.column_constants(grid, float(params.coriolis_f))
+        r = ps.rk4_constants(cfg.dt)
+        levc = ps.level_constants(grid.levels, "cuda")
+        out = s.map(torch.empty_like)
+        reps = max(2, int(2e7 / (grid.levels * grid.ny * grid.nx)))
 
-        def launch():
-            ps.pe_rk4_step_cuda(bufs[turn[0]], out=bufs[1 - turn[0]],
-                                tile=tile, **kw)
-            turn[0] ^= 1
+        def timed(tile, stages):
+            def launch():
+                ps._launch_rk4(s, out, None, grid, k, r, levc, tile,
+                               stages=stages)
 
-        events_ms(launch, 4)
-        rows.append({"tile": tile, "slots": scratch.slots,
-                     "scratch_mb": scratch.buf.numel() * 4 / 2**20,
-                     "ms": events_ms(launch, 40)})
-        del scratch
-    stages = ps.make_pe_kernel_rk4_stepper(grid, path.sim_config().physics(),
-                                           kw["dt"],
-                                           whole_step=False)
-    carry, state = stages.init(s), s.map(torch.clone)
+            events_ms(launch, 2)
+            return events_ms(launch, reps)
 
-    def stage_step():
-        nonlocal carry, state
-        carry, state = stages.step(carry, state, None)
+        default = ps.rk4_tile(grid.levels)
+        tiles = [t for t in range(1, ps.RK4_TILE_MAX + 1)
+                 if ps.rk4_smem_bytes(grid.levels, t) <= ps.SMEM_PER_BLOCK]
+        # the parts: the first n stages alone (no output written), so
+        # stage n costs parts[n] - parts[n - 1]
+        parts = {n: timed(default, n) for n in (1, 2, 3, 4)}
+        by_tile = {t: timed(t, 4) for t in tiles[-3:]}
+        stages = ps.make_pe_kernel_rk4_stepper(grid, params, cfg.dt,
+                                               whole_step=False)
+        carry, state = stages.init(s), s.map(torch.clone)
 
-    events_ms(stage_step, 4)
-    print(json.dumps({"phase": "layouts", "card": gpu, "model": "primitive",
-                      "shape": [grid.levels, grid.ny, grid.nx],
-                      "whole_step_kernel": rows,
-                      "stage_path_ms_per_step": events_ms(stage_step, 40)}),
-          flush=True)
+        def stage_step():
+            nonlocal carry, state
+            carry, state = stages.step(carry, state, None)
+
+        events_ms(stage_step, 2)
+        print(json.dumps({
+            "phase": "layouts", "card": gpu, "model": "primitive",
+            "shape": [grid.levels, grid.ny, grid.nx], "tile": default,
+            "threads_per_block": ps.RK4_THREADS,
+            "smem_bytes": ps.rk4_smem_bytes(grid.levels, default),
+            "blocks_per_sm": ps.rk4_blocks_per_sm(grid.levels, default, 0),
+            "ptxas": ptxas,
+            "whole_step_ms_by_stages_run": parts,
+            "whole_step_ms_by_tile": by_tile,
+            "stage_path_ms_per_step": events_ms(stage_step, reps)}),
+            flush=True)
+        del s, out, carry, state
+        torch.cuda.empty_cache()
+
+    # the auto choice's evidence: K4 against the stage path over L at the
+    # main path's grid
+    sweep = []
+    for levels in SWEEP_LEVELS:
+        cfg = path.sim_config(device="cuda", num_levels=levels)
+        grid, params = cfg.grid_spec(), cfg.physics()
+        s = pe_initial_state(grid, device="cuda", **path.ic_params)
+        times = {}
+        for whole_step in (True, False):
+            st = ps.make_pe_kernel_rk4_stepper(grid, params, cfg.dt,
+                                               whole_step=whole_step)
+            carry, state = st.init(s), s.map(torch.clone)
+
+            def step():
+                nonlocal carry, state
+                carry, state = st.step(carry, state, None)
+
+            events_ms(step, 2)
+            times[st.name] = events_ms(step, 10)
+        sweep.append({"levels": levels, "tile": ps.rk4_tile(levels),
+                      "ms_per_step": times,
+                      "whole_step_over_stages":
+                          times["pe_rk4_kernel_fused"]
+                          / times["pe_rk4_kernel"]})
+        del s, carry, state
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "levels_sweep", "card": gpu,
+                      "model": "primitive", "grid": [grid.ny, grid.nx],
+                      "rows": sweep}), flush=True)
 
 
 def fir_extras(gpu: str) -> None:

@@ -218,9 +218,14 @@ class TestStageKernelsOnCard:
                                        atol=2e-4 if terrain else 1e-4,
                                        msg=name)
 
+    # tile None: the wrapper's choice (rk4_tile: 8 up to L = 21, 4 at
+    # L = 40, 1 at the limit L = 87); ragged tiles in both axes
     @pytest.mark.parametrize("L,ny,nx,terrain,tile", [
-        (20, 128, 96, False, 12), (5, 200, 328, True, 12),
-        (2, 3, 5, False, 12), (4, 64, 48, True, 8), (6, 70, 90, False, 16)])
+        (20, 128, 96, False, None), (5, 200, 328, True, None),
+        (2, 3, 5, False, None), (4, 64, 48, True, 3), (6, 70, 90, False, 16),
+        (20, 33, 47, True, 5), (40, 37, 50, True, None),
+        (40, 45, 29, False, 3), (87, 11, 13, False, None),
+        (87, 9, 14, True, None)])
     def test_pe_rk4_kernel_matches_plain_version(self, cuda_device, L, ny,
                                                  nx, terrain, tile):
         grid = GridSpec(nx=nx, ny=ny, levels=L, dx=1e5, dy=1e5)
@@ -229,7 +234,7 @@ class TestStageKernelsOnCard:
                  if terrain else None)
         kw = dict(grid=grid, dt=60.0, coriolis_f=1e-4, phi_s=phi_s)
         before = pe_rk4_step_cuda.launches
-        out = (pe_rk4_step(s, **kw) if tile == 12
+        out = (pe_rk4_step(s, **kw) if tile is None
                else pe_rk4_step_cuda(s, tile=tile, **kw))
         ref = pe_rk4_step_plain(s, **kw)
         torch.cuda.synchronize()
@@ -238,6 +243,26 @@ class TestStageKernelsOnCard:
             torch.testing.assert_close(a, b, rtol=1e-5,
                                        atol=2e-4 if terrain else 1e-4,
                                        msg=name)
+
+    @pytest.mark.parametrize("L", [2, 20, 21, 22, 40, 44, 68, 87])
+    def test_pe_rk4_shared_memory_rule_matches_the_built_kernel(
+            self, cuda_device, L):
+        from njw_tpu_torch.ops.pe_stencil import (
+            SMEM_PER_BLOCK, rk4_blocks_per_sm, rk4_smem_bytes,
+            rk4_smem_bytes_built, rk4_tile,
+        )
+        tile = rk4_tile(L)
+        for t in (1, tile, tile + 1):
+            assert rk4_smem_bytes_built(L, t) == rk4_smem_bytes(L, t)
+        assert rk4_smem_bytes(L, tile) <= SMEM_PER_BLOCK
+        assert rk4_blocks_per_sm(L, tile, cuda_device.index or 0) >= 1
+
+    def test_pe_rk4_launch_refuses_a_tile_over_the_shared_memory(
+            self, cuda_device):
+        grid = GridSpec(nx=16, ny=16, levels=40, dx=1e5, dy=1e5)
+        s = _pe_state(40, 16, 16, 1, cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            pe_rk4_step_cuda(s, grid=grid, dt=60.0, tile=5)
 
     def test_pe_stage_stepper_vs_plain(self, cuda_device):
         grid = GridSpec(nx=64, ny=48, levels=4, dx=1e5, dy=1e5)
@@ -268,7 +293,7 @@ class TestStageKernelsOnCard:
          {"strength": 3.0}, "baro_rk4_kernel"),
         ("primitive", dict(grid_width=64, grid_height=48, num_levels=4,
                            dx=1e5, dy=1e5, dt=30.0, coriolis_f=1e-4),
-         {"u_jet": 5.0, "perturb": 0.5}, "pe_rk4_kernel_fused"),
+         {"u_jet": 5.0, "perturb": 0.5}, "pe_rk4_kernel"),
     ])
     def test_simulation_kernel_vs_plain(self, cuda_device, model, cfg_kw,
                                         ic_kw, stepper):
@@ -280,7 +305,7 @@ class TestStageKernelsOnCard:
                                      ic, **ic_kw)
         assert ker.stepper.name == stepper and ref.stepper.name == "rk4"
         counter, per_step = ((baro_stage_cuda, 4) if model == "barotropic"
-                             else (pe_rk4_step_cuda, 1))
+                             else (pe_stage_cuda, 4))
         before = counter.launches
         ker.step(12)
         ref.step(12)
@@ -473,12 +498,14 @@ class TestShardedKernelsOnCard:
         ("local", (4, 0)), ("carry", (4, 0)), ("local2d", (4, 4)),
         ("carry2d", (4, 4)), ("local2d", (6, 5))])
     @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
-    def test_pe_rk4_padded_matches_plain(self, cuda_device, form, halo, nan):
+    @pytest.mark.parametrize("L", [4, 40])
+    def test_pe_rk4_padded_matches_plain(self, cuda_device, form, halo, nan,
+                                         L):
         from njw_tpu_torch.ops.pe_stencil import (
             interior, pe_rk4_carry, pe_rk4_carry2d, pe_rk4_local,
             pe_rk4_local2d, pe_rk4_padded,
         )
-        L, ly, lx = 4, 37, 50
+        ly, lx = 37, 50
         s = _padded_pe(L, ly, lx, halo, 3, cuda_device)
         kw = dict(dt=60.0, dx=1e5, dy=1.2e5, coriolis_f=1e-4)
         ref = pe_rk4_padded(s.map(torch.Tensor.cpu), halo=halo, **kw)

@@ -277,6 +277,27 @@ class TestSimulation:
         np.testing.assert_allclose(got / scale, ref / scale, rtol=0,
                                    atol=5e-3)
 
+    def test_rk4_oracle_1000_steps(self):
+        """BASELINE bar for the barotropic core
+        (tests/test_weather_barotropic.py:128): the kernel backend (K3's
+        plain version on the CPU) against the NumPy oracle after 1000
+        steps, normalised 5e-3 (the oracle's complex128 FFT against the
+        model's complex64)."""
+        cfg = SimConfig(model="barotropic", grid_width=64, grid_height=64,
+                        dx=1.0, dy=1.0, dt=0.05, beta=1e-3, viscosity=1e-3,
+                        backend="kernel", device=CPU)
+        sim = Simulation.from_config(cfg, "vortex", strength=2.0)
+        assert sim.stepper.name == "baro_rk4_kernel"
+        z0 = sim.state.zeta.numpy().copy()
+        sim.step(1000)
+        ref = t_oracle.BarotropicOracle(dx=1.0, dy=1.0, beta=1e-3,
+                                        viscosity=1e-3).run(z0, 0.05, 1000)
+        got = sim.state.zeta.numpy()
+        assert np.isfinite(got).all()
+        scale = np.abs(ref).max() + 1e-30
+        np.testing.assert_allclose(got / scale, ref / scale, rtol=0,
+                                   atol=5e-3)
+
     def test_auto_on_cpu_uses_plain_integrators(self):
         cfg = SimConfig(model="barotropic", grid_width=16, grid_height=16,
                         device=CPU)

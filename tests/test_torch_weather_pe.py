@@ -27,9 +27,10 @@ from njw_tpu.weather import oracle as j_oracle  # noqa: E402
 from njw_tpu.weather import primitive as jp  # noqa: E402
 
 from njw_tpu_torch.ops.pe_stencil import (  # noqa: E402
-    make_pe_kernel_rk4_stepper, pe_kernel_supported, pe_rk4_kernel_fits,
+    RK4_TILE_MAX, SMEM_PER_BLOCK, _rk4_tile_arg, make_pe_kernel_rk4_stepper,
+    pe_kernel_supported, pe_rk4_kernel_fits, pe_rk4_padded_plain,
     pe_rk4_step, pe_rk4_step_cuda, pe_rk4_step_plain, pe_stage,
-    pe_stage_cuda, pe_stage_plain,
+    pe_stage_cuda, pe_stage_plain, rk4_smem_bytes, rk4_tile,
 )
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation, make_tendency_fn,
@@ -346,14 +347,67 @@ class TestWholeStep:
             pe_rk4_step(s, grid=grid, dt=1.0, out=out, phi_s=phi_s)
 
     def test_fits_predicate(self):
-        # L floats per thread of 256 in the 227 KB a block may have
-        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(227)
-        assert not pe_rk4_kernel_fits(228)
+        # a one-column tile of L levels in the 232,448 B a block may have:
+        # 4 (656 L + 457) B at T = 1, so L <= 87
+        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(87)
+        assert not pe_rk4_kernel_fits(88) and not pe_rk4_kernel_fits(0)
+        assert pe_rk4_kernel_fits(40) and pe_rk4_kernel_fits(2)
+
+    @pytest.mark.parametrize("L,tile,want", [
+        # (4L+1)((T+8)^2 + (T+6)^2 + T^2) + (T+8)^2 + 2L words, and s2's
+        # (4L+1)(T+4)^2 or stage 1's L((T+8)^2 + (T+6)^2) + 5 (T+6)^2,
+        # whichever is larger, worked out by hand
+        (20, 8, 4 * (81 * 516 + 81 * 144 + 256 + 40)),          # 215,024
+        (40, 4, 4 * (161 * 260 + 161 * 64 + 144 + 80)),         # 209,552
+        (40, 5, 4 * (161 * 315 + 161 * 81 + 169 + 80)),         # 256,020
+        (87, 1, 4 * (349 * 131 + 87 * 130 + 245 + 81 + 174)),   # 229,956
+        (88, 1, 4 * (353 * 131 + 88 * 130 + 245 + 81 + 176)),   # 232,740
+        (2, 16, 4 * (9 * 1316 + 2 * 1060 + 2420 + 576 + 4))])   # 67,856
+    def test_shared_memory_by_hand(self, L, tile, want):
+        assert rk4_smem_bytes(L, tile) == want
+
+    @pytest.mark.parametrize("L,tile", [
+        (1, 8), (2, 8), (20, 8), (21, 8), (22, 7), (25, 7), (26, 6),
+        (30, 6), (31, 5), (36, 5), (37, 4), (40, 4), (44, 4), (45, 3),
+        (54, 3), (55, 2), (68, 2), (69, 1), (87, 1), (88, None)])
+    def test_tile_choice(self, L, tile):
+        # the largest edge up to 8 whose block fits 232,448 B
+        assert rk4_tile(L) == tile
+        if tile is not None:
+            assert rk4_smem_bytes(L, tile) <= SMEM_PER_BLOCK
+            if tile < RK4_TILE_MAX:
+                assert rk4_smem_bytes(L, tile + 1) > SMEM_PER_BLOCK
+
+    @pytest.mark.parametrize("L,tile,match", [
+        (20, 0, "positive integer"), (20, 2.5, "positive integer"),
+        (20, True, "positive integer"), (40, 5, "shared memory"),
+        (20, 9, "shared memory"), (88, None, "do not fit")])
+    def test_tile_refusals(self, L, tile, match):
+        with pytest.raises(ValueError, match=match):
+            _rk4_tile_arg(L, tile, "pe_rk4_step")
+
+    @pytest.mark.parametrize("L,tile", [(20, None), (20, 6), (40, 3),
+                                        (6, 16)])
+    def test_tile_accepted(self, L, tile):
+        assert _rk4_tile_arg(L, tile, "pe_rk4_step") == (
+            rk4_tile(L) if tile is None else tile)
+
+    def test_padded_form_refuses_levels_the_kernel_does_not_hold(self):
+        grid = GridSpec(nx=12, ny=12, levels=88, dx=1e5, dy=1e5)
+        s = tp.pe_initial_state(grid, device=CPU)
+        with pytest.raises(ValueError, match="do not fit"):
+            pe_rk4_padded_plain(s, halo=(4, 4), dt=1.0)
+
+    def test_padded_form_refuses_a_tile_over_the_shared_memory(self):
+        grid = GridSpec(nx=12, ny=12, levels=40, dx=1e5, dy=1e5)
+        s = tp.pe_initial_state(grid, device=CPU)
+        with pytest.raises(ValueError, match="shared memory"):
+            pe_rk4_padded_plain(s, halo=(4, 4), dt=1.0, tile=5)
 
 
 class TestStepper:
     @pytest.mark.parametrize("whole_step,name", [
-        (None, "pe_rk4_kernel_fused"), (False, "pe_rk4_kernel")],
+        (True, "pe_rk4_kernel_fused"), (False, "pe_rk4_kernel")],
         ids=["whole_step", "stages"])
     def test_one_step_matches_pallas_stepper(self, whole_step, name):
         jg = JGrid(nx=128, ny=32, levels=4, dx=1e5, dy=1e5)
@@ -368,6 +422,19 @@ class TestStepper:
         ts = pe_state_from_numpy(js, CPU)
         _, got = st.step(st.init(ts), ts, None)
         _assert_fields(got, want, 1e-5, 1e-4)
+
+    @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88])
+    def test_auto_choice_is_the_stage_path(self, levels):
+        """whole_step None takes the four stage launches at every L: the
+        H100 timed the whole-step kernel slower at every L from 8 to 87."""
+        grid = GridSpec(nx=16, ny=12, levels=levels, dx=1e5, dy=1e5)
+        params = PhysicsParams(coriolis_f=1e-4)
+        assert make_pe_kernel_rk4_stepper(grid, params, 30.0).name == \
+            "pe_rk4_kernel"
+        if pe_rk4_kernel_fits(levels):
+            assert make_pe_kernel_rk4_stepper(
+                grid, params, 30.0, whole_step=True).name == \
+                "pe_rk4_kernel_fused"
 
     @pytest.mark.parametrize("whole_step", [True, False],
                              ids=["whole_step", "stages"])
@@ -409,12 +476,30 @@ class TestSimulation:
     def test_matches_port_oracle_200_steps(self, backend):
         sim = Simulation.from_config(_pe_cfg(backend=backend), "baroclinic",
                                      u_jet=10.0, perturb=0.5)
-        assert sim.stepper.name == {"kernel": "pe_rk4_kernel_fused",
+        assert sim.stepper.name == {"kernel": "pe_rk4_kernel",
                                     "plain": "rk4"}[backend]
         s0 = tuple(sim.state.to_numpy()[n].copy() for n in FIELDS)
         sim.step(200)
         ref = t_oracle.PEOracle(dx=1e5, dy=1e5, bc="periodic",
                                 coriolis_f=1e-4).run(s0, 30.0, 200)
+        for name, r in zip(FIELDS, ref):
+            a = getattr(sim.state, name).numpy()
+            assert np.isfinite(a).all(), name
+            scale = np.abs(r).max() + 1e-30
+            np.testing.assert_allclose(a / scale, r / scale, rtol=0,
+                                       atol=1e-3, err_msg=name)
+
+    def test_rk4_oracle_1000_steps(self):
+        """BASELINE.md's bar for the PE core (tests/test_weather_primitive.py
+        :73-97): the kernel backend (the plain version of the stepper the
+        auto rule takes, on the CPU) against the NumPy oracle after 1000
+        RK4 steps, per-field normalised atol 1e-3."""
+        sim = Simulation.from_config(_pe_cfg(backend="kernel"), "baroclinic",
+                                     u_jet=10.0, perturb=0.5)
+        s0 = tuple(sim.state.to_numpy()[n].copy() for n in FIELDS)
+        sim.step(1000)
+        ref = t_oracle.PEOracle(dx=1e5, dy=1e5, bc="periodic",
+                                coriolis_f=1e-4).run(s0, 30.0, 1000)
         for name, r in zip(FIELDS, ref):
             a = getattr(sim.state, name).numpy()
             assert np.isfinite(a).all(), name

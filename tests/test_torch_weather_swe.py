@@ -216,6 +216,23 @@ class TestSimulation:
         np.testing.assert_allclose(sim.state.h.numpy(), h, rtol=2e-4, atol=2e-4)
         np.testing.assert_allclose(sim.state.u.numpy(), u, rtol=2e-4, atol=2e-3)
 
+    def test_rk4_oracle_1000_steps(self):
+        """BASELINE correctness bar (tests/test_weather_swe.py:89): the
+        kernel backend (its plain version on the CPU) allclose with the
+        NumPy oracle after 1000 steps, rtol 1e-3 / atol 1e-3 on h."""
+        cfg = SimConfig(grid_width=64, grid_height=64, dt=0.01,
+                        backend="kernel", device=CPU)
+        sim = Simulation.from_config(cfg, "vortex", strength=2.0)
+        assert sim.stepper.name == "rk4_kernel"
+        s0 = j_ic("vortex", JGrid(nx=64, ny=64), strength=2.0)
+        sim.step(1000)
+        _, _, h = SWEOracle().run(
+            (np.asarray(s0.u), np.asarray(s0.v), np.asarray(s0.h)), 0.01,
+            1000)
+        got = sim.state.h.numpy()
+        assert np.all(np.isfinite(got)) and np.all(np.isfinite(h))
+        np.testing.assert_allclose(got, h, rtol=1e-3, atol=1e-3)
+
     def test_port_oracle_equals_jax_oracle(self):
         d = _random_state(16, 20, seed=5, amp=0.2)
         s = (d["u"], d["v"], d["h"])
