@@ -15,7 +15,8 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 the largest L pe_rk4_kernel_fits admits), and its time
                 beside the plain version's, the card's bound and the
                 wrapper's host cost per launch (pe_rk4: with its ptxas
-                registers, shared memory, blocks per SM and tile)
+                registers, shared memory, blocks per SM, clusters on
+                the card, blocks per cluster, tile and threads)
   4 parity      kernel steppers vs backend plain: SWE 512^2 (1e-3),
                 barotropic 256^2 (normalised 1e-3), PE 128^2 x 8 on the
                 auto choice (the stage kernel) and on the whole-step kernel
@@ -659,8 +660,9 @@ def pe_rk4_kernel() -> dict:
         ("terrain_512x512x20", main_grid, True),
         ("ragged_200x328x5", _pe_grid(5, 200, 328), True),
         ("tiny_3x5x2", _pe_grid(2, 3, 5), False),
-        # the new design's limits: config 5's L at a ragged shape (tile 5)
-        # and the largest L a block holds (tile 1)
+        # the design's limits: config 5's L at a ragged shape (a cluster
+        # of two blocks, tile 8) and the largest L a cluster holds (eight
+        # blocks, tile 1)
         ("ragged_203x141x40", _pe_grid(40, 203, 141), True),
         (f"limit_37x23x{limit}", _pe_grid(limit, 37, 23), False),
     ]
@@ -679,7 +681,8 @@ def pe_rk4_kernel() -> dict:
         worst = max(worst, max_abs)
         emit("kernel_vs_plain", ok=ok, kernel="pe_rk4", case=name,
              shape=[grid.levels, grid.ny, grid.nx], terrain=terrain,
-             tile=ps.rk4_tile(grid.levels), max_abs_err=max_abs,
+             layout=ps.rk4_layout(grid.levels)._asdict(),
+             max_abs_err=max_abs,
              max_rel_err=max_rel, rtol=PE_RTOL, atol=atol)
         if not ok:
             fail("kernel_vs_plain", f"pe_rk4 disagrees with its plain "
@@ -710,13 +713,14 @@ def pe_rk4_kernel() -> dict:
     b_ms, b_by = roofline_ms(distinct_bytes(*tensors),
                              PE_STEP_FLOP * L * n * n)
     host_us = host_us_per_launch(launch)
-    tile = ps.rk4_tile(L)
+    lay = ps.rk4_layout(L)
+    blocks, clusters = ps.rk4_occupancy(L, lay, torch.cuda.current_device())
     layout = {"registers": _ptxas_registers("pe_rk4", "pe_rk4_kernel"),
-              "smem_bytes": ps.rk4_smem_bytes_built(L, tile),
-              "blocks_per_sm": ps.rk4_blocks_per_sm(
-                  L, tile, torch.cuda.current_device()),
-              "tile": tile, "threads_per_block": ps.RK4_THREADS}
-    if layout["smem_bytes"] != ps.rk4_smem_bytes(L, tile):
+              "smem_bytes": ps.rk4_smem_bytes_built(L, lay.tile, lay.ncta),
+              "blocks_per_sm": blocks, "clusters_on_card": clusters,
+              "blocks_per_cluster": lay.ncta, "tile": lay.tile,
+              "threads_per_block": lay.threads}
+    if layout["smem_bytes"] != ps.rk4_smem_bytes(L, lay.tile, lay.ncta):
         fail("kernel_time", "pe_rk4: the wrapper's shared-memory rule "
              "disagrees with the built kernel's")
     emit("kernel_time", ok=True, kernel="pe_rk4", shape=[L, n, n], ms=ms,
@@ -2163,7 +2167,8 @@ def main() -> int:
             "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
             main_path="main_path_pe_whole_step",
             ptxas_registers=k4["registers"], smem_bytes=k4["smem_bytes"],
-            blocks_per_sm=k4["blocks_per_sm"], tile=k4["tile"],
+            blocks_per_sm=k4["blocks_per_sm"],
+            blocks_per_cluster=k4["blocks_per_cluster"], tile=k4["tile"],
             max_abs_err_all_cases=k4["max_abs_err_all_cases"],
             also_replaces=[f"{pe}:847 pe_rk4_pallas_local",
                            f"{pe}:989 pe_rk4_pallas_carry",

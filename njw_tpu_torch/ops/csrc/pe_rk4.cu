@@ -25,11 +25,14 @@
 // 67 TFLOP/s fp32) without recompute; with this design's halo recompute
 // (1.97x at tile 8, below) 5.1 GFLOP, 77 us: the operations are the floor.
 //
-// Design. One block of NT threads per output tile of T x T columns (a
-// grid-stride loop over tiles; launched with one block per tile, the
-// tiles in row-major order so that neighbours run together). Everything a
-// tile needs between its stages stays in shared memory:
-//   S     s on the (T+8)^2 source region, 4L+1 planes, brought in with
+// Design. A cluster of C blocks (C = 1, 2, 4 or 8; a thread-block cluster
+// when C > 1) per output tile of T x T columns, one cluster per tile, the
+// tiles in row-major order so that neighbours run together. The C blocks
+// split the levels: block c holds levels [c L / C, (c + 1) L / C) of u,
+// v, T, q and the surface plane ps, lc = ceil(L / C) levels in its
+// layout. Everything a tile needs between its stages stays in the
+// cluster's shared memory; each block holds, in 4 B words:
+//   S     s on the (T+8)^2 source region, 4 lc + 1 planes, brought in with
 //         cp.async (every copy in flight at once); after stage 1 it holds
 //         the auxiliaries of stages 2-4
 //   A     s1 on the (T+6)^2 region, then s3 on (T+2)^2
@@ -37,52 +40,72 @@
 //   acc   the RK4 accumulator on the T^2 own columns
 //   goff  s's offset of each source-region column (ints); the 2L level
 //         constants
+//   x     the cluster's exchange: each column's geopotential partial sum
+//         at the block's top level ((T+8)^2), its flux-divergence total
+//         ((T+6)^2), and the flux summed over the blocks above ((T+6)^2)
 // The auxiliaries of a stage are phi (the geopotential of its source
-// region, L planes), cum (the flux divergence of its region summed down
-// the column, L planes) and five per-column planes (d lnps/dx, d lnps/dy,
+// region, lc planes), cum (the flux divergence of its region summed down
+// the column, lc planes) and five per-column planes (d lnps/dx, d lnps/dy,
 // 1/ps, dps/ps, dps). The base s of stages 2 and 3 is re-read at each
-// column from device memory, where the tile's s sits in L2. Shared
-// memory, in 4 B words:
-//   (4L+1) ((T+8)^2 + (T+6)^2 + T^2) + max((4L+1)(T+4)^2,
-//     L ((T+8)^2 + (T+6)^2) + 5 (T+6)^2) + (T+8)^2 + 2L,
-// 215,024 B at L = 20 and T = 8; at L = 40, 209,552 B at T = 4 (T = 5
-// needs 256,020 B, over the 232,448 a block may have). The wrapper takes
-// the largest tile up to 8 that fits (rk4_tile); a one-column tile fits
-// up to L = 87. For config 5's L = 40 a cluster of two blocks splitting
-// the levels (a scan exchange across the pair) would keep T = 8; this
-// design takes the smaller tile instead, and the auto rule the stage path
-// where that loses (PERF.md).
+// column from device memory, where the tile's s sits in L2. Words:
+//   (4lc+1) ((T+8)^2 + (T+6)^2 + T^2) + max((4lc+1)(T+4)^2,
+//     lc ((T+8)^2 + (T+6)^2) + 5 (T+6)^2) + 2 (T+8)^2 + 2 (T+6)^2 + 2L,
+// 217,616 B at L = 20, C = 1, T = 8; at config 5's L = 40 a cluster of two
+// holds T = 8 (lc = 20, 217,776 B a block), where one block would have to
+// fall to T = 4 (3.4x halo recompute, 9x region loads per output column).
+// The wrapper's rule (rk4_layout) takes the smallest C that keeps T = 8
+// with at most RK4_LEVELS_PER_BLOCK levels a block, then smaller tiles at
+// C = 8; a one-column tile at C = 8 holds L <= 680.
 //
-// Every stage is two rounds over its region, a barrier after each:
-//   1. one thread per column: the geopotential bottom-up over the source
-//      region (once per column, not once per neighbour), and over the
-//      region the ps terms and the flux divergence summed top-down; each
-//      walk is L dependent adds in shared memory, its loads issued in
-//      groups of 8 ahead of the adds;
-//   2. (column, run of levels) items, the runs sized per stage so that
-//      the rounds of NT threads times the levels of a run are fewest
-//      (level_runs); a thread walks its run top-down carrying the centre
-//      values of the level above and sigma-dot at the upper interface, so
-//      a level costs 25 shared loads (the level below, the four side
-//      neighbours of u, v, T, q, phi's four, cum) and the tendency
-//      (pe_column.cuh's body at one level), then y = s + c T into the next
-//      state and the accumulator on the own columns, or in stage 4
-//      s' = acc/3 + dt/6 T on the own columns inside the grid.
-// The regions shrink by one column per side per stage (halo recompute:
-// (196 + 144 + 100 + 64) / 4 / 64 = 1.97x the stage work at T = 8).
+// Every stage is two rounds over its region, a barrier after each, and
+// between them, when C > 1, one exchange:
+//   1. the level sums, in one of two forms (a launch argument; the
+//      profiler times both, PERF.md):
+//      serial: one thread per column: the geopotential bottom-up over the
+//        source region (once per column, not once per neighbour), and over
+//        the region the ps terms and the flux divergence summed top-down;
+//        each walk is lc dependent adds in shared memory, its loads issued
+//        in groups of 8 ahead of the adds;
+//      warp: a segment of lanes per column (the power of two >= lc, so 32
+//        lanes at lc = 17-32, two columns a warp at 9-16), a lane per
+//        level: each level's term at once, then a suffix scan (phi) and a
+//        prefix scan (cum) over the segment by warp shuffles, log2 steps;
+//   1b. (C > 1) the cluster barrier, then each block reads the other
+//      blocks' per-column partials through distributed shared memory and
+//      adds, in one fixed order, the geopotential of the blocks below to
+//      its phi and the flux of the blocks above to its cum (and keeps the
+//      latter for sigma-dot at its top interface); dps from the total;
+//   2. (column, run of levels) items over the block's levels, the runs
+//      sized per stage so that the rounds of the block's threads times the
+//      levels of a run are fewest (level_runs); a thread walks its run
+//      top-down carrying the centre values of the level above and
+//      sigma-dot at the upper interface, so a level costs 25 shared loads
+//      (the level below, the four side neighbours of u, v, T, q, phi's
+//      four, cum) and the tendency (pe_column.cuh's body at one level),
+//      then y = s + c T into the next state and the accumulator on the own
+//      columns, or in stage 4 s' = acc/3 + dt/6 T on the own columns
+//      inside the grid. The level above a block's first level and below
+//      its last are read from the neighbouring blocks' shared memory.
+// A stage ends in the cluster barrier when C > 1 (its source planes are
+// read across the cluster until then). The regions shrink by one column
+// per side per stage (halo recompute: (196 + 144 + 100 + 64) / 4 / 64 =
+// 1.97x the stage work at T = 8).
 //
 // Against the three costs of the earlier design (stage states in a
 // per-block scratch in device memory, one thread walking a whole column).
-// Bytes: no stage state and no
-// accumulator leaves the chip; device memory sees s about once (a tile's
-// source region is 4x its own columns at T = 8, the re-reads of adjacent
-// tiles' halos, which run together, and of the bases of stages 2 and 3
-// hit L2) and s' once: about 170 MB per step at 512^2 x 20 (reckoned;
-// the L2-to-SM traffic is about 0.66 GB), against about 1.8 GB before.
-// Latency: no thread walks a column through device memory; the heavy
-// work is independent (column, run) items over the region, and the walks
-// left are L adds in shared memory. Occupancy: one 512-thread block per
-// SM (its shared memory), no register cap below 128.
+// Bytes: no stage state and no accumulator leaves the chip; device memory
+// sees s about once (a tile's source region is 4x its own columns at
+// T = 8, the re-reads of adjacent tiles' halos, which run together, and of
+// the bases of stages 2 and 3 hit L2) and s' once: about 170 MB per step
+// at 512^2 x 20 (reckoned; the L2-to-SM traffic is about 0.66 GB), against
+// about 1.8 GB before. Latency: no thread walks a column through device
+// memory; the heavy work is independent (column, run) items over the
+// region, and the level sums are lc adds in shared memory or a shuffle
+// scan. Occupancy: one 512-thread block per SM at T = 8 (its shared
+// memory; smaller tiles or levels a block let two fit), no register cap
+// below 128. Loads overlap compute only across resident blocks: a block
+// has no room for a second source region (83 KB at L = 20, T = 8, and S
+// holds the auxiliaries of stages 2-4).
 //
 // Addressing (one launch for every launcher): s and out are each a view
 // (base pointer, row pitch, plane pitch, origin of the (ny, nx) interior).
@@ -94,25 +117,29 @@
 // rows past the interior, so the clamped ones feed only columns outside
 // it. out may be an interior-shaped array or the interior of the next
 // padded block. Every column's arithmetic is the same in every
-// instantiation and at every tile position (the level runs depend on L
-// and T only; sigma-dot's fma is explicit), so a sharded run equals the
+// instantiation and at every tile position (the split of the levels, the
+// level runs and the order of the sums depend on L, C, T and the form of
+// round 1 only; sigma-dot's fma is explicit), so a sharded run equals the
 // whole-domain run bit for bit.
 //
-// ptxas -v (nvcc 12.9, sm_90a), each of the three instantiations: 93
-// registers, 0 bytes of spills, 1 barrier; 215,024 B of dynamic shared
-// memory at L = 20 and tile 8, so one 512-thread block per SM (the
-// occupancy query). chip_smoke.py's build phase and kernel_time line
-// print them anew.
+// ptxas -v (nvcc 12.9, sm_90a): see chip_smoke.py's build phase and
+// kernel_time line, which print the registers, shared memory and blocks
+// per SM anew; PERF.md keeps the last reading.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "pe_column.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NT = 512;            // threads per block
+constexpr int NT_MAX = 512;        // threads per block, at most
 constexpr int HALO = 4;            // one column per stage
 constexpr int NCOL = 5;            // col planes: lnps_x, lnps_y, 1/ps, dps/ps, dps
+constexpr int NCTA_MAX = 8;        // blocks per cluster, at most (portable)
+constexpr unsigned FULL = 0xffffffffu;
 constexpr long long SMEM_MAX = 232448;  // the most a block may have (sm_90)
 
 // Element (k, y, x) of a view is p[k * plane + (oy + y) * pitch + ox + x];
@@ -139,26 +166,38 @@ struct Consts {
     float c_half, c_full;           // dt/2, dt
     float third, sixth;             // 1/3, dt/6
     int L, ny, nx, tile;
+    int ncta, lc;                   // blocks per cluster, levels per block
+    int warp_scan, seg;             // round 1's form; lanes per column
     int stages;                     // 4; fewer only to time the parts
     int runs[4];                    // level runs per column, each stage
 };
 
+// This block's share of the levels.
+struct Part {
+    int me;                         // rank in the cluster
+    int lv0, nl;                    // first level, number of levels
+    int nl_up;                      // levels of the block above
+};
+
+int levels_per_block(int L, int ncta) { return (L + ncta - 1) / ncta; }
+
 // Floats of the stage-1 auxiliaries (phi over the (T+8)^2 source region,
 // cum and col over the (T+6)^2 region), which live in B until stage 2
 // writes it.
-long long aux1_floats(int L, int T) {
+long long aux1_floats(int lc, int T) {
     const long long a = T + 6LL, w = T + 8LL;
-    return static_cast<long long>(L) * (w * w + a * a) + NCOL * a * a;
+    return static_cast<long long>(lc) * (w * w + a * a) + NCOL * a * a;
 }
 
 // Floats of shared memory a block takes (goff's ints counted as floats).
-long long smem_floats(int L, int T) {
-    const long long F = 4LL * L + 1;
+long long smem_floats(int L, int ncta, int T) {
+    const int lc = levels_per_block(L, ncta);
+    const long long F = 4LL * lc + 1;
     const long long a = T + 6LL, b = T + 4LL, w = T + 8LL;
-    const long long B = F * b * b > aux1_floats(L, T) ? F * b * b
-                                                      : aux1_floats(L, T);
-    return F * (w * w + a * a + static_cast<long long>(T) * T) + B + w * w
-           + 2LL * L;
+    const long long B = F * b * b > aux1_floats(lc, T) ? F * b * b
+                                                       : aux1_floats(lc, T);
+    return F * (w * w + a * a + static_cast<long long>(T) * T) + B
+           + 2 * w * w + 2 * a * a + 2LL * L;
 }
 
 struct Smem {
@@ -168,13 +207,16 @@ struct Smem {
     float* acc;    // the accumulator on the T^2 own columns
     int* goff;     // s's offset (in a plane) of each source-region column
     float* levc;   // thick[0..L), 1/(k + 1/2) for k < L
+    float* xphi;   // phi's partial sum at the top level, per source column
+    float* xflux;  // the flux-divergence total, per region column
+    float* xoff;   // the flux of the blocks above, per region column
 };
 
-__device__ __forceinline__ Smem carve(float* base, int L, int T) {
-    const int F = 4 * L + 1;
+__device__ __forceinline__ Smem carve(float* base, int L, int lc, int T) {
+    const int F = 4 * lc + 1;
     const int a = (T + 6) * (T + 6), b = (T + 4) * (T + 4);
     const int w = (T + 8) * (T + 8);
-    const int aux1 = L * (w + a) + NCOL * a;
+    const int aux1 = lc * (w + a) + NCOL * a;
     Smem m;
     m.S = base;
     m.A = m.S + F * w;
@@ -182,7 +224,27 @@ __device__ __forceinline__ Smem carve(float* base, int L, int T) {
     m.acc = m.B + (F * b > aux1 ? F * b : aux1);
     m.goff = reinterpret_cast<int*>(m.acc + F * T * T);
     m.levc = reinterpret_cast<float*>(m.goff + w);
+    m.xphi = m.levc + 2 * L;
+    m.xflux = m.xphi + w;
+    m.xoff = m.xflux + a;
     return m;
+}
+
+// The same word in block `rank` of the cluster (distributed shared memory).
+template <class P>
+__device__ __forceinline__ P* peer(P* local, int rank) {
+    return cg::this_cluster().map_shared_rank(local, rank);
+}
+
+// The barrier a stage's data needs: the block's, or the cluster's when
+// other blocks read this one's shared memory.
+template <bool kCluster>
+__device__ __forceinline__ void sync_part() {
+    if constexpr (kCluster) {
+        cg::this_cluster().sync();
+    } else {
+        __syncthreads();
+    }
 }
 
 __device__ __forceinline__ int wrap(int a, int n) {
@@ -212,116 +274,255 @@ __device__ __forceinline__ float sigma_dot(int kk, float dps_over_ps,
                             cum_above * inv_ps);
 }
 
+// Asynchronous copies of 4 and 16 bytes from device to shared memory.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                    "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                    "l"(src)
+                 : "memory");
+}
+
+// Surface geopotential at source column j of stage kStage (its region
+// edge Es, the source region's W).
+template <int kStage>
+__device__ __forceinline__ float surface_phi(const Ptrs& p, const Smem& m,
+                                             int j, int Es, int W) {
+    if (p.phi_s == nullptr) return 0.0f;
+    const int r = j / Es, c = j - r * Es;
+    return __ldg(p.phi_s + m.goff[(r + kStage - 1) * W + c + kStage - 1]);
+}
+
 // Stage kStage (1..4) of the tile at (y0, x0). Its region has edge
 // E = T + 2h, h = HALO - kStage, and its source region edge E + 2, both
 // centred on the tile; the source is s's region S (stage 1) or the
-// previous stage's buffer, field f at level kk of source column j at
-// src[(f L + kk) Es^2 + j]. The auxiliaries phi (the source region's
-// geopotential, L planes), cum (the region's flux divergence summed down
-// the column, L planes) and col (d lnps/dx, d lnps/dy, 1/ps, dps/ps, dps
+// previous stage's buffer, field f at local level kl of source column j
+// at src[(f lc + kl) Es^2 + j]. The auxiliaries phi (the source region's
+// geopotential, lc planes), cum (the region's flux divergence summed down
+// the column, lc planes) and col (d lnps/dx, d lnps/dy, 1/ps, dps/ps, dps
 // on the region) live in B in stage 1 and in S after it.
-template <int kStage, bool kHaloY, bool kHaloX>
+template <int kStage, bool kHaloY, bool kHaloX, bool kCluster>
 __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
-                                          const Smem& m, int y0, int x0) {
+                                          const Smem& m, const Part& pt,
+                                          int y0, int x0) {
+    // one block (kCluster false): all L levels, no exchange
     const int T = k.tile, L = k.L;
+    const int lc = kCluster ? k.lc : L, nc = kCluster ? k.ncta : 1;
+    const int nl = kCluster ? pt.nl : L, lv0 = kCluster ? pt.lv0 : 0;
+    const int me = kCluster ? pt.me : 0;
+    const int nt = blockDim.x;
     const int h = HALO - kStage;
     const int E = T + 2 * h, Es = E + 2, W = T + 2 * HALO;
     const int E2 = E * E, Es2 = Es * Es, T2 = T * T;
-    const int FS = L * Es2;                 // field stride of the source
+    const int FS = lc * Es2;                // field stride of the source
     const float cx = k.col.cx, cy = k.col.cy;
     const size_t gP = static_cast<size_t>(p.ls.plane);
     const float* src = kStage == 1 ? m.S : kStage == 3 ? m.B : m.A;
     float* dst = kStage == 2 ? m.B : m.A;           // stages 1-3
     float* const phi = kStage == 1 ? m.B : m.S;
-    float* const cum = phi + L * Es2;
-    float* const col = cum + L * E2;
+    float* const cum = phi + lc * Es2;
+    float* const col = cum + lc * E2;
     constexpr int U = 8;                    // loads grouped ahead of a chain
 
-    // 1: one thread per column: phi bottom-up over the source region; over
-    //    the region, the ps terms and the flux divergence div(ps u_k)
-    //    summed top-down
-    for (int idx = threadIdx.x; idx < Es2 + E2; idx += NT) {
-        if (idx < Es2) {
-            const int j = idx;
-            float phis = 0.0f;
-            if (p.phi_s != nullptr) {
-                const int r = j / Es, c = j - (j / Es) * Es;
-                phis = __ldg(p.phi_s + m.goff[(r + kStage - 1) * W + c
-                                              + kStage - 1]);
-            }
-            const float* Tj = src + 2 * FS + j;
-            float Tk = Tj[(L - 1) * Es2];
-            float ph = k.col.phibot * Tk + phis;
-            phi[(L - 1) * Es2 + j] = ph;
-            for (int k0 = L - 1; k0 > 0; k0 -= U) {
-                float th[U], tc[U];
+    // 1: phi bottom-up over the source region; over the region the ps
+    //    terms and the flux divergence div(ps u_k) summed top-down. The
+    //    bottom block starts phi at the surface; the others at the term
+    //    that joins their last level to the next block's first.
+    if (!k.warp_scan) {
+        for (int idx = threadIdx.x; idx < Es2 + E2; idx += nt) {
+            if (idx < Es2) {
+                const int j = idx;
+                const float* Tj = src + 2 * FS + j;
+                float Tk = Tj[(nl - 1) * Es2];
+                float ph = !kCluster || me == nc - 1
+                    ? k.col.phibot * Tk + surface_phi<kStage>(p, m, j, Es, W)
+                    : m.levc[lv0 + nl] * (Tk + *peer(Tj, me + 1));
+                phi[(nl - 1) * Es2 + j] = ph;
+                for (int k0 = nl - 1; k0 > 0; k0 -= U) {
+                    float th[U], tc[U];
 #pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    const int kk = k0 - u;
-                    th[u] = kk > 0 ? Tj[(kk - 1) * Es2] : 0.0f;
-                    tc[u] = kk > 0 ? m.levc[kk] : 0.0f;
-                }
+                    for (int u = 0; u < U; ++u) {
+                        const int kk = k0 - u;
+                        th[u] = kk > 0 ? Tj[(kk - 1) * Es2] : 0.0f;
+                        tc[u] = kk > 0 ? m.levc[lv0 + kk] : 0.0f;
+                    }
 #pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    const int kk = k0 - u;
-                    if (kk > 0) {
-                        ph = ph + tc[u] * (th[u] + Tk);
-                        phi[(kk - 1) * Es2 + j] = ph;
-                        Tk = th[u];
+                    for (int u = 0; u < U; ++u) {
+                        const int kk = k0 - u;
+                        if (kk > 0) {
+                            ph = ph + tc[u] * (th[u] + Tk);
+                            phi[(kk - 1) * Es2 + j] = ph;
+                            Tk = th[u];
+                        }
                     }
                 }
+                if (kCluster) m.xphi[j] = ph;
+            } else {
+                const int i = idx - Es2;
+                const int r = i / E;
+                const int j = (r + 1) * Es + (i - r * E) + 1;
+                const float* pps = src + 4 * FS + j;
+                const float psE = pps[1], psW = pps[-1];
+                const float psN = pps[Es], psS = pps[-Es];
+                const float inv_ps = 1.0f / pps[0];
+                col[i] = (logf(psE) - logf(psW)) * cx;
+                col[E2 + i] = (logf(psN) - logf(psS)) * cy;
+                col[2 * E2 + i] = inv_ps;
+                const float* pu = src + j;
+                const float* pv = pu + FS;
+                float flux = 0.0f;
+                for (int k0 = 0; k0 < nl; k0 += U) {
+                    float fd[U];
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int o = (k0 + u) * Es2;
+                        fd[u] = k0 + u < nl
+                            ? (psE * pu[o + 1] - psW * pu[o - 1]) * cx
+                              + (psN * pv[o + Es] - psS * pv[o - Es]) * cy
+                            : 0.0f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int kk = k0 + u;
+                        if (kk < nl) {
+                            flux = kk == 0 ? fd[u] : flux + fd[u];
+                            cum[kk * E2 + i] = flux;
+                        }
+                    }
+                }
+                if (kCluster) {
+                    m.xflux[i] = flux;
+                } else {
+                    const float dps = -flux * k.col.dsig;
+                    col[3 * E2 + i] = dps * inv_ps;
+                    col[4 * E2 + i] = dps;
+                }
             }
-        } else {
-            const int i = idx - Es2;
+        }
+    } else {
+        // a segment of sw lanes per column, a lane per level
+        const int sw = k.seg, lane = threadIdx.x & 31;
+        const int kl = lane & (sw - 1), sub = lane / sw, cpw = 32 / sw;
+        const int warp = threadIdx.x >> 5, nw = nt >> 5;
+        for (int g = warp * cpw; g < Es2; g += nw * cpw) {
+            const int j = g + sub;
+            const bool ok = j < Es2 && kl < nl;
+            const float Tk = ok ? src[2 * FS + kl * Es2 + j] : 0.0f;
+            const float Tn = __shfl_down_sync(FULL, Tk, 1, sw);
+            float x = 0.0f;
+            if (ok) {
+                if (kl < nl - 1) {
+                    x = m.levc[lv0 + kl + 1] * (Tk + Tn);
+                } else if (!kCluster || me == nc - 1) {
+                    x = k.col.phibot * Tk + surface_phi<kStage>(p, m, j, Es, W);
+                } else {
+                    x = m.levc[lv0 + nl] * (Tk + *peer(src + 2 * FS + j,
+                                                       me + 1));
+                }
+            }
+            for (int d = 1; d < sw; d <<= 1) {
+                const float y = __shfl_down_sync(FULL, x, d, sw);
+                if (kl + d < nl) x = x + y;
+            }
+            if (ok) {
+                phi[kl * Es2 + j] = x;
+                if (kl == 0 && kCluster) m.xphi[j] = x;
+            }
+        }
+        for (int g = warp * cpw; g < E2; g += nw * cpw) {
+            const int i = g + sub < E2 ? g + sub : E2 - 1;
+            const bool ok = g + sub < E2 && kl < nl;
             const int r = i / E;
             const int j = (r + 1) * Es + (i - r * E) + 1;
             const float* pps = src + 4 * FS + j;
             const float psE = pps[1], psW = pps[-1];
             const float psN = pps[Es], psS = pps[-Es];
-            const float inv_ps = 1.0f / pps[0];
-            col[i] = (logf(psE) - logf(psW)) * cx;
-            col[E2 + i] = (logf(psN) - logf(psS)) * cy;
-            col[2 * E2 + i] = inv_ps;
-            const float* pu = src + j;
-            const float* pv = pu + FS;
-            float flux = 0.0f;
-            for (int k0 = 0; k0 < L; k0 += U) {
-                float fd[U];
-#pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    const int o = (k0 + u) * Es2;
-                    fd[u] = k0 + u < L
-                        ? (psE * pu[o + 1] - psW * pu[o - 1]) * cx
-                          + (psN * pv[o + Es] - psS * pv[o - Es]) * cy
-                        : 0.0f;
-                }
-#pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    const int kk = k0 + u;
-                    if (kk < L) {
-                        flux = kk == 0 ? fd[u] : flux + fd[u];
-                        cum[kk * E2 + i] = flux;
+            float x = 0.0f;
+            if (ok) {
+                const float* pu = src + kl * Es2 + j;
+                const float* pv = pu + FS;
+                x = (psE * pu[1] - psW * pu[-1]) * cx
+                    + (psN * pv[Es] - psS * pv[-Es]) * cy;
+            }
+            for (int d = 1; d < sw; d <<= 1) {
+                const float y = __shfl_up_sync(FULL, x, d, sw);
+                if (kl >= d && kl < nl) x = y + x;
+            }
+            const float flux = __shfl_sync(FULL, x, nl - 1, sw);
+            if (ok) {
+                cum[kl * E2 + i] = x;
+                if (kl == 0) {
+                    const float inv_ps = 1.0f / pps[0];
+                    col[i] = (logf(psE) - logf(psW)) * cx;
+                    col[E2 + i] = (logf(psN) - logf(psS)) * cy;
+                    col[2 * E2 + i] = inv_ps;
+                    if (kCluster) {
+                        m.xflux[i] = flux;
+                    } else {
+                        const float dps = -flux * k.col.dsig;
+                        col[3 * E2 + i] = dps * inv_ps;
+                        col[4 * E2 + i] = dps;
                     }
                 }
             }
-            const float dps = -flux * k.col.dsig;
-            col[3 * E2 + i] = dps * inv_ps;
-            col[4 * E2 + i] = dps;
+        }
+    }
+
+    // 1b: the other blocks' partials, added in one order in every block:
+    //     the geopotential from the bottom block up, the flux from the top
+    //     block down
+    if constexpr (kCluster) {
+        cg::this_cluster().sync();
+        for (int idx = threadIdx.x; idx < Es2 + E2; idx += nt) {
+            if (idx < Es2) {
+                if (me < nc - 1) {
+                    const int j = idx;
+                    float off = *peer(m.xphi + j, nc - 1);
+                    for (int b = nc - 2; b > me; --b) {
+                        off = off + *peer(m.xphi + j, b);
+                    }
+                    for (int kk = 0; kk < nl; ++kk) {
+                        phi[kk * Es2 + j] = off + phi[kk * Es2 + j];
+                    }
+                }
+            } else {
+                const int i = idx - Es2;
+                float above = 0.0f, tot = *peer(m.xflux + i, 0);
+                for (int b = 1; b < nc; ++b) {
+                    if (b == me) above = tot;
+                    tot = tot + *peer(m.xflux + i, b);
+                }
+                if (me > 0) {
+                    for (int kk = 0; kk < nl; ++kk) {
+                        cum[kk * E2 + i] = above + cum[kk * E2 + i];
+                    }
+                    m.xoff[i] = above;
+                }
+                const float dps = -tot * k.col.dsig;
+                col[3 * E2 + i] = dps * col[2 * E2 + i];
+                col[4 * E2 + i] = dps;
+            }
         }
     }
     __syncthreads();
 
-    // 2: (column, run of levels) items, the surface as "level" L of the
+    // 2: (column, run of levels) items, the surface as "level" nl of the
     //    last run: the tendency, then the next state and the accumulator,
     //    or s'. A thread walks its run top-down, carrying the centre
     //    values of the level above and sigma-dot at the upper interface.
     const float c_n = kStage == 3 ? k.c_full : k.c_half;
     const int runs = k.runs[kStage - 1];
     const pe::Consts& kc = k.col;
-    for (int idx = threadIdx.x; idx < E2 * runs; idx += NT) {
+    for (int idx = threadIdx.x; idx < E2 * runs; idx += nt) {
         const int q = idx / E2, i = idx - q * E2;
         const int r = i / E, c = i - r * E;
-        const int k0 = q * (L + 1) / runs, k1 = (q + 1) * (L + 1) / runs;
+        const int k0 = q * (nl + 1) / runs, k1 = (q + 1) * (nl + 1) / runs;
         const int j = (r + 1) * Es + c + 1;
         const bool own = r >= h && r < h + T && c >= h && c < h + T;
         const int o = (r - h) * T + (c - h);
@@ -334,11 +535,12 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
         if (kStage == 4 && y0 + r < k.ny && x0 + c < k.nx) {
             go = static_cast<long long>(p.lout.at(y0 + r, x0 + c));
         }
-        // plane (field f, level lv) of the next state from the source
-        // centre xc (stage 1) or s (stages 2, 3), and its tendency d
+        // plane (field f, global level lv) of the next state from the
+        // source centre xc (stage 1) or s (stages 2, 3), and its tendency
+        // d; in stage 4 the bottom block writes ps'
         auto emit = [&](int plane, int f, int lv, float xc, float d) {
             if constexpr (kStage == 4) {
-                if (go >= 0) {
+                if (go >= 0 && (!kCluster || f < 4 || me == nc - 1)) {
                     p.out[f][lv * static_cast<size_t>(p.lout.plane) + go] =
                         m.acc[plane * T2 + o] * k.third + k.sixth * d;
                 }
@@ -366,37 +568,47 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
         float uk = 0.0f, vk = 0.0f, Tk = 0.0f, qk = 0.0f;
         float u_hi = 0.0f, v_hi = 0.0f, T_hi = 0.0f, q_hi = 0.0f;
         float sd_up = 0.0f;
-        if (k0 < L) {
+        if (k0 < nl) {
             const float* pk = p0 + k0 * Es2;
             uk = pk[0];
             vk = pk[FS];
             Tk = pk[2 * FS];
             qk = pk[3 * FS];
-            if (k0 > 0) {
-                u_hi = pk[-Es2];
-                v_hi = pk[FS - Es2];
-                T_hi = pk[2 * FS - Es2];
-                q_hi = pk[3 * FS - Es2];
-                sd_up = sigma_dot(k0, dps_over_ps, cum[(k0 - 1) * E2 + i],
+            if (k0 > 0 || (kCluster && me > 0)) {
+                // the level above: this block's, or the last of the block
+                // above
+                const float* pa = k0 > 0 ? pk - Es2
+                    : peer(p0, me - 1) + (pt.nl_up - 1) * Es2;
+                u_hi = pa[0];
+                v_hi = pa[FS];
+                T_hi = pa[2 * FS];
+                q_hi = pa[3 * FS];
+                sd_up = sigma_dot(lv0 + k0, dps_over_ps,
+                                  k0 > 0 ? cum[(k0 - 1) * E2 + i] : m.xoff[i],
                                   inv_ps);
             }
         }
-        for (int kk = k0; kk < k1; ++kk) {
-            if (kk == L) {
-                emit(4 * L, 4, 0, kStage == 1 ? src[4 * FS + j] : 0.0f,
+        for (int kl = k0; kl < k1; ++kl) {
+            if (kl == nl) {
+                emit(4 * lc, 4, 0, kStage == 1 ? src[4 * FS + j] : 0.0f,
                      col[4 * E2 + i]);
                 break;
             }
+            const int kk = lv0 + kl;
             const bool top = kk == 0, bottom = kk == L - 1;
-            const float* pk = p0 + kk * Es2;
+            const float* pk = p0 + kl * Es2;
             float u_lo = 0.0f, v_lo = 0.0f, T_lo = 0.0f, q_lo = 0.0f;
             float sd_dn = 0.0f;
             if (!bottom) {
-                u_lo = pk[Es2];
-                v_lo = pk[FS + Es2];
-                T_lo = pk[2 * FS + Es2];
-                q_lo = pk[3 * FS + Es2];
-                sd_dn = sigma_dot(kk + 1, dps_over_ps, cum[kk * E2 + i],
+                // the level below: this block's, or the first of the block
+                // below
+                const float* pb = !kCluster || kl + 1 < nl ? pk + Es2
+                                                            : peer(p0, me + 1);
+                u_lo = pb[0];
+                v_lo = pb[FS];
+                T_lo = pb[2 * FS];
+                q_lo = pb[3 * FS];
+                sd_dn = sigma_dot(kk + 1, dps_over_ps, cum[kl * E2 + i],
                                   inv_ps);
             }
             const float* pu = pk;
@@ -412,7 +624,7 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
             const float T_y = (TN - TS) * cy;
             const float q_x = (pq[1] - pq[-1]) * cx;
             const float q_y = (pq[Es] - pq[-Es]) * cy;
-            const float* ph = phi + kk * Es2 + j;
+            const float* ph = phi + kl * Es2 + j;
             const float phi_x = (ph[1] - ph[-1]) * cx;
             const float phi_y = (ph[Es] - ph[-Es]) * cy;
 
@@ -439,84 +651,94 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
             const float dT = -uk * T_x - vk * T_y - vadv_T
                              + kc.kappa * Tk * omega_over_p;
             const float dq = -uk * q_x - vk * q_y - vadv_q;
-            emit(kk, 0, kk, uk, du);
-            emit(L + kk, 1, kk, vk, dv);
-            emit(2 * L + kk, 2, kk, Tk, dT);
-            emit(3 * L + kk, 3, kk, qk, dq);
+            emit(kl, 0, kk, uk, du);
+            emit(lc + kl, 1, kk, vk, dv);
+            emit(2 * lc + kl, 2, kk, Tk, dT);
+            emit(3 * lc + kl, 3, kk, qk, dq);
 
             sd_up = sd_dn;
             u_hi = uk; v_hi = vk; T_hi = Tk; q_hi = qk;
             uk = u_lo; vk = v_lo; Tk = T_lo; qk = q_lo;
         }
     }
-    __syncthreads();
+    sync_part<kCluster>();
 }
 
-template <bool kHaloY, bool kHaloX>
-__global__ void __launch_bounds__(NT, 1) pe_rk4_kernel(Ptrs p, Consts k) {
+template <bool kHaloY, bool kHaloX, bool kCluster>
+__global__ void __launch_bounds__(NT_MAX, 1) pe_rk4_kernel(Ptrs p, Consts k) {
     extern __shared__ float smem[];
-    const Smem m = carve(smem, k.L, k.tile);
-    const int T = k.tile, W = T + 2 * HALO, W2 = W * W;
-    const int F = 4 * k.L + 1;
+    const int nc = kCluster ? k.ncta : 1, L = k.L;
+    const int lc = kCluster ? k.lc : L, T = k.tile;
+    const Smem m = carve(smem, L, lc, T);
+    Part pt;
+    pt.me = kCluster ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+    pt.lv0 = pt.me * L / nc;
+    pt.nl = (pt.me + 1) * L / nc - pt.lv0;
+    pt.nl_up = pt.me > 0 ? pt.lv0 - (pt.me - 1) * L / nc : 0;
+    const int nt = blockDim.x;
+    const int W = T + 2 * HALO, W2 = W * W;
     const size_t gP = static_cast<size_t>(p.ls.plane);
     const int tiles_x = (k.nx + T - 1) / T;
-    const int tiles = tiles_x * ((k.ny + T - 1) / T);
-    for (int i = threadIdx.x; i < 2 * k.L; i += NT) m.levc[i] = p.levc[i];
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int y0 = (t / tiles_x) * T, x0 = (t % tiles_x) * T;
-        // the source region's offsets in s, then s on it (all 4L + 1
-        // planes, the region's columns of a plane contiguous in S)
-        for (int idx = threadIdx.x; idx < W2; idx += NT) {
-            const int r = idx / W, c = idx - (idx / W) * W;
-            const int gy = column_index<kHaloY>(y0 - HALO + r, k.ny);
-            const int gx = column_index<kHaloX>(x0 - HALO + c, k.nx);
-            m.goff[idx] = static_cast<int>(p.ls.at(gy, gx));
-        }
-        __syncthreads();
-        {
-            // cp.async: every copy in flight at once, none through a
-            // register
-            int pl = threadIdx.x / W2, j = threadIdx.x - pl * W2;
-            const int dpl = NT / W2, dj = NT - dpl * W2;
-            for (; pl < F; pl += dpl) {
-                const int f = pl / k.L < 4 ? pl / k.L : 4;
-                const float* base = f == 0 ? p.s[0] : f == 1 ? p.s[1]
-                    : f == 2 ? p.s[2] : f == 3 ? p.s[3] : p.s[4];
-                const int kk = pl - f * k.L;
-                const unsigned dst = static_cast<unsigned>(
-                    __cvta_generic_to_shared(m.S + pl * W2 + j));
-                asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                             :: "r"(dst), "l"(base + kk * gP + m.goff[j])
-                             : "memory");
-                j += dj;
-                if (j >= W2) {
-                    j -= W2;
-                    ++pl;
+    const int t = blockIdx.x / nc;
+    const int y0 = (t / tiles_x) * T, x0 = (t % tiles_x) * T;
+    for (int i = threadIdx.x; i < 2 * L; i += nt) m.levc[i] = p.levc[i];
+    // the source region's offsets in s, then s on it (this block's 4 nl
+    // levels and ps, the region's columns of a plane contiguous in S)
+    for (int idx = threadIdx.x; idx < W2; idx += nt) {
+        const int r = idx / W, c = idx - (idx / W) * W;
+        const int gy = column_index<kHaloY>(y0 - HALO + r, k.ny);
+        const int gx = column_index<kHaloX>(x0 - HALO + c, k.nx);
+        m.goff[idx] = static_cast<int>(p.ls.at(gy, gx));
+    }
+    __syncthreads();
+    {
+        // cp.async, every copy in flight at once and none through a
+        // register: 16 B where four columns of a row lie together in s
+        // and are 16 B aligned (the interior tiles of an aligned view),
+        // else 4 B a column
+        const int nl = kCluster ? pt.nl : L, lv0 = kCluster ? pt.lv0 : 0;
+        const int nplanes = 4 * nl + 1;
+        const int step = W % 4 == 0 ? 4 : 1;
+        for (int u = threadIdx.x; u < nplanes * (W2 / step); u += nt) {
+            const int q = u / (W2 / step), j = (u - q * (W2 / step)) * step;
+            const int f = q < 4 * nl ? q / nl : 4;
+            const int kl = q - f * nl;
+            const float* src = (f == 0 ? p.s[0] : f == 1 ? p.s[1]
+                : f == 2 ? p.s[2] : f == 3 ? p.s[3] : p.s[4])
+                + (f < 4 ? static_cast<size_t>(lv0 + kl) * gP : 0);
+            float* dst = m.S + (f * lc + kl) * W2 + j;
+            const int g0 = m.goff[j];
+            if (step == 4 && m.goff[j + 3] - g0 == 3
+                && (reinterpret_cast<size_t>(src + g0) & 15) == 0) {
+                cp_async16(dst, src + g0);
+            } else {
+                for (int e = 0; e < step; ++e) {
+                    cp_async4(dst + e, src + m.goff[j + e]);
                 }
             }
-            asm volatile("cp.async.wait_all;\n" ::: "memory");
         }
-        __syncthreads();
-        run_stage<1, kHaloY, kHaloX>(p, k, m, y0, x0);
-        if (k.stages < 2) continue;
-        run_stage<2, kHaloY, kHaloX>(p, k, m, y0, x0);
-        if (k.stages < 3) continue;
-        run_stage<3, kHaloY, kHaloX>(p, k, m, y0, x0);
-        if (k.stages < 4) continue;
-        run_stage<4, kHaloY, kHaloX>(p, k, m, y0, x0);
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
     }
+    sync_part<kCluster>();
+    run_stage<1, kHaloY, kHaloX, kCluster>(p, k, m, pt, y0, x0);
+    if (k.stages < 2) return;
+    run_stage<2, kHaloY, kHaloX, kCluster>(p, k, m, pt, y0, x0);
+    if (k.stages < 3) return;
+    run_stage<3, kHaloY, kHaloX, kCluster>(p, k, m, pt, y0, x0);
+    if (k.stages < 4) return;
+    run_stage<4, kHaloY, kHaloX, kCluster>(p, k, m, pt, y0, x0);
 }
 
-// Runs of levels per column in a stage over E x E columns: the count that
-// takes the fewest rounds of NT threads times levels per run, a run's
-// setup counted as half a level.
-int level_runs(int L, int E) {
+// Runs of levels per column in a stage over E x E columns, lc levels and
+// the surface, nt threads: the count that takes the fewest rounds of nt
+// threads times levels per run, a run's setup counted as half a level.
+int level_runs(int lc, int E, int nt) {
     const long long E2 = static_cast<long long>(E) * E;
     int best = 1;
     long long best_cost = -1;
-    for (int n = 1; n <= L + 1; ++n) {
-        const long long rounds = (E2 * n + NT - 1) / NT;
-        const long long cost = rounds * (2 * ((L + n) / n) + 1);
+    for (int n = 1; n <= lc + 1; ++n) {
+        const long long rounds = (E2 * n + nt - 1) / nt;
+        const long long cost = rounds * (2 * ((lc + n) / n) + 1);
         if (best_cost < 0 || cost < best_cost) {
             best_cost = cost;
             best = n;
@@ -525,77 +747,152 @@ int level_runs(int L, int E) {
     return best;
 }
 
-template <bool kHaloY, bool kHaloX>
+template <bool kHaloY, bool kHaloX, bool kCluster>
 int allow_smem(size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return static_cast<int>(cudaFuncSetAttribute(
-        pe_rk4_kernel<kHaloY, kHaloX>,
+        pe_rk4_kernel<kHaloY, kHaloX, kCluster>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <bool kHaloY, bool kHaloX>
-int launch(const Ptrs& p, const Consts& k, int blocks, cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(4 * smem_floats(k.L, k.tile));
-    const int err = allow_smem<kHaloY, kHaloX>(smem);
+cudaLaunchConfig_t launch_config(int blocks, int threads, size_t smem,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* cluster, int ncta) {
+    cluster->id = cudaLaunchAttributeClusterDimension;
+    cluster->val.clusterDim.x = ncta;
+    cluster->val.clusterDim.y = 1;
+    cluster->val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+template <bool kHaloY, bool kHaloX, bool kCluster>
+int launch(const Ptrs& p, const Consts& k, int threads, cudaStream_t stream) {
+    const size_t smem =
+        static_cast<size_t>(4 * smem_floats(k.L, k.ncta, k.tile));
+    const int err = allow_smem<kHaloY, kHaloX, kCluster>(smem);
     if (err != 0) return err;
-    pe_rk4_kernel<kHaloY, kHaloX><<<blocks, NT, smem, stream>>>(p, k);
+    const long long tiles = static_cast<long long>((k.ny + k.tile - 1) / k.tile)
+                            * ((k.nx + k.tile - 1) / k.tile);
+    if (tiles * k.ncta > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg = launch_config(
+        static_cast<int>(tiles * k.ncta), threads, smem, stream, &cluster,
+        k.ncta);
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, pe_rk4_kernel<kHaloY, kHaloX, kCluster>, p,
+                           k);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
+}
+
+bool valid_layout(int L, int ncta, int tile, int threads, int warp_scan) {
+    const bool pow2 = ncta == 1 || ncta == 2 || ncta == 4 || ncta == 8;
+    return L >= 1 && tile >= 1 && pow2 && ncta <= NCTA_MAX && ncta <= L
+           && threads >= 32 && threads <= NT_MAX && threads % 32 == 0
+           && (warp_scan == 0 || (warp_scan == 1
+                                  && levels_per_block(L, ncta) <= 32))
+           && 4 * smem_floats(L, ncta, tile) <= SMEM_MAX;
 }
 
 }  // namespace
 
-// Bytes of shared memory a block of the kernel takes at L levels and
-// output tile `tile` (njw_tpu_torch.ops.pe_stencil.rk4_smem_bytes).
-extern "C" long long pe_rk4_smem_bytes(int L, int tile) {
-    return 4 * smem_floats(L, tile);
+// Bytes of shared memory a block of the kernel takes at L levels, ncta
+// blocks per cluster and output tile `tile`
+// (njw_tpu_torch.ops.pe_stencil.rk4_smem_bytes).
+extern "C" long long pe_rk4_smem_bytes(int L, int ncta, int tile) {
+    return 4 * smem_floats(L, ncta, tile);
 }
 
 // How many blocks of the kernel one SM of the current device holds at once
-// (into *blocks). Returns the CUDA error code.
-extern "C" int pe_rk4_blocks_per_sm(int L, int tile, int* blocks) {
-    const size_t smem = static_cast<size_t>(4 * smem_floats(L, tile));
-    const int err = allow_smem<false, false>(smem);
-    if (err != 0) return err;
-    // every instantiation has the occupancy of the whole-domain one
+// (into *blocks) and how many clusters the device runs at once (into
+// *clusters). Returns the CUDA error code.
+extern "C" int pe_rk4_occupancy(int L, int ncta, int tile, int threads,
+                                int* blocks, int* clusters) {
+    if (!valid_layout(L, ncta, tile, threads, 0)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t smem = static_cast<size_t>(4 * smem_floats(L, ncta, tile));
+    // every halo instantiation has the occupancy of the whole-domain one
     // (chip_smoke.py prints each one's ptxas registers)
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, pe_rk4_kernel<false, false>, NT, smem));
+    auto query = [&](auto kernel, int err) {
+        if (err != 0) return err;
+        err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, kernel, threads, smem));
+        if (err != 0) return err;
+        cudaLaunchAttribute cluster;
+        const cudaLaunchConfig_t cfg =
+            launch_config(ncta, threads, smem, nullptr, &cluster, ncta);
+        return static_cast<int>(
+            cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+    };
+    return ncta > 1
+        ? query(pe_rk4_kernel<false, false, true>,
+                allow_smem<false, false, true>(smem))
+        : query(pe_rk4_kernel<false, false, false>,
+                allow_smem<false, false, false>(smem));
 }
 
-// Launch one step of the (L, ny, nx) interior on `stream`: `blocks` blocks
-// over the tile x tile output tiles. s (u, v, T, q, ps, phi_s) and out are
-// each given as the base pointers of their fields and a layout: row pitch,
-// plane pitch of the 3-D fields, origin (row, column) of the interior.
-// halo_y, halo_x: 1 where s holds at least HALO rows (columns) of
-// neighbour data around the interior, 0 where that axis wraps; a halo in x
-// needs one in y. out must not alias s. stages: 4 (the step); 1-3 run only
-// the first stages and write no output (scripts/profile_torch.py times the
-// parts so). Returns the CUDA error code of the launch (0 on success).
+// Launch one step of the (L, ny, nx) interior on `stream`: a cluster of
+// `ncta` blocks of `threads` threads per tile x tile output tile, round 1
+// in its serial (warp_scan 0) or warp (1) form. s (u, v, T, q, ps, phi_s)
+// and out are each given as the base pointers of their fields and a
+// layout: row pitch, plane pitch of the 3-D fields, origin (row, column)
+// of the interior. halo_y, halo_x: 1 where s holds at least HALO rows
+// (columns) of neighbour data around the interior, 0 where that axis
+// wraps; a halo in x needs one in y. out must not alias s. stages: 4 (the
+// step); 1-3 run only the first stages and write no output
+// (scripts/profile_torch.py times the parts so). Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int pe_rk4_launch(
     const float* u, const float* v, const float* T, const float* q,
     const float* ps, const float* phi_s, long long s_pitch,
     long long s_plane, int s_oy, int s_ox,
     float* ou, float* ov, float* oT, float* oq, float* ops,
     long long out_pitch, long long out_plane,
-    const float* levc, int blocks, int tile,
+    const float* levc, int ncta, int tile, int threads, int warp_scan,
     int L, int ny, int nx, int halo_y, int halo_x,
     float cx, float cy, float f, float dsig, float r_dry, float kappa,
     float phibot, float c_half, float c_full, float third, float sixth,
     int stages, void* stream) {
-    if (L < 1 || tile < 1 || blocks < 1 || ny < 1 || nx < 1 || stages < 1
-        || stages > 4 || 4 * smem_floats(L, tile) > SMEM_MAX) {
+    if (!valid_layout(L, ncta, tile, threads, warp_scan) || ny < 1 || nx < 1
+        || stages < 1 || stages > 4) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    const int lc = levels_per_block(L, ncta);
+    int seg = 1;
+    while (seg < lc) seg *= 2;
     const Ptrs p{{u, v, T, q, ps}, phi_s, {ou, ov, oT, oq, ops}, levc,
                  {s_pitch, s_plane, s_oy, s_ox}, {out_pitch, out_plane, 0, 0}};
     const Consts k{{cx, cy, f, dsig, r_dry, kappa, phibot}, c_half, c_full,
-                   third, sixth, L, ny, nx, tile, stages,
-                   {level_runs(L, tile + 6), level_runs(L, tile + 4),
-                    level_runs(L, tile + 2), level_runs(L, tile)}};
+                   third, sixth, L, ny, nx, tile, ncta, lc, warp_scan, seg,
+                   stages,
+                   {level_runs(lc, tile + 6, threads),
+                    level_runs(lc, tile + 4, threads),
+                    level_runs(lc, tile + 2, threads),
+                    level_runs(lc, tile, threads)}};
     const auto st = static_cast<cudaStream_t>(stream);
-    if (!halo_y && !halo_x) return launch<false, false>(p, k, blocks, st);
-    if (halo_y && !halo_x) return launch<true, false>(p, k, blocks, st);
-    if (halo_y && halo_x) return launch<true, true>(p, k, blocks, st);
+    const bool c = ncta > 1;
+    if (!halo_y && !halo_x) {
+        return c ? launch<false, false, true>(p, k, threads, st)
+                 : launch<false, false, false>(p, k, threads, st);
+    }
+    if (halo_y && !halo_x) {
+        return c ? launch<true, false, true>(p, k, threads, st)
+                 : launch<true, false, false>(p, k, threads, st);
+    }
+    if (halo_y && halo_x) {
+        return c ? launch<true, true, true>(p, k, threads, st)
+                 : launch<true, true, false>(p, k, threads, st);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -14,11 +14,12 @@ Counterpart of ``njw_tpu/ops/pe_stencil.py`` (``pe_stage_pallas``,
 
 Their sources say what bounds them and how the work is laid out. The
 whole-step kernel keeps a tile's stage states and RK4 accumulator in
-shared memory, so its output tile shrinks as L grows
-(``rk4_tile``); it fits while a one-column tile does
-(``pe_rk4_kernel_fits``). The RK4 stepper's auto choice is the four stage
-launches: the H100 timed the whole-step kernel slower at every L from 8
-to 87 (PERF.md); ``whole_step=True`` takes it.
+shared memory, the levels split over a cluster of up to eight blocks
+(``rk4_layout``: tile 8 up to L = 168, smaller tiles past it); it fits
+while a one-column tile over eight blocks does (``pe_rk4_kernel_fits``,
+L <= 680). The RK4 stepper's auto choice is the four stage launches: the
+H100 timed the whole-step kernel slower at every L timed (PERF.md);
+``whole_step=True`` takes it.
 
 Each public wrapper (``pe_stage``, ``pe_rk4_step``) dispatches once, in
 ``_stage_runner`` / ``_rk4_runner``: the kernel's launch for CUDA tensors,
@@ -57,6 +58,8 @@ STAGE_THREADS = 128          # csrc/pe_stage.cu NT
 RK4_THREADS = 512            # csrc/pe_rk4.cu NT
 SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
 RK4_TILE_MAX = 8             # the largest output tile the wrapper picks
+RK4_CLUSTERS = (1, 2, 4, 8)  # blocks per cluster the whole-step kernel takes
+RK4_LEVELS_PER_BLOCK = 21    # the most levels a block of it holds at tile 8
 RK4_NCOL = 5                 # csrc/pe_rk4.cu NCOL: per-column planes
 STAGE_HALO, RK4_HALO = 1, 4  # halo rows (columns) each kernel reads
 
@@ -66,7 +69,7 @@ _STAGE_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 * MAX_BASES
                    + [_I] + [_F] * MAX_BASES + [_P] * 5 + [_L, _L] + [_P]
                    + [_I] * 5 + [_F] * 8 + [_P])
 _RK4_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 + [_L, _L]
-                 + [_P] + [_I] * 7 + [_F] * 11 + [_I, _P])
+                 + [_P] + [_I] * 9 + [_F] * 11 + [_I, _P])
 NO_HALO = (0, 0)             # the whole periodic domain: both axes wrap
 
 
@@ -389,56 +392,79 @@ def _plain_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
 
 # ------------------------------------------------------------ one RK4 step
 
-def rk4_smem_bytes(levels: int, tile: int) -> int:
-    """Shared memory one block of the whole-step kernel takes at ``levels``
-    and output tile ``tile`` (``pe_rk4_smem_bytes`` in csrc/pe_rk4.cu), in
-    4 B words: s on the (T+8)^2 source region, s1 (then s3) on (T+6)^2
-    and the accumulator on T^2, 4L + 1 planes each; s2 on (T+4)^2, or
+class Rk4Layout(NamedTuple):
+    """How the whole-step kernel cuts its work (csrc/pe_rk4.cu): ``ncta``
+    blocks per cluster, splitting the levels; the output ``tile`` edge;
+    ``threads`` per block; round 1's level sums serial per column (0) or a
+    warp-shuffle scan per column (1)."""
+
+    ncta: int
+    tile: int
+    threads: int = RK4_THREADS
+    warp_scan: int = 0
+
+
+def rk4_smem_bytes(levels: int, tile: int, ncta: int = 1) -> int:
+    """Shared memory one block of the whole-step kernel takes at ``levels``,
+    output tile ``tile`` and ``ncta`` blocks per cluster, each holding lc =
+    ceil(levels / ncta) levels (``pe_rk4_smem_bytes`` in csrc/pe_rk4.cu),
+    in 4 B words: s on the (T+8)^2 source region, s1 (then s3) on (T+6)^2
+    and the accumulator on T^2, 4 lc + 1 planes each; s2 on (T+4)^2, or
     stage 1's auxiliaries where they are larger (phi on (T+8)^2 and cum on
-    (T+6)^2, L planes each, and five per-column planes on (T+6)^2); the
-    (T+8)^2 source offsets; the 2L level constants."""
-    F, L, T = 4 * levels + 1, levels, tile
+    (T+6)^2, lc planes each, and five per-column planes on (T+6)^2); the
+    (T+8)^2 source offsets; the exchange ((T+8)^2 + 2 (T+6)^2); the 2L
+    level constants."""
+    lc, T = -(-levels // ncta), tile
+    F = 4 * lc + 1
     a, b, w = (T + 6) ** 2, (T + 4) ** 2, (T + 8) ** 2
-    aux1 = L * (w + a) + RK4_NCOL * a
-    return 4 * (F * (w + a + T * T) + max(F * b, aux1) + w + 2 * L)
+    aux1 = lc * (w + a) + RK4_NCOL * a
+    return 4 * (F * (w + a + T * T) + max(F * b, aux1) + 2 * w + 2 * a
+                + 2 * levels)
 
 
-def rk4_tile(levels: int) -> Optional[int]:
-    """The whole-step kernel's output tile at ``levels``: the largest edge
-    up to RK4_TILE_MAX whose block fits the shared memory a block may have
-    (8 at L <= 21, 4 at L = 40, 1 up to L = 87); None where none fits."""
+def rk4_layout(levels: int) -> Optional[Rk4Layout]:
+    """The whole-step kernel's layout at ``levels``: the smallest cluster
+    (1, 2, 4, 8 blocks) whose blocks hold tile RK4_TILE_MAX with at most
+    RK4_LEVELS_PER_BLOCK levels each; past that, 8 blocks and the largest
+    tile that fits (None where none does, L > 680)."""
+    if levels < 1:
+        return None
+    for ncta in RK4_CLUSTERS:
+        if ncta <= levels and -(-levels // ncta) <= RK4_LEVELS_PER_BLOCK \
+                and rk4_smem_bytes(levels, RK4_TILE_MAX, ncta) \
+                <= SMEM_PER_BLOCK:
+            return Rk4Layout(ncta, RK4_TILE_MAX)
+    ncta = min(RK4_CLUSTERS[-1], levels)
     for tile in range(RK4_TILE_MAX, 0, -1):
-        if rk4_smem_bytes(levels, tile) <= SMEM_PER_BLOCK:
-            return tile
+        if rk4_smem_bytes(levels, tile, ncta) <= SMEM_PER_BLOCK:
+            return Rk4Layout(ncta, tile)
     return None
 
 
 def pe_rk4_kernel_fits(levels: int) -> bool:
-    """The whole-step kernel holds a tile of ``levels`` in shared memory
-    (L <= 87, where a one-column tile fits)."""
-    return levels >= 1 and rk4_tile(levels) is not None
+    """The whole-step kernel holds a tile of ``levels`` in the shared
+    memory of a cluster (L <= 680: a one-column tile over 8 blocks)."""
+    return rk4_layout(levels) is not None
 
 
-def _rk4_tile_arg(levels: int, tile: Optional[int], name: str) -> int:
-    """``tile``, or the default tile when None; refuses a tile whose block
-    does not fit the shared memory a block may have, and levels that no
-    tile fits."""
-    if tile is None:
-        tile = rk4_tile(levels)
-        if tile is None:
+def _rk4_layout_arg(levels: int, layout: Optional[Rk4Layout],
+                    name: str) -> Rk4Layout:
+    """``layout``, or the rule's when None; refuses levels no layout holds
+    and a layout whose block does not fit the shared memory a block may
+    have (the kernel refuses the other bad layouts)."""
+    if layout is None:
+        layout = rk4_layout(levels)
+        if layout is None:
             raise ValueError(f"{name}: {levels} levels do not fit the "
-                             "whole-step kernel (L <= 87)")
-        return tile
-    if isinstance(tile, bool) or not isinstance(tile, numbers.Integral) \
-            or tile < 1:
-        raise ValueError(f"{name}: tile must be a positive integer, got "
-                         f"{tile!r}")
-    if rk4_smem_bytes(levels, int(tile)) > SMEM_PER_BLOCK:
-        raise ValueError(f"{name}: tile {tile} at {levels} levels needs "
-                         f"{rk4_smem_bytes(levels, int(tile))} B of shared "
-                         f"memory, more than the {SMEM_PER_BLOCK} a block "
-                         "may have")
-    return int(tile)
+                             "whole-step kernel (L <= 680)")
+        return layout
+    layout = Rk4Layout(*layout)
+    need = rk4_smem_bytes(levels, layout.tile, layout.ncta)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: {layout} at {levels} levels needs {need} B "
+                         f"of shared memory, more than the {SMEM_PER_BLOCK} "
+                         "a block may have")
+    return layout
 
 
 def pe_rk4_step(s: PEState, *, grid: GridSpec, dt: float,
@@ -454,14 +480,14 @@ def pe_rk4_step_cuda(s: PEState, *, grid: GridSpec, dt: float,
                      coriolis_f: float = 0.0,
                      phi_s: Optional[torch.Tensor] = None,
                      out: Optional[PEState] = None,
-                     tile: Optional[int] = None) -> PEState:
+                     layout: Optional[Rk4Layout] = None) -> PEState:
     """Launch the whole-step kernel on the current stream. Refuses tensors
     that are not on a CUDA device. ``pe_rk4_step_cuda.launches`` counts the
-    launches. ``tile``: the output tile edge (``rk4_tile`` when None; any
-    edge whose block fits)."""
+    launches. ``layout``: the kernel's ``Rk4Layout`` (``rk4_layout`` when
+    None; the card tests and the profiler name others)."""
     _require_cuda(s.ps, "pe_rk4_step_cuda")
     return _rk4_call(_launch_rk4, s, grid, dt, coriolis_f, phi_s, out,
-                     tile=tile)
+                     _rk4_layout_arg(grid.levels, layout, "pe_rk4_step"))
 
 
 def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
@@ -473,39 +499,41 @@ def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
     return _rk4_call(_plain_rk4, s, grid, dt, coriolis_f, phi_s, out)
 
 
-@lru_cache(maxsize=16)
-def rk4_blocks_per_sm(levels: int, tile: int, index: int) -> int:
-    """Blocks of the whole-step kernel one SM of CUDA device ``index``
-    holds at once (the occupancy query of csrc/pe_rk4.cu)."""
-    lib = _build.load("pe_rk4")
-    fn = lib.pe_rk4_blocks_per_sm
-    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
-    blocks = ctypes.c_int(0)
+@lru_cache(maxsize=64)
+def rk4_occupancy(levels: int, layout: Rk4Layout, index: int) -> tuple:
+    """(blocks of the whole-step kernel one SM of CUDA device ``index``
+    holds at once, clusters the device runs at once) at ``layout`` (the
+    occupancy queries of csrc/pe_rk4.cu)."""
+    fn = _build.load("pe_rk4").pe_rk4_occupancy
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
+    fn.restype = ctypes.c_int
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = fn(levels, tile, ctypes.byref(blocks))
+        err = fn(levels, layout.ncta, layout.tile, layout.threads,
+                 ctypes.byref(blocks), ctypes.byref(clusters))
     _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
               "pe_rk4 occupancy")
-    return blocks.value
+    return blocks.value, clusters.value
 
 
-def rk4_smem_bytes_built(levels: int, tile: int) -> int:
+def rk4_smem_bytes_built(levels: int, tile: int, ncta: int) -> int:
     """``rk4_smem_bytes`` as the built kernel computes it (the card tests
     hold the two equal)."""
     fn = _build.load("pe_rk4").pe_rk4_smem_bytes
-    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
-    return int(fn(levels, tile))
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_longlong
+    return int(fn(levels, ncta, tile))
 
 
-def _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out, *,
-              tile: Optional[int] = None) -> PEState:
+def _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out,
+              layout: Optional[Rk4Layout] = None) -> PEState:
     _check(s, (s,), grid, (1.0,), phi_s, out, "pe_rk4_step")
-    if run is _launch_rk4:
-        tile = _rk4_tile_arg(grid.levels, tile, "pe_rk4_step")
+    if run is _launch_rk4 and layout is None:
+        layout = _rk4_layout_arg(grid.levels, None, "pe_rk4_step")
     if out is None:
         out = s.map(torch.empty_like)
     return run(s, out, phi_s, grid, column_constants(grid, float(coriolis_f)),
                rk4_constants(float(dt)),
-               level_constants(grid.levels, str(s.ps.device)), tile)
+               level_constants(grid.levels, str(s.ps.device)), layout)
 
 
 def _rk4_runner(kind: str) -> Callable:
@@ -516,25 +544,24 @@ def _rk4_runner(kind: str) -> Callable:
 
 def _launch_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                 k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-                tile: int, halo: tuple = NO_HALO, stages: int = 4
+                layout: Rk4Layout, halo: tuple = NO_HALO, stages: int = 4
                 ) -> PEState:
-    """Launch on the current stream, one block per output tile. ``s``: the
-    input block, whose interior starts at ``halo`` = (hy, hx) (0: that
+    """Launch on the current stream, one cluster per output tile. ``s``:
+    the input block, whose interior starts at ``halo`` = (hy, hx) (0: that
     axis wraps); ``out``: interior-shaped views; ``grid``: the interior's;
-    ``tile``: a checked tile edge. ``stages`` < 4 runs only the first
-    stages and writes nothing (``scripts/profile_torch.py`` times the
+    ``layout``: a checked ``Rk4Layout``. ``stages`` < 4 runs only the
+    first stages and writes nothing (``scripts/profile_torch.py`` times the
     kernel's parts so)."""
     hy, hx = halo
     if s.ps.stride(0) * s.ps.shape[0] >= 2 ** 31:
         raise ValueError("pe_rk4: a plane of the block must hold fewer "
                          "than 2**31 elements")
-    blocks = -(-grid.ny // tile) * -(-grid.nx // tile)
     launch, err_string = _build.bind("pe_rk4", _RK4_ARGTYPES)
     with torch.cuda.device(s.ps.device):
         err = launch(
             *_ptrs(s), phi_s.data_ptr() if phi_s is not None else None,
             *_pitches(s), hy, hx, *_ptrs(out), *_pitches(out),
-            levc.data_ptr(), blocks, tile, grid.levels, grid.ny, grid.nx,
+            levc.data_ptr(), *layout, grid.levels, grid.ny, grid.nx,
             int(hy > 0), int(hx > 0), *k, *r, stages,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, err_string, "pe_rk4")
@@ -547,7 +574,7 @@ pe_rk4_step_cuda.launches = 0
 
 def _plain_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
                k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-               _tile=None, halo: tuple = NO_HALO) -> PEState:
+               _layout=None, halo: tuple = NO_HALO) -> PEState:
     """The whole step in plain PyTorch: rolls on the whole domain; on a
     padded block, slices of the block cut to a four-point halo, the valid
     region shrinking by one point per side per stage (no roll)."""
@@ -732,16 +759,15 @@ def pe_stage_local2d(cur_p: PEState, bases, *, hy: int = STAGE_HALO,
 
 def pe_rk4_padded(s_p: PEState, *, halo: tuple, dt: float, dx: float = 1.0,
                   dy: float = 1.0, coriolis_f: float = 0.0,
-                  out: Optional[PEState] = None,
-                  tile: Optional[int] = None) -> PEState:
+                  out: Optional[PEState] = None) -> PEState:
     """One whole RK4 step of the (L, ly, lx) interior of a halo-padded
     state (the fields of ``s_p`` padded by hy >= 4 rows and hx >= 4
     columns, or hx = 0: x whole and periodic), into ``out`` (new when None:
-    interior-shaped views with contiguous rows). ``tile``: the kernel's
-    output tile (``rk4_tile`` when None). CUDA tensors go to the kernel,
-    CPU tensors to the plain version."""
+    interior-shaped views with contiguous rows), at the layout
+    ``rk4_layout`` gives. CUDA tensors go to the kernel, CPU tensors to the
+    plain version."""
     args = _rk4_padded_args(s_p, halo=halo, dt=dt, dx=dx, dy=dy,
-                            coriolis_f=coriolis_f, out=out, tile=tile)
+                            coriolis_f=coriolis_f, out=out)
     return _rk4_runner(_device_kind(s_p.ps, "pe_rk4_padded"))(*args)
 
 
@@ -753,21 +779,20 @@ def pe_rk4_padded_plain(s_p: PEState, **kw) -> PEState:
 def _rk4_padded_args(s_p: PEState, *, halo: tuple, dt: float,
                      dx: float = 1.0, dy: float = 1.0,
                      coriolis_f: float = 0.0,
-                     out: Optional[PEState] = None,
-                     tile: Optional[int] = None) -> tuple:
+                     out: Optional[PEState] = None) -> tuple:
     """Check a padded whole-step call (levels the kernel does not hold are
     refused on every device); return (s_p, out, phi_s, grid, column
-    constants, RK4 constants, level constants, tile, halo), the arguments
-    of ``_launch_rk4`` and ``_plain_rk4``."""
+    constants, RK4 constants, level constants, layout, halo), the
+    arguments of ``_launch_rk4`` and ``_plain_rk4``."""
     grid = _padded_grid("pe_rk4_padded", s_p, tuple(halo), RK4_HALO, dx,
                         dy, (), out)
-    tile = _rk4_tile_arg(grid.levels, tile, "pe_rk4_padded")
+    layout = _rk4_layout_arg(grid.levels, None, "pe_rk4_padded")
     dev = s_p.ps.device
     if out is None:
         out = _interior_empty(grid, dev)
     return (s_p, out, None, grid, column_constants(grid, float(coriolis_f)),
             rk4_constants(float(dt)), level_constants(grid.levels, str(dev)),
-            tile, tuple(halo))
+            layout, tuple(halo))
 
 
 def _padded_out(s_p: PEState, out: Optional[PEState]) -> PEState:
@@ -853,11 +878,11 @@ def _whole_step_stepper(grid, params, dt, phi_s) -> Stepper:
     state becomes the next spare. The carry holds the spare."""
     k = column_constants(grid, float(params.coriolis_f))
     r = rk4_constants(float(dt))
-    tile = rk4_tile(grid.levels)
+    layout = rk4_layout(grid.levels)
 
     def init(s):
         if _device_kind(s.ps, "pe_rk4_step") == "cuda":
-            _rk4_tile_arg(grid.levels, None, "pe_rk4_step")
+            _rk4_layout_arg(grid.levels, None, "pe_rk4_step")
         return (s.map(torch.empty_like),)
 
     def step(carry, s, _dt_ignored):
@@ -865,7 +890,7 @@ def _whole_step_stepper(grid, params, dt, phi_s) -> Stepper:
         _check(s, (s,), grid, (1.0,), phi_s, None, "pe_rk4_step")
         run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
         new = run(s, spare, phi_s, grid, k, r,
-                  level_constants(grid.levels, str(s.ps.device)), tile)
+                  level_constants(grid.levels, str(s.ps.device)), layout)
         return (s,), new
 
     return Stepper(init, step, "pe_rk4_kernel_fused", 4)

@@ -23,10 +23,14 @@ the card's name and power limit:
     with the bandwidth its 24 B/point minimum traffic implies;
   * primitive ``layouts``: the whole-step kernel K4 alone at config 4
     (the main path's shape) and config 5 (2048^2 x 40): its parts (the
-    first 1, 2, 3 and 4 stages run alone), its three largest output tiles
-    that fit, its shared memory, blocks per SM and ptxas report, beside
-    the four-stage path's ms/step (CUDA events); and ``levels_sweep``:
-    ms/step on K4 and on the stage path at 512^2 for L from 8 to 87;
+    first 1, 2, 3 and 4 stages run alone), every layout worth timing
+    (blocks per cluster, tile, threads, the serial or warp-scan level
+    sums) with its blocks per SM and clusters on the card, its shared
+    memory and ptxas report, beside the four-stage path's ms/step (CUDA
+    events); ``levels_sweep``: ms/step on K4 (the rule's layout) and on
+    the stage path at 512^2 for L from 8 to 454; and ``levels_accuracy``:
+    K4 against its plain version by L on chip_smoke.py's limit case
+    (37 x 23, flat and with terrain), beside chip_smoke.py's gate;
   * fir ``profile``: the fir_batch path of
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
@@ -55,8 +59,10 @@ from njw_tpu_torch.weather.main_paths import (  # noqa: E402
     MAIN_PATHS, VARIANT_PATHS,
 )
 
-SWEEP_LEVELS = (8, 16, 20, 21, 22, 26, 30, 31, 36, 37, 40, 44, 48, 56, 64,
-                72, 87)
+SWEEP_LEVELS = (8, 16, 20, 21, 22, 30, 40, 42, 43, 64, 84, 85, 120, 168, 227,
+                454)
+ACCURACY_LEVELS = (20, 40, 87, 120, 168, 200, 227, 300, 340, 400, 454, 560,
+                   680)
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
                 "pe_rk4_kernel", "band_kernel")
 
@@ -204,6 +210,30 @@ def swe_extras(steps: int, gpu: str) -> None:
                       "sizes": sweep}), flush=True)
 
 
+def _k4_layouts(levels: int) -> list:
+    """The whole-step kernel's layouts worth timing at ``levels``: each
+    cluster size with the largest tile that fits, 512 and 256 threads,
+    both forms of the level sums (the warp form where a block holds at
+    most 32 levels)."""
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    out = []
+    for ncta in ps.RK4_CLUSTERS:
+        if ncta > levels:
+            continue
+        tile = next((t for t in range(ps.RK4_TILE_MAX, 0, -1)
+                     if ps.rk4_smem_bytes(levels, t, ncta)
+                     <= ps.SMEM_PER_BLOCK), None)
+        if tile is None:
+            continue
+        for threads in (512, 256):
+            for warp in (0, 1):
+                if warp and -(-levels // ncta) > 32:
+                    continue
+                out.append(ps.Rk4Layout(ncta, tile, threads, warp))
+    return out
+
+
 def primitive_extras(gpu: str) -> None:
     from njw_tpu_torch.ops import _build
     from njw_tpu_torch.ops import pe_stencil as ps
@@ -223,21 +253,24 @@ def primitive_extras(gpu: str) -> None:
         out = s.map(torch.empty_like)
         reps = max(2, int(2e7 / (grid.levels * grid.ny * grid.nx)))
 
-        def timed(tile, stages):
+        def timed(layout, stages):
             def launch():
-                ps._launch_rk4(s, out, None, grid, k, r, levc, tile,
+                ps._launch_rk4(s, out, None, grid, k, r, levc, layout,
                                stages=stages)
 
             events_ms(launch, 2)
             return events_ms(launch, reps)
 
-        default = ps.rk4_tile(grid.levels)
-        tiles = [t for t in range(1, ps.RK4_TILE_MAX + 1)
-                 if ps.rk4_smem_bytes(grid.levels, t) <= ps.SMEM_PER_BLOCK]
+        default = ps.rk4_layout(grid.levels)
         # the parts: the first n stages alone (no output written), so
         # stage n costs parts[n] - parts[n - 1]
         parts = {n: timed(default, n) for n in (1, 2, 3, 4)}
-        by_tile = {t: timed(t, 4) for t in tiles[-3:]}
+        by_layout = []
+        for lay in _k4_layouts(grid.levels):
+            blocks, clusters = ps.rk4_occupancy(grid.levels, lay, 0)
+            by_layout.append({**lay._asdict(), "blocks_per_sm": blocks,
+                              "clusters_on_card": clusters,
+                              "ms": timed(lay, 4)})
         stages = ps.make_pe_kernel_rk4_stepper(grid, params, cfg.dt,
                                                whole_step=False)
         carry, state = stages.init(s), s.map(torch.clone)
@@ -247,15 +280,17 @@ def primitive_extras(gpu: str) -> None:
             carry, state = stages.step(carry, state, None)
 
         events_ms(stage_step, 2)
+        blocks, clusters = ps.rk4_occupancy(grid.levels, default, 0)
         print(json.dumps({
             "phase": "layouts", "card": gpu, "model": "primitive",
-            "shape": [grid.levels, grid.ny, grid.nx], "tile": default,
-            "threads_per_block": ps.RK4_THREADS,
-            "smem_bytes": ps.rk4_smem_bytes(grid.levels, default),
-            "blocks_per_sm": ps.rk4_blocks_per_sm(grid.levels, default, 0),
+            "shape": [grid.levels, grid.ny, grid.nx],
+            "layout": default._asdict(),
+            "smem_bytes": ps.rk4_smem_bytes(grid.levels, default.tile,
+                                            default.ncta),
+            "blocks_per_sm": blocks, "clusters_on_card": clusters,
             "ptxas": ptxas,
             "whole_step_ms_by_stages_run": parts,
-            "whole_step_ms_by_tile": by_tile,
+            "whole_step_ms_by_layout": by_layout,
             "stage_path_ms_per_step": events_ms(stage_step, reps)}),
             flush=True)
         del s, out, carry, state
@@ -280,7 +315,8 @@ def primitive_extras(gpu: str) -> None:
 
             events_ms(step, 2)
             times[st.name] = events_ms(step, 10)
-        sweep.append({"levels": levels, "tile": ps.rk4_tile(levels),
+        sweep.append({"levels": levels,
+                      "layout": ps.rk4_layout(levels)._asdict(),
                       "ms_per_step": times,
                       "whole_step_over_stages":
                           times["pe_rk4_kernel_fused"]
@@ -290,6 +326,57 @@ def primitive_extras(gpu: str) -> None:
     print(json.dumps({"phase": "levels_sweep", "card": gpu,
                       "model": "primitive", "grid": [grid.ny, grid.nx],
                       "rows": sweep}), flush=True)
+
+    # where K4 holds chip_smoke.py's gate (rtol 1e-5, atol 1e-4 and 2e-4
+    # with terrain) against its plain version: one step of chip_smoke.py's
+    # limit case (37 x 23, its seeded noisy state and mountain) by L
+    rows = []
+    for levels in ACCURACY_LEVELS:
+        cfg = path.sim_config(device="cuda", num_levels=levels,
+                              grid_width=23, grid_height=37)
+        grid = cfg.grid_spec()
+        row = {"levels": levels, "layout": ps.rk4_layout(levels)._asdict()}
+        for terrain, atol in ((False, 1e-4), (True, 2e-4)):
+            phi_s = _mountain(grid) if terrain else None
+            s = _noisy_state(grid, 1, phi_s, path.ic_params)
+            kw = dict(grid=grid, dt=cfg.dt, coriolis_f=cfg.coriolis_f,
+                      phi_s=phi_s)
+            got = ps.pe_rk4_step_cuda(s, **kw)
+            want = ps.pe_rk4_step_plain(s, **kw)
+            err = max(float((a - b).abs().max())
+                      for (_, a), (_, b) in zip(got.items(), want.items()))
+            ok = all(bool(((a - b).abs() <= atol + 1e-5 * b.abs()).all())
+                     for (_, a), (_, b) in zip(got.items(), want.items()))
+            key = "terrain" if terrain else "flat"
+            row[f"max_abs_err_{key}"], row[f"gate_{key}"] = err, ok
+        rows.append(row)
+    print(json.dumps({"phase": "levels_accuracy", "card": gpu,
+                      "model": "primitive", "grid": [37, 23],
+                      "rows": rows}), flush=True)
+
+
+def _noisy_state(grid, seed, phi_s, ic_params):
+    """chip_smoke.py's PE kernel state: the initial state with noise on the
+    winds and T, from ``seed``."""
+    s = pe_initial_state(grid, device="cuda", seed=seed, phi_s=phi_s,
+                         **ic_params)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noise(t, amp):
+        return t + amp * torch.randn(t.shape, device="cuda", generator=gen)
+
+    return dataclasses.replace(s, u=noise(s.u, 1.0), v=noise(s.v, 1.0),
+                               T=noise(s.T, 0.5))
+
+
+def _mountain(grid, height=1500.0):
+    """chip_smoke.py's mountain: a Gaussian of ``height`` m at the centre."""
+    y = torch.arange(grid.ny, device="cuda", dtype=torch.float32)[:, None]
+    x = torch.arange(grid.nx, device="cuda", dtype=torch.float32)[None, :]
+    cy, cx = (grid.ny - 1) / 2, (grid.nx - 1) / 2
+    sy, sx = max(grid.ny / 8, 1), max(grid.nx / 8, 1)
+    return (height * torch.exp(-(((y - cy) / sy) ** 2
+                                 + ((x - cx) / sx) ** 2))).contiguous()
 
 
 def fir_extras(gpu: str) -> None:

@@ -218,24 +218,33 @@ class TestStageKernelsOnCard:
                                        atol=2e-4 if terrain else 1e-4,
                                        msg=name)
 
-    # tile None: the wrapper's choice (rk4_tile: 8 up to L = 21, 4 at
-    # L = 40, 1 at the limit L = 87); ragged tiles in both axes
-    @pytest.mark.parametrize("L,ny,nx,terrain,tile", [
+    # layout None: the rule's (rk4_layout: one block, tile 8 up to L = 21;
+    # a cluster of two at L = 40; eight blocks past L = 84, tile 1 at the
+    # limit L = 680); others as (blocks per cluster, tile, threads, warp
+    # scan); ragged tiles in both axes
+    @pytest.mark.parametrize("L,ny,nx,terrain,layout", [
         (20, 128, 96, False, None), (5, 200, 328, True, None),
-        (2, 3, 5, False, None), (4, 64, 48, True, 3), (6, 70, 90, False, 16),
-        (20, 33, 47, True, 5), (40, 37, 50, True, None),
-        (40, 45, 29, False, 3), (87, 11, 13, False, None),
-        (87, 9, 14, True, None)])
+        (2, 3, 5, False, None), (4, 64, 48, True, (1, 3)),
+        (6, 70, 90, False, (1, 16)), (20, 33, 47, True, (1, 5)),
+        (40, 37, 50, True, None), (40, 45, 29, False, (1, 3)),
+        (87, 11, 13, False, None), (87, 9, 14, True, None),
+        (20, 128, 96, False, (1, 8, 512, 1)),
+        (20, 33, 47, True, (2, 8, 512, 1)),
+        (20, 40, 36, True, (4, 8, 256, 0)),
+        (40, 37, 50, True, (2, 8, 256, 1)),
+        (40, 29, 45, False, (8, 8, 512, 1)),
+        (227, 19, 23, True, None), (680, 11, 9, False, None)])
     def test_pe_rk4_kernel_matches_plain_version(self, cuda_device, L, ny,
-                                                 nx, terrain, tile):
+                                                 nx, terrain, layout):
+        from njw_tpu_torch.ops.pe_stencil import Rk4Layout
         grid = GridSpec(nx=nx, ny=ny, levels=L, dx=1e5, dy=1e5)
         s = _pe_state(L, ny, nx, 7, cuda_device)
         phi_s = (torch.rand(ny, nx, device=cuda_device) * 5000.0
                  if terrain else None)
         kw = dict(grid=grid, dt=60.0, coriolis_f=1e-4, phi_s=phi_s)
         before = pe_rk4_step_cuda.launches
-        out = (pe_rk4_step(s, **kw) if tile is None
-               else pe_rk4_step_cuda(s, tile=tile, **kw))
+        out = (pe_rk4_step(s, **kw) if layout is None
+               else pe_rk4_step_cuda(s, layout=Rk4Layout(*layout), **kw))
         ref = pe_rk4_step_plain(s, **kw)
         torch.cuda.synchronize()
         assert pe_rk4_step_cuda.launches == before + 1
@@ -244,25 +253,42 @@ class TestStageKernelsOnCard:
                                        atol=2e-4 if terrain else 1e-4,
                                        msg=name)
 
-    @pytest.mark.parametrize("L", [2, 20, 21, 22, 40, 44, 68, 87])
+    @pytest.mark.parametrize("L", [2, 20, 21, 22, 40, 44, 68, 87, 168, 169,
+                                   680])
     def test_pe_rk4_shared_memory_rule_matches_the_built_kernel(
             self, cuda_device, L):
         from njw_tpu_torch.ops.pe_stencil import (
-            SMEM_PER_BLOCK, rk4_blocks_per_sm, rk4_smem_bytes,
-            rk4_smem_bytes_built, rk4_tile,
+            SMEM_PER_BLOCK, rk4_layout, rk4_occupancy, rk4_smem_bytes,
+            rk4_smem_bytes_built,
         )
-        tile = rk4_tile(L)
-        for t in (1, tile, tile + 1):
-            assert rk4_smem_bytes_built(L, t) == rk4_smem_bytes(L, t)
-        assert rk4_smem_bytes(L, tile) <= SMEM_PER_BLOCK
-        assert rk4_blocks_per_sm(L, tile, cuda_device.index or 0) >= 1
+        lay = rk4_layout(L)
+        for t, c in ((1, lay.ncta), (lay.tile, lay.ncta),
+                     (lay.tile + 1, lay.ncta), (lay.tile, 1)):
+            assert rk4_smem_bytes_built(L, t, c) == rk4_smem_bytes(L, t, c)
+        assert rk4_smem_bytes(L, lay.tile, lay.ncta) <= SMEM_PER_BLOCK
+        blocks, clusters = rk4_occupancy(L, lay, cuda_device.index or 0)
+        assert blocks >= 1 and clusters >= 1
 
     def test_pe_rk4_launch_refuses_a_tile_over_the_shared_memory(
             self, cuda_device):
+        from njw_tpu_torch.ops.pe_stencil import Rk4Layout
         grid = GridSpec(nx=16, ny=16, levels=40, dx=1e5, dy=1e5)
         s = _pe_state(40, 16, 16, 1, cuda_device)
         with pytest.raises(ValueError, match="shared memory"):
-            pe_rk4_step_cuda(s, grid=grid, dt=60.0, tile=5)
+            pe_rk4_step_cuda(s, grid=grid, dt=60.0, layout=Rk4Layout(1, 5))
+
+    @pytest.mark.parametrize("layout", [(3, 8), (2, 8, 500), (2, 8, 1024),
+                                        (2, 8, 512, 2), (8, 1, 512, 1)])
+    def test_pe_rk4_kernel_refuses_a_bad_layout(self, cuda_device, layout):
+        # 3 blocks a cluster; threads not a multiple of 32 or over 512; no
+        # such level-sum form; the warp form with 85 levels a block
+        from njw_tpu_torch.ops.pe_stencil import Rk4Layout
+        L = 680 if layout[0] == 8 else 40
+        grid = GridSpec(nx=16, ny=16, levels=L, dx=1e5, dy=1e5)
+        s = _pe_state(L, 16, 16, 1, cuda_device)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            pe_rk4_step_cuda(s, grid=grid, dt=60.0,
+                             layout=Rk4Layout(*layout))
 
     def test_pe_stage_stepper_vs_plain(self, cuda_device):
         grid = GridSpec(nx=64, ny=48, levels=4, dx=1e5, dy=1e5)

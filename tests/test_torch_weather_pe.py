@@ -27,10 +27,11 @@ from njw_tpu.weather import oracle as j_oracle  # noqa: E402
 from njw_tpu.weather import primitive as jp  # noqa: E402
 
 from njw_tpu_torch.ops.pe_stencil import (  # noqa: E402
-    RK4_TILE_MAX, SMEM_PER_BLOCK, _rk4_tile_arg, make_pe_kernel_rk4_stepper,
+    RK4_CLUSTERS, RK4_LEVELS_PER_BLOCK, RK4_TILE_MAX, SMEM_PER_BLOCK,
+    Rk4Layout, _rk4_layout_arg, _rk4_padded_args, make_pe_kernel_rk4_stepper,
     pe_kernel_supported, pe_rk4_kernel_fits, pe_rk4_padded_plain,
     pe_rk4_step, pe_rk4_step_cuda, pe_rk4_step_plain, pe_stage,
-    pe_stage_cuda, pe_stage_plain, rk4_smem_bytes, rk4_tile,
+    pe_stage_cuda, pe_stage_plain, rk4_layout, rk4_smem_bytes,
 )
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation, make_tendency_fn,
@@ -347,62 +348,84 @@ class TestWholeStep:
             pe_rk4_step(s, grid=grid, dt=1.0, out=out, phi_s=phi_s)
 
     def test_fits_predicate(self):
-        # a one-column tile of L levels in the 232,448 B a block may have:
-        # 4 (656 L + 457) B at T = 1, so L <= 87
-        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(87)
-        assert not pe_rk4_kernel_fits(88) and not pe_rk4_kernel_fits(0)
+        # a one-column tile over a cluster of 8 blocks: ceil(L/8) levels a
+        # block, 4 (341 x 131 + 11,295 + 260 + 2L) B = 230,344 at L = 680,
+        # 232,968 at L = 681 (over the 232,448 a block may have)
+        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(680)
+        assert not pe_rk4_kernel_fits(681) and not pe_rk4_kernel_fits(0)
         assert pe_rk4_kernel_fits(40) and pe_rk4_kernel_fits(2)
+        assert pe_rk4_kernel_fits(227) and pe_rk4_kernel_fits(454)
 
-    @pytest.mark.parametrize("L,tile,want", [
-        # (4L+1)((T+8)^2 + (T+6)^2 + T^2) + (T+8)^2 + 2L words, and s2's
-        # (4L+1)(T+4)^2 or stage 1's L((T+8)^2 + (T+6)^2) + 5 (T+6)^2,
-        # whichever is larger, worked out by hand
-        (20, 8, 4 * (81 * 516 + 81 * 144 + 256 + 40)),          # 215,024
-        (40, 4, 4 * (161 * 260 + 161 * 64 + 144 + 80)),         # 209,552
-        (40, 5, 4 * (161 * 315 + 161 * 81 + 169 + 80)),         # 256,020
-        (87, 1, 4 * (349 * 131 + 87 * 130 + 245 + 81 + 174)),   # 229,956
-        (88, 1, 4 * (353 * 131 + 88 * 130 + 245 + 81 + 176)),   # 232,740
-        (2, 16, 4 * (9 * 1316 + 2 * 1060 + 2420 + 576 + 4))])   # 67,856
-    def test_shared_memory_by_hand(self, L, tile, want):
-        assert rk4_smem_bytes(L, tile) == want
+    @pytest.mark.parametrize("L,tile,ncta,want", [
+        # with lc = ceil(L / ncta) and F = 4 lc + 1:
+        # F ((T+8)^2 + (T+6)^2 + T^2) + max(F (T+4)^2, lc ((T+8)^2 +
+        # (T+6)^2) + 5 (T+6)^2) + 2 (T+8)^2 + 2 (T+6)^2 + 2L words, worked
+        # out by hand
+        (20, 8, 1, 4 * (81 * 516 + 81 * 144 + 904 + 40)),          # 217,616
+        (40, 8, 2, 4 * (81 * 516 + 81 * 144 + 904 + 80)),          # 217,776
+        (40, 4, 1, 4 * (161 * 260 + 161 * 64 + 488 + 80)),         # 210,928
+        (40, 8, 1, 4 * (161 * 516 + 161 * 144 + 904 + 80)),        # 428,976
+        (168, 8, 8, 4 * (85 * 516 + 85 * 144 + 904 + 336)),        # 229,360
+        (169, 8, 8, 4 * (89 * 516 + 89 * 144 + 904 + 338)),        # 239,928
+        (680, 1, 8, 4 * (341 * 131 + 85 * 130 + 245 + 260 + 1360)),  # 230,344
+        (681, 1, 8, 4 * (345 * 131 + 86 * 130 + 245 + 260 + 1362)),  # 232,968
+        (2, 16, 1, 4 * (9 * 1316 + 2 * 1060 + 2420 + 2120 + 4))])  # 88,776
+    def test_shared_memory_by_hand(self, L, tile, ncta, want):
+        assert rk4_smem_bytes(L, tile, ncta) == want
 
-    @pytest.mark.parametrize("L,tile", [
-        (1, 8), (2, 8), (20, 8), (21, 8), (22, 7), (25, 7), (26, 6),
-        (30, 6), (31, 5), (36, 5), (37, 4), (40, 4), (44, 4), (45, 3),
-        (54, 3), (55, 2), (68, 2), (69, 1), (87, 1), (88, None)])
-    def test_tile_choice(self, L, tile):
-        # the largest edge up to 8 whose block fits 232,448 B
-        assert rk4_tile(L) == tile
-        if tile is not None:
-            assert rk4_smem_bytes(L, tile) <= SMEM_PER_BLOCK
-            if tile < RK4_TILE_MAX:
-                assert rk4_smem_bytes(L, tile + 1) > SMEM_PER_BLOCK
+    @pytest.mark.parametrize("L,ncta,tile", [
+        (1, 1, 8), (2, 1, 8), (20, 1, 8), (21, 1, 8), (22, 2, 8),
+        (40, 2, 8), (42, 2, 8), (43, 4, 8), (84, 4, 8), (85, 8, 8),
+        (168, 8, 8), (169, 8, 7), (227, 8, 6), (454, 8, 2), (680, 8, 1),
+        (681, None, None), (0, None, None)])
+    def test_tile_choice(self, L, ncta, tile):
+        # the smallest cluster whose blocks hold tile 8 with at most 21
+        # levels each; past it 8 blocks and the largest tile that fits
+        layout = rk4_layout(L)
+        if ncta is None:
+            assert layout is None
+            return
+        assert layout == Rk4Layout(ncta, tile, 512, 0)
+        assert rk4_smem_bytes(L, tile, ncta) <= SMEM_PER_BLOCK
+        assert -(-L // ncta) <= RK4_LEVELS_PER_BLOCK or ncta == 8
+        smaller = RK4_CLUSTERS[:RK4_CLUSTERS.index(ncta)]
+        assert all(-(-L // c) > RK4_LEVELS_PER_BLOCK for c in smaller)
+        if tile < RK4_TILE_MAX:
+            assert rk4_smem_bytes(L, tile + 1, ncta) > SMEM_PER_BLOCK
 
-    @pytest.mark.parametrize("L,tile,match", [
-        (20, 0, "positive integer"), (20, 2.5, "positive integer"),
-        (20, True, "positive integer"), (40, 5, "shared memory"),
-        (20, 9, "shared memory"), (88, None, "do not fit")])
-    def test_tile_refusals(self, L, tile, match):
+    @pytest.mark.parametrize("L,layout,match", [
+        (20, (1, 9), "shared memory"), (40, (1, 5), "shared memory"),
+        (40, (1, 8, 256, 1), "shared memory"), (169, (8, 8), "shared memory"),
+        (681, None, "do not fit"), (0, None, "do not fit")])
+    def test_tile_refusals(self, L, layout, match):
         with pytest.raises(ValueError, match=match):
-            _rk4_tile_arg(L, tile, "pe_rk4_step")
+            _rk4_layout_arg(L, None if layout is None else Rk4Layout(*layout),
+                            "pe_rk4_step")
 
-    @pytest.mark.parametrize("L,tile", [(20, None), (20, 6), (40, 3),
-                                        (6, 16)])
-    def test_tile_accepted(self, L, tile):
-        assert _rk4_tile_arg(L, tile, "pe_rk4_step") == (
-            rk4_tile(L) if tile is None else tile)
+    @pytest.mark.parametrize("L,layout", [
+        (20, None), (20, (1, 6)), (40, (1, 3)), (6, (1, 16)),
+        (40, (4, 8, 256, 1)), (680, None)])
+    def test_tile_accepted(self, L, layout):
+        want = rk4_layout(L) if layout is None else Rk4Layout(*layout)
+        got = _rk4_layout_arg(
+            L, None if layout is None else Rk4Layout(*layout), "pe_rk4_step")
+        assert got == want
 
     def test_padded_form_refuses_levels_the_kernel_does_not_hold(self):
-        grid = GridSpec(nx=12, ny=12, levels=88, dx=1e5, dy=1e5)
+        grid = GridSpec(nx=12, ny=12, levels=681, dx=1e5, dy=1e5)
         s = tp.pe_initial_state(grid, device=CPU)
         with pytest.raises(ValueError, match="do not fit"):
             pe_rk4_padded_plain(s, halo=(4, 4), dt=1.0)
 
-    def test_padded_form_refuses_a_tile_over_the_shared_memory(self):
-        grid = GridSpec(nx=12, ny=12, levels=40, dx=1e5, dy=1e5)
+    @pytest.mark.parametrize("levels,want", [(20, (1, 8)), (40, (2, 8)),
+                                             (227, (8, 6))])
+    def test_padded_form_takes_the_rule_layout(self, levels, want):
+        """The padded launches take the rule's layout: config 5's L = 40
+        on a cluster of two blocks at tile 8."""
+        grid = GridSpec(nx=12, ny=12, levels=levels, dx=1e5, dy=1e5)
         s = tp.pe_initial_state(grid, device=CPU)
-        with pytest.raises(ValueError, match="shared memory"):
-            pe_rk4_padded_plain(s, halo=(4, 4), dt=1.0, tile=5)
+        args = _rk4_padded_args(s, halo=(4, 4), dt=1.0)
+        assert args[7] == Rk4Layout(*want)
 
 
 class TestStepper:
@@ -423,10 +446,10 @@ class TestStepper:
         _, got = st.step(st.init(ts), ts, None)
         _assert_fields(got, want, 1e-5, 1e-4)
 
-    @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88])
+    @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88, 227, 681])
     def test_auto_choice_is_the_stage_path(self, levels):
         """whole_step None takes the four stage launches at every L: the
-        H100 timed the whole-step kernel slower at every L from 8 to 87."""
+        H100 timed the whole-step kernel slower at every L timed."""
         grid = GridSpec(nx=16, ny=12, levels=levels, dx=1e5, dy=1e5)
         params = PhysicsParams(coriolis_f=1e-4)
         assert make_pe_kernel_rk4_stepper(grid, params, 30.0).name == \
