@@ -16,7 +16,7 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 beside the plain version's, the card's bound and the
                 wrapper's host cost per launch (pe_rk4: with its ptxas
                 registers, shared memory, blocks per SM, clusters on
-                the card, blocks per cluster, tile and threads)
+                the card, blocks per cluster and tile)
   4 parity      kernel steppers vs backend plain: SWE 512^2 (1e-3),
                 barotropic 256^2 (normalised 1e-3), PE 128^2 x 8 on the
                 auto choice (the stage kernel) and on the whole-step kernel
@@ -719,7 +719,7 @@ def pe_rk4_kernel() -> dict:
               "smem_bytes": ps.rk4_smem_bytes_built(L, lay.tile, lay.ncta),
               "blocks_per_sm": blocks, "clusters_on_card": clusters,
               "blocks_per_cluster": lay.ncta, "tile": lay.tile,
-              "threads_per_block": lay.threads}
+              "threads_per_block": ps.RK4_THREADS}
     if layout["smem_bytes"] != ps.rk4_smem_bytes(L, lay.tile, lay.ncta):
         fail("kernel_time", "pe_rk4: the wrapper's shared-memory rule "
              "disagrees with the built kernel's")

@@ -24,6 +24,13 @@
 // per column and level plus the combine, 2.6 GFLOP at 512^2 x 20 (38 us at
 // 67 TFLOP/s fp32) without recompute; with this design's halo recompute
 // (1.97x at tile 8, below) 5.1 GFLOP, 77 us: the operations are the floor.
+// Device memory per step (reckoned): s's regions come from device memory
+// about once (a tile's source region is 4x its own columns at tile 8; the
+// re-reads of adjacent tiles' halos, which run together, and of the bases
+// of stages 2 and 3 hit L2) and s' is written once: about 170 MB at
+// 512^2 x 20, against about 1.8 GB for the earlier design (stage states in
+// a per-block scratch in device memory). The L2-to-SM traffic is about
+// 0.66 GB.
 //
 // Design. A cluster of C blocks (C = 1, 2, 4 or 8; a thread-block cluster
 // when C > 1) per output tile of T x T columns, one cluster per tile, the
@@ -32,49 +39,50 @@
 // v, T, q and the surface plane ps, lc = ceil(L / C) levels in its
 // layout. Everything a tile needs between its stages stays in the
 // cluster's shared memory; each block holds, in 4 B words:
-//   S     s on the (T+8)^2 source region, 4 lc + 1 planes, brought in with
-//         cp.async (every copy in flight at once); after stage 1 it holds
-//         the auxiliaries of stages 2-4
+//   S     s on the (T+8)^2 source region, 4 lc + 1 planes; after stage 1
+//         it holds the auxiliaries of stages 2-4
 //   A     s1 on the (T+6)^2 region, then s3 on (T+2)^2
 //   B     stage 1's auxiliaries, then s2 on (T+4)^2
 //   acc   the RK4 accumulator on the T^2 own columns
 //   goff  s's offset of each source-region column (ints); the 2L level
 //         constants
-//   x     the cluster's exchange: each column's geopotential partial sum
-//         at the block's top level ((T+8)^2), its flux-divergence total
-//         ((T+6)^2), and the flux summed over the blocks above ((T+6)^2)
 // The auxiliaries of a stage are phi (the geopotential of its source
 // region, lc planes), cum (the flux divergence of its region summed down
 // the column, lc planes) and five per-column planes (d lnps/dx, d lnps/dy,
 // 1/ps, dps/ps, dps). The base s of stages 2 and 3 is re-read at each
 // column from device memory, where the tile's s sits in L2. Words:
 //   (4lc+1) ((T+8)^2 + (T+6)^2 + T^2) + max((4lc+1)(T+4)^2,
-//     lc ((T+8)^2 + (T+6)^2) + 5 (T+6)^2) + 2 (T+8)^2 + 2 (T+6)^2 + 2L,
-// 217,616 B at L = 20, C = 1, T = 8; at config 5's L = 40 a cluster of two
-// holds T = 8 (lc = 20, 217,776 B a block), where one block would have to
-// fall to T = 4 (3.4x halo recompute, 9x region loads per output column).
-// The wrapper's rule (rk4_layout) takes the smallest C that keeps T = 8
-// with at most RK4_LEVELS_PER_BLOCK levels a block, then smaller tiles at
-// C = 8; a one-column tile at C = 8 holds L <= 680.
+//     lc ((T+8)^2 + (T+6)^2) + 5 (T+6)^2) + (T+8)^2 + 2L:
+// 215,024 B at L = 20, C = 1, T = 8. At config 5's L = 40 one block holds
+// T = 4 at most (209,552 B; 3.4x halo recompute and 9x region loads per
+// output column); a cluster of two holds T = 8 (lc = 20, 215,184 B a
+// block). Of the three ways to serve L = 40, the H100 timed this cluster
+// faster than the one-block tile 4 (1.6x) and than PR 2's design, and
+// slower than the stage path, which the stepper's auto choice takes there
+// (PERF.md). The wrapper's rule (rk4_layout) takes the smallest C that
+// keeps T = 8 with at most RK4_LEVELS_PER_BLOCK = 21 levels a block (more
+// blocks a tile timed slower), then smaller tiles at C = 8; a one-column
+// tile at C = 8 holds L <= 688.
 //
-// Every stage is two rounds over its region, a barrier after each, and
-// between them, when C > 1, one exchange:
-//   1. the level sums, in one of two forms (a launch argument; the
-//      profiler times both, PERF.md):
-//      serial: one thread per column: the geopotential bottom-up over the
-//        source region (once per column, not once per neighbour), and over
-//        the region the ps terms and the flux divergence summed top-down;
-//        each walk is lc dependent adds in shared memory, its loads issued
-//        in groups of 8 ahead of the adds;
-//      warp: a segment of lanes per column (the power of two >= lc, so 32
-//        lanes at lc = 17-32, two columns a warp at 9-16), a lane per
-//        level: each level's term at once, then a suffix scan (phi) and a
-//        prefix scan (cum) over the segment by warp shuffles, log2 steps;
-//   1b. (C > 1) the cluster barrier, then each block reads the other
-//      blocks' per-column partials through distributed shared memory and
-//      adds, in one fixed order, the geopotential of the blocks below to
-//      its phi and the flux of the blocks above to its cum (and keeps the
-//      latter for sigma-dot at its top interface); dps from the total;
+// Every stage is two rounds over its region, a barrier after each:
+//   1. the level sums, one thread per column, in the plain version's
+//      order and rounding (no contraction): the geopotential bottom-up
+//      over the source region (once per column, not once per neighbour),
+//      and over the region the ps terms and the flux divergence summed
+//      top-down; each walk is lc dependent adds in shared memory, its
+//      loads issued in groups of 8 ahead of the adds. The blocks of a
+//      cluster take C turns, a cluster barrier after each: in turn t
+//      block C-1-t carries phi up from the next block's first level (read
+//      from that block's shared memory; block C-1 starts at the surface)
+//      and block t carries the flux sum down from the previous block's
+//      last level, so each sum is one sequential chain over the L levels
+//      whatever C is; then each block takes dps from the last block's
+//      total. Summed in any other order, phi (about 5e5 at L = 680, one
+//      ulp 0.06) moved u by 2e-4 in a step, over the 1e-4 the kernel is
+//      held to; a warp-shuffle scan per column (a lane per level, log2
+//      steps) was also timed 2.1-2.3x slower than the serial walk at
+//      configs 4 and 5 (PERF.md): it runs one column a warp where the
+//      walk runs a whole region's columns in one round of threads;
 //   2. (column, run of levels) items over the block's levels, the runs
 //      sized per stage so that the rounds of the block's threads times the
 //      levels of a run are fewest (level_runs); a thread walks its run
@@ -85,27 +93,34 @@
 //      then y = s + c T into the next state and the accumulator on the own
 //      columns, or in stage 4 s' = acc/3 + dt/6 T on the own columns
 //      inside the grid. The level above a block's first level and below
-//      its last are read from the neighbouring blocks' shared memory.
-// A stage ends in the cluster barrier when C > 1 (its source planes are
-// read across the cluster until then). The regions shrink by one column
-// per side per stage (halo recompute: (196 + 144 + 100 + 64) / 4 / 64 =
-// 1.97x the stage work at T = 8).
+//      its last, and cum above its first, are read from the neighbouring
+//      blocks' shared memory.
+// A stage ends in the cluster barrier when C > 1 (its planes are read
+// across the cluster until then). The regions shrink by one column per
+// side per stage (halo recompute: (196 + 144 + 100 + 64) / 4 / 64 = 1.97x
+// the stage work at T = 8).
+//
+// Loads. s's region comes in with cp.async, every copy in flight at once
+// and none through a register: 16 B where four columns of a row lie
+// together in s and are 16 B aligned (the interior tiles of an aligned
+// view), else 4 B a column. With a one-block instantiation free of the
+// exchange code (106 registers against 127), this took config 4 from 1.22
+// to 1.00 ms. A block has no room to bring the next tile's region in
+// while it computes (83 KB at L = 20, T = 8, and S holds the auxiliaries
+// of stages 2-4), so a load overlaps compute only across resident blocks;
+// two blocks an SM (256 threads, the levels split over more blocks) timed
+// slower than one of 512 threads. One cluster per tile, not a persistent
+// grid: with nothing to prefetch, the hardware starting the next tile's
+// blocks as others finish does what a tile loop would.
 //
 // Against the three costs of the earlier design (stage states in a
-// per-block scratch in device memory, one thread walking a whole column).
-// Bytes: no stage state and no accumulator leaves the chip; device memory
-// sees s about once (a tile's source region is 4x its own columns at
-// T = 8, the re-reads of adjacent tiles' halos, which run together, and of
-// the bases of stages 2 and 3 hit L2) and s' once: about 170 MB per step
-// at 512^2 x 20 (reckoned; the L2-to-SM traffic is about 0.66 GB), against
-// about 1.8 GB before. Latency: no thread walks a column through device
-// memory; the heavy work is independent (column, run) items over the
-// region, and the level sums are lc adds in shared memory or a shuffle
-// scan. Occupancy: one 512-thread block per SM at T = 8 (its shared
-// memory; smaller tiles or levels a block let two fit), no register cap
-// below 128. Loads overlap compute only across resident blocks: a block
-// has no room for a second source region (83 KB at L = 20, T = 8, and S
-// holds the auxiliaries of stages 2-4).
+// per-block scratch in device memory, one thread walking a whole column,
+// registers capped at 64 for four blocks an SM). Bytes: no stage state
+// and no accumulator leaves the chip (above). Latency: no thread walks a
+// column through device memory; the heavy work is independent (column,
+// run) items over the region, and the level sums are lc adds in shared
+// memory. Occupancy: one 512-thread block per SM at T = 8 (its shared
+// memory), no register cap below 128.
 //
 // Addressing (one launch for every launcher): s and out are each a view
 // (base pointer, row pitch, plane pitch, origin of the (ny, nx) interior).
@@ -117,14 +132,15 @@
 // rows past the interior, so the clamped ones feed only columns outside
 // it. out may be an interior-shaped array or the interior of the next
 // padded block. Every column's arithmetic is the same in every
-// instantiation and at every tile position (the split of the levels, the
-// level runs and the order of the sums depend on L, C, T and the form of
-// round 1 only; sigma-dot's fma is explicit), so a sharded run equals the
-// whole-domain run bit for bit.
+// instantiation and at every tile position (the split of the levels and
+// the level runs depend on L, C and T only; the sums are sequential;
+// sigma-dot's fma is explicit), so a sharded run equals the whole-domain
+// run bit for bit. A one-block cluster is its own instantiation
+// (kCluster false), with no exchange code.
 //
-// ptxas -v (nvcc 12.9, sm_90a): see chip_smoke.py's build phase and
-// kernel_time line, which print the registers, shared memory and blocks
-// per SM anew; PERF.md keeps the last reading.
+// ptxas -v (nvcc 12.9, sm_90a): chip_smoke.py's build phase and
+// kernel_time line print the registers, shared memory and blocks per SM
+// anew; PERF.md keeps the last reading. No spills.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -135,7 +151,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT_MAX = 512;        // threads per block, at most
+constexpr int NT = 512;            // threads per block
 constexpr int HALO = 4;            // one column per stage
 constexpr int NCOL = 5;            // col planes: lnps_x, lnps_y, 1/ps, dps/ps, dps
 constexpr int NCTA_MAX = 8;        // blocks per cluster, at most (portable)
@@ -167,7 +183,6 @@ struct Consts {
     float third, sixth;             // 1/3, dt/6
     int L, ny, nx, tile;
     int ncta, lc;                   // blocks per cluster, levels per block
-    int warp_scan, seg;             // round 1's form; lanes per column
     int stages;                     // 4; fewer only to time the parts
     int runs[4];                    // level runs per column, each stage
 };
@@ -177,6 +192,7 @@ struct Part {
     int me;                         // rank in the cluster
     int lv0, nl;                    // first level, number of levels
     int nl_up;                      // levels of the block above
+    int nl_last;                    // levels of the cluster's last block
 };
 
 int levels_per_block(int L, int ncta) { return (L + ncta - 1) / ncta; }
@@ -196,8 +212,8 @@ long long smem_floats(int L, int ncta, int T) {
     const long long a = T + 6LL, b = T + 4LL, w = T + 8LL;
     const long long B = F * b * b > aux1_floats(lc, T) ? F * b * b
                                                        : aux1_floats(lc, T);
-    return F * (w * w + a * a + static_cast<long long>(T) * T) + B
-           + 2 * w * w + 2 * a * a + 2LL * L;
+    return F * (w * w + a * a + static_cast<long long>(T) * T) + B + w * w
+           + 2LL * L;
 }
 
 struct Smem {
@@ -207,9 +223,6 @@ struct Smem {
     float* acc;    // the accumulator on the T^2 own columns
     int* goff;     // s's offset (in a plane) of each source-region column
     float* levc;   // thick[0..L), 1/(k + 1/2) for k < L
-    float* xphi;   // phi's partial sum at the top level, per source column
-    float* xflux;  // the flux-divergence total, per region column
-    float* xoff;   // the flux of the blocks above, per region column
 };
 
 __device__ __forceinline__ Smem carve(float* base, int L, int lc, int T) {
@@ -224,9 +237,6 @@ __device__ __forceinline__ Smem carve(float* base, int L, int lc, int T) {
     m.acc = m.B + (F * b > aux1 ? F * b : aux1);
     m.goff = reinterpret_cast<int*>(m.acc + F * T * T);
     m.levc = reinterpret_cast<float*>(m.goff + w);
-    m.xphi = m.levc + 2 * L;
-    m.xflux = m.xphi + w;
-    m.xoff = m.xflux + a;
     return m;
 }
 
@@ -316,7 +326,6 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
     const int lc = kCluster ? k.lc : L, nc = kCluster ? k.ncta : 1;
     const int nl = kCluster ? pt.nl : L, lv0 = kCluster ? pt.lv0 : 0;
     const int me = kCluster ? pt.me : 0;
-    const int nt = blockDim.x;
     const int h = HALO - kStage;
     const int E = T + 2 * h, Es = E + 2, W = T + 2 * HALO;
     const int E2 = E * E, Es2 = Es * Es, T2 = T * T;
@@ -330,19 +339,31 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
     float* const col = cum + lc * E2;
     constexpr int U = 8;                    // loads grouped ahead of a chain
 
-    // 1: phi bottom-up over the source region; over the region the ps
-    //    terms and the flux divergence div(ps u_k) summed top-down. The
-    //    bottom block starts phi at the surface; the others at the term
-    //    that joins their last level to the next block's first.
-    if (!k.warp_scan) {
-        for (int idx = threadIdx.x; idx < Es2 + E2; idx += nt) {
+    // 1: the level sums, in the plain version's order and rounding (no
+    //    contraction): phi bottom-up over the source region; over the
+    //    region the ps terms and the flux divergence div(ps u_k) summed
+    //    top-down. The blocks of a cluster take turns: in turn t block
+    //    C-1-t carries phi up from the next block's first level (block
+    //    C-1 from the surface) and block t carries the flux sum down from
+    //    the previous block's last level, so every sum is one sequential
+    //    chain over the L levels, whatever C is.
+    for (int turn = 0; turn < nc; ++turn) {
+        const bool do_phi = me == nc - 1 - turn, do_cum = me == turn;
+        for (int idx = threadIdx.x; idx < Es2 + E2; idx += NT) {
             if (idx < Es2) {
+                if (!do_phi) continue;
                 const int j = idx;
                 const float* Tj = src + 2 * FS + j;
                 float Tk = Tj[(nl - 1) * Es2];
-                float ph = !kCluster || me == nc - 1
-                    ? k.col.phibot * Tk + surface_phi<kStage>(p, m, j, Es, W)
-                    : m.levc[lv0 + nl] * (Tk + *peer(Tj, me + 1));
+                float ph;
+                if (!kCluster || me == nc - 1) {
+                    ph = __fadd_rn(__fmul_rn(k.col.phibot, Tk),
+                                   surface_phi<kStage>(p, m, j, Es, W));
+                } else {
+                    ph = __fadd_rn(*peer(phi + j, me + 1),
+                                   __fmul_rn(m.levc[lv0 + nl],
+                                             __fadd_rn(Tk, *peer(Tj, me + 1))));
+                }
                 phi[(nl - 1) * Es2 + j] = ph;
                 for (int k0 = nl - 1; k0 > 0; k0 -= U) {
                     float th[U], tc[U];
@@ -356,14 +377,15 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
                     for (int u = 0; u < U; ++u) {
                         const int kk = k0 - u;
                         if (kk > 0) {
-                            ph = ph + tc[u] * (th[u] + Tk);
+                            ph = __fadd_rn(ph, __fmul_rn(tc[u],
+                                                         __fadd_rn(th[u], Tk)));
                             phi[(kk - 1) * Es2 + j] = ph;
                             Tk = th[u];
                         }
                     }
                 }
-                if (kCluster) m.xphi[j] = ph;
             } else {
+                if (!do_cum) continue;
                 const int i = idx - Es2;
                 const int r = i / E;
                 const int j = (r + 1) * Es + (i - r * E) + 1;
@@ -376,141 +398,53 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
                 col[2 * E2 + i] = inv_ps;
                 const float* pu = src + j;
                 const float* pv = pu + FS;
-                float flux = 0.0f;
+                const bool above = kCluster && me > 0;
+                float flux = above
+                    ? *peer(cum + (pt.nl_up - 1) * E2 + i, me - 1) : 0.0f;
                 for (int k0 = 0; k0 < nl; k0 += U) {
                     float fd[U];
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
                         const int o = (k0 + u) * Es2;
                         fd[u] = k0 + u < nl
-                            ? (psE * pu[o + 1] - psW * pu[o - 1]) * cx
-                              + (psN * pv[o + Es] - psS * pv[o - Es]) * cy
+                            ? __fadd_rn(
+                                __fmul_rn(__fsub_rn(__fmul_rn(psE, pu[o + 1]),
+                                                    __fmul_rn(psW, pu[o - 1])),
+                                          cx),
+                                __fmul_rn(__fsub_rn(__fmul_rn(psN, pv[o + Es]),
+                                                    __fmul_rn(psS, pv[o - Es])),
+                                          cy))
                             : 0.0f;
                     }
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
                         const int kk = k0 + u;
                         if (kk < nl) {
-                            flux = kk == 0 ? fd[u] : flux + fd[u];
+                            flux = kk == 0 && !above ? fd[u]
+                                                     : __fadd_rn(flux, fd[u]);
                             cum[kk * E2 + i] = flux;
                         }
                     }
                 }
-                if (kCluster) {
-                    m.xflux[i] = flux;
-                } else {
+                if (!kCluster) {
                     const float dps = -flux * k.col.dsig;
                     col[3 * E2 + i] = dps * inv_ps;
                     col[4 * E2 + i] = dps;
                 }
             }
         }
-    } else {
-        // a segment of sw lanes per column, a lane per level
-        const int sw = k.seg, lane = threadIdx.x & 31;
-        const int kl = lane & (sw - 1), sub = lane / sw, cpw = 32 / sw;
-        const int warp = threadIdx.x >> 5, nw = nt >> 5;
-        for (int g = warp * cpw; g < Es2; g += nw * cpw) {
-            const int j = g + sub;
-            const bool ok = j < Es2 && kl < nl;
-            const float Tk = ok ? src[2 * FS + kl * Es2 + j] : 0.0f;
-            const float Tn = __shfl_down_sync(FULL, Tk, 1, sw);
-            float x = 0.0f;
-            if (ok) {
-                if (kl < nl - 1) {
-                    x = m.levc[lv0 + kl + 1] * (Tk + Tn);
-                } else if (!kCluster || me == nc - 1) {
-                    x = k.col.phibot * Tk + surface_phi<kStage>(p, m, j, Es, W);
-                } else {
-                    x = m.levc[lv0 + nl] * (Tk + *peer(src + 2 * FS + j,
-                                                       me + 1));
-                }
-            }
-            for (int d = 1; d < sw; d <<= 1) {
-                const float y = __shfl_down_sync(FULL, x, d, sw);
-                if (kl + d < nl) x = x + y;
-            }
-            if (ok) {
-                phi[kl * Es2 + j] = x;
-                if (kl == 0 && kCluster) m.xphi[j] = x;
-            }
-        }
-        for (int g = warp * cpw; g < E2; g += nw * cpw) {
-            const int i = g + sub < E2 ? g + sub : E2 - 1;
-            const bool ok = g + sub < E2 && kl < nl;
-            const int r = i / E;
-            const int j = (r + 1) * Es + (i - r * E) + 1;
-            const float* pps = src + 4 * FS + j;
-            const float psE = pps[1], psW = pps[-1];
-            const float psN = pps[Es], psS = pps[-Es];
-            float x = 0.0f;
-            if (ok) {
-                const float* pu = src + kl * Es2 + j;
-                const float* pv = pu + FS;
-                x = (psE * pu[1] - psW * pu[-1]) * cx
-                    + (psN * pv[Es] - psS * pv[-Es]) * cy;
-            }
-            for (int d = 1; d < sw; d <<= 1) {
-                const float y = __shfl_up_sync(FULL, x, d, sw);
-                if (kl >= d && kl < nl) x = y + x;
-            }
-            const float flux = __shfl_sync(FULL, x, nl - 1, sw);
-            if (ok) {
-                cum[kl * E2 + i] = x;
-                if (kl == 0) {
-                    const float inv_ps = 1.0f / pps[0];
-                    col[i] = (logf(psE) - logf(psW)) * cx;
-                    col[E2 + i] = (logf(psN) - logf(psS)) * cy;
-                    col[2 * E2 + i] = inv_ps;
-                    if (kCluster) {
-                        m.xflux[i] = flux;
-                    } else {
-                        const float dps = -flux * k.col.dsig;
-                        col[3 * E2 + i] = dps * inv_ps;
-                        col[4 * E2 + i] = dps;
-                    }
-                }
-            }
-        }
+        sync_part<kCluster>();
     }
-
-    // 1b: the other blocks' partials, added in one order in every block:
-    //     the geopotential from the bottom block up, the flux from the top
-    //     block down
     if constexpr (kCluster) {
-        cg::this_cluster().sync();
-        for (int idx = threadIdx.x; idx < Es2 + E2; idx += nt) {
-            if (idx < Es2) {
-                if (me < nc - 1) {
-                    const int j = idx;
-                    float off = *peer(m.xphi + j, nc - 1);
-                    for (int b = nc - 2; b > me; --b) {
-                        off = off + *peer(m.xphi + j, b);
-                    }
-                    for (int kk = 0; kk < nl; ++kk) {
-                        phi[kk * Es2 + j] = off + phi[kk * Es2 + j];
-                    }
-                }
-            } else {
-                const int i = idx - Es2;
-                float above = 0.0f, tot = *peer(m.xflux + i, 0);
-                for (int b = 1; b < nc; ++b) {
-                    if (b == me) above = tot;
-                    tot = tot + *peer(m.xflux + i, b);
-                }
-                if (me > 0) {
-                    for (int kk = 0; kk < nl; ++kk) {
-                        cum[kk * E2 + i] = above + cum[kk * E2 + i];
-                    }
-                    m.xoff[i] = above;
-                }
-                const float dps = -tot * k.col.dsig;
-                col[3 * E2 + i] = dps * col[2 * E2 + i];
-                col[4 * E2 + i] = dps;
-            }
+        // dps from the flux summed over all L levels: the last block's
+        for (int i = threadIdx.x; i < E2; i += NT) {
+            const float dps =
+                -*peer(cum + (pt.nl_last - 1) * E2 + i, nc - 1) * k.col.dsig;
+            col[3 * E2 + i] = dps * col[2 * E2 + i];
+            col[4 * E2 + i] = dps;
         }
+        __syncthreads();
     }
-    __syncthreads();
 
     // 2: (column, run of levels) items, the surface as "level" nl of the
     //    last run: the tendency, then the next state and the accumulator,
@@ -519,7 +453,7 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
     const float c_n = kStage == 3 ? k.c_full : k.c_half;
     const int runs = k.runs[kStage - 1];
     const pe::Consts& kc = k.col;
-    for (int idx = threadIdx.x; idx < E2 * runs; idx += nt) {
+    for (int idx = threadIdx.x; idx < E2 * runs; idx += NT) {
         const int q = idx / E2, i = idx - q * E2;
         const int r = i / E, c = i - r * E;
         const int k0 = q * (nl + 1) / runs, k1 = (q + 1) * (nl + 1) / runs;
@@ -583,9 +517,11 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
                 v_hi = pa[FS];
                 T_hi = pa[2 * FS];
                 q_hi = pa[3 * FS];
-                sd_up = sigma_dot(lv0 + k0, dps_over_ps,
-                                  k0 > 0 ? cum[(k0 - 1) * E2 + i] : m.xoff[i],
-                                  inv_ps);
+                sd_up = sigma_dot(
+                    lv0 + k0, dps_over_ps,
+                    k0 > 0 ? cum[(k0 - 1) * E2 + i]
+                           : *peer(cum + (pt.nl_up - 1) * E2 + i, me - 1),
+                    inv_ps);
             }
         }
         for (int kl = k0; kl < k1; ++kl) {
@@ -665,7 +601,7 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
 }
 
 template <bool kHaloY, bool kHaloX, bool kCluster>
-__global__ void __launch_bounds__(NT_MAX, 1) pe_rk4_kernel(Ptrs p, Consts k) {
+__global__ void __launch_bounds__(NT, 1) pe_rk4_kernel(Ptrs p, Consts k) {
     extern __shared__ float smem[];
     const int nc = kCluster ? k.ncta : 1, L = k.L;
     const int lc = kCluster ? k.lc : L, T = k.tile;
@@ -675,16 +611,16 @@ __global__ void __launch_bounds__(NT_MAX, 1) pe_rk4_kernel(Ptrs p, Consts k) {
     pt.lv0 = pt.me * L / nc;
     pt.nl = (pt.me + 1) * L / nc - pt.lv0;
     pt.nl_up = pt.me > 0 ? pt.lv0 - (pt.me - 1) * L / nc : 0;
-    const int nt = blockDim.x;
+    pt.nl_last = L - (nc - 1) * L / nc;
     const int W = T + 2 * HALO, W2 = W * W;
     const size_t gP = static_cast<size_t>(p.ls.plane);
     const int tiles_x = (k.nx + T - 1) / T;
     const int t = blockIdx.x / nc;
     const int y0 = (t / tiles_x) * T, x0 = (t % tiles_x) * T;
-    for (int i = threadIdx.x; i < 2 * L; i += nt) m.levc[i] = p.levc[i];
+    for (int i = threadIdx.x; i < 2 * L; i += NT) m.levc[i] = p.levc[i];
     // the source region's offsets in s, then s on it (this block's 4 nl
     // levels and ps, the region's columns of a plane contiguous in S)
-    for (int idx = threadIdx.x; idx < W2; idx += nt) {
+    for (int idx = threadIdx.x; idx < W2; idx += NT) {
         const int r = idx / W, c = idx - (idx / W) * W;
         const int gy = column_index<kHaloY>(y0 - HALO + r, k.ny);
         const int gx = column_index<kHaloX>(x0 - HALO + c, k.nx);
@@ -699,7 +635,7 @@ __global__ void __launch_bounds__(NT_MAX, 1) pe_rk4_kernel(Ptrs p, Consts k) {
         const int nl = kCluster ? pt.nl : L, lv0 = kCluster ? pt.lv0 : 0;
         const int nplanes = 4 * nl + 1;
         const int step = W % 4 == 0 ? 4 : 1;
-        for (int u = threadIdx.x; u < nplanes * (W2 / step); u += nt) {
+        for (int u = threadIdx.x; u < nplanes * (W2 / step); u += NT) {
             const int q = u / (W2 / step), j = (u - q * (W2 / step)) * step;
             const int f = q < 4 * nl ? q / nl : 4;
             const int kl = q - f * nl;
@@ -730,14 +666,14 @@ __global__ void __launch_bounds__(NT_MAX, 1) pe_rk4_kernel(Ptrs p, Consts k) {
 }
 
 // Runs of levels per column in a stage over E x E columns, lc levels and
-// the surface, nt threads: the count that takes the fewest rounds of nt
+// the surface: the count that takes the fewest rounds of the block's NT
 // threads times levels per run, a run's setup counted as half a level.
-int level_runs(int lc, int E, int nt) {
+int level_runs(int lc, int E) {
     const long long E2 = static_cast<long long>(E) * E;
     int best = 1;
     long long best_cost = -1;
     for (int n = 1; n <= lc + 1; ++n) {
-        const long long rounds = (E2 * n + nt - 1) / nt;
+        const long long rounds = (E2 * n + NT - 1) / NT;
         const long long cost = rounds * (2 * ((lc + n) / n) + 1);
         if (best_cost < 0 || cost < best_cost) {
             best_cost = cost;
@@ -755,7 +691,7 @@ int allow_smem(size_t smem) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-cudaLaunchConfig_t launch_config(int blocks, int threads, size_t smem,
+cudaLaunchConfig_t launch_config(int blocks, size_t smem,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* cluster, int ncta) {
     cluster->id = cudaLaunchAttributeClusterDimension;
@@ -764,7 +700,7 @@ cudaLaunchConfig_t launch_config(int blocks, int threads, size_t smem,
     cluster->val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(threads);
+    cfg.blockDim = dim3(NT);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = cluster;
@@ -773,7 +709,7 @@ cudaLaunchConfig_t launch_config(int blocks, int threads, size_t smem,
 }
 
 template <bool kHaloY, bool kHaloX, bool kCluster>
-int launch(const Ptrs& p, const Consts& k, int threads, cudaStream_t stream) {
+int launch(const Ptrs& p, const Consts& k, cudaStream_t stream) {
     const size_t smem =
         static_cast<size_t>(4 * smem_floats(k.L, k.ncta, k.tile));
     const int err = allow_smem<kHaloY, kHaloX, kCluster>(smem);
@@ -785,7 +721,7 @@ int launch(const Ptrs& p, const Consts& k, int threads, cudaStream_t stream) {
     }
     cudaLaunchAttribute cluster;
     const cudaLaunchConfig_t cfg = launch_config(
-        static_cast<int>(tiles * k.ncta), threads, smem, stream, &cluster,
+        static_cast<int>(tiles * k.ncta), smem, stream, &cluster,
         k.ncta);
     const cudaError_t e =
         cudaLaunchKernelEx(&cfg, pe_rk4_kernel<kHaloY, kHaloX, kCluster>, p,
@@ -794,12 +730,9 @@ int launch(const Ptrs& p, const Consts& k, int threads, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_layout(int L, int ncta, int tile, int threads, int warp_scan) {
+bool valid_layout(int L, int ncta, int tile) {
     const bool pow2 = ncta == 1 || ncta == 2 || ncta == 4 || ncta == 8;
     return L >= 1 && tile >= 1 && pow2 && ncta <= NCTA_MAX && ncta <= L
-           && threads >= 32 && threads <= NT_MAX && threads % 32 == 0
-           && (warp_scan == 0 || (warp_scan == 1
-                                  && levels_per_block(L, ncta) <= 32))
            && 4 * smem_floats(L, ncta, tile) <= SMEM_MAX;
 }
 
@@ -815,9 +748,9 @@ extern "C" long long pe_rk4_smem_bytes(int L, int ncta, int tile) {
 // How many blocks of the kernel one SM of the current device holds at once
 // (into *blocks) and how many clusters the device runs at once (into
 // *clusters). Returns the CUDA error code.
-extern "C" int pe_rk4_occupancy(int L, int ncta, int tile, int threads,
-                                int* blocks, int* clusters) {
-    if (!valid_layout(L, ncta, tile, threads, 0)) {
+extern "C" int pe_rk4_occupancy(int L, int ncta, int tile, int* blocks,
+                                int* clusters) {
+    if (!valid_layout(L, ncta, tile)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t smem = static_cast<size_t>(4 * smem_floats(L, ncta, tile));
@@ -826,11 +759,11 @@ extern "C" int pe_rk4_occupancy(int L, int ncta, int tile, int threads,
     auto query = [&](auto kernel, int err) {
         if (err != 0) return err;
         err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, kernel, threads, smem));
+            blocks, kernel, NT, smem));
         if (err != 0) return err;
         cudaLaunchAttribute cluster;
         const cudaLaunchConfig_t cfg =
-            launch_config(ncta, threads, smem, nullptr, &cluster, ncta);
+            launch_config(ncta, smem, nullptr, &cluster, ncta);
         return static_cast<int>(
             cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
     };
@@ -842,9 +775,8 @@ extern "C" int pe_rk4_occupancy(int L, int ncta, int tile, int threads,
 }
 
 // Launch one step of the (L, ny, nx) interior on `stream`: a cluster of
-// `ncta` blocks of `threads` threads per tile x tile output tile, round 1
-// in its serial (warp_scan 0) or warp (1) form. s (u, v, T, q, ps, phi_s)
-// and out are each given as the base pointers of their fields and a
+// `ncta` blocks per tile x tile output tile. s (u, v, T, q, ps, phi_s) and
+// out are each given as the base pointers of their fields and a
 // layout: row pitch, plane pitch of the 3-D fields, origin (row, column)
 // of the interior. halo_y, halo_x: 1 where s holds at least HALO rows
 // (columns) of neighbour data around the interior, 0 where that axis
@@ -858,40 +790,36 @@ extern "C" int pe_rk4_launch(
     long long s_plane, int s_oy, int s_ox,
     float* ou, float* ov, float* oT, float* oq, float* ops,
     long long out_pitch, long long out_plane,
-    const float* levc, int ncta, int tile, int threads, int warp_scan,
+    const float* levc, int ncta, int tile,
     int L, int ny, int nx, int halo_y, int halo_x,
     float cx, float cy, float f, float dsig, float r_dry, float kappa,
     float phibot, float c_half, float c_full, float third, float sixth,
     int stages, void* stream) {
-    if (!valid_layout(L, ncta, tile, threads, warp_scan) || ny < 1 || nx < 1
+    if (!valid_layout(L, ncta, tile) || ny < 1 || nx < 1
         || stages < 1 || stages > 4) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int lc = levels_per_block(L, ncta);
-    int seg = 1;
-    while (seg < lc) seg *= 2;
     const Ptrs p{{u, v, T, q, ps}, phi_s, {ou, ov, oT, oq, ops}, levc,
                  {s_pitch, s_plane, s_oy, s_ox}, {out_pitch, out_plane, 0, 0}};
     const Consts k{{cx, cy, f, dsig, r_dry, kappa, phibot}, c_half, c_full,
-                   third, sixth, L, ny, nx, tile, ncta, lc, warp_scan, seg,
+                   third, sixth, L, ny, nx, tile, ncta, lc,
                    stages,
-                   {level_runs(lc, tile + 6, threads),
-                    level_runs(lc, tile + 4, threads),
-                    level_runs(lc, tile + 2, threads),
-                    level_runs(lc, tile, threads)}};
+                   {level_runs(lc, tile + 6), level_runs(lc, tile + 4),
+                    level_runs(lc, tile + 2), level_runs(lc, tile)}};
     const auto st = static_cast<cudaStream_t>(stream);
     const bool c = ncta > 1;
     if (!halo_y && !halo_x) {
-        return c ? launch<false, false, true>(p, k, threads, st)
-                 : launch<false, false, false>(p, k, threads, st);
+        return c ? launch<false, false, true>(p, k, st)
+                 : launch<false, false, false>(p, k, st);
     }
     if (halo_y && !halo_x) {
-        return c ? launch<true, false, true>(p, k, threads, st)
-                 : launch<true, false, false>(p, k, threads, st);
+        return c ? launch<true, false, true>(p, k, st)
+                 : launch<true, false, false>(p, k, st);
     }
     if (halo_y && halo_x) {
-        return c ? launch<true, true, true>(p, k, threads, st)
-                 : launch<true, true, false>(p, k, threads, st);
+        return c ? launch<true, true, true>(p, k, st)
+                 : launch<true, true, false>(p, k, st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }

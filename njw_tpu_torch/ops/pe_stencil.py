@@ -17,7 +17,7 @@ whole-step kernel keeps a tile's stage states and RK4 accumulator in
 shared memory, the levels split over a cluster of up to eight blocks
 (``rk4_layout``: tile 8 up to L = 168, smaller tiles past it); it fits
 while a one-column tile over eight blocks does (``pe_rk4_kernel_fits``,
-L <= 680). The RK4 stepper's auto choice is the four stage launches: the
+L <= 688). The RK4 stepper's auto choice is the four stage launches: the
 H100 timed the whole-step kernel slower at every L timed (PERF.md);
 ``whole_step=True`` takes it.
 
@@ -69,7 +69,7 @@ _STAGE_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 * MAX_BASES
                    + [_I] + [_F] * MAX_BASES + [_P] * 5 + [_L, _L] + [_P]
                    + [_I] * 5 + [_F] * 8 + [_P])
 _RK4_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 + [_L, _L]
-                 + [_P] + [_I] * 9 + [_F] * 11 + [_I, _P])
+                 + [_P] + [_I] * 7 + [_F] * 11 + [_I, _P])
 NO_HALO = (0, 0)             # the whole periodic domain: both axes wrap
 
 
@@ -394,14 +394,11 @@ def _plain_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
 
 class Rk4Layout(NamedTuple):
     """How the whole-step kernel cuts its work (csrc/pe_rk4.cu): ``ncta``
-    blocks per cluster, splitting the levels; the output ``tile`` edge;
-    ``threads`` per block; round 1's level sums serial per column (0) or a
-    warp-shuffle scan per column (1)."""
+    blocks per cluster, splitting the levels, and the output ``tile``
+    edge."""
 
     ncta: int
     tile: int
-    threads: int = RK4_THREADS
-    warp_scan: int = 0
 
 
 def rk4_smem_bytes(levels: int, tile: int, ncta: int = 1) -> int:
@@ -412,21 +409,19 @@ def rk4_smem_bytes(levels: int, tile: int, ncta: int = 1) -> int:
     and the accumulator on T^2, 4 lc + 1 planes each; s2 on (T+4)^2, or
     stage 1's auxiliaries where they are larger (phi on (T+8)^2 and cum on
     (T+6)^2, lc planes each, and five per-column planes on (T+6)^2); the
-    (T+8)^2 source offsets; the exchange ((T+8)^2 + 2 (T+6)^2); the 2L
-    level constants."""
+    (T+8)^2 source offsets; the 2L level constants."""
     lc, T = -(-levels // ncta), tile
     F = 4 * lc + 1
     a, b, w = (T + 6) ** 2, (T + 4) ** 2, (T + 8) ** 2
     aux1 = lc * (w + a) + RK4_NCOL * a
-    return 4 * (F * (w + a + T * T) + max(F * b, aux1) + 2 * w + 2 * a
-                + 2 * levels)
+    return 4 * (F * (w + a + T * T) + max(F * b, aux1) + w + 2 * levels)
 
 
 def rk4_layout(levels: int) -> Optional[Rk4Layout]:
     """The whole-step kernel's layout at ``levels``: the smallest cluster
     (1, 2, 4, 8 blocks) whose blocks hold tile RK4_TILE_MAX with at most
     RK4_LEVELS_PER_BLOCK levels each; past that, 8 blocks and the largest
-    tile that fits (None where none does, L > 680)."""
+    tile that fits (None where none does, L > 688)."""
     if levels < 1:
         return None
     for ncta in RK4_CLUSTERS:
@@ -443,7 +438,7 @@ def rk4_layout(levels: int) -> Optional[Rk4Layout]:
 
 def pe_rk4_kernel_fits(levels: int) -> bool:
     """The whole-step kernel holds a tile of ``levels`` in the shared
-    memory of a cluster (L <= 680: a one-column tile over 8 blocks)."""
+    memory of a cluster (L <= 688: a one-column tile over 8 blocks)."""
     return rk4_layout(levels) is not None
 
 
@@ -456,7 +451,7 @@ def _rk4_layout_arg(levels: int, layout: Optional[Rk4Layout],
         layout = rk4_layout(levels)
         if layout is None:
             raise ValueError(f"{name}: {levels} levels do not fit the "
-                             "whole-step kernel (L <= 680)")
+                             "whole-step kernel (L <= 688)")
         return layout
     layout = Rk4Layout(*layout)
     need = rk4_smem_bytes(levels, layout.tile, layout.ncta)
@@ -505,12 +500,12 @@ def rk4_occupancy(levels: int, layout: Rk4Layout, index: int) -> tuple:
     holds at once, clusters the device runs at once) at ``layout`` (the
     occupancy queries of csrc/pe_rk4.cu)."""
     fn = _build.load("pe_rk4").pe_rk4_occupancy
-    fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
+    fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2
     fn.restype = ctypes.c_int
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = fn(levels, layout.ncta, layout.tile, layout.threads,
-                 ctypes.byref(blocks), ctypes.byref(clusters))
+        err = fn(levels, layout.ncta, layout.tile, ctypes.byref(blocks),
+                 ctypes.byref(clusters))
     _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
               "pe_rk4 occupancy")
     return blocks.value, clusters.value

@@ -26,7 +26,7 @@ As in the JAX package: periodic BC and a numeric f only
 form; the fused 2-D form falls back to the stage path where the
 whole-step kernel does not fit (here ``pe_rk4_kernel_fits``, the port's
 own rule: a one-column tile of L levels in the shared memory of a cluster
-of eight blocks, L <= 680). The fused steppers take K4 wherever it fits,
+of eight blocks, L <= 688). The fused steppers take K4 wherever it fits,
 as a user who names them asks (the whole-domain auto choice takes the
 stage path, which the H100 timed faster). Beyond it: beta must be 0 and, for PE, viscosity 0 (the JAX
 sharded kernel paths drop both without a word), and the SWE paths apply

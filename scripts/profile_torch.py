@@ -24,10 +24,9 @@ the card's name and power limit:
   * primitive ``layouts``: the whole-step kernel K4 alone at config 4
     (the main path's shape) and config 5 (2048^2 x 40): its parts (the
     first 1, 2, 3 and 4 stages run alone), every layout worth timing
-    (blocks per cluster, tile, threads, the serial or warp-scan level
-    sums) with its blocks per SM and clusters on the card, its shared
-    memory and ptxas report, beside the four-stage path's ms/step (CUDA
-    events); ``levels_sweep``: ms/step on K4 (the rule's layout) and on
+    (blocks per cluster, tile) with its blocks per SM and
+    clusters on the card, its shared memory and ptxas report, beside the
+    four-stage path's ms/step (CUDA events); ``levels_sweep``: ms/step on K4 (the rule's layout) and on
     the stage path at 512^2 for L from 8 to 454; and ``levels_accuracy``:
     K4 against its plain version by L on chip_smoke.py's limit case
     (37 x 23, flat and with terrain), beside chip_smoke.py's gate;
@@ -59,10 +58,10 @@ from njw_tpu_torch.weather.main_paths import (  # noqa: E402
     MAIN_PATHS, VARIANT_PATHS,
 )
 
-SWEEP_LEVELS = (8, 16, 20, 21, 22, 30, 40, 42, 43, 64, 84, 85, 120, 168, 227,
-                454)
+SWEEP_LEVELS = (8, 16, 20, 21, 22, 30, 40, 42, 43, 64, 84, 85, 120, 128, 144,
+                160, 168, 192, 227, 256, 300, 340, 454)
 ACCURACY_LEVELS = (20, 40, 87, 120, 168, 200, 227, 300, 340, 400, 454, 560,
-                   680)
+                   688)
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
                 "pe_rk4_kernel", "band_kernel")
 
@@ -212,9 +211,7 @@ def swe_extras(steps: int, gpu: str) -> None:
 
 def _k4_layouts(levels: int) -> list:
     """The whole-step kernel's layouts worth timing at ``levels``: each
-    cluster size with the largest tile that fits, 512 and 256 threads,
-    both forms of the level sums (the warp form where a block holds at
-    most 32 levels)."""
+    cluster size with the largest tile that fits."""
     from njw_tpu_torch.ops import pe_stencil as ps
 
     out = []
@@ -226,11 +223,7 @@ def _k4_layouts(levels: int) -> list:
                      <= ps.SMEM_PER_BLOCK), None)
         if tile is None:
             continue
-        for threads in (512, 256):
-            for warp in (0, 1):
-                if warp and -(-levels // ncta) > 32:
-                    continue
-                out.append(ps.Rk4Layout(ncta, tile, threads, warp))
+        out.append(ps.Rk4Layout(ncta, tile))
     return out
 
 

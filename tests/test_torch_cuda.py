@@ -220,20 +220,20 @@ class TestStageKernelsOnCard:
 
     # layout None: the rule's (rk4_layout: one block, tile 8 up to L = 21;
     # a cluster of two at L = 40; eight blocks past L = 84, tile 1 at the
-    # limit L = 680); others as (blocks per cluster, tile, threads, warp
-    # scan); ragged tiles in both axes
+    # limit L = 688); others as (blocks per cluster, tile); ragged tiles in
+    # both axes
     @pytest.mark.parametrize("L,ny,nx,terrain,layout", [
         (20, 128, 96, False, None), (5, 200, 328, True, None),
         (2, 3, 5, False, None), (4, 64, 48, True, (1, 3)),
         (6, 70, 90, False, (1, 16)), (20, 33, 47, True, (1, 5)),
         (40, 37, 50, True, None), (40, 45, 29, False, (1, 3)),
         (87, 11, 13, False, None), (87, 9, 14, True, None),
-        (20, 128, 96, False, (1, 8, 512, 1)),
-        (20, 33, 47, True, (2, 8, 512, 1)),
-        (20, 40, 36, True, (4, 8, 256, 0)),
-        (40, 37, 50, True, (2, 8, 256, 1)),
-        (40, 29, 45, False, (8, 8, 512, 1)),
-        (227, 19, 23, True, None), (680, 11, 9, False, None)])
+        (20, 128, 96, False, (2, 8)),
+        (20, 33, 47, True, (2, 8)),
+        (20, 40, 36, True, (4, 8)),
+        (40, 37, 50, True, (4, 5)),
+        (40, 29, 45, False, (8, 8)),
+        (227, 19, 23, True, None), (688, 11, 9, False, None)])
     def test_pe_rk4_kernel_matches_plain_version(self, cuda_device, L, ny,
                                                  nx, terrain, layout):
         from njw_tpu_torch.ops.pe_stencil import Rk4Layout
@@ -254,7 +254,7 @@ class TestStageKernelsOnCard:
                                        msg=name)
 
     @pytest.mark.parametrize("L", [2, 20, 21, 22, 40, 44, 68, 87, 168, 169,
-                                   680])
+                                   688])
     def test_pe_rk4_shared_memory_rule_matches_the_built_kernel(
             self, cuda_device, L):
         from njw_tpu_torch.ops.pe_stencil import (
@@ -277,13 +277,12 @@ class TestStageKernelsOnCard:
         with pytest.raises(ValueError, match="shared memory"):
             pe_rk4_step_cuda(s, grid=grid, dt=60.0, layout=Rk4Layout(1, 5))
 
-    @pytest.mark.parametrize("layout", [(3, 8), (2, 8, 500), (2, 8, 1024),
-                                        (2, 8, 512, 2), (8, 1, 512, 1)])
+    @pytest.mark.parametrize("layout", [(3, 8), (16, 8), (6, 8), (2, 0),
+                                        (64, 1)])
     def test_pe_rk4_kernel_refuses_a_bad_layout(self, cuda_device, layout):
-        # 3 blocks a cluster; threads not a multiple of 32 or over 512; no
-        # such level-sum form; the warp form with 85 levels a block
+        # 3, 16 or 6 blocks a cluster; no tile; more blocks than levels
         from njw_tpu_torch.ops.pe_stencil import Rk4Layout
-        L = 680 if layout[0] == 8 else 40
+        L = 40
         grid = GridSpec(nx=16, ny=16, levels=L, dx=1e5, dy=1e5)
         s = _pe_state(L, 16, 16, 1, cuda_device)
         with pytest.raises(RuntimeError, match="invalid argument"):

@@ -349,35 +349,34 @@ class TestWholeStep:
 
     def test_fits_predicate(self):
         # a one-column tile over a cluster of 8 blocks: ceil(L/8) levels a
-        # block, 4 (341 x 131 + 11,295 + 260 + 2L) B = 230,344 at L = 680,
-        # 232,968 at L = 681 (over the 232,448 a block may have)
-        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(680)
-        assert not pe_rk4_kernel_fits(681) and not pe_rk4_kernel_fits(0)
+        # block, 4 (345 x 131 + 11,425 + 81 + 2L) B = 232,308 at L = 688,
+        # 234,932 at L = 689 (over the 232,448 a block may have)
+        assert pe_rk4_kernel_fits(20) and pe_rk4_kernel_fits(688)
+        assert not pe_rk4_kernel_fits(689) and not pe_rk4_kernel_fits(0)
         assert pe_rk4_kernel_fits(40) and pe_rk4_kernel_fits(2)
         assert pe_rk4_kernel_fits(227) and pe_rk4_kernel_fits(454)
 
     @pytest.mark.parametrize("L,tile,ncta,want", [
         # with lc = ceil(L / ncta) and F = 4 lc + 1:
         # F ((T+8)^2 + (T+6)^2 + T^2) + max(F (T+4)^2, lc ((T+8)^2 +
-        # (T+6)^2) + 5 (T+6)^2) + 2 (T+8)^2 + 2 (T+6)^2 + 2L words, worked
-        # out by hand
-        (20, 8, 1, 4 * (81 * 516 + 81 * 144 + 904 + 40)),          # 217,616
-        (40, 8, 2, 4 * (81 * 516 + 81 * 144 + 904 + 80)),          # 217,776
-        (40, 4, 1, 4 * (161 * 260 + 161 * 64 + 488 + 80)),         # 210,928
-        (40, 8, 1, 4 * (161 * 516 + 161 * 144 + 904 + 80)),        # 428,976
-        (168, 8, 8, 4 * (85 * 516 + 85 * 144 + 904 + 336)),        # 229,360
-        (169, 8, 8, 4 * (89 * 516 + 89 * 144 + 904 + 338)),        # 239,928
-        (680, 1, 8, 4 * (341 * 131 + 85 * 130 + 245 + 260 + 1360)),  # 230,344
-        (681, 1, 8, 4 * (345 * 131 + 86 * 130 + 245 + 260 + 1362)),  # 232,968
-        (2, 16, 1, 4 * (9 * 1316 + 2 * 1060 + 2420 + 2120 + 4))])  # 88,776
+        # (T+6)^2) + 5 (T+6)^2) + (T+8)^2 + 2L words, worked out by hand
+        (20, 8, 1, 4 * (81 * 516 + 81 * 144 + 256 + 40)),          # 215,024
+        (40, 8, 2, 4 * (81 * 516 + 81 * 144 + 256 + 80)),          # 215,184
+        (40, 4, 1, 4 * (161 * 260 + 161 * 64 + 144 + 80)),         # 209,552
+        (40, 8, 1, 4 * (161 * 516 + 161 * 144 + 256 + 80)),        # 426,384
+        (168, 8, 8, 4 * (85 * 516 + 85 * 144 + 256 + 336)),        # 226,768
+        (169, 8, 8, 4 * (89 * 516 + 89 * 144 + 256 + 338)),        # 237,336
+        (688, 1, 8, 4 * (345 * 131 + 86 * 130 + 245 + 81 + 1376)),  # 232,308
+        (689, 1, 8, 4 * (349 * 131 + 87 * 130 + 245 + 81 + 1378)),  # 234,932
+        (2, 16, 1, 4 * (9 * 1316 + 2 * 1060 + 2420 + 576 + 4))])   # 67,856
     def test_shared_memory_by_hand(self, L, tile, ncta, want):
         assert rk4_smem_bytes(L, tile, ncta) == want
 
     @pytest.mark.parametrize("L,ncta,tile", [
         (1, 1, 8), (2, 1, 8), (20, 1, 8), (21, 1, 8), (22, 2, 8),
         (40, 2, 8), (42, 2, 8), (43, 4, 8), (84, 4, 8), (85, 8, 8),
-        (168, 8, 8), (169, 8, 7), (227, 8, 6), (454, 8, 2), (680, 8, 1),
-        (681, None, None), (0, None, None)])
+        (168, 8, 8), (169, 8, 7), (227, 8, 6), (454, 8, 2), (688, 8, 1),
+        (689, None, None), (0, None, None)])
     def test_tile_choice(self, L, ncta, tile):
         # the smallest cluster whose blocks hold tile 8 with at most 21
         # levels each; past it 8 blocks and the largest tile that fits
@@ -385,7 +384,7 @@ class TestWholeStep:
         if ncta is None:
             assert layout is None
             return
-        assert layout == Rk4Layout(ncta, tile, 512, 0)
+        assert layout == Rk4Layout(ncta, tile)
         assert rk4_smem_bytes(L, tile, ncta) <= SMEM_PER_BLOCK
         assert -(-L // ncta) <= RK4_LEVELS_PER_BLOCK or ncta == 8
         smaller = RK4_CLUSTERS[:RK4_CLUSTERS.index(ncta)]
@@ -395,8 +394,8 @@ class TestWholeStep:
 
     @pytest.mark.parametrize("L,layout,match", [
         (20, (1, 9), "shared memory"), (40, (1, 5), "shared memory"),
-        (40, (1, 8, 256, 1), "shared memory"), (169, (8, 8), "shared memory"),
-        (681, None, "do not fit"), (0, None, "do not fit")])
+        (40, (1, 6), "shared memory"), (169, (8, 8), "shared memory"),
+        (689, None, "do not fit"), (0, None, "do not fit")])
     def test_tile_refusals(self, L, layout, match):
         with pytest.raises(ValueError, match=match):
             _rk4_layout_arg(L, None if layout is None else Rk4Layout(*layout),
@@ -404,7 +403,7 @@ class TestWholeStep:
 
     @pytest.mark.parametrize("L,layout", [
         (20, None), (20, (1, 6)), (40, (1, 3)), (6, (1, 16)),
-        (40, (4, 8, 256, 1)), (680, None)])
+        (40, (4, 8)), (688, None)])
     def test_tile_accepted(self, L, layout):
         want = rk4_layout(L) if layout is None else Rk4Layout(*layout)
         got = _rk4_layout_arg(
@@ -412,7 +411,7 @@ class TestWholeStep:
         assert got == want
 
     def test_padded_form_refuses_levels_the_kernel_does_not_hold(self):
-        grid = GridSpec(nx=12, ny=12, levels=681, dx=1e5, dy=1e5)
+        grid = GridSpec(nx=12, ny=12, levels=689, dx=1e5, dy=1e5)
         s = tp.pe_initial_state(grid, device=CPU)
         with pytest.raises(ValueError, match="do not fit"):
             pe_rk4_padded_plain(s, halo=(4, 4), dt=1.0)
@@ -446,7 +445,7 @@ class TestStepper:
         _, got = st.step(st.init(ts), ts, None)
         _assert_fields(got, want, 1e-5, 1e-4)
 
-    @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88, 227, 681])
+    @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88, 227, 689])
     def test_auto_choice_is_the_stage_path(self, levels):
         """whole_step None takes the four stage launches at every L: the
         H100 timed the whole-step kernel slower at every L timed."""
