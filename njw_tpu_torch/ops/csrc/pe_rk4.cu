@@ -57,7 +57,7 @@
 // T = 4 at most (209,552 B; 3.4x halo recompute and 9x region loads per
 // output column); a cluster of two holds T = 8 (lc = 20, 215,184 B a
 // block). Of the three ways to serve L = 40, the H100 timed this cluster
-// faster than the one-block tile 4 (1.6x) and than PR 2's design, and
+// faster than the one-block tile 4 (1.5x) and than PR 2's design, and
 // slower than the stage path, which the stepper's auto choice takes there
 // (PERF.md). The wrapper's rule (rk4_layout) takes the smallest C that
 // keeps T = 8 with at most RK4_LEVELS_PER_BLOCK = 21 levels a block (more
@@ -77,12 +77,14 @@
 //      and block t carries the flux sum down from the previous block's
 //      last level, so each sum is one sequential chain over the L levels
 //      whatever C is; then each block takes dps from the last block's
-//      total. Summed in any other order, phi (about 5e5 at L = 680, one
-//      ulp 0.06) moved u by 2e-4 in a step, over the 1e-4 the kernel is
-//      held to; a warp-shuffle scan per column (a lane per level, log2
-//      steps) was also timed 2.1-2.3x slower than the serial walk at
-//      configs 4 and 5 (PERF.md): it runs one column a warp where the
-//      walk runs a whole region's columns in one round of threads;
+//      total. A block works in two of the C turns and waits in the rest
+//      (at C = 8 K4 timed 2-5x the stage path, PERF.md). Summed in any
+//      other order, phi (about 5e5 at L = 680, one ulp 0.06) moved u by
+//      2e-4 in a step, over the 1e-4 the kernel is held to; a warp-shuffle
+//      scan per column (a lane per level, log2 steps) was also timed
+//      2.1-2.3x slower than the serial walk at configs 4 and 5 (PERF.md):
+//      it runs one column a warp where the walk runs a whole region's
+//      columns in one round of threads;
 //   2. (column, run of levels) items over the block's levels, the runs
 //      sized per stage so that the rounds of the block's threads times the
 //      levels of a run are fewest (level_runs); a thread walks its run
@@ -104,8 +106,8 @@
 // and none through a register: 16 B where four columns of a row lie
 // together in s and are 16 B aligned (the interior tiles of an aligned
 // view), else 4 B a column. With a one-block instantiation free of the
-// exchange code (106 registers against 127), this took config 4 from 1.22
-// to 1.00 ms. A block has no room to bring the next tile's region in
+// cluster code (fewer registers), this took config 4 from 1.22 to 1.00 ms
+// (PERF.md). A block has no room to bring the next tile's region in
 // while it computes (83 KB at L = 20, T = 8, and S holds the auxiliaries
 // of stages 2-4), so a load overlaps compute only across resident blocks;
 // two blocks an SM (256 threads, the levels split over more blocks) timed
@@ -360,9 +362,11 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
                     ph = __fadd_rn(__fmul_rn(k.col.phibot, Tk),
                                    surface_phi<kStage>(p, m, j, Es, W));
                 } else {
+                    // the next block's first level: its phi and T
+                    const float Tn = *peer(Tj, me + 1);
                     ph = __fadd_rn(*peer(phi + j, me + 1),
                                    __fmul_rn(m.levc[lv0 + nl],
-                                             __fadd_rn(Tk, *peer(Tj, me + 1))));
+                                             __fadd_rn(Tk, Tn)));
                 }
                 phi[(nl - 1) * Es2 + j] = ph;
                 for (int k0 = nl - 1; k0 > 0; k0 -= U) {
@@ -377,8 +381,8 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
                     for (int u = 0; u < U; ++u) {
                         const int kk = k0 - u;
                         if (kk > 0) {
-                            ph = __fadd_rn(ph, __fmul_rn(tc[u],
-                                                         __fadd_rn(th[u], Tk)));
+                            const float t = __fadd_rn(th[u], Tk);
+                            ph = __fadd_rn(ph, __fmul_rn(tc[u], t));
                             phi[(kk - 1) * Es2 + j] = ph;
                             Tk = th[u];
                         }
@@ -406,15 +410,16 @@ __device__ __forceinline__ void run_stage(const Ptrs& p, const Consts& k,
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
                         const int o = (k0 + u) * Es2;
-                        fd[u] = k0 + u < nl
-                            ? __fadd_rn(
-                                __fmul_rn(__fsub_rn(__fmul_rn(psE, pu[o + 1]),
-                                                    __fmul_rn(psW, pu[o - 1])),
-                                          cx),
-                                __fmul_rn(__fsub_rn(__fmul_rn(psN, pv[o + Es]),
-                                                    __fmul_rn(psS, pv[o - Es])),
-                                          cy))
-                            : 0.0f;
+                        if (k0 + u >= nl) {
+                            fd[u] = 0.0f;
+                            continue;
+                        }
+                        const float fx = __fsub_rn(__fmul_rn(psE, pu[o + 1]),
+                                                   __fmul_rn(psW, pu[o - 1]));
+                        const float fy = __fsub_rn(__fmul_rn(psN, pv[o + Es]),
+                                                   __fmul_rn(psS, pv[o - Es]));
+                        fd[u] = __fadd_rn(__fmul_rn(fx, cx),
+                                          __fmul_rn(fy, cy));
                     }
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
@@ -714,8 +719,9 @@ int launch(const Ptrs& p, const Consts& k, cudaStream_t stream) {
         static_cast<size_t>(4 * smem_floats(k.L, k.ncta, k.tile));
     const int err = allow_smem<kHaloY, kHaloX, kCluster>(smem);
     if (err != 0) return err;
-    const long long tiles = static_cast<long long>((k.ny + k.tile - 1) / k.tile)
-                            * ((k.nx + k.tile - 1) / k.tile);
+    const long long tiles =
+        static_cast<long long>((k.ny + k.tile - 1) / k.tile)
+        * ((k.nx + k.tile - 1) / k.tile);
     if (tiles * k.ncta > 0x7fffffffLL) {
         return static_cast<int>(cudaErrorInvalidValue);
     }

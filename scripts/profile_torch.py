@@ -24,12 +24,13 @@ the card's name and power limit:
   * primitive ``layouts``: the whole-step kernel K4 alone at config 4
     (the main path's shape) and config 5 (2048^2 x 40): its parts (the
     first 1, 2, 3 and 4 stages run alone), every layout worth timing
-    (blocks per cluster, tile) with its blocks per SM and
-    clusters on the card, its shared memory and ptxas report, beside the
-    four-stage path's ms/step (CUDA events); ``levels_sweep``: ms/step on K4 (the rule's layout) and on
-    the stage path at 512^2 for L from 8 to 454; and ``levels_accuracy``:
-    K4 against its plain version by L on chip_smoke.py's limit case
-    (37 x 23, flat and with terrain), beside chip_smoke.py's gate;
+    (blocks per cluster, tile) with its blocks per SM and clusters on the
+    card, its shared memory and ptxas report, beside the four-stage
+    path's ms/step (CUDA events); ``levels_sweep``: ms/step on K4 (the
+    rule's layout) and on the stage path at 512^2 for L from 8 to 454;
+    and ``levels_accuracy``: K4 against its plain version by L on
+    chip_smoke.py's limit case (37 x 23, flat and with terrain), beside
+    chip_smoke.py's gate;
   * fir ``profile``: the fir_batch path of
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
