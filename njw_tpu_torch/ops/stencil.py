@@ -24,6 +24,13 @@ Launch counters: ``swe_rk4_step_cuda.launches`` (K1, float32, every form),
 ``swe_rk4_step_cuda.bf16_launches`` (K1-bf16) and
 ``swe_rk4_multistep_cuda.launches`` (K2).
 
+Block layouts: ``SweLayout`` (output tile, rows of the region per thread,
+blocks per SM). ``swe_layouts`` lists the ones the source builds for each
+form and ``swe_layout`` gives the rule every launch takes unless a
+``layout=`` names another built one; ``SweLayout.smem_bytes`` and
+``.threads`` mirror the source, and ``swe_kernel_attributes`` reads the
+built kernel's (the card tests hold the two equal).
+
 The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
 ``_carry``, ``_local2d``) have their counterparts here too:
 ``swe_rk4_step_local``, ``swe_rk4_step_carry`` and ``swe_rk4_step_local2d``,
@@ -36,7 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import numbers
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,8 +54,103 @@ from njw_tpu_torch.weather.integrators import Stepper
 
 Fields = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 HALO = 4  # rows (columns) of halo the kernel reads: one per chained stage
+SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
+MAX_THREADS = 1024           # threads a block may have
 # the JAX package's variant names; the last two take the bf16 tendency
 VARIANTS = ("slices", "base", "folded", "bf16", "bf16s")
+
+
+class SweLayout(NamedTuple):
+    """A block layout of csrc/swe_rk4.cu: a ``tx`` x ``ty`` output tile,
+    ``rows`` rows of the tile's region per thread (each thread keeps a run
+    of one column), the ``blocks`` per SM its register cap is set for
+    (``__launch_bounds__``), and ``dense``: 1 where every point of a run is
+    computed at every stage, 0 where only the stage's valid region is."""
+
+    tx: int
+    ty: int
+    rows: int
+    blocks: int
+    dense: int = 0
+
+    def region(self, n_steps: int) -> tuple[int, int]:
+        """(rows, columns) of the region: the tile and 4 halo points per
+        side and step."""
+        return self.ty + 2 * HALO * n_steps, self.tx + 2 * HALO * n_steps
+
+    def threads(self, n_steps: int) -> int:
+        py, px = self.region(n_steps)
+        return px * (py // self.rows)
+
+    def smem_bytes(self, n_steps: int) -> int:
+        """Four (u, v, h) float32 region buffers: s of this tile and of the
+        next, and two stage states."""
+        py, px = self.region(n_steps)
+        return 4 * 3 * 4 * py * px
+
+
+# The layouts csrc/swe_rk4.cu builds (its Step1 and Step2 lists), by steps
+# per launch; the first of each is the rule, and the bf16 and padded forms
+# build it alone. scripts/profile_torch.py times every one at 2048^2.
+_BUILT = {
+    1: (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 24, 4, 2, 1),
+        SweLayout(56, 32, 4, 1, 0), SweLayout(56, 32, 4, 1, 1),
+        SweLayout(56, 40, 4, 1, 0), SweLayout(56, 40, 4, 1, 1),
+        SweLayout(56, 56, 8, 1, 0), SweLayout(56, 56, 8, 1, 1),
+        SweLayout(56, 32, 5, 1, 0), SweLayout(120, 24, 4, 1, 0),
+        SweLayout(24, 24, 4, 3, 0)),
+    2: (SweLayout(48, 48, 8, 1, 0), SweLayout(48, 48, 8, 1, 1),
+        SweLayout(48, 32, 6, 1, 0), SweLayout(48, 32, 6, 1, 1),
+        SweLayout(48, 24, 4, 1, 0)),
+}
+_BF16 = (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 40, 4, 1, 1),
+         SweLayout(56, 32, 4, 1, 1))
+_PADDED = (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 40, 4, 1, 1))
+
+
+def swe_layouts(n_steps: int = 1, bf16: bool = False,
+                padded: bool = False) -> tuple[SweLayout, ...]:
+    """The layouts the kernel is built with for a form: ``n_steps`` per
+    launch, the bf16 tendency, a padded block. The first is the rule."""
+    if n_steps not in _BUILT:
+        raise ValueError(f"n_steps must be 1 or 2, got {n_steps}")
+    if n_steps == 1 and bf16:
+        return _BF16
+    return _PADDED if n_steps == 1 and padded else _BUILT[n_steps]
+
+
+def swe_layout(n_steps: int = 1, bf16: bool = False) -> SweLayout:
+    """The rule: the layout a launch of the form takes unless told
+    otherwise, the fastest the H100 timed at 2048^2 (PERF.md)."""
+    return swe_layouts(n_steps, bf16)[0]
+
+
+def swe_layout_arg(layout, n_steps: int = 1, bf16: bool = False,
+                   padded: bool = False) -> SweLayout:
+    """``layout``, or the rule's when None. Refuses, with ValueError, a
+    layout that does not tile its region (a tile width that is not a
+    multiple of 4, a region width that is not whole warps, a region height
+    that is not whole runs), that does not fit a block (threads, shared
+    memory), or that the kernel is not built with for the form."""
+    if layout is None:
+        return swe_layout(n_steps, bf16)
+    lay = SweLayout(*(int(x) for x in layout))
+    py, px = lay.region(n_steps)
+    if min(lay[:4]) < 1 or lay.tx % 4 or px % 32 or py % lay.rows:
+        raise ValueError(f"swe_rk4: {lay} does not tile its {py}x{px} "
+                         "region (tx % 4, columns % 32, rows % run)")
+    if lay.threads(n_steps) > MAX_THREADS:
+        raise ValueError(f"swe_rk4: {lay} needs {lay.threads(n_steps)} "
+                         f"threads, more than the {MAX_THREADS} a block may "
+                         "have")
+    if lay.smem_bytes(n_steps) > SMEM_PER_BLOCK:
+        raise ValueError(f"swe_rk4: {lay} needs {lay.smem_bytes(n_steps)} B "
+                         f"of shared memory, more than the {SMEM_PER_BLOCK} "
+                         "a block may have")
+    if lay not in swe_layouts(n_steps, bf16, padded):
+        raise ValueError(f"swe_rk4: {lay} is not built for this form; built:"
+                         f" {list(swe_layouts(n_steps, bf16, padded))}")
+    return lay
 
 
 def _is_bf16(variant: str) -> bool:
@@ -166,14 +268,17 @@ def _refuse_host(name: str, ins: Fields, out: Optional[Fields]) -> None:
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
                       gravity: float = 9.81, coriolis_f: float = 0.0,
                       viscosity: float = 0.0, variant: str = "slices",
-                      out: Optional[Fields] = None) -> Fields:
+                      out: Optional[Fields] = None,
+                      layout: Optional[SweLayout] = None) -> Fields:
     """Launch the CUDA kernel on the current stream. Refuses any tensor that
-    is not on a CUDA device. ``swe_rk4_step_cuda.launches`` counts the
-    float32 launches of every form (whole-domain and padded),
+    is not on a CUDA device, and a ``layout`` (``swe_layout_arg``) other
+    than a built one (the rule's when None). ``swe_rk4_step_cuda.launches``
+    counts the float32 launches of every form (whole-domain and padded),
     ``swe_rk4_step_cuda.bf16_launches`` those of the bf16 variant."""
+    layout = swe_layout_arg(layout, 1, _is_bf16(variant))
     _refuse_host("swe_rk4_step_cuda", (u, v, h), out)
     return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 viscosity, variant)
+                 viscosity, variant, layout=layout)
 
 
 def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
@@ -189,10 +294,12 @@ def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
 
 
 def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
-          variant: str = "slices", n_fused: Optional[int] = None) -> Fields:
+          variant: str = "slices", n_fused: Optional[int] = None,
+          layout: Optional[SweLayout] = None) -> Fields:
     """Check a whole-domain call, fold its constants and hand it to
     ``run``. ``n_fused`` (the multistep entry points only) is stored in the
-    constants as ``fused``: K2's launch and its counter."""
+    constants as ``fused``: K2's launch and its counter; ``layout`` (a
+    checked ``SweLayout``, the launch's only) as ``layout``."""
     _check(*ins, grid, out)
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity,
                       _is_bf16(variant))
@@ -201,6 +308,8 @@ def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
             raise ValueError(f"n_fused must be 1 or 2, got {n_fused} (the "
                              "JAX kernel's 8-row slab halo bound)")
         k["fused"] = n_fused
+    if layout is not None:
+        k["layout"] = layout
     if out is None:
         out = tuple(torch.empty_like(t) for t in ins)
     return run(ins, out, (0, 0), k)
@@ -216,7 +325,7 @@ def _runner(kind: str):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
-             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_P])
+             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I] * 7 + [_P])
 
 
 def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
@@ -225,9 +334,16 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
     ``swe_rk4_step_cuda.bf16_launches``, K1 on ``.launches``. ``ins``:
     (u, v, h) views of the input block (its first element, its row pitch),
     whose interior starts at ``halo`` = (hy, hx); an axis whose halo is 0
-    wraps. ``out``: views of the interior-shaped result."""
+    wraps. ``out``: views of the interior-shaped result. ``k["layout"]``:
+    the block layout (the rule's when absent); ``k["stages"]`` < 4 steps
+    runs only the first stages and writes nothing, 0 only the loads;
+    ``k["probe"]`` (bit 0: no loads past a block's first tile, bit 1: no
+    stores) times what is left (``scripts/profile_torch.py`` times the
+    kernel's parts so)."""
     hy, hx = halo
     ny, nx = out[0].shape
+    n_steps = k.get("fused", 1)
+    lay = k.get("layout") or swe_layout(n_steps, bool(k.get("bf16")))
     launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
     with torch.cuda.device(ins[0].device):
@@ -236,9 +352,9 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
             *(t.data_ptr() for t in out), out[0].stride(0), 0, 0,
             ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"], k["g"],
             k["f"], k["half"], k["dt"], k["sixth"], k["third"], k["ix2"],
-            k["iy2"], int(k["nu"] != 0.0), k.get("fused", 1),
+            k["iy2"], int(k["nu"] != 0.0), n_steps,
             int(k.get("bf16", 0)), k.get("bcx", 0.0), k.get("bcy", 0.0),
-            stream)
+            *lay, k.get("stages", 4 * n_steps), k.get("probe", 0), stream)
     if err != 0:
         msg = err_string(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
@@ -253,6 +369,32 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
 
 swe_rk4_step_cuda.launches = 0
 swe_rk4_step_cuda.bf16_launches = 0
+
+
+def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
+                          padded: tuple = (0, 0),
+                          layout: Optional[SweLayout] = None,
+                          index: int = 0) -> dict:
+    """The built kernel's instantiation for a form (steps per launch, the
+    bf16 tendency, ``padded`` = (halo in y, halo in x) as 0/1) and
+    ``layout`` (the rule's when None) on CUDA device ``index``: its
+    registers and local (spill) bytes per thread, dynamic and static shared
+    bytes, threads per block and resident blocks per SM."""
+    lay = swe_layout_arg(layout, n_steps, bf16, any(padded))
+    fn = _build.load("swe_rk4").swe_rk4_attributes
+    fn.argtypes = [_I] * 9 + [ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        err = fn(n_steps, int(bf16), int(padded[0]), int(padded[1]), *lay,
+                 vals)
+    if err != 0:
+        msg = _build.bind("swe_rk4", _ARGTYPES)[1](err).decode()
+        raise RuntimeError(f"swe_rk4 attributes: {msg} ({err})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
+                     "blocks_per_sm", "static_smem_bytes"), vals),
+                tile=[lay.ty, lay.tx], rows_per_thread=lay.rows,
+                layout=lay._asdict())
 
 
 def _tendency(uu, vv, hh, nbrs, k: dict):
@@ -408,12 +550,15 @@ def swe_rk4_multistep(u, v, h, *, grid: GridSpec, dt: float,
 def swe_rk4_multistep_cuda(u, v, h, *, grid: GridSpec, dt: float,
                            gravity: float = 9.81, coriolis_f: float = 0.0,
                            n_fused: int = 2,
-                           out: Optional[Fields] = None) -> Fields:
+                           out: Optional[Fields] = None,
+                           layout: Optional[SweLayout] = None) -> Fields:
     """Launch the multistep kernel (K2) on the current stream; CUDA tensors
-    only. ``swe_rk4_multistep_cuda.launches`` counts its launches."""
+    only, and a built ``layout`` (the rule's for ``n_fused`` when None).
+    ``swe_rk4_multistep_cuda.launches`` counts its launches."""
+    layout = swe_layout_arg(layout, n_fused)
     _refuse_host("swe_rk4_multistep_cuda", (u, v, h), out)
     return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 0.0, n_fused=n_fused)
+                 0.0, n_fused=n_fused, layout=layout)
 
 
 swe_rk4_multistep_cuda.launches = 0

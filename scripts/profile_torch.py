@@ -21,6 +21,19 @@ the card's name and power limit:
   * swe ``steps``: ms/step of backend kernel and backend plain (CUDA
     events), and ``sweep``: the fused kernel alone at several grid sizes,
     with the bandwidth its 24 B/point minimum traffic implies;
+    ``swe_parts``: K1 and K2 alone at 2048^2 on the rule's layout, the
+    region loads alone (stages 0) and the first 1, 2, ... 4N stages
+    (stores only at 4N), the whole launch without the loads past each
+    block's first tile, without the stores, and without both (compute
+    alone), and a copy of u, v, h (the same 24 B/point) beside them;
+    ``swe_layouts``: every layout the kernel is
+    built with for K1 and K2 (and the bf16 kernel's) at 2048^2, with its
+    registers, spill bytes, shared bytes, threads and blocks per SM;
+    ``--parent-swe FILE`` adds ``swe_parent``: an earlier swe_rk4.cu
+    (its C entry without the layout arguments) built with the same nvcc
+    flags into a temporary directory and timed beside the current kernel
+    for K1, K1-bf16 and K2 at 2048^2, in turns (parent, new, new, parent),
+    with whether the two give equal outputs bit for bit;
   * primitive ``layouts``: the whole-step kernel K4 alone at config 4
     (the main path's shape) and config 5 (2048^2 x 40): its parts (the
     first 1, 2, 3 and 4 stages run alone), every layout worth timing
@@ -208,6 +221,162 @@ def swe_extras(steps: int, gpu: str) -> None:
                       "gbps_at_24B_per_point": 24 * n * n / (ms * 1e6)})
     print(json.dumps({"phase": "sweep", "card": gpu, "kernel": "swe_rk4",
                       "sizes": sweep}), flush=True)
+
+
+SWE_GRID = 2048
+
+
+def _swe_fields(n: int):
+    s = make_initial_state("vortex", GridSpec(nx=n, ny=n), device="cuda",
+                           strength=1.0)
+    return (s.u, s.v, s.h)
+
+
+def _swe_constants(grid, n_steps: int, bf16: bool = False) -> dict:
+    from njw_tpu_torch.ops import stencil as st
+
+    k = st.rk4_constants(grid, 0.001, 9.81, 1e-4, 0.0, bf16)
+    if n_steps == 2:
+        k["fused"] = 2
+    return k
+
+
+def _ping_pong_ms(launch, fields, reps: int = 200) -> float:
+    """ms per launch(src, dst), two buffer sets in turn as the steppers
+    use them."""
+    bufs = [tuple(t.clone() for t in fields),
+            tuple(torch.empty_like(t) for t in fields)]
+    turn = [0]
+
+    def call():
+        launch(bufs[turn[0]], bufs[1 - turn[0]])
+        turn[0] ^= 1
+
+    events_ms(call, 10)
+    return events_ms(call, reps)
+
+
+def swe_kernel_extras(gpu: str) -> None:
+    """K1 and K2 at 2048^2: the parts on the rule's layout, and every built
+    layout (and the bf16 kernel's)."""
+    from njw_tpu_torch.ops import stencil as st
+
+    n = SWE_GRID
+    grid = GridSpec(nx=n, ny=n)
+    fields = _swe_fields(n)
+    for n_steps in (1, 2):
+        k = _swe_constants(grid, n_steps)
+        rule = st.swe_layout(n_steps)
+
+        def timed(layout, stages, probe=0):
+            kk = dict(k, layout=layout, stages=stages, probe=probe)
+            return _ping_pong_ms(
+                lambda src, dst: st._launch(src, dst, (0, 0), kk), fields)
+
+        parts = {stages: timed(rule, stages)
+                 for stages in range(4 * n_steps + 1)}
+        full = 4 * n_steps
+        print(json.dumps({
+            "phase": "swe_parts", "card": gpu, "grid": n,
+            "steps_per_launch": n_steps, "layout": rule._asdict(),
+            "ms_by_stages": parts,
+            "ms_per_stage": {s: parts[s] - parts[s - 1]
+                             for s in range(1, full + 1)},
+            "ms_without_later_loads": timed(rule, full, 1),
+            "ms_without_stores": timed(rule, full, 2),
+            "ms_compute_alone": timed(rule, full, 3),
+            "copy_ms": _ping_pong_ms(
+                lambda src, dst: [d.copy_(x) for x, d in zip(src, dst)],
+                fields),
+        }), flush=True)
+        rows = []
+        for lay in st.swe_layouts(n_steps):
+            rows.append({"ms": timed(lay, 4 * n_steps),
+                         **st.swe_kernel_attributes(n_steps, layout=lay)})
+        print(json.dumps({"phase": "swe_layouts", "card": gpu, "grid": n,
+                          "steps_per_launch": n_steps, "rule":
+                          rule._asdict(), "rows": rows}), flush=True)
+    k = _swe_constants(grid, 1, bf16=True)
+    ms = _ping_pong_ms(lambda src, dst: st._launch(src, dst, (0, 0), k),
+                       fields)
+    print(json.dumps({"phase": "swe_layouts", "card": gpu, "grid": n,
+                      "kernel": "swe_rk4_bf16", "rows": [{
+                          "ms": ms,
+                          **st.swe_kernel_attributes(1, bf16=True)}]}),
+          flush=True)
+
+
+def swe_parent(path: str, gpu: str) -> None:
+    """An earlier swe_rk4.cu beside the current one, in one process:
+    built with the same flags outside the repository, timed in turns for
+    K1, K1-bf16 and K2 at 2048^2, outputs compared bit for bit."""
+    import ctypes
+    import tempfile
+
+    from njw_tpu_torch.ops import _build
+    from njw_tpu_torch.ops import stencil as st
+
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    argtypes = ([P] * 3 + [L, I, I] + [P] * 3 + [L, I, I] + [I] * 4
+                + [F] * 10 + [I] * 3 + [F] * 2 + [P])
+    tmp = tempfile.mkdtemp(prefix="swe_parent_")
+    so = Path(tmp) / "libswe_parent.so"
+    build = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                            str(so), path], capture_output=True, text=True)
+    if build.returncode != 0:
+        raise RuntimeError(f"parent build failed:\n{build.stderr}")
+    regs = [ln.strip() for ln in (build.stdout + build.stderr).splitlines()
+            if "registers" in ln or "spill" in ln]
+    fn = ctypes.CDLL(str(so)).swe_rk4_launch
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+    def parent(ins, out, k):
+        ny, nx = out[0].shape
+        err = fn(*(t.data_ptr() for t in ins), ins[0].stride(0), 0, 0,
+                 *(t.data_ptr() for t in out), out[0].stride(0), 0, 0, ny,
+                 nx, 0, 0, k["cx"], k["cy"], k["g"], k["f"], k["half"],
+                 k["dt"], k["sixth"], k["third"], k["ix2"], k["iy2"], 0,
+                 k.get("fused", 1), int(k.get("bf16", 0)), k.get("bcx", 0.0),
+                 k.get("bcy", 0.0), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent launch failed ({err})")
+
+    n = SWE_GRID
+    grid = GridSpec(nx=n, ny=n)
+    fields = _swe_fields(n)
+    rows = {}
+    for name, n_steps, bf16 in (("swe_rk4", 1, False),
+                                ("swe_rk4_bf16", 1, True),
+                                ("swe_rk4_multi", 2, False)):
+        k = _swe_constants(grid, n_steps, bf16)
+
+        def new(src, dst, k=k):
+            st._launch(src, dst, (0, 0), k)
+
+        def old(src, dst, k=k):
+            parent(src, dst, k)
+
+        times = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            times[who].append(_ping_pong_ms(new if who == "new" else old,
+                                            fields))
+        a = tuple(torch.empty_like(t) for t in fields)
+        b = tuple(torch.empty_like(t) for t in fields)
+        old(fields, a)
+        new(fields, b)
+        torch.cuda.synchronize()
+        rows[name] = {
+            "parent_ms": times["parent"], "new_ms": times["new"],
+            "parent_ms_mean": sum(times["parent"]) / 2,
+            "new_ms_mean": sum(times["new"]) / 2,
+            "equal_bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "max_abs_diff": max(float((x - y).abs().max())
+                                for x, y in zip(a, b)),
+            "new_layout": st.swe_kernel_attributes(n_steps, bf16=bf16)}
+    print(json.dumps({"phase": "swe_parent", "card": gpu, "grid": n,
+                      "parent_source": path, "parent_ptxas": regs,
+                      "rows": rows}), flush=True)
 
 
 def _k4_layouts(levels: int) -> list:
@@ -405,6 +574,9 @@ def main() -> int:
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "all"])
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--parent-swe", metavar="FILE",
+                    help="an earlier swe_rk4.cu to time beside the current "
+                    "kernel (--model swe)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
@@ -420,6 +592,9 @@ def main() -> int:
         print(json.dumps(profile_path(model, args.steps, gpu)), flush=True)
         if model == "swe":
             swe_extras(args.steps, gpu)
+            swe_kernel_extras(gpu)
+            if args.parent_swe:
+                swe_parent(args.parent_swe, gpu)
         elif model == "primitive":
             primitive_extras(gpu)
     return 0
