@@ -8,15 +8,19 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
   2 build       every kernel under njw_tpu_torch/ops/csrc/ (one nvcc per
                 source, all in parallel), with ptxas registers and spills
   3 kernels     each kernel against its plain PyTorch version on the card
-                (swe_rk4: rtol 1e-5 / atol 1e-6 per step; baro_stage:
+                (swe_rk4: rtol 1e-5 / atol 1e-6 per step, at 2048^2 and on
+                grids one point over and under its tile in each axis,
+                3 x 3, 3 x 5, 200 x 328 and 1000 x 1500, with and without
+                viscosity; baro_stage:
                 rtol 1e-5 / atol 1e-5; pe_stage and pe_rk4: rtol 1e-5 /
                 atol 1e-4, and 2e-4 with terrain, the JAX kernel tests'
                 tolerances; pe_rk4 also at L = 40 on a ragged grid and at
                 the largest L pe_rk4_kernel_fits admits), and its time
                 beside the plain version's, the card's bound and the
-                wrapper's host cost per launch (pe_rk4: with its ptxas
-                registers, shared memory, blocks per SM, clusters on
-                the card, blocks per cluster and tile)
+                wrapper's host cost per launch (swe_rk4 and pe_rk4: with
+                the built kernel's registers, spill bytes, shared memory,
+                blocks per SM and tile; pe_rk4 also clusters on the card
+                and blocks per cluster)
   4 parity      kernel steppers vs backend plain: SWE 512^2 (1e-3),
                 barotropic 256^2 (normalised 1e-3), PE 128^2 x 8 on the
                 auto choice (the stage kernel) and on the whole-step kernel
@@ -66,7 +70,9 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 in each of its cells no interior output depends on; each
                 form's time per launch, plain time, bytes bound (interior
                 read and written once plus the halo band read) and host
-                cost per launch
+                cost per launch (K1: with the padded instantiation's
+                registers, spill bytes, shared memory, blocks per SM and
+                tile)
   11 sharded paths  every SHARDED_PATHS entry on a LocalMesh on cuda:0: SWE
                 2048^2 on (4, 1) and (2, 2), PE config 5 (2048^2 x 40) fused
                 on (2, 2), (2, 2) with carry=True, (4, 1), and on the stage
@@ -92,7 +98,9 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 to one) and within rtol 1e-5 / atol 1e-6 per step of its
                 plain version; each one's time per launch at 2048^2 beside
                 K1's in this call, plain time, bytes bound (24 B/point per
-                launch: 12 per step for K2) and host cost per launch
+                launch: 12 per step for K2), host cost per launch and the
+                built kernel's registers, spill bytes, shared memory,
+                blocks per SM and tile
   13 variant paths  VARIANT_PATHS swe_bf16 (1000 steps, 1000 bf16 launches)
                 and swe_multistep (1000 steps as 500 K2 launches) at the SWE
                 main path's configuration, launch counts exact, ms per RK4
@@ -335,6 +343,25 @@ def host_us_per_launch(launch) -> float:
     return us
 
 
+def swe_layout_info(**form) -> dict:
+    """The built SWE kernel instantiation of a form (the rule's layout):
+    registers, spill (local) bytes, shared bytes, threads, blocks per SM,
+    tile (stencil.swe_kernel_attributes); fails if the wrapper's
+    shared-memory or thread rule disagrees with the built kernel."""
+    import torch
+    from njw_tpu_torch.ops import stencil
+
+    info = stencil.swe_kernel_attributes(
+        index=torch.cuda.current_device(), **form)
+    n = form.get("n_steps", 1)
+    lay = stencil.SweLayout(**info["layout"])
+    if (info["smem_bytes"], info["threads"]) != (lay.smem_bytes(n),
+                                                 lay.threads(n)):
+        fail("kernel_time", f"swe_rk4 {form}: the wrapper's layout rule "
+             "disagrees with the built kernel's")
+    return info
+
+
 def kernels_vs_plain() -> dict:
     import torch
     from njw_tpu_torch.ops import stencil
@@ -343,6 +370,8 @@ def kernels_vs_plain() -> dict:
     swe = path("swe")
     GRID, DT = swe.config["grid_width"], swe.config["dt"]
     CORIOLIS = swe.config["coriolis_f"]
+    rule = stencil.swe_layout(1)
+    noise = {"amplitude": 0.1, "seed": 3}
     cases = [
         # name, ny, nx, ic, ic kwargs, dt, f, nu
         ("main_2048", GRID, GRID, swe.ic, swe.ic_params, DT, CORIOLIS, 0.0),
@@ -350,8 +379,16 @@ def kernels_vs_plain() -> dict:
          CORIOLIS, 0.02),
         ("ragged_200x328", 200, 328, "breaking_wave", {"amplitude": 0.3},
          0.005, CORIOLIS, 0.0),
+        ("ragged_1000x1500", 1000, 1500, "breaking_wave",
+         {"amplitude": 0.3}, 0.005, CORIOLIS, 0.02),
         ("tiny_3x5", 3, 5, "random", {"amplitude": 0.1, "seed": 1}, 0.001,
          CORIOLIS, 0.0),
+        ("tiny_3x3", 3, 3, "random", noise, 0.001, CORIOLIS, 0.02),
+        # one point over and under the rule's tile in each axis
+        (f"tile_over_under_{rule.ty + 1}x{rule.tx - 1}", rule.ty + 1,
+         rule.tx - 1, "random", noise, 0.01, CORIOLIS, 0.0),
+        (f"tile_under_over_{rule.ty - 1}x{rule.tx + 1}", rule.ty - 1,
+         rule.tx + 1, "random", noise, 0.01, CORIOLIS, 0.02),
     ]
     results = {}
     for name, ny, nx, ic, ic_kw, dt, f, nu in cases:
@@ -389,12 +426,14 @@ def kernels_vs_plain() -> dict:
     plain_ms = _events_ms(plain_call, 10)
     b_ms, b_by = bound_ms(GRID * GRID, viscous=False)
     host_us = host_us_per_launch(kernel_step)
+    layout = swe_layout_info()
     emit("kernel_time", ok=True, kernel="swe_rk4", shape=[GRID, GRID],
          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
          fraction_of_bound=b_ms / ms, library_ms=None,
-         host_us_per_launch=host_us)
+         host_us_per_launch=host_us, **layout)
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "host_us": host_us}
+            "bound_ms": b_ms, "bound_by": b_by, "host_us": host_us,
+            "layout": layout}
 
 
 def parity_gate() -> None:
@@ -1475,10 +1514,13 @@ def sharded_kernels() -> dict:
         def run(blk=blk, halo=halo, inner=inner):
             stencil.swe_rk4_step_padded(*blk, halo=halo, out=inner, **swe_kw)
 
+        layout = swe_layout_info(padded=(1, int(hx > 0)))
         res["swe_rk4"][form] = report(
             "swe_rk4", form, mesh, halo, kern, plain, run, plain,
             (RTOL, ATOL), _padded_bound(3, ly, lx, 4, bool(hx), 0,
-                                        FLOP_PER_POINT * ly * lx))
+                                        FLOP_PER_POINT * ly * lx),
+            layout=layout)
+        res["swe_rk4"][form]["layout"] = layout
         del s, blk, dst, inner
 
     # K5: local on a (4, 1) shard, local2d on a (2, 2) shard; one base
@@ -1904,15 +1946,17 @@ def variant_kernels() -> dict:
         b_ms, b_by = roofline_ms(BYTES_PER_POINT * n * n,
                                  steps * FLOP_PER_POINT * n * n)
         host_us = host_us_per_launch(call)
+        layout = swe_layout_info(n_steps=steps,
+                                 bf16=kernel == "swe_rk4_bf16")
         times[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "host_us": host_us,
                          "ms_per_step": ms / steps,
-                         "bound_ms_per_step": b_ms / steps}
+                         "bound_ms_per_step": b_ms / steps, "layout": layout}
         emit("kernel_time", ok=True, kernel=kernel, shape=[n, n],
              steps_per_launch=steps, ms=ms, ms_per_step=ms / steps,
              plain_ms=plain_ms, bound_ms=b_ms, bound_ms_per_step=b_ms / steps,
              bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
-             host_us_per_launch=host_us, card=card_state())
+             host_us_per_launch=host_us, card=card_state(), **layout)
     return {
         "bf16": {"max_abs_err": res["bf16"]["main_2048_nu0.0"],
                  "max_abs_err_all_cases": max(res["bf16"].values()),
@@ -2138,6 +2182,16 @@ def main() -> int:
             "bound_us": k["bound_ms"] * 1e3,
             "host_us_per_launch": k["host_us"], **extra}
 
+    def built(layout):
+        """The built SWE kernel's numbers for the kernels line."""
+        return {"ptxas_registers": layout["registers"],
+                "spill_bytes": layout["local_bytes"],
+                "smem_bytes": layout["smem_bytes"],
+                "threads_per_block": layout["threads"],
+                "blocks_per_sm": layout["blocks_per_sm"],
+                "tile": layout["tile"],
+                "rows_per_thread": layout["layout"]["rows"]}
+
     fir = "njw_tpu/signal/fir_pallas.py"
     st, pe = "njw_tpu/ops/stencil.py", "njw_tpu/ops/pe_stencil.py"
     kernels = [
@@ -2147,7 +2201,9 @@ def main() -> int:
             also_replaces=[f"{st}:321 swe_rk4_step_pallas_local",
                            f"{st}:377 swe_rk4_step_pallas_carry",
                            f"{st}:433 swe_rk4_step_pallas_local2d"],
-            sharded=sharded("swe_rk4")),
+            sharded=sharded("swe_rk4"), **built(k1["layout"]),
+            padded_layout={form: built(r["layout"])
+                           for form, r in ks["swe_rk4"].items()}),
         row("baro_stage", "baro_stage.cu", "njw_tpu/ops/baro_stencil.py:34",
             "_baro_stage_kernel", k3, m3["launches"]["baro_stage"], m3,
             main_path="main_path_baro",
@@ -2193,7 +2249,8 @@ def main() -> int:
             mv["swe_bf16"]["launches"]["swe_rk4_bf16"], mv["swe_bf16"],
             main_path="variant_path_swe_bf16",
             max_abs_err_all_cases=kv["bf16"]["max_abs_err_all_cases"],
-            k1_ms_same_call=kv["k1_same_call"]["ms"]),
+            k1_ms_same_call=kv["k1_same_call"]["ms"],
+            **built(kv["bf16"]["layout"])),
         row("swe_rk4_multi", "swe_rk4.cu", f"{st}:484",
             "_swe_rk4_multi_kernel (n_fused=2)", kv["multi"],
             mv["swe_multistep"]["launches"]["swe_rk4_multi"],
@@ -2202,7 +2259,8 @@ def main() -> int:
             max_abs_err_all_cases=kv["multi"]["max_abs_err_all_cases"],
             ms_per_rk4_step=kv["multi"]["ms_per_step"],
             bound_ms_per_rk4_step=kv["multi"]["bound_ms_per_step"],
-            k1_ms_same_call=kv["k1_same_call"]["ms"]),
+            k1_ms_same_call=kv["k1_same_call"]["ms"],
+            **built(kv["multi"]["layout"])),
     ]
     emit("semi_implicit_summary", ok=True, **{
         name: {"si_ms_per_step": v["si"]["ms_per_step"],

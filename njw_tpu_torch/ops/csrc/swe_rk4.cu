@@ -42,18 +42,20 @@
 // Design against that bound. Each block owns a TX x TY output tile and
 // its (TX + 8N) x (TY + 8N) region: 4N halo points per side, one per
 // chained stage, recomputed instead of exchanged (the valid part of the
-// region shrinks by one point per side per stage, and only it is
-// computed). What limits such a kernel on this card is the issue of
-// shared-memory accesses and the instructions around them, not the bytes,
-// so the work is laid out to keep values in registers:
+// region shrinks by one point per side per stage). What limits such a
+// kernel on this card is the issue of instructions, shared-memory accesses
+// among them, not the bytes (PERF.md: the stages alone take three
+// quarters of its time), so the work is laid out to keep values in
+// registers and the code free of branches:
 //   * Each thread owns one column of the region and a run of R rows of it
 //     for all 4N stages. Its s, its RK4 accumulator and its points' current
 //     stage state live in registers; walking down its run, the rows above
 //     and below a point come from registers. Only the x-neighbours, the two
 //     rows just outside the run and a stage's new state pass through shared
-//     memory: 9 + 6/R shared accesses per point and stage (the first
-//     design, which kept s, the state and the accumulator in nine shared
-//     tiles, made about 24).
+//     memory: 9 + 6/R shared accesses per point and stage.
+//   * Every stage computes every point of the region, branch-free: the
+//     points outside its valid part hold values no output depends on.
+//     Skipping them cost more in branches and divergence than it saved.
 //   * Shared memory holds four (u, v, h) region buffers: two for s (this
 //     tile's and the next one's, loading) and two stage states in turn, so
 //     a stage needs one barrier (it writes the buffer the stage before it
@@ -61,14 +63,14 @@
 //   * The grid is persistent: each block walks tiles blockIdx.x,
 //     blockIdx.x + gridDim.x, ... and, as it starts a tile, starts copying
 //     the next tile's region in with cp.async, in flight while all 4N
-//     stages of this one run. An interior tile comes in
-//     as 16-byte copies of whole rows; only a tile whose columns wrap (or
-//     reach past the halo) takes 4-byte copies with a wrapped index. Index
-//     wrapping is a compare-and-add, never a runtime %.
+//     stages of this one run. An interior tile comes in as 16-byte copies
+//     of whole rows; only a tile whose columns wrap (or reach past the
+//     halo) takes 4-byte copies with a wrapped index. Index wrapping is a
+//     compare-and-add, never a runtime %.
 //   * The layout (TX, TY, R, blocks per SM) is a template parameter; the
-//     launch takes one of the built layouts (swe_rk4_layouts below, mirrored
-//     by njw_tpu_torch.ops.stencil.SWE_LAYOUTS, whose first entry for each
-//     form is the rule the wrapper takes).
+//     launch takes one of the built layouts (Step1, Step1Bf16, Step1Padded,
+//     Step2 below, mirrored by njw_tpu_torch.ops.stencil.swe_layouts, whose
+//     first entry for each form is the rule the wrapper takes).
 // The combine is the TPU kernel's accumulator form, which keeps only
 // {s, current stage, accumulator} live:
 //   s1 = s + dt/2 T(s);   acc = s1 - s
@@ -79,7 +81,10 @@
 // state. Both steps run the same tendency() and combine() code as K1, so
 // the same expressions get the same contractions: K2 with N = 2 equals two
 // K1 launches (float32, no viscosity) bit for bit, and every layout and
-// form computes each point by the same expressions.
+// form computes each point by the same expressions. The viscosity stays a
+// runtime branch (k.visc): as a template parameter it let nvcc contract
+// the float32 arithmetic otherwise, which moved the bf16 kernel's distance
+// from its plain version past chip_smoke.py's gate.
 // Ragged edge tiles compute on the periodic extension and mask the store;
 // on a halo axis the load index is clamped to the last halo row (column),
 // so a ragged tile never reads outside the block: the clamped points feed
@@ -105,13 +110,10 @@ constexpr int MAX_DEVICES = 64;
 
 // A block layout: output tile TX x TY, R rows of the region per thread,
 // at least MINB blocks resident per SM (the register cap of
-// __launch_bounds__); DENSE: every point of a run is computed at every
-// stage, branch-free (the points outside the stage's valid region hold
-// values no output depends on), else only the valid region's.
-template <int TX_, int TY_, int R_, int MINB_, int DENSE_>
+// __launch_bounds__).
+template <int TX_, int TY_, int R_, int MINB_>
 struct Layout {
     static constexpr int TX = TX_, TY = TY_, R = R_, MINB = MINB_;
-    static constexpr bool DENSE = DENSE_ != 0;
 };
 
 // Region geometry of N fused steps in layout Lay.
@@ -276,10 +278,11 @@ __device__ __forceinline__ float combine(float s, float& acc, float d,
 // column c of the region, reading the stage's input state `in` (shared,
 // three planes) and writing its new state to `outb`; the last stage of the
 // last step stores to the output view instead, the last stage of an
-// earlier step also makes the result the next step's s. Only the valid
-// region [S + 1, P - S - 1) in each axis is computed (or, DENSE, all of
-// it); neighbour indices are clamped to the region, so a point outside the
-// valid region never reads outside the buffers.
+// earlier step also makes the result the next step's s. Every point of the
+// run is computed, branch-free: only those in the valid region [S + 1,
+// P - S - 1) in each axis hold values an output depends on, and neighbour
+// indices are clamped to the region, so the others never read outside the
+// buffers.
 template <int N, bool kBf16, class Lay, int S>
 __device__ __forceinline__ void stage(Own<Lay::R>& m, const float* in,
                                       float* outb, int c, int r0,
@@ -290,8 +293,6 @@ __device__ __forceinline__ void stage(Own<Lay::R>& m, const float* in,
     constexpr int H = G::H;
     constexpr int Q = S % 4;
     constexpr bool kLast = S == 4 * N - 1;
-    constexpr int q = S + 1;            // the valid region's offset
-    const bool col_ok = c >= q && c < PX - q;
     const int ce = c < PX - 1 ? c + 1 : c, cw = c > 0 ? c - 1 : c;
     // the rows just outside the run (rows r0 - 1 and r0 + R)
     const int jb = (r0 > 0 ? r0 - 1 : r0) * PX + c;
@@ -301,46 +302,43 @@ __device__ __forceinline__ void stage(Own<Lay::R>& m, const float* in,
 #pragma unroll
     for (int i = 0; i < R; ++i) {
         const int r = r0 + i;
-        const float xu = m.cu[i], xv = m.cv[i], xh = m.ch[i];
-        if (Lay::DENSE || (col_ok && r >= q && r < PY - q)) {
-            const float* row = in + r * PX;
-            const Pt U = point(m.cu, i, bu, tu, row, ce, cw);
-            const Pt V = point(m.cv, i, bv, tv, row + PL, ce, cw);
-            const Pt W = point(m.ch, i, bh, th, row + 2 * PL, ce, cw);
-            float du, dv, dh;
-            tendency<kBf16>(U, V, W, k, du, dv, dh);
-            const float nu = combine<Q>(m.su[i], m.au[i], du, k);
-            const float nv = combine<Q>(m.sv[i], m.av[i], dv, k);
-            const float nh = combine<Q>(m.sh[i], m.ah[i], dh, k);
-            if constexpr (kLast) {
-                const int gy = gy0 + r, gx = gx0 + c;
-                const bool in_tile = r >= H && r < PY - H && c >= H
-                                     && c < PX - H;
-                if (in_tile && !(k.probe & 2) && gy < ny && gx < nx) {
-                    const size_t g = static_cast<size_t>(o.oy + gy) * o.pitch
-                                     + (o.ox + gx);
-                    o.u[g] = nu;
-                    o.v[g] = nv;
-                    o.h[g] = nh;
-                }
-            } else {
-                if constexpr (Q == 3) {        // the next step's s
-                    m.su[i] = nu;
-                    m.sv[i] = nv;
-                    m.sh[i] = nh;
-                }
-                m.cu[i] = nu;
-                m.cv[i] = nv;
-                m.ch[i] = nh;
-                const int j = r * PX + c;
-                outb[j] = nu;
-                outb[PL + j] = nv;
-                outb[2 * PL + j] = nh;
+        const float* row = in + r * PX;
+        const Pt U = point(m.cu, i, bu, tu, row, ce, cw);
+        const Pt V = point(m.cv, i, bv, tv, row + PL, ce, cw);
+        const Pt W = point(m.ch, i, bh, th, row + 2 * PL, ce, cw);
+        bu = U.c;                       // this row, as the next one's south
+        bv = V.c;
+        bh = W.c;
+        float du, dv, dh;
+        tendency<kBf16>(U, V, W, k, du, dv, dh);
+        const float nu = combine<Q>(m.su[i], m.au[i], du, k);
+        const float nv = combine<Q>(m.sv[i], m.av[i], dv, k);
+        const float nh = combine<Q>(m.sh[i], m.ah[i], dh, k);
+        if constexpr (kLast) {          // the output tile: [H, P - H)
+            const int gy = gy0 + r, gx = gx0 + c;
+            const bool in_tile = r >= H && r < PY - H && c >= H
+                                 && c < PX - H;
+            if (in_tile && !(k.probe & 2) && gy < ny && gx < nx) {
+                const size_t g = static_cast<size_t>(o.oy + gy) * o.pitch
+                                 + (o.ox + gx);
+                o.u[g] = nu;
+                o.v[g] = nv;
+                o.h[g] = nh;
             }
+        } else {
+            if constexpr (Q == 3) {     // the next step's s
+                m.su[i] = nu;
+                m.sv[i] = nv;
+                m.sh[i] = nh;
+            }
+            m.cu[i] = nu;
+            m.cv[i] = nv;
+            m.ch[i] = nh;
+            const int j = r * PX + c;
+            outb[j] = nu;
+            outb[PL + j] = nv;
+            outb[2 * PL + j] = nh;
         }
-        bu = xu;                        // this row, as the next one's south
-        bv = xv;
-        bh = xh;
     }
 }
 
@@ -496,18 +494,11 @@ struct List {};
 
 // The built layouts of each form; the first of each is the rule
 // (njw_tpu_torch.ops.stencil.SWE_LAYOUTS mirrors this list).
-using Step1 = List<Layout<56, 24, 4, 2, 0>, Layout<56, 24, 4, 2, 1>,
-                   Layout<56, 32, 4, 1, 0>, Layout<56, 32, 4, 1, 1>,
-                   Layout<56, 40, 4, 1, 0>, Layout<56, 40, 4, 1, 1>,
-                   Layout<56, 56, 8, 1, 0>, Layout<56, 56, 8, 1, 1>,
-                   Layout<56, 32, 5, 1, 0>, Layout<120, 24, 4, 1, 0>,
-                   Layout<24, 24, 4, 3, 0>>;
-using Step1Bf16 = List<Layout<56, 24, 4, 2, 0>, Layout<56, 40, 4, 1, 1>,
-                       Layout<56, 32, 4, 1, 1>>;
-using Step1Padded = List<Layout<56, 24, 4, 2, 0>, Layout<56, 40, 4, 1, 1>>;
-using Step2 = List<Layout<48, 48, 8, 1, 0>, Layout<48, 48, 8, 1, 1>,
-                   Layout<48, 32, 6, 1, 0>, Layout<48, 32, 6, 1, 1>,
-                   Layout<48, 24, 4, 1, 0>>;
+using Step1 = List<Layout<56, 56, 8, 1>, Layout<56, 40, 4, 1>,
+                   Layout<56, 32, 4, 1>, Layout<56, 24, 4, 2>>;
+using Step1Bf16 = List<Layout<56, 56, 8, 1>, Layout<56, 40, 4, 1>>;
+using Step1Padded = List<Layout<56, 56, 8, 1>>;
+using Step2 = List<Layout<48, 48, 8, 1>, Layout<48, 32, 6, 1>>;
 
 // Persistent blocks of one instantiation on the current device: resident
 // blocks per SM x SMs, found once per device (the shared-memory opt-in is
@@ -579,14 +570,14 @@ int attributes(int* out) {
 }
 
 // Run f.run<N, kBf16, kHaloY, kHaloX, Lay>() for the layout Lay of
-// `list` that is (tx, ty, rows, blocks, dense); cudaErrorInvalidValue when
-// none is.
+// `list` that is (tx, ty, rows, blocks); cudaErrorInvalidValue when none
+// is.
 template <int N, bool kBf16, bool kHaloY, bool kHaloX, class F, class... L>
-int with_layout(List<L...>, const int (&lay)[5], const F& f) {
+int with_layout(List<L...>, const int (&lay)[4], const F& f) {
     int err = static_cast<int>(cudaErrorInvalidValue);
     bool found = false;
     ((!found && L::TX == lay[0] && L::TY == lay[1] && L::R == lay[2]
-              && L::MINB == lay[3] && int(L::DENSE) == lay[4]
+              && L::MINB == lay[3]
           ? (found = true,
              err = f.template run<N, kBf16, kHaloY, kHaloX, L>(), 0)
           : 0),
@@ -597,7 +588,7 @@ int with_layout(List<L...>, const int (&lay)[5], const F& f) {
 // Dispatch a form (N, bf16, halo) to its built layouts.
 template <class F>
 int with_form(int n_steps, int bf16, int halo_y, int halo_x,
-              const int (&lay)[5], const F& f) {
+              const int (&lay)[4], const F& f) {
     const bool whole = !halo_y && !halo_x;
     if (n_steps == 2 && whole && !bf16) {
         return with_layout<2, false, false, false>(Step2{}, lay, f);
@@ -648,7 +639,7 @@ struct AttributeQuery {
 // wraps; a halo in x needs one in y. bf16: 1 for the bf16 tendency
 // (bcx, bcy its bf16 constants). The bf16 tendency and n_steps = 2 take
 // the whole periodic domain only (halo_y = halo_x = 0), and not together.
-// (tx, ty, rows, blocks, dense): one of the form's built layouts. stages: 4 n_steps (the
+// (tx, ty, rows, blocks): one of the form's built layouts. stages: 4 n_steps (the
 // step); fewer run only the first stages and write nothing, 0 only the
 // region loads (scripts/profile_torch.py times the parts so). Outputs must
 // not alias inputs. Returns the CUDA error code of the launch (0 on
@@ -660,7 +651,7 @@ extern "C" int swe_rk4_launch(
     int halo_y, int halo_x, float cx, float cy, float g, float f,
     float half, float dt, float sixth, float third, float ix2, float iy2,
     int visc, int n_steps, int bf16, float bcx, float bcy, int tx, int ty,
-    int rows, int blocks, int dense, int stages, int probe, void* stream) {
+    int rows, int blocks, int stages, int probe, void* stream) {
     if (ny < 1 || nx < 1 || stages < 0 || stages > 4 * n_steps) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -668,7 +659,7 @@ extern "C" int swe_rk4_launch(
     const OutView out{uo, vo, ho, out_pitch, out_oy, out_ox};
     const Consts k{cx, cy, g, f, half, dt, sixth, third, ix2, iy2, bcx, bcy,
                    visc, stages, probe};
-    const int lay[5] = {tx, ty, rows, blocks, dense};
+    const int lay[4] = {tx, ty, rows, blocks};
     return with_form(n_steps, bf16, halo_y, halo_x, lay,
                      Launcher{in, out, ny, nx, k,
                               static_cast<cudaStream_t>(stream)});
@@ -680,8 +671,8 @@ extern "C" int swe_rk4_launch(
 // code; cudaErrorInvalidValue for a form or layout that is not built.
 extern "C" int swe_rk4_attributes(int n_steps, int bf16, int halo_y,
                                   int halo_x, int tx, int ty, int rows,
-                                  int blocks, int dense, int* out) {
-    const int lay[5] = {tx, ty, rows, blocks, dense};
+                                  int blocks, int* out) {
+    const int lay[4] = {tx, ty, rows, blocks};
     return with_form(n_steps, bf16, halo_y, halo_x, lay,
                      AttributeQuery{out});
 }

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from njw_tpu_torch.ops import _build
-from njw_tpu_torch.ops.stencil import frame
+from njw_tpu_torch.ops.stencil import SMEM_PER_BLOCK, frame
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
 from njw_tpu_torch.weather.integrators import Stepper
 from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
@@ -56,7 +56,6 @@ from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
 MAX_BASES = 4
 STAGE_THREADS = 128          # csrc/pe_stage.cu NT
 RK4_THREADS = 512            # csrc/pe_rk4.cu NT
-SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
 RK4_TILE_MAX = 8             # the largest output tile the wrapper picks
 RK4_CLUSTERS = (1, 2, 4, 8)  # blocks per cluster the whole-step kernel takes
 RK4_LEVELS_PER_BLOCK = 21    # the most levels a block of it holds at tile 8

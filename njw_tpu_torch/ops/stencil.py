@@ -63,15 +63,13 @@ VARIANTS = ("slices", "base", "folded", "bf16", "bf16s")
 class SweLayout(NamedTuple):
     """A block layout of csrc/swe_rk4.cu: a ``tx`` x ``ty`` output tile,
     ``rows`` rows of the tile's region per thread (each thread keeps a run
-    of one column), the ``blocks`` per SM its register cap is set for
-    (``__launch_bounds__``), and ``dense``: 1 where every point of a run is
-    computed at every stage, 0 where only the stage's valid region is."""
+    of one column), and the ``blocks`` per SM its register cap is set for
+    (``__launch_bounds__``)."""
 
     tx: int
     ty: int
     rows: int
     blocks: int
-    dense: int = 0
 
     def region(self, n_steps: int) -> tuple[int, int]:
         """(rows, columns) of the region: the tile and 4 halo points per
@@ -89,34 +87,25 @@ class SweLayout(NamedTuple):
         return 4 * 3 * 4 * py * px
 
 
-# The layouts csrc/swe_rk4.cu builds (its Step1 and Step2 lists), by steps
-# per launch; the first of each is the rule, and the bf16 and padded forms
-# build it alone. scripts/profile_torch.py times every one at 2048^2.
-_BUILT = {
-    1: (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 24, 4, 2, 1),
-        SweLayout(56, 32, 4, 1, 0), SweLayout(56, 32, 4, 1, 1),
-        SweLayout(56, 40, 4, 1, 0), SweLayout(56, 40, 4, 1, 1),
-        SweLayout(56, 56, 8, 1, 0), SweLayout(56, 56, 8, 1, 1),
-        SweLayout(56, 32, 5, 1, 0), SweLayout(120, 24, 4, 1, 0),
-        SweLayout(24, 24, 4, 3, 0)),
-    2: (SweLayout(48, 48, 8, 1, 0), SweLayout(48, 48, 8, 1, 1),
-        SweLayout(48, 32, 6, 1, 0), SweLayout(48, 32, 6, 1, 1),
-        SweLayout(48, 24, 4, 1, 0)),
-}
-_BF16 = (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 40, 4, 1, 1),
-         SweLayout(56, 32, 4, 1, 1))
-_PADDED = (SweLayout(56, 24, 4, 2, 0), SweLayout(56, 40, 4, 1, 1))
+# The layouts csrc/swe_rk4.cu builds (its Step1, Step1Bf16, Step1Padded
+# and Step2 lists); the first of each form's is the rule. The H100 timed
+# them at 2048^2 (scripts/profile_torch.py, PERF.md).
+_STEP1 = (SweLayout(56, 56, 8, 1), SweLayout(56, 40, 4, 1),
+          SweLayout(56, 32, 4, 1), SweLayout(56, 24, 4, 2))
+_BF16 = (SweLayout(56, 56, 8, 1), SweLayout(56, 40, 4, 1))
+_PADDED = (SweLayout(56, 56, 8, 1),)
+_STEP2 = (SweLayout(48, 48, 8, 1), SweLayout(48, 32, 6, 1))
 
 
 def swe_layouts(n_steps: int = 1, bf16: bool = False,
                 padded: bool = False) -> tuple[SweLayout, ...]:
     """The layouts the kernel is built with for a form: ``n_steps`` per
     launch, the bf16 tendency, a padded block. The first is the rule."""
-    if n_steps not in _BUILT:
+    if n_steps not in (1, 2):
         raise ValueError(f"n_steps must be 1 or 2, got {n_steps}")
-    if n_steps == 1 and bf16:
-        return _BF16
-    return _PADDED if n_steps == 1 and padded else _BUILT[n_steps]
+    if n_steps == 2:
+        return _STEP2
+    return _BF16 if bf16 else _PADDED if padded else _STEP1
 
 
 def swe_layout(n_steps: int = 1, bf16: bool = False) -> SweLayout:
@@ -136,7 +125,7 @@ def swe_layout_arg(layout, n_steps: int = 1, bf16: bool = False,
         return swe_layout(n_steps, bf16)
     lay = SweLayout(*(int(x) for x in layout))
     py, px = lay.region(n_steps)
-    if min(lay[:4]) < 1 or lay.tx % 4 or px % 32 or py % lay.rows:
+    if min(lay) < 1 or lay.tx % 4 or px % 32 or py % lay.rows:
         raise ValueError(f"swe_rk4: {lay} does not tile its {py}x{px} "
                          "region (tx % 4, columns % 32, rows % run)")
     if lay.threads(n_steps) > MAX_THREADS:
@@ -325,7 +314,7 @@ def _runner(kind: str):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
-             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I] * 7 + [_P])
+             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I] * 6 + [_P])
 
 
 def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
@@ -382,7 +371,7 @@ def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
     bytes, threads per block and resident blocks per SM."""
     lay = swe_layout_arg(layout, n_steps, bf16, any(padded))
     fn = _build.load("swe_rk4").swe_rk4_attributes
-    fn.argtypes = [_I] * 9 + [ctypes.POINTER(_I)]
+    fn.argtypes = [_I] * 8 + [ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 6)()
     with torch.cuda.device(index):
@@ -393,8 +382,7 @@ def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
         raise RuntimeError(f"swe_rk4 attributes: {msg} ({err})")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
                      "blocks_per_sm", "static_smem_bytes"), vals),
-                tile=[lay.ty, lay.tx], rows_per_thread=lay.rows,
-                layout=lay._asdict())
+                tile=[lay.ty, lay.tx], layout=lay._asdict())
 
 
 def _tendency(uu, vv, hh, nbrs, k: dict):

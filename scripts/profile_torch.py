@@ -297,13 +297,16 @@ def swe_kernel_extras(gpu: str) -> None:
                           "steps_per_launch": n_steps, "rule":
                           rule._asdict(), "rows": rows}), flush=True)
     k = _swe_constants(grid, 1, bf16=True)
-    ms = _ping_pong_ms(lambda src, dst: st._launch(src, dst, (0, 0), k),
-                       fields)
+    rows = []
+    for lay in st.swe_layouts(1, bf16=True):
+        kk = dict(k, layout=lay)
+        rows.append({"ms": _ping_pong_ms(
+            lambda src, dst: st._launch(src, dst, (0, 0), kk), fields),
+            **st.swe_kernel_attributes(1, bf16=True, layout=lay)})
     print(json.dumps({"phase": "swe_layouts", "card": gpu, "grid": n,
-                      "kernel": "swe_rk4_bf16", "rows": [{
-                          "ms": ms,
-                          **st.swe_kernel_attributes(1, bf16=True)}]}),
-          flush=True)
+                      "kernel": "swe_rk4_bf16",
+                      "rule": st.swe_layout(1, bf16=True)._asdict(),
+                      "rows": rows}), flush=True)
 
 
 def swe_parent(path: str, gpu: str) -> None:

@@ -15,8 +15,10 @@ from njw_tpu.weather import GridSpec as JGrid  # noqa: E402
 
 from njw_tpu_torch.ops import _build, stencil  # noqa: E402
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
-    kernel_supported, make_kernel_rk4_stepper, swe_rk4_step,
-    swe_rk4_step_cuda, swe_rk4_step_plain,
+    MAX_THREADS, SMEM_PER_BLOCK, SweLayout, kernel_supported,
+    make_kernel_rk4_stepper, swe_layout, swe_layout_arg, swe_layouts,
+    swe_rk4_multistep_cuda, swe_rk4_step, swe_rk4_step_cuda,
+    swe_rk4_step_plain,
 )
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation, make_stepper,
@@ -190,6 +192,92 @@ class TestBuild:
         assert "24 B/point" in src
         assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
         assert "cudaGetLastError" in src
+        # the design the note states: column runs in registers, the
+        # region streamed in with cp.async on a persistent grid, the built
+        # layouts mirrored by the wrapper's rule
+        for word in ("registers", "9 + 6/R", "cp.async.cg", "persistent",
+                     "Step1Padded", "swe_layouts"):
+            assert word in src, word
+        for lay in swe_layouts(1):
+            assert f"Layout<{lay.tx}, {lay.ty}, {lay.rows}, {lay.blocks}>" \
+                in src
+
+
+class TestLayoutRule:
+    """The block layouts of csrc/swe_rk4.cu and the rule the wrappers take
+    (the card tests hold the numbers to the built kernel's)."""
+
+    @pytest.mark.parametrize("n_steps,bf16,want,region,threads,smem", [
+        (1, False, (56, 56, 8, 1), (64, 64), 512, 196608),
+        (1, True, (56, 56, 8, 1), (64, 64), 512, 196608),
+        (2, False, (48, 48, 8, 1), (64, 64), 512, 196608),
+    ])
+    def test_rule_tile_threads_and_shared_bytes(self, n_steps, bf16, want,
+                                                region, threads, smem):
+        lay = swe_layout(n_steps, bf16)
+        assert lay == SweLayout(*want)
+        assert lay.region(n_steps) == region
+        assert lay.threads(n_steps) == threads
+        # four (u, v, h) float32 region buffers: s now, s next, two states
+        assert lay.smem_bytes(n_steps) == smem == 4 * 3 * 4 * region[0] * \
+            region[1]
+        assert swe_layout_arg(None, n_steps, bf16) == lay
+
+    @pytest.mark.parametrize("n_steps,bf16,padded", [
+        (1, False, False), (1, True, False), (1, False, True),
+        (2, False, False)])
+    def test_every_built_layout_fits_a_block(self, n_steps, bf16, padded):
+        built = swe_layouts(n_steps, bf16, padded)
+        assert built[0] == swe_layout(n_steps, bf16) or padded
+        for lay in built:
+            py, px = lay.region(n_steps)
+            assert px % 32 == 0 and py % lay.rows == 0 and lay.tx % 4 == 0
+            assert lay.threads(n_steps) <= MAX_THREADS
+            assert lay.threads(n_steps) % 32 == 0
+            assert lay.smem_bytes(n_steps) <= SMEM_PER_BLOCK
+            assert swe_layout_arg(lay, n_steps, bf16, padded) == lay
+
+    def test_padded_forms_take_the_float32_rule(self):
+        assert swe_layouts(1, padded=True) == (swe_layout(1),)
+
+    @pytest.mark.parametrize("layout,match", [
+        ((120, 120, 32, 1), "shared memory"),
+        ((248, 24, 1, 1), "threads"),
+        ((54, 24, 4, 1), "does not tile"),
+        ((56, 24, 5, 1), "does not tile"),
+        ((56, 24, 4, 3), "not built"),
+    ])
+    def test_refuses_a_layout_that_does_not_fit(self, layout, match):
+        with pytest.raises(ValueError, match=match):
+            swe_layout_arg(layout, 1)
+
+    def test_bf16_and_two_step_forms_refuse_the_others_layouts(self):
+        with pytest.raises(ValueError, match="not built"):
+            swe_layout_arg((56, 24, 4, 2), 1, bf16=True)
+        with pytest.raises(ValueError, match="does not tile"):
+            swe_layout_arg(swe_layout(1), 2)  # a 72-column region
+        with pytest.raises(ValueError, match="not built"):
+            swe_layout_arg((16, 48, 8, 1), 2)
+
+    def test_cuda_wrappers_refuse_a_bad_layout_first(self, monkeypatch):
+        """No fallback: the layout is refused before anything is built or
+        launched, whatever device the tensors are on."""
+        def no_build(name):
+            raise AssertionError("nothing may be built for a bad layout")
+
+        monkeypatch.setattr(_build, "load", no_build)
+        f = _torch(_fields(8, 8))
+        grid = GridSpec(nx=8, ny=8)
+        before = (swe_rk4_step_cuda.launches,
+                  swe_rk4_multistep_cuda.launches)
+        with pytest.raises(ValueError, match="shared memory"):
+            swe_rk4_step_cuda(*f, grid=grid, dt=0.01,
+                              layout=SweLayout(120, 120, 32, 1))
+        with pytest.raises(ValueError, match="not built"):
+            swe_rk4_multistep_cuda(*f, grid=grid, dt=0.01,
+                                   layout=SweLayout(16, 48, 8, 1))
+        assert (swe_rk4_step_cuda.launches,
+                swe_rk4_multistep_cuda.launches) == before
 
 
 class _NoCudaPath(type(_build.CSRC)):
