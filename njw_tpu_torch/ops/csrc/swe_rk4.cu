@@ -67,10 +67,10 @@
 //     of whole rows; only a tile whose columns wrap (or reach past the
 //     halo) takes 4-byte copies with a wrapped index. Index wrapping is a
 //     compare-and-add, never a runtime %.
-//   * The layout (TX, TY, R, blocks per SM) is a template parameter; the
-//     launch takes one of the built layouts (Step1, Step1Bf16, Step1Padded,
-//     Step2 below, mirrored by njw_tpu_torch.ops.stencil.swe_layouts, whose
-//     first entry for each form is the rule the wrapper takes).
+//   * The layout (TX, TY, R, blocks per SM) is one per form: Step1 for K1
+//     in every form (float32, bf16, padded), Step2 for K2 (below, mirrored
+//     by njw_tpu_torch.ops.stencil.swe_layout), the fastest the H100 timed
+//     at 2048^2 (PERF.md).
 // The combine is the TPU kernel's accumulator form, which keeps only
 // {s, current stage, accumulator} live:
 //   s1 = s + dt/2 T(s);   acc = s1 - s
@@ -80,8 +80,8 @@
 // With N = 2 the first step's s' becomes s and the second step's first
 // state. Both steps run the same tendency() and combine() code as K1, so
 // the same expressions get the same contractions: K2 with N = 2 equals two
-// K1 launches (float32, no viscosity) bit for bit, and every layout and
-// form computes each point by the same expressions. The viscosity stays a
+// K1 launches (float32, no viscosity) bit for bit, and every form
+// computes each point by the same expressions. The viscosity stays a
 // runtime branch (k.visc): as a template parameter it let nvcc contract
 // the float32 arithmetic otherwise, which moved the bf16 kernel's distance
 // from its plain version past chip_smoke.py's gate.
@@ -163,8 +163,6 @@ struct Consts {
     int visc;
     int stages;       // 4N: the step; fewer run only the first stages and
                       // store nothing, 0 only the loads (for profiling)
-    int probe;        // 0; for profiling, bit 0: a block keeps its first
-                      // tile's region (no later loads), bit 1: no stores
 };
 
 // A point's value and its four neighbours in one field.
@@ -318,7 +316,7 @@ __device__ __forceinline__ void stage(Own<Lay::R>& m, const float* in,
             const int gy = gy0 + r, gx = gx0 + c;
             const bool in_tile = r >= H && r < PY - H && c >= H
                                  && c < PX - H;
-            if (in_tile && !(k.probe & 2) && gy < ny && gx < nx) {
+            if (in_tile && gy < ny && gx < nx) {
                 const size_t g = static_cast<size_t>(o.oy + gy) * o.pitch
                                  + (o.ox + gx);
                 o.u[g] = nu;
@@ -450,7 +448,7 @@ swe_rk4_kernel(View in, OutView out, int ny, int nx, int tiles_x,
         asm volatile("cp.async.wait_all;\n" ::: "memory");
         __syncthreads();                // s is in; the last tile is done
         const int next = t + gridDim.x;
-        const bool fetch = next < ntiles && !(k.probe & 1);
+        const bool fetch = next < ntiles;
         if (fetch) {                    // in flight through all 4N stages
             load_region<N, kHaloY, kHaloX, Lay>(nbuf, in, next, tiles_x, ny,
                                                 nx, vec);
@@ -489,16 +487,10 @@ swe_rk4_kernel(View in, OutView out, int ny, int nx, int tiles_x,
 
 // ---------------------------------------------------------------- layouts
 
-template <class... L>
-struct List {};
-
-// The built layouts of each form; the first of each is the rule
-// (njw_tpu_torch.ops.stencil.SWE_LAYOUTS mirrors this list).
-using Step1 = List<Layout<56, 56, 8, 1>, Layout<56, 40, 4, 1>,
-                   Layout<56, 32, 4, 1>, Layout<56, 24, 4, 2>>;
-using Step1Bf16 = List<Layout<56, 56, 8, 1>, Layout<56, 40, 4, 1>>;
-using Step1Padded = List<Layout<56, 56, 8, 1>>;
-using Step2 = List<Layout<48, 48, 8, 1>, Layout<48, 32, 6, 1>>;
+// The layout of each form (njw_tpu_torch.ops.stencil.swe_layout mirrors
+// them): K1 in every form, and K2.
+using Step1 = Layout<56, 56, 8, 1>;
+using Step2 = Layout<48, 48, 8, 1>;
 
 // Persistent blocks of one instantiation on the current device: resident
 // blocks per SM x SMs, found once per device (the shared-memory opt-in is
@@ -569,43 +561,23 @@ int attributes(int* out) {
     return 0;
 }
 
-// Run f.run<N, kBf16, kHaloY, kHaloX, Lay>() for the layout Lay of
-// `list` that is (tx, ty, rows, blocks); cudaErrorInvalidValue when none
-// is.
-template <int N, bool kBf16, bool kHaloY, bool kHaloX, class F, class... L>
-int with_layout(List<L...>, const int (&lay)[4], const F& f) {
-    int err = static_cast<int>(cudaErrorInvalidValue);
-    bool found = false;
-    ((!found && L::TX == lay[0] && L::TY == lay[1] && L::R == lay[2]
-              && L::MINB == lay[3]
-          ? (found = true,
-             err = f.template run<N, kBf16, kHaloY, kHaloX, L>(), 0)
-          : 0),
-     ...);
-    return err;
-}
-
-// Dispatch a form (N, bf16, halo) to its built layouts.
+// Run f.run<N, kBf16, kHaloY, kHaloX, Lay>() for a form (N, bf16, halo)
+// and its layout; cudaErrorInvalidValue for a form that is not built.
 template <class F>
-int with_form(int n_steps, int bf16, int halo_y, int halo_x,
-              const int (&lay)[4], const F& f) {
+int with_form(int n_steps, int bf16, int halo_y, int halo_x, const F& f) {
     const bool whole = !halo_y && !halo_x;
     if (n_steps == 2 && whole && !bf16) {
-        return with_layout<2, false, false, false>(Step2{}, lay, f);
+        return f.template run<2, false, false, false, Step2>();
     }
     if (n_steps != 1) return static_cast<int>(cudaErrorInvalidValue);
     if (bf16) {
         if (!whole) return static_cast<int>(cudaErrorInvalidValue);
-        return with_layout<1, true, false, false>(Step1Bf16{}, lay, f);
+        return f.template run<1, true, false, false, Step1>();
     }
-    if (whole) return with_layout<1, false, false, false>(Step1{}, lay, f);
-    if (halo_y && !halo_x) {
-        return with_layout<1, false, true, false>(Step1Padded{}, lay, f);
-    }
-    if (halo_y && halo_x) {
-        return with_layout<1, false, true, true>(Step1Padded{}, lay, f);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (whole) return f.template run<1, false, false, false, Step1>();
+    if (!halo_y) return static_cast<int>(cudaErrorInvalidValue);
+    if (halo_x) return f.template run<1, false, true, true, Step1>();
+    return f.template run<1, false, true, false, Step1>();
 }
 
 struct Launcher {
@@ -639,42 +611,37 @@ struct AttributeQuery {
 // wraps; a halo in x needs one in y. bf16: 1 for the bf16 tendency
 // (bcx, bcy its bf16 constants). The bf16 tendency and n_steps = 2 take
 // the whole periodic domain only (halo_y = halo_x = 0), and not together.
-// (tx, ty, rows, blocks): one of the form's built layouts. stages: 4 n_steps (the
-// step); fewer run only the first stages and write nothing, 0 only the
-// region loads (scripts/profile_torch.py times the parts so). Outputs must
-// not alias inputs. Returns the CUDA error code of the launch (0 on
-// success). probe: 0 (profiling only: see Consts).
+// stages: 4 n_steps (the step); fewer run only the first stages and write
+// nothing, 0 only the region loads (scripts/profile_torch.py times the
+// parts so). Outputs must not alias inputs. Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int swe_rk4_launch(
     const float* u, const float* v, const float* h, long long in_pitch,
     int in_oy, int in_ox, float* uo, float* vo, float* ho,
     long long out_pitch, int out_oy, int out_ox, int ny, int nx,
     int halo_y, int halo_x, float cx, float cy, float g, float f,
     float half, float dt, float sixth, float third, float ix2, float iy2,
-    int visc, int n_steps, int bf16, float bcx, float bcy, int tx, int ty,
-    int rows, int blocks, int stages, int probe, void* stream) {
+    int visc, int n_steps, int bf16, float bcx, float bcy, int stages,
+    void* stream) {
     if (ny < 1 || nx < 1 || stages < 0 || stages > 4 * n_steps) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const View in{u, v, h, in_pitch, in_oy, in_ox};
     const OutView out{uo, vo, ho, out_pitch, out_oy, out_ox};
     const Consts k{cx, cy, g, f, half, dt, sixth, third, ix2, iy2, bcx, bcy,
-                   visc, stages, probe};
-    const int lay[4] = {tx, ty, rows, blocks};
-    return with_form(n_steps, bf16, halo_y, halo_x, lay,
+                   visc, stages};
+    return with_form(n_steps, bf16, halo_y, halo_x,
                      Launcher{in, out, ny, nx, k,
                               static_cast<cudaStream_t>(stream)});
 }
 
-// The attributes of one built instantiation on the current device (see
-// attributes() above: registers, spill bytes, shared bytes, threads,
+// The attributes of a form's built instantiation on the current device
+// (see attributes() above: registers, spill bytes, shared bytes, threads,
 // blocks per SM, static shared bytes) into out[6]. Returns the CUDA error
-// code; cudaErrorInvalidValue for a form or layout that is not built.
+// code; cudaErrorInvalidValue for a form that is not built.
 extern "C" int swe_rk4_attributes(int n_steps, int bf16, int halo_y,
-                                  int halo_x, int tx, int ty, int rows,
-                                  int blocks, int* out) {
-    const int lay[4] = {tx, ty, rows, blocks};
-    return with_form(n_steps, bf16, halo_y, halo_x, lay,
-                     AttributeQuery{out});
+                                  int halo_x, int* out) {
+    return with_form(n_steps, bf16, halo_y, halo_x, AttributeQuery{out});
 }
 
 // Name of a CUDA error code, for the Python wrapper's messages.

@@ -25,11 +25,10 @@ Launch counters: ``swe_rk4_step_cuda.launches`` (K1, float32, every form),
 ``swe_rk4_multistep_cuda.launches`` (K2).
 
 Block layouts: ``SweLayout`` (output tile, rows of the region per thread,
-blocks per SM). ``swe_layouts`` lists the ones the source builds for each
-form and ``swe_layout`` gives the rule every launch takes unless a
-``layout=`` names another built one; ``SweLayout.smem_bytes`` and
-``.threads`` mirror the source, and ``swe_kernel_attributes`` reads the
-built kernel's (the card tests hold the two equal).
+blocks per SM). ``swe_layout`` is the rule: the one layout the source
+builds for each form; ``SweLayout.smem_bytes`` and ``.threads`` mirror
+the source, and ``swe_kernel_attributes`` reads the built kernel's (the
+card tests hold the two equal).
 
 The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
 ``_carry``, ``_local2d``) have their counterparts here too:
@@ -87,45 +86,26 @@ class SweLayout(NamedTuple):
         return 4 * 3 * 4 * py * px
 
 
-# The layouts csrc/swe_rk4.cu builds (its Step1, Step1Bf16, Step1Padded
-# and Step2 lists); the first of each form's is the rule. The H100 timed
-# them at 2048^2 (scripts/profile_torch.py, PERF.md).
-_STEP1 = (SweLayout(56, 56, 8, 1), SweLayout(56, 40, 4, 1),
-          SweLayout(56, 32, 4, 1), SweLayout(56, 24, 4, 2))
-_BF16 = (SweLayout(56, 56, 8, 1), SweLayout(56, 40, 4, 1))
-_PADDED = (SweLayout(56, 56, 8, 1),)
-_STEP2 = (SweLayout(48, 48, 8, 1), SweLayout(48, 32, 6, 1))
+# The layout csrc/swe_rk4.cu builds for each form, by steps per launch
+# (its Step1: K1 float32, bf16 and padded; its Step2: K2), the fastest the
+# H100 timed at 2048^2 (scripts/profile_torch.py, PERF.md).
+_RULE = {1: SweLayout(56, 56, 8, 1), 2: SweLayout(48, 48, 8, 1)}
 
 
-def swe_layouts(n_steps: int = 1, bf16: bool = False,
-                padded: bool = False) -> tuple[SweLayout, ...]:
-    """The layouts the kernel is built with for a form: ``n_steps`` per
-    launch, the bf16 tendency, a padded block. The first is the rule."""
-    if n_steps not in (1, 2):
-        raise ValueError(f"n_steps must be 1 or 2, got {n_steps}")
-    if n_steps == 2:
-        return _STEP2
-    return _BF16 if bf16 else _PADDED if padded else _STEP1
-
-
+@functools.lru_cache(maxsize=8)
 def swe_layout(n_steps: int = 1, bf16: bool = False) -> SweLayout:
-    """The rule: the layout a launch of the form takes unless told
-    otherwise, the fastest the H100 timed at 2048^2 (PERF.md)."""
-    return swe_layouts(n_steps, bf16)[0]
-
-
-def swe_layout_arg(layout, n_steps: int = 1, bf16: bool = False,
-                   padded: bool = False) -> SweLayout:
-    """``layout``, or the rule's when None. Refuses, with ValueError, a
+    """The rule: the layout of the form with ``n_steps`` per launch (the
+    bf16 tendency takes the float32 one). Refuses, with ValueError, a
     layout that does not tile its region (a tile width that is not a
     multiple of 4, a region width that is not whole warps, a region height
-    that is not whole runs), that does not fit a block (threads, shared
-    memory), or that the kernel is not built with for the form."""
-    if layout is None:
-        return swe_layout(n_steps, bf16)
-    lay = SweLayout(*(int(x) for x in layout))
+    that is not whole runs) or does not fit a block (threads, shared
+    memory): the source's static_asserts, checked before anything is
+    built."""
+    if n_steps not in _RULE:
+        raise ValueError(f"n_steps must be 1 or 2, got {n_steps}")
+    lay = _RULE[n_steps]
     py, px = lay.region(n_steps)
-    if min(lay) < 1 or lay.tx % 4 or px % 32 or py % lay.rows:
+    if lay.tx % 4 or px % 32 or py % lay.rows:
         raise ValueError(f"swe_rk4: {lay} does not tile its {py}x{px} "
                          "region (tx % 4, columns % 32, rows % run)")
     if lay.threads(n_steps) > MAX_THREADS:
@@ -136,9 +116,6 @@ def swe_layout_arg(layout, n_steps: int = 1, bf16: bool = False,
         raise ValueError(f"swe_rk4: {lay} needs {lay.smem_bytes(n_steps)} B "
                          f"of shared memory, more than the {SMEM_PER_BLOCK} "
                          "a block may have")
-    if lay not in swe_layouts(n_steps, bf16, padded):
-        raise ValueError(f"swe_rk4: {lay} is not built for this form; built:"
-                         f" {list(swe_layouts(n_steps, bf16, padded))}")
     return lay
 
 
@@ -257,17 +234,14 @@ def _refuse_host(name: str, ins: Fields, out: Optional[Fields]) -> None:
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
                       gravity: float = 9.81, coriolis_f: float = 0.0,
                       viscosity: float = 0.0, variant: str = "slices",
-                      out: Optional[Fields] = None,
-                      layout: Optional[SweLayout] = None) -> Fields:
+                      out: Optional[Fields] = None) -> Fields:
     """Launch the CUDA kernel on the current stream. Refuses any tensor that
-    is not on a CUDA device, and a ``layout`` (``swe_layout_arg``) other
-    than a built one (the rule's when None). ``swe_rk4_step_cuda.launches``
-    counts the float32 launches of every form (whole-domain and padded),
+    is not on a CUDA device. ``swe_rk4_step_cuda.launches`` counts the
+    float32 launches of every form (whole-domain and padded),
     ``swe_rk4_step_cuda.bf16_launches`` those of the bf16 variant."""
-    layout = swe_layout_arg(layout, 1, _is_bf16(variant))
     _refuse_host("swe_rk4_step_cuda", (u, v, h), out)
     return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 viscosity, variant, layout=layout)
+                 viscosity, variant)
 
 
 def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
@@ -283,12 +257,10 @@ def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
 
 
 def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
-          variant: str = "slices", n_fused: Optional[int] = None,
-          layout: Optional[SweLayout] = None) -> Fields:
+          variant: str = "slices", n_fused: Optional[int] = None) -> Fields:
     """Check a whole-domain call, fold its constants and hand it to
     ``run``. ``n_fused`` (the multistep entry points only) is stored in the
-    constants as ``fused``: K2's launch and its counter; ``layout`` (a
-    checked ``SweLayout``, the launch's only) as ``layout``."""
+    constants as ``fused``: K2's launch and its counter."""
     _check(*ins, grid, out)
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity,
                       _is_bf16(variant))
@@ -297,8 +269,6 @@ def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
             raise ValueError(f"n_fused must be 1 or 2, got {n_fused} (the "
                              "JAX kernel's 8-row slab halo bound)")
         k["fused"] = n_fused
-    if layout is not None:
-        k["layout"] = layout
     if out is None:
         out = tuple(torch.empty_like(t) for t in ins)
     return run(ins, out, (0, 0), k)
@@ -314,7 +284,7 @@ def _runner(kind: str):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
-             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I] * 6 + [_P])
+             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I, _P])
 
 
 def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
@@ -323,16 +293,14 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
     ``swe_rk4_step_cuda.bf16_launches``, K1 on ``.launches``. ``ins``:
     (u, v, h) views of the input block (its first element, its row pitch),
     whose interior starts at ``halo`` = (hy, hx); an axis whose halo is 0
-    wraps. ``out``: views of the interior-shaped result. ``k["layout"]``:
-    the block layout (the rule's when absent); ``k["stages"]`` < 4 steps
-    runs only the first stages and writes nothing, 0 only the loads;
-    ``k["probe"]`` (bit 0: no loads past a block's first tile, bit 1: no
-    stores) times what is left (``scripts/profile_torch.py`` times the
-    kernel's parts so)."""
+    wraps. ``out``: views of the interior-shaped result. The block layout
+    is the rule's (``swe_layout``). ``k["stages"]`` < 4 steps runs only
+    the first stages and writes nothing, 0 only the loads
+    (``scripts/profile_torch.py`` times the kernel's parts so)."""
     hy, hx = halo
     ny, nx = out[0].shape
     n_steps = k.get("fused", 1)
-    lay = k.get("layout") or swe_layout(n_steps, bool(k.get("bf16")))
+    swe_layout(n_steps, bool(k.get("bf16")))   # refuses one that does not fit
     launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
     with torch.cuda.device(ins[0].device):
@@ -343,7 +311,7 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
             k["f"], k["half"], k["dt"], k["sixth"], k["third"], k["ix2"],
             k["iy2"], int(k["nu"] != 0.0), n_steps,
             int(k.get("bf16", 0)), k.get("bcx", 0.0), k.get("bcy", 0.0),
-            *lay, k.get("stages", 4 * n_steps), k.get("probe", 0), stream)
+            k.get("stages", 4 * n_steps), stream)
     if err != 0:
         msg = err_string(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
@@ -361,22 +329,19 @@ swe_rk4_step_cuda.bf16_launches = 0
 
 
 def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
-                          padded: tuple = (0, 0),
-                          layout: Optional[SweLayout] = None,
-                          index: int = 0) -> dict:
+                          padded: tuple = (0, 0), index: int = 0) -> dict:
     """The built kernel's instantiation for a form (steps per launch, the
-    bf16 tendency, ``padded`` = (halo in y, halo in x) as 0/1) and
-    ``layout`` (the rule's when None) on CUDA device ``index``: its
-    registers and local (spill) bytes per thread, dynamic and static shared
-    bytes, threads per block and resident blocks per SM."""
-    lay = swe_layout_arg(layout, n_steps, bf16, any(padded))
+    bf16 tendency, ``padded`` = (halo in y, halo in x) as 0/1) on CUDA
+    device ``index``: its registers and local (spill) bytes per thread,
+    dynamic and static shared bytes, threads per block and resident blocks
+    per SM, with the rule's layout and tile."""
+    lay = swe_layout(n_steps, bf16)
     fn = _build.load("swe_rk4").swe_rk4_attributes
-    fn.argtypes = [_I] * 8 + [ctypes.POINTER(_I)]
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 6)()
     with torch.cuda.device(index):
-        err = fn(n_steps, int(bf16), int(padded[0]), int(padded[1]), *lay,
-                 vals)
+        err = fn(n_steps, int(bf16), int(padded[0]), int(padded[1]), vals)
     if err != 0:
         msg = _build.bind("swe_rk4", _ARGTYPES)[1](err).decode()
         raise RuntimeError(f"swe_rk4 attributes: {msg} ({err})")
@@ -538,15 +503,12 @@ def swe_rk4_multistep(u, v, h, *, grid: GridSpec, dt: float,
 def swe_rk4_multistep_cuda(u, v, h, *, grid: GridSpec, dt: float,
                            gravity: float = 9.81, coriolis_f: float = 0.0,
                            n_fused: int = 2,
-                           out: Optional[Fields] = None,
-                           layout: Optional[SweLayout] = None) -> Fields:
+                           out: Optional[Fields] = None) -> Fields:
     """Launch the multistep kernel (K2) on the current stream; CUDA tensors
-    only, and a built ``layout`` (the rule's for ``n_fused`` when None).
-    ``swe_rk4_multistep_cuda.launches`` counts its launches."""
-    layout = swe_layout_arg(layout, n_fused)
+    only. ``swe_rk4_multistep_cuda.launches`` counts its launches."""
     _refuse_host("swe_rk4_multistep_cuda", (u, v, h), out)
     return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 0.0, n_fused=n_fused, layout=layout)
+                 0.0, n_fused=n_fused)
 
 
 swe_rk4_multistep_cuda.launches = 0

@@ -19,21 +19,21 @@ the card's name and power limit:
     enqueueing one step takes (no synchronise). A step of swe_multistep
     is one launch, two RK4 steps;
   * swe ``steps``: ms/step of backend kernel and backend plain (CUDA
-    events), and ``sweep``: the fused kernel alone at several grid sizes,
+    events), and ``sweep``: the fused kernel alone at 512^2 to 4096^2,
     with the bandwidth its 24 B/point minimum traffic implies;
-    ``swe_parts``: K1 and K2 alone at 2048^2 on the rule's layout, the
-    region loads alone (stages 0) and the first 1, 2, ... 4N stages
-    (stores only at 4N), the whole launch without the loads past each
-    block's first tile, without the stores, and without both (compute
-    alone), and a copy of u, v, h (the same 24 B/point) beside them;
-    ``swe_layouts``: every layout the kernel is
-    built with for K1 and K2 (and the bf16 kernel's) at 2048^2, with its
-    registers, spill bytes, shared bytes, threads and blocks per SM;
-    ``--parent-swe FILE`` adds ``swe_parent``: an earlier swe_rk4.cu
-    (its C entry without the layout arguments) built with the same nvcc
+    ``swe_parts``: K1 and K2 alone at 2048^2, the region loads alone
+    (stages 0) and the first 1, 2, ... 4N stages (stores only at 4N), a
+    copy of u, v, h (the same 24 B/point) beside them, and the built
+    kernel's registers, spill bytes, shared bytes, threads, blocks per SM
+    and layout; ``--parent-swe FILE`` adds ``swe_parent``: an earlier
+    swe_rk4.cu (a C entry with no stage count) built with the same nvcc
     flags into a temporary directory and timed beside the current kernel
-    for K1, K1-bf16 and K2 at 2048^2, in turns (parent, new, new, parent),
-    with whether the two give equal outputs bit for bit;
+    for K1, K1-bf16 and K2 at each size of the sweep, in turns (parent,
+    new, new, parent), with whether the two give equal outputs bit for
+    bit. Kernel-alone times (``sweep``, ``swe_parts``, ``swe_parent``)
+    let the device spin first while the host queues the launches, so that
+    a kernel faster than its wrapper's host cost is still timed on the
+    device;
   * primitive ``layouts``: the whole-step kernel K4 alone at config 4
     (the main path's shape) and config 5 (2048^2 x 40): its parts (the
     first 1, 2, 3 and 4 stages run alone), every layout worth timing
@@ -76,6 +76,8 @@ SWEEP_LEVELS = (8, 16, 20, 21, 22, 30, 40, 42, 43, 64, 84, 85, 120, 128, 144,
                 160, 168, 192, 227, 256, 300, 340, 454)
 ACCURACY_LEVELS = (20, 40, 87, 120, 168, 200, 227, 300, 340, 400, 454, 560,
                    688)
+SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's clock: see device_ms
+SWEEP_GRIDS = (512, 1024, 2048, 4096)
 HAND_WRITTEN = ("swe_rk4_kernel", "baro_stage_kernel", "pe_stage_kernel",
                 "pe_rk4_kernel", "band_kernel")
 
@@ -89,6 +91,22 @@ def card() -> str:
 def events_ms(fn, n: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int) -> float:
+    """Mean device time of fn() over n calls, by CUDA events, the device
+    first spinning while the host queues all n calls (as chip_smoke.py's
+    _events_ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -203,7 +221,7 @@ def swe_extras(steps: int, gpu: str) -> None:
                       "ms_per_step": per_step}), flush=True)
 
     sweep = []
-    for n in (512, 1024, 2048, 4096):
+    for n in SWEEP_GRIDS:
         grid = GridSpec(nx=n, ny=n)
         s0 = make_initial_state("vortex", grid, device="cuda", strength=1.0)
         bufs = [(s0.u, s0.v, s0.h),
@@ -216,7 +234,7 @@ def swe_extras(steps: int, gpu: str) -> None:
             turn[0] ^= 1
 
         events_ms(launch, 10)
-        ms = events_ms(launch, 200)
+        ms = device_ms(launch, 200)
         sweep.append({"grid": n, "ms": ms,
                       "gbps_at_24B_per_point": 24 * n * n / (ms * 1e6)})
     print(json.dumps({"phase": "sweep", "card": gpu, "kernel": "swe_rk4",
@@ -253,12 +271,12 @@ def _ping_pong_ms(launch, fields, reps: int = 200) -> float:
         turn[0] ^= 1
 
     events_ms(call, 10)
-    return events_ms(call, reps)
+    return device_ms(call, reps)
 
 
 def swe_kernel_extras(gpu: str) -> None:
-    """K1 and K2 at 2048^2: the parts on the rule's layout, and every built
-    layout (and the bf16 kernel's)."""
+    """K1 and K2 alone at 2048^2: the loads alone, the first stages, the
+    whole launch, and a copy of the same bytes."""
     from njw_tpu_torch.ops import stencil as st
 
     n = SWE_GRID
@@ -266,53 +284,31 @@ def swe_kernel_extras(gpu: str) -> None:
     fields = _swe_fields(n)
     for n_steps in (1, 2):
         k = _swe_constants(grid, n_steps)
-        rule = st.swe_layout(n_steps)
 
-        def timed(layout, stages, probe=0):
-            kk = dict(k, layout=layout, stages=stages, probe=probe)
+        def timed(stages):
+            kk = dict(k, stages=stages)
             return _ping_pong_ms(
                 lambda src, dst: st._launch(src, dst, (0, 0), kk), fields)
 
-        parts = {stages: timed(rule, stages)
-                 for stages in range(4 * n_steps + 1)}
-        full = 4 * n_steps
+        parts = {stages: timed(stages) for stages in range(4 * n_steps + 1)}
         print(json.dumps({
             "phase": "swe_parts", "card": gpu, "grid": n,
-            "steps_per_launch": n_steps, "layout": rule._asdict(),
+            "steps_per_launch": n_steps,
+            **st.swe_kernel_attributes(n_steps),
             "ms_by_stages": parts,
             "ms_per_stage": {s: parts[s] - parts[s - 1]
-                             for s in range(1, full + 1)},
-            "ms_without_later_loads": timed(rule, full, 1),
-            "ms_without_stores": timed(rule, full, 2),
-            "ms_compute_alone": timed(rule, full, 3),
+                             for s in range(1, 4 * n_steps + 1)},
             "copy_ms": _ping_pong_ms(
                 lambda src, dst: [d.copy_(x) for x, d in zip(src, dst)],
                 fields),
         }), flush=True)
-        rows = []
-        for lay in st.swe_layouts(n_steps):
-            rows.append({"ms": timed(lay, 4 * n_steps),
-                         **st.swe_kernel_attributes(n_steps, layout=lay)})
-        print(json.dumps({"phase": "swe_layouts", "card": gpu, "grid": n,
-                          "steps_per_launch": n_steps, "rule":
-                          rule._asdict(), "rows": rows}), flush=True)
-    k = _swe_constants(grid, 1, bf16=True)
-    rows = []
-    for lay in st.swe_layouts(1, bf16=True):
-        kk = dict(k, layout=lay)
-        rows.append({"ms": _ping_pong_ms(
-            lambda src, dst: st._launch(src, dst, (0, 0), kk), fields),
-            **st.swe_kernel_attributes(1, bf16=True, layout=lay)})
-    print(json.dumps({"phase": "swe_layouts", "card": gpu, "grid": n,
-                      "kernel": "swe_rk4_bf16",
-                      "rule": st.swe_layout(1, bf16=True)._asdict(),
-                      "rows": rows}), flush=True)
 
 
 def swe_parent(path: str, gpu: str) -> None:
     """An earlier swe_rk4.cu beside the current one, in one process:
     built with the same flags outside the repository, timed in turns for
-    K1, K1-bf16 and K2 at 2048^2, outputs compared bit for bit."""
+    K1, K1-bf16 and K2 at each size of the sweep, outputs compared bit for
+    bit."""
     import ctypes
     import tempfile
 
@@ -345,41 +341,44 @@ def swe_parent(path: str, gpu: str) -> None:
         if err:
             raise RuntimeError(f"parent launch failed ({err})")
 
-    n = SWE_GRID
-    grid = GridSpec(nx=n, ny=n)
-    fields = _swe_fields(n)
-    rows = {}
-    for name, n_steps, bf16 in (("swe_rk4", 1, False),
-                                ("swe_rk4_bf16", 1, True),
-                                ("swe_rk4_multi", 2, False)):
-        k = _swe_constants(grid, n_steps, bf16)
+    for n in SWEEP_GRIDS:
+        grid = GridSpec(nx=n, ny=n)
+        fields = _swe_fields(n)
+        rows = {}
+        for name, n_steps, bf16 in (("swe_rk4", 1, False),
+                                    ("swe_rk4_bf16", 1, True),
+                                    ("swe_rk4_multi", 2, False)):
+            k = _swe_constants(grid, n_steps, bf16)
 
-        def new(src, dst, k=k):
-            st._launch(src, dst, (0, 0), k)
+            def new(src, dst, k=k):
+                st._launch(src, dst, (0, 0), k)
 
-        def old(src, dst, k=k):
-            parent(src, dst, k)
+            def old(src, dst, k=k):
+                parent(src, dst, k)
 
-        times = {"parent": [], "new": []}
-        for who in ("parent", "new", "new", "parent"):
-            times[who].append(_ping_pong_ms(new if who == "new" else old,
-                                            fields))
-        a = tuple(torch.empty_like(t) for t in fields)
-        b = tuple(torch.empty_like(t) for t in fields)
-        old(fields, a)
-        new(fields, b)
-        torch.cuda.synchronize()
-        rows[name] = {
-            "parent_ms": times["parent"], "new_ms": times["new"],
-            "parent_ms_mean": sum(times["parent"]) / 2,
-            "new_ms_mean": sum(times["new"]) / 2,
-            "equal_bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, b)),
-            "max_abs_diff": max(float((x - y).abs().max())
-                                for x, y in zip(a, b)),
-            "new_layout": st.swe_kernel_attributes(n_steps, bf16=bf16)}
-    print(json.dumps({"phase": "swe_parent", "card": gpu, "grid": n,
-                      "parent_source": path, "parent_ptxas": regs,
-                      "rows": rows}), flush=True)
+            times = {"parent": [], "new": []}
+            for who in ("parent", "new", "new", "parent"):
+                times[who].append(_ping_pong_ms(
+                    new if who == "new" else old, fields))
+            a = tuple(torch.empty_like(t) for t in fields)
+            b = tuple(torch.empty_like(t) for t in fields)
+            old(fields, a)
+            new(fields, b)
+            torch.cuda.synchronize()
+            rows[name] = {
+                "parent_ms": times["parent"], "new_ms": times["new"],
+                "parent_ms_mean": sum(times["parent"]) / 2,
+                "new_ms_mean": sum(times["new"]) / 2,
+                "equal_bit_for_bit": all(torch.equal(x, y)
+                                         for x, y in zip(a, b)),
+                "max_abs_diff": max(float((x - y).abs().max())
+                                    for x, y in zip(a, b)),
+                "new_layout": st.swe_kernel_attributes(n_steps, bf16=bf16)}
+            del a, b
+        print(json.dumps({"phase": "swe_parent", "card": gpu, "grid": n,
+                          "parent_source": path, "parent_ptxas": regs,
+                          "rows": rows}), flush=True)
+        del fields
 
 
 def _k4_layouts(levels: int) -> list:

@@ -16,9 +16,8 @@ from njw_tpu.weather import GridSpec as JGrid  # noqa: E402
 from njw_tpu_torch.ops import _build, stencil  # noqa: E402
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
     MAX_THREADS, SMEM_PER_BLOCK, SweLayout, kernel_supported,
-    make_kernel_rk4_stepper, swe_layout, swe_layout_arg, swe_layouts,
-    swe_rk4_multistep_cuda, swe_rk4_step, swe_rk4_step_cuda,
-    swe_rk4_step_plain,
+    make_kernel_rk4_stepper, rk4_constants, swe_layout, swe_rk4_step,
+    swe_rk4_step_cuda, swe_rk4_step_plain,
 )
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation, make_stepper,
@@ -193,19 +192,27 @@ class TestBuild:
         assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
         assert "cudaGetLastError" in src
         # the design the note states: column runs in registers, the
-        # region streamed in with cp.async on a persistent grid, the built
-        # layouts mirrored by the wrapper's rule
+        # region streamed in with cp.async on a persistent grid, one layout
+        # a form, mirrored by the wrapper's rule
         for word in ("registers", "9 + 6/R", "cp.async.cg", "persistent",
-                     "Step1Padded", "swe_layouts"):
+                     "stencil.swe_layout"):
             assert word in src, word
-        for lay in swe_layouts(1):
-            assert f"Layout<{lay.tx}, {lay.ty}, {lay.rows}, {lay.blocks}>" \
-                in src
+        for name, n_steps in (("Step1", 1), ("Step2", 2)):
+            lay = swe_layout(n_steps)
+            assert (f"using {name} = Layout<{lay.tx}, {lay.ty}, {lay.rows}, "
+                    f"{lay.blocks}>;") in src
+        assert src.count("using Step") == 2   # no layout but the rule's
 
 
 class TestLayoutRule:
-    """The block layouts of csrc/swe_rk4.cu and the rule the wrappers take
-    (the card tests hold the numbers to the built kernel's)."""
+    """The block layout of each form of csrc/swe_rk4.cu, the rule the
+    launch takes (the card tests hold the numbers to the built kernel's)."""
+
+    @pytest.fixture(autouse=True)
+    def _fresh_rule(self):
+        swe_layout.cache_clear()
+        yield
+        swe_layout.cache_clear()
 
     @pytest.mark.parametrize("n_steps,bf16,want,region,threads,smem", [
         (1, False, (56, 56, 8, 1), (64, 64), 512, 196608),
@@ -221,63 +228,61 @@ class TestLayoutRule:
         # four (u, v, h) float32 region buffers: s now, s next, two states
         assert lay.smem_bytes(n_steps) == smem == 4 * 3 * 4 * region[0] * \
             region[1]
-        assert swe_layout_arg(None, n_steps, bf16) == lay
 
-    @pytest.mark.parametrize("n_steps,bf16,padded", [
-        (1, False, False), (1, True, False), (1, False, True),
-        (2, False, False)])
-    def test_every_built_layout_fits_a_block(self, n_steps, bf16, padded):
-        built = swe_layouts(n_steps, bf16, padded)
-        assert built[0] == swe_layout(n_steps, bf16) or padded
-        for lay in built:
-            py, px = lay.region(n_steps)
-            assert px % 32 == 0 and py % lay.rows == 0 and lay.tx % 4 == 0
-            assert lay.threads(n_steps) <= MAX_THREADS
-            assert lay.threads(n_steps) % 32 == 0
-            assert lay.smem_bytes(n_steps) <= SMEM_PER_BLOCK
-            assert swe_layout_arg(lay, n_steps, bf16, padded) == lay
+    @pytest.mark.parametrize("n_steps,bf16", [(1, False), (1, True),
+                                              (2, False)])
+    def test_rule_fits_a_block(self, n_steps, bf16):
+        lay = swe_layout(n_steps, bf16)
+        py, px = lay.region(n_steps)
+        assert px % 32 == 0 and py % lay.rows == 0 and lay.tx % 4 == 0
+        assert lay.threads(n_steps) <= MAX_THREADS
+        assert lay.threads(n_steps) % 32 == 0
+        assert lay.smem_bytes(n_steps) <= SMEM_PER_BLOCK
+        # one block an SM by registers, not by shared memory: the 64K
+        # registers of an SM over the block's threads allow 128 a thread
+        assert 2 * lay.smem_bytes(n_steps) > SMEM_PER_BLOCK
+        assert 65536 // lay.threads(n_steps) >= 128
 
-    def test_padded_forms_take_the_float32_rule(self):
-        assert swe_layouts(1, padded=True) == (swe_layout(1),)
+    @pytest.mark.parametrize("n_steps", [0, 3])
+    def test_refuses_steps_it_has_no_layout_for(self, n_steps):
+        with pytest.raises(ValueError, match="n_steps must be 1 or 2"):
+            swe_layout(n_steps)
 
-    @pytest.mark.parametrize("layout,match", [
-        ((120, 120, 32, 1), "shared memory"),
-        ((248, 24, 1, 1), "threads"),
-        ((54, 24, 4, 1), "does not tile"),
-        ((56, 24, 5, 1), "does not tile"),
-        ((56, 24, 4, 3), "not built"),
+    @pytest.mark.parametrize("n_steps,layout,match", [
+        (1, (120, 120, 32, 1), "shared memory"),
+        (1, (248, 24, 1, 1), "threads"),
+        (1, (54, 24, 4, 1), "does not tile"),
+        (1, (56, 24, 5, 1), "does not tile"),
+        (2, (56, 56, 8, 1), "does not tile"),    # a 72-column region
+        (2, (112, 48, 8, 1), "shared memory"),
     ])
-    def test_refuses_a_layout_that_does_not_fit(self, layout, match):
-        with pytest.raises(ValueError, match=match):
-            swe_layout_arg(layout, 1)
-
-    def test_bf16_and_two_step_forms_refuse_the_others_layouts(self):
-        with pytest.raises(ValueError, match="not built"):
-            swe_layout_arg((56, 24, 4, 2), 1, bf16=True)
-        with pytest.raises(ValueError, match="does not tile"):
-            swe_layout_arg(swe_layout(1), 2)  # a 72-column region
-        with pytest.raises(ValueError, match="not built"):
-            swe_layout_arg((16, 48, 8, 1), 2)
-
-    def test_cuda_wrappers_refuse_a_bad_layout_first(self, monkeypatch):
-        """No fallback: the layout is refused before anything is built or
-        launched, whatever device the tensors are on."""
-        def no_build(name):
+    def test_launch_refuses_a_layout_that_does_not_fit(
+            self, monkeypatch, n_steps, layout, match):
+        """No fallback: a rule whose layout does not fit is refused by the
+        launch before anything is built or launched, whatever device the
+        tensors are on."""
+        def no_build(*args):
             raise AssertionError("nothing may be built for a bad layout")
 
-        monkeypatch.setattr(_build, "load", no_build)
+        monkeypatch.setattr(_build, "bind", no_build)
+        monkeypatch.setitem(stencil._RULE, n_steps, SweLayout(*layout))
         f = _torch(_fields(8, 8))
-        grid = GridSpec(nx=8, ny=8)
+        k = rk4_constants(GridSpec(nx=8, ny=8), 0.01, 9.81, 0.0, 0.0)
+        if n_steps == 2:
+            k["fused"] = 2
         before = (swe_rk4_step_cuda.launches,
-                  swe_rk4_multistep_cuda.launches)
-        with pytest.raises(ValueError, match="shared memory"):
-            swe_rk4_step_cuda(*f, grid=grid, dt=0.01,
-                              layout=SweLayout(120, 120, 32, 1))
-        with pytest.raises(ValueError, match="not built"):
-            swe_rk4_multistep_cuda(*f, grid=grid, dt=0.01,
-                                   layout=SweLayout(16, 48, 8, 1))
+                  stencil.swe_rk4_multistep_cuda.launches)
+        with pytest.raises(ValueError, match=match):
+            stencil._launch(f, tuple(torch.empty_like(t) for t in f),
+                            (0, 0), k)
         assert (swe_rk4_step_cuda.launches,
-                swe_rk4_multistep_cuda.launches) == before
+                stencil.swe_rk4_multistep_cuda.launches) == before
+
+    def test_every_form_takes_its_steps_rule(self):
+        """The bf16 tendency and the padded forms take K1's layout (the
+        source instantiates Step1 for them)."""
+        assert swe_layout(1, bf16=True) is swe_layout(1)
+        assert swe_layout(2) != swe_layout(1)
 
 
 class _NoCudaPath(type(_build.CSRC)):
