@@ -12,12 +12,16 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 grids one point over and under its tile in each axis,
                 3 x 3, 3 x 5, 200 x 328 and 1000 x 1500, with and without
                 viscosity; baro_stage:
-                rtol 1e-5 / atol 1e-5; pe_stage and pe_rk4: rtol 1e-5 /
+                rtol 1e-5 / atol 1e-5, also on grids under one strip and
+                ragged against it (3 x 5, 33 x 65, 37 x 131, 1000 x 1024);
+                pe_stage and pe_rk4: rtol 1e-5 /
                 atol 1e-4, and 2e-4 with terrain, the JAX kernel tests'
-                tolerances; pe_rk4 also at L = 40 on a ragged grid and at
+                tolerances; pe_stage also at L = 40 on a grid ragged
+                against its tile and at its reach, L = 454; pe_rk4 also at
+                L = 40 on a ragged grid and at
                 the largest L pe_rk4_kernel_fits admits), and its time
                 beside the plain version's, the card's bound and the
-                wrapper's host cost per launch (swe_rk4 and pe_rk4: with
+                wrapper's host cost per launch (every kernel of these: with
                 the built kernel's registers, spill bytes, shared memory,
                 blocks per SM and tile; pe_rk4 also clusters on the card
                 and blocks per cluster)
@@ -70,9 +74,9 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 in each of its cells no interior output depends on; each
                 form's time per launch, plain time, bytes bound (interior
                 read and written once plus the halo band read) and host
-                cost per launch (K1: with the padded instantiation's
-                registers, spill bytes, shared memory, blocks per SM and
-                tile)
+                cost per launch (K1 and K5: with the padded
+                instantiation's registers, spill bytes, shared memory,
+                blocks per SM and tile)
   11 sharded paths  every SHARDED_PATHS entry on a LocalMesh on cuda:0: SWE
                 2048^2 on (4, 1) and (2, 2), PE config 5 (2048^2 x 40) fused
                 on (2, 2), (2, 2) with carry=True, (4, 1), and on the stage
@@ -516,6 +520,13 @@ def baro_kernel() -> dict:
          rand(200, 328), rand(200, 328), 0.7, 0.1, 0.01),
         ("tiny_3x5", GridSpec(nx=5, ny=3), rand(3, 5), rand(3, 5),
          rand(3, 5), 0.7, 0.0, 0.0),
+        # under one strip, ragged against the strip in both axes, odd
+        ("sub_strip_33x65", GridSpec(nx=65, ny=33), rand(33, 65),
+         rand(33, 65), rand(33, 65), 0.7, 0.1, 0.01),
+        ("ragged_37x131", GridSpec(nx=131, ny=37), rand(37, 131),
+         rand(37, 131), rand(37, 131), 0.7, 0.1, 0.01),
+        ("ragged_1000x1024", GridSpec(nx=1024, ny=1000), rand(1000, 1024),
+         rand(1000, 1024), rand(1000, 1024), 0.7, 0.1, 0.01),
     ]
     worst = 0.0
     for name, grid, p, z, b, c_dt, beta, nu in cases:
@@ -557,13 +568,17 @@ def baro_kernel() -> dict:
     plain_ms = _events_ms(plain, 20)
     b_ms, b_by = roofline_ms(distinct_bytes(*sets[0]), BARO_FLOP * n * n)
     host_us = host_us_per_launch(launch)
+    strip = bs.baro_strip(n)
+    built = dict(bs.baro_kernel_attributes(
+        strip, index=torch.cuda.current_device()),
+        strip=list(bs.BARO_STRIPS[strip]))
     emit("kernel_time", ok=True, kernel="baro_stage", shape=[n, n], ms=ms,
          ms_inputs_in_l2=ms_l2, plain_ms=plain_ms, bound_ms=b_ms,
          bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
-         host_us_per_launch=host_us)
+         host_us_per_launch=host_us, built=built)
     return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "host_us": host_us}
+            "bound_by": b_by, "host_us": host_us, "built": built}
 
 
 def _pe_grid(L, ny, nx):
@@ -619,6 +634,11 @@ def pe_kernel() -> dict:
         ("terrain_512x512x20", main_grid, 1, True),
         ("ragged_200x328x5", _pe_grid(5, 200, 328), 4, True),
         ("tiny_3x5x2", _pe_grid(2, 3, 5), 1, False),
+        # ragged against the 32-column tile and the rule's rows at L = 40
+        ("ragged_37x50x40", _pe_grid(40, 37, 50), 4, True),
+        # the reach: the largest L the stage kernel takes (2-row tiles)
+        (f"reach_5x37x{ps.STAGE_MAX_LEVELS}",
+         _pe_grid(ps.STAGE_MAX_LEVELS, 5, 37), 4, True),
     ]
     worst, main_err = 0.0, None
     for name, grid, nbase, terrain in cases:
@@ -673,16 +693,40 @@ def pe_kernel() -> dict:
         emit("kernel_time", ok=True, kernel="pe_stage", bases=nbase,
              shape=[L, n, n], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
              bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
-             host_us_per_launch=host_us)
+             host_us_per_launch=host_us, built=pe_stage_built(L))
         res[nbase] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "host_us": host_us}
     out = dict(res[1])
-    out.update({"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+    out.update({"built": pe_stage_built(L),
+                "max_abs_err": main_err, "max_abs_err_all_cases": worst,
                 "ms_4_bases": res[4]["ms"],
                 "plain_ms_4_bases": res[4]["plain_ms"],
                 "bound_ms_4_bases": res[4]["bound_ms"],
                 "host_us_4_bases": res[4]["host_us"]})
     return out
+
+
+def pe_stage_built(levels: int) -> dict:
+    """The built stage kernel the rule takes at ``levels``: registers,
+    spill bytes, shared bytes, threads, blocks per SM and tile
+    (pe_stencil.stage_kernel_attributes); fails if the wrapper's rule
+    disagrees with the built kernel's."""
+    import torch
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    rows = ps.stage_tile_rows(levels)
+    built = {}
+    for nbase in (1, 4):
+        a = ps.stage_kernel_attributes(levels, nbase=nbase,
+                                       index=torch.cuda.current_device())
+        if (a["tile"], a["smem_bytes"]) != ([rows, 32], ps.stage_smem_bytes(
+                rows, levels)):
+            fail("kernel_time", f"pe_stage at L = {levels}: the wrapper's "
+                 "tile rule disagrees with the built kernel's")
+        built = a if nbase == 1 else dict(built, registers_4_bases=a[
+            "registers"], local_bytes_4_bases=a["local_bytes"],
+            blocks_per_sm_4_bases=a["blocks_per_sm"])
+    return built
 
 
 def pe_rk4_kernel() -> dict:
@@ -1525,6 +1569,7 @@ def sharded_kernels() -> dict:
 
     # K5: local on a (4, 1) shard, local2d on a (2, 2) shard; one base
     # (stages 1-3) and four (the last stage, bases s, s1, s2, s3)
+    res["pe_stage_built"] = built = pe_stage_built(L)
     for form, mesh, halo in (("local", (4, 1), (1, 0)),
                              ("local2d", (2, 2), (1, 1))):
         ly, lx = shard(mesh)
@@ -1561,7 +1606,7 @@ def sharded_kernels() -> dict:
                 _padded_bound(4 * L + 1, ly, lx, 1, bool(hx),
                               nbase * (4 * L + 1),
                               PE_FLOP[nbase] * L * ly * lx),
-                bases=nbase)
+                bases=nbase, built=built)
             del bases, out
         del cur
 
@@ -2207,7 +2252,14 @@ def main() -> int:
         row("baro_stage", "baro_stage.cu", "njw_tpu/ops/baro_stencil.py:34",
             "_baro_stage_kernel", k3, m3["launches"]["baro_stage"], m3,
             main_path="main_path_baro",
-            max_abs_err_all_cases=k3["max_abs_err_all_cases"]),
+            max_abs_err_all_cases=k3["max_abs_err_all_cases"],
+            ptxas_registers=k3["built"]["registers"],
+            spill_bytes=k3["built"]["local_bytes"],
+            smem_bytes=k3["built"]["static_smem_bytes"],
+            threads_per_block=k3["built"]["threads"],
+            blocks_per_sm=k3["built"]["blocks_per_sm"],
+            tile=[k3["built"]["rows_per_warp"],
+                  32 * k3["built"]["columns_per_lane"]]),
         row("pe_stage", "pe_stage.cu", "njw_tpu/ops/pe_stencil.py:55",
             "_pe_stage_kernel", k5, m5["launches"]["pe_stage"], m5,
             main_path="main_path_pe",
@@ -2218,7 +2270,14 @@ def main() -> int:
             host_us_per_launch_4_bases=k5["host_us_4_bases"],
             also_replaces=[f"{pe}:397 pe_stage_pallas_local",
                            f"{pe}:1271 pe_stage_pallas_local2d"],
-            sharded=sharded("pe_stage")),
+            sharded=sharded("pe_stage"),
+            ptxas_registers=k5["built"]["registers"],
+            spill_bytes=k5["built"]["local_bytes"],
+            smem_bytes=k5["built"]["smem_bytes"],
+            threads_per_block=k5["built"]["threads"],
+            blocks_per_sm=k5["built"]["blocks_per_sm"],
+            tile=k5["built"]["tile"],
+            padded_built=ks["pe_stage_built"]),
         row("pe_rk4", "pe_rk4.cu", "njw_tpu/ops/pe_stencil.py:617",
             "_pe_rk4_kernel", k4, m4["launches"]["pe_rk4"], m4,
             main_path="main_path_pe_whole_step",

@@ -30,7 +30,37 @@ from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
 from njw_tpu_torch.weather.integrators import Stepper
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# csrc/baro_stage.cu kStrips: (columns a lane, rows a warp) of each strip
+# built; the launch's rule takes entry 0 where nx % 4 == 0 and every field
+# is 16-byte aligned, entry 2 otherwise
+BARO_STRIPS = ((4, 4), (4, 2), (1, 8), (1, 4))
+
+
+def baro_strip(nx: int, aligned: bool = True) -> int:
+    """The rule of csrc/baro_stage.cu: the index (into ``BARO_STRIPS``) of
+    the strip the launch takes for a row of ``nx`` points, ``aligned``
+    when every field starts on 16 bytes (as torch allocates)."""
+    return 0 if nx % 4 == 0 and aligned else 2
+
+
+def baro_kernel_attributes(strip: int, index: int = 0) -> dict:
+    """The built kernel of strip ``strip`` (an index of ``BARO_STRIPS``)
+    on CUDA device ``index``: registers, local (spill) bytes, static shared
+    bytes, threads a block, resident blocks an SM, columns a lane and rows
+    a warp."""
+    fn = _build.load("baro_stage").baro_stage_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 7)()
+    with torch.cuda.device(index):
+        err = fn(strip, vals)
+    if err != 0:
+        msg = _build.bind("baro_stage", _ARGTYPES)[1](err).decode()
+        raise RuntimeError(f"baro_stage attributes: {msg} ({err})")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "threads", "blocks_per_sm", "columns_per_lane",
+                     "rows_per_warp"), vals))
 
 
 class BaroConsts(NamedTuple):
@@ -130,12 +160,15 @@ def _runner(zeta: torch.Tensor) -> Callable:
     raise ValueError(f"baro_stage: unsupported device {zeta.device}")
 
 
-def _launch(psi, zeta, base, out, grid: GridSpec,
-            k: BaroConsts) -> torch.Tensor:
+def _launch(psi, zeta, base, out, grid: GridSpec, k: BaroConsts,
+            strip: int = -1) -> torch.Tensor:
+    """Launch on the current stream; ``strip``: -1 for the rule's
+    (``baro_strip``), or an index of ``BARO_STRIPS`` (the card tests and
+    the profiler)."""
     launch, err_string = _build.bind("baro_stage", _ARGTYPES)
     with torch.cuda.device(zeta.device):
         err = launch(psi.data_ptr(), zeta.data_ptr(), base.data_ptr(),
-                     out.data_ptr(), grid.ny, grid.nx, *k,
+                     out.data_ptr(), grid.ny, grid.nx, *k, strip,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"baro_stage kernel launch failed: "

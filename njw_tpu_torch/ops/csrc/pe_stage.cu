@@ -1,66 +1,111 @@
 // One RK stage of the periodic primitive equations (sigma levels), sm_90a.
 //
 // Replaces the TPU kernel _pe_stage_kernel (njw_tpu/ops/pe_stencil.py:55)
-// for all its launchers: pe_stage_pallas (:370, the whole periodic domain)
-// and the sharded pe_stage_pallas_local (:462) and _local2d (:1353), which
-// run it on a halo-padded block:
+// for all its launchers: pe_stage_pallas (:323 -> :370, the whole periodic
+// domain) and the sharded pe_stage_pallas_local (:397 -> :462) and
+// pe_stage_pallas_local2d (:1271 -> :1353), which run it on a halo-padded
+// block:
 //
 //   out = sum_g coef_g * base_g + c_dt * T(cur),   g < nbase <= 4,
 //
 // for u, v, T, q of shape (L, ny, nx) and ps of shape (ny, nx), float32,
 // with an optional surface geopotential phi_s (terrain). The multi-base
 // form lets the RK4 combine ride in the last stage. The column arithmetic
-// (pe_column.cuh) is the Pallas kernel's strength-reduced form. Scalars
+// is pe_column.cuh's (the Pallas kernel's strength-reduced form). Scalars
 // are folded in double on the host and rounded to float32 once; the
 // per-level constants (layer thickness factor, 1/(k + 1/2)) come from a
 // small device array built once per level count.
 //
 // Bound on this card: memory. A stage must read cur (4L + 1 planes) and
 // each base (4L + 1 planes) once, read phi_s once when given, and write
-// out (4L + 1 planes) once: 3 (4L + 1) x 4 B = 972 B per column with one
-// base at L = 20, 255 MB at 512^2, 76 us at the H100 SXM's 3.35 TB/s (510
-// MB and 152 us with four distinct bases). The arithmetic is about 116
-// flop per column and level (140 with four bases), 0.61 GFLOP per stage at
-// 512^2 x 20, 9 us at 67 TFLOP/s fp32.
+// out (4L + 1 planes) once: 3 (4L + 1) x 4 B per column with one base, 255
+// MB at 512^2 x 20 (76 us at the H100 SXM's 3.35 TB/s) and 2.03 GB on a
+// config-5 shard of 512 x 2048 or 1024 x 1024 columns at L = 40 (606 us;
+// 1.21 ms with four distinct bases). The arithmetic is about 116 flop per
+// column and level (140 with four bases), 0.61 GFLOP per stage at 512^2 x
+// 20, 9 us at 67 TFLOP/s fp32; but the instructions around it (about 150 a
+// column and level) take a third to a half of the bytes' time, so the
+// kernel has to keep loads in flight while it computes.
 //
-// Design against that bound: one thread per (y, x) column, 32 x 4 threads
-// per block with x contiguous, so each level's loads and stores are
-// coalesced. The thread loops over the levels twice (top-down, then
-// bottom-up). The stencil needs only the four side neighbours (no
-// corners), read straight from device memory: they are the neighbouring
-// threads' own columns, so L1 and L2 serve them and device memory sees
-// each plane about once. The thread carries phi for its four neighbour
-// columns (d/dx and d/dy of phi need only those) and the three centre
-// values of each field around the current level. cum_k lives in dynamic
-// shared memory, L floats per thread (10 KB per block at L = 20), so L is
-// bounded only by shared memory. Ragged edges mask whole threads.
+// Design against that bound. A block owns a tile of 32 x TY columns (one
+// warp a row of the tile, x contiguous) and walks the levels twice: top
+// down for the flux divergence (cum_k, L floats a column in shared memory),
+// then bottom up for the tendencies. Each level plane of the tile with its
+// one-point halo ((TY + 2) rows of 34 columns) is staged into shared memory
+// by cp.async, in a ring of SLOTS levels: the top-down walk keeps the next
+// SLOTS - 1 levels of u and v in flight, the bottom-up walk the next
+// SLOTS - 2 levels of u, v, T and q beyond the two it reads (level k and
+// k - 1), so each byte of cur leaves device memory about once a walk (u and
+// v twice: L2 holds part of the second read) and every neighbour comes from
+// shared memory, one barrier a level. Rows of 32 interior columns go as
+// 16-byte copies where the tile is whole in x and cur's rows are 16-byte
+// aligned (the whole domain and the row-sharded blocks at nx % 4 == 0),
+// otherwise 4 bytes at a time (a block padded in x: 1026-float rows). The
+// thread carries phi at its four neighbour columns, T around the column at
+// level k - 1 (the next level's neighbours), the centre values and
+// sigma-dot from one level to the next; its bases at a level are loaded
+// before the barrier, in flight while the ring's level arrives.
 //
-// Addressing (one launch for every launcher): cur, the bases and out are
-// each a view (base pointer, row pitch, plane pitch, origin of the (ny, nx)
-// interior), so the bases and out may be interior-shaped arrays or the
-// interiors of padded blocks while cur is padded. Per axis (a template
-// parameter) cur either wraps (the whole periodic domain, and x of a row
-// decomposition: a select on each neighbour index) or holds at least one
-// halo row (column) of neighbour data around the interior, read in place
-// of the wrap. The whole-domain instantiation is the code it was before.
+// Where each halo row and column lies in cur is worked out once a block
+// (a table in shared memory): a periodic axis wraps there (whole domain;
+// x of a row-sharded block), a padded one reads its halo row or column, so
+// one kernel serves every launcher and no index wraps per level. Ragged
+// tiles clamp their halo indices into cur and store only their interior
+// columns. The tile height is the rule's (tile_rows below, mirrored by
+// pe_stencil.stage_tile_rows): the tallest tile whose ring and cum fit a
+// block: 8 rows up to L = 195, 4 up to 416, 2 at the reach L = 454.
+//
+// Addressing: cur, the bases and out are each a view (base pointer, row
+// pitch, plane pitch, origin of the (ny, nx) interior), so the bases and
+// out may be interior-shaped arrays or the interiors of padded blocks while
+// cur is padded. Bases may alias out (each point is read before the same
+// thread writes it); cur must not.
 
 #include <cuda_runtime.h>
 
 #include "pe_column.cuh"
 
+// Profiling only (scripts/profile_torch.py builds it so): 1 runs the
+// top-down walk alone, 2 the bottom-up walk alone.
+#ifndef PE_STAGE_PROBE
+#define PE_STAGE_PROBE 0
+#endif
+
 namespace {
 
-constexpr int BX = 32;             // threads along x (contiguous)
-constexpr int BY = 4;              // threads along y
-constexpr int NT = BX * BY;        // 128 threads per block
+constexpr int TX = 32;             // tile columns: one warp a tile row
+constexpr int PX = 40;             // shared row pitch (floats)
+constexpr int C0 = 4;              // shared column of the tile's first
+                                   // column (16-byte aligned); its west
+                                   // halo at C0 - 1, east at C0 + TX
+constexpr int SLOTS = 5;           // levels of u, v, T, q in the ring
+constexpr int NF = 4;              // fields a level holds: u, v, T, q
 constexpr int MAXB = 4;            // most bases
+constexpr int kMaxLevels = 454;    // the stage path's reach
+constexpr long long kSmemMax = 232448;   // shared bytes a block may have
 
-// Element (k, y, x) of a view is p[k * plane + (oy + y) * pitch + ox + x];
-// the 2-D field ps of the same view drops the plane term.
-struct Layout {
-    long long pitch, plane;
-    int oy, ox;
-};
+// Shared bytes of a block of TY tile rows at L levels: the ring, cum (L
+// floats a column), and the halo region's row (8 B) and column (4 B)
+// offsets into cur.
+__host__ __device__ constexpr long long smem_bytes(int ty, int L) {
+    return 4LL * SLOTS * NF * (ty + 2) * PX + 4LL * L * TX * ty
+           + 8LL * (ty + 2) + 4LL * (TX + 2);
+}
+
+// The rule: the tallest tile (8, 4 or 2 rows) whose block fits, 0 past
+// the reach.
+constexpr int tile_rows(int L) {
+    return L < 1 || L > kMaxLevels ? 0
+           : smem_bytes(8, L) <= kSmemMax ? 8
+           : smem_bytes(4, L) <= kSmemMax ? 4
+           : smem_bytes(2, L) <= kSmemMax ? 2 : 0;
+}
+static_assert(tile_rows(kMaxLevels) == 2, "the reach takes 2-row tiles");
+static_assert(tile_rows(195) == 8 && tile_rows(196) == 4,
+              "8 rows up to L = 195");
+static_assert(tile_rows(416) == 4 && tile_rows(417) == 2,
+              "4 rows up to L = 416");
+static_assert(tile_rows(kMaxLevels + 1) == 0, "nothing past the reach");
 
 struct Ptrs {
     const float* cur[5];            // u, v, T, q, ps
@@ -68,7 +113,8 @@ struct Ptrs {
     const float* base[MAXB][5];
     float* out[5];
     const float* levc;              // thick[0..L), inv_kh[0..L)
-    Layout lcur, lout;              // cur's view; out's and the bases'
+    long long cur_pitch, cur_plane; // cur's row and plane pitch
+    long long out_pitch, out_plane; // out's and the bases'
 };
 
 struct Consts {
@@ -77,118 +123,348 @@ struct Consts {
     float coef[MAXB];
     int nbase;
     int L, ny, nx;
+    int cur_oy, cur_ox;             // origin of the interior in cur
+    int halo_y, halo_x;             // 1: cur holds that axis' halo
+    int vec;                        // cur's rows may go 16 bytes a copy
 };
 
-// Bases may alias the output, so they are read with plain loads.
-__device__ __forceinline__ float base_sum(const Ptrs& p, const Consts& k,
-                                          int field, size_t i) {
-    float acc = k.coef[0] * p.base[0][field][i];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ int wrap(int i, int n) {
+    i %= n;
+    return i < 0 ? i + n : i;
+}
+
+// Resident blocks an SM each tile height is built for (its register cap):
+// 24 warps an SM at 8 and 4 rows, 16 at 2.
+constexpr int min_blocks(int ty) { return ty == 8 ? 3 : ty == 4 ? 6 : 8; }
+
+// sum_g coef_g base_g of one field at one point, from values loaded
+// before (the bases may alias out, so they are read with plain loads). NB:
+// 1 for one base, MAXB for up to k.nbase.
+template <int NB>
+__device__ __forceinline__ float base_sum(const float (&b)[NB],
+                                          const Consts& k) {
+    float acc = k.coef[0] * b[0];
 #pragma unroll
-    for (int g = 1; g < MAXB; ++g)
-        if (g < k.nbase) acc = acc + k.coef[g] * p.base[g][field][i];
+    for (int g = 1; g < NB; ++g)
+        if (g < k.nbase) acc = acc + k.coef[g] * b[g];
     return acc;
 }
 
-// out = sum_g coef_g base_g + c_dt d at each level of the column.
-struct StageEmit {
-    const Ptrs& p;
-    const Consts& k;
-    size_t P, ic;
-    __device__ __forceinline__ void level(int kk, float du, float dv,
-                                          float dT, float dq) {
-        const size_t o = kk * P + ic;
-        p.out[0][o] = base_sum(p, k, 0, o) + k.c_dt * du;
-        p.out[1][o] = base_sum(p, k, 1, o) + k.c_dt * dv;
-        p.out[2][o] = base_sum(p, k, 2, o) + k.c_dt * dT;
-        p.out[3][o] = base_sum(p, k, 3, o) + k.c_dt * dq;
+// The bases of field f at element i of out's view.
+template <int NB>
+__device__ __forceinline__ void load_bases(const Ptrs& p, const Consts& k,
+                                           int f, long long i,
+                                           float (&b)[NB]) {
+#pragma unroll
+    for (int g = 0; g < NB; ++g)
+        b[g] = g == 0 || g < k.nbase ? p.base[g][f][i] : 0.0f;
+}
+
+template <int TY, int NB>
+__global__ void __launch_bounds__(TX * TY, min_blocks(TY))
+pe_stage_kernel(Ptrs p, Consts k) {
+    constexpr int NT = TX * TY;           // threads: one a column
+    constexpr int RY = TY + 2;            // halo region rows
+    constexpr int PLANE = RY * PX;        // floats of one field's plane
+    constexpr int SLOT = NF * PLANE;      // floats of one level
+
+    extern __shared__ __align__(16) float smem[];
+    float* const ring = smem;
+    float* const cum = ring + SLOTS * SLOT;
+    const int L = k.L;
+    long long* const rowoff = reinterpret_cast<long long*>(cum + L * NT);
+    int* const coloff = reinterpret_cast<int*>(rowoff + RY);
+
+    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+    const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+    const int x = x0 + tx, y = y0 + ty;
+    const bool inside = x < k.nx && y < k.ny;
+
+    // where row r (column c) of the halo region, interior row y0 + r - 1
+    // (column x0 + c - 1), lies in cur: wrapped on a periodic axis, the
+    // halo row (column) of a padded one, clamped past a ragged edge
+    for (int r = tid; r < RY; r += NT) {
+        const int gy = y0 + r - 1;
+        rowoff[r] = static_cast<long long>(
+            k.cur_oy + (k.halo_y ? min(gy, k.ny) : wrap(gy, k.ny)))
+            * p.cur_pitch;
     }
-};
+    for (int c = tid; c < TX + 2; c += NT) {
+        const int gx = x0 + c - 1;
+        coloff[c] = k.cur_ox + (k.halo_x ? min(gx, k.nx) : wrap(gx, k.nx));
+    }
+    __syncthreads();
 
-// The stage at column (y, x) of the whole periodic domain: cur, the bases
-// and out are (ny, nx) planes (the code of the kernel before the padded
-// forms, so that the whole-domain instantiation compiles as it did).
-__device__ __forceinline__ void whole_column(const Ptrs& p, const Consts& k,
-                                             int y, int x) {
-    extern __shared__ float cum_smem[];
-    const int nx = k.nx, ny = k.ny;
+    // level kk of the first nf fields of cur into the ring at dst0 (nf
+    // planes of PLANE floats)
+    const bool vec = k.vec && x0 + TX <= k.nx;
+    auto load_level = [&](int kk, float* dst0, int nf) {
+        const long long lofs = static_cast<long long>(kk) * p.cur_plane;
+        if (vec) {   // per row: 8 copies of 16 B, the two halo columns
+            constexpr int OPS = RY * 10;
+            for (int j = tid; j < nf * OPS; j += NT) {
+                const int f = j / OPS, rem = j - f * OPS;
+                const int r = rem / 10, c = rem - r * 10;
+                const float* src = (f == 0 ? p.cur[0] : f == 1 ? p.cur[1]
+                                    : f == 2 ? p.cur[2] : p.cur[3])
+                                   + lofs + rowoff[r];
+                float* dst = dst0 + f * PLANE + r * PX;
+                if (c < 8) {
+                    cp_async16(dst + C0 + 4 * c, src + coloff[1] + 4 * c);
+                } else {
+                    const int cc = c == 8 ? 0 : TX + 1;
+                    cp_async4(dst + C0 - 1 + cc, src + coloff[cc]);
+                }
+            }
+        } else {     // 34 copies of 4 B a row
+            constexpr int OPS = RY * (TX + 2);
+            for (int j = tid; j < nf * OPS; j += NT) {
+                const int f = j / OPS, rem = j - f * OPS;
+                const int r = rem / (TX + 2), c = rem - r * (TX + 2);
+                const float* src = (f == 0 ? p.cur[0] : f == 1 ? p.cur[1]
+                                    : f == 2 ? p.cur[2] : p.cur[3])
+                                   + lofs + rowoff[r];
+                cp_async4(dst0 + f * PLANE + r * PX + C0 - 1 + c,
+                          src + coloff[c]);
+            }
+        }
+    };
 
-    const size_t row = static_cast<size_t>(y) * nx;
-    const pe::Nbrs i{
-        row + x, row + (x + 1 == nx ? 0 : x + 1),
-        row + (x == 0 ? nx - 1 : x - 1),
-        static_cast<size_t>(y + 1 == ny ? 0 : y + 1) * nx + x,
-        static_cast<size_t>(y == 0 ? ny - 1 : y - 1) * nx + x};
+    // ps (and phi_s) around the column, from device memory once
+    const long long rc = rowoff[ty + 1];
+    const float* ps = p.cur[4];
+    pe::Cross psx;
+    psx.c = __ldg(ps + rc + coloff[tx + 1]);
+    psx.e = __ldg(ps + rc + coloff[tx + 2]);
+    psx.w = __ldg(ps + rc + coloff[tx]);
+    psx.n = __ldg(ps + rowoff[ty + 2] + coloff[tx + 1]);
+    psx.s = __ldg(ps + rowoff[ty] + coloff[tx + 1]);
     float phisE = 0.0f, phisW = 0.0f, phisN = 0.0f, phisS = 0.0f;
-    if (p.phi_s != nullptr) {
-        phisE = __ldg(p.phi_s + i.e);
-        phisW = __ldg(p.phi_s + i.w);
-        phisN = __ldg(p.phi_s + i.n);
-        phisS = __ldg(p.phi_s + i.s);
+    if (p.phi_s != nullptr) {   // whole domain: cur's own layout
+        phisE = __ldg(p.phi_s + rc + coloff[tx + 2]);
+        phisW = __ldg(p.phi_s + rc + coloff[tx]);
+        phisN = __ldg(p.phi_s + rowoff[ty + 2] + coloff[tx + 1]);
+        phisS = __ldg(p.phi_s + rowoff[ty] + coloff[tx + 1]);
     }
-    const size_t P = static_cast<size_t>(ny) * nx;
-    StageEmit emit{p, k, P, i.c};
-    // cur never aliases out (the wrapper refuses it): read-only loads
-    const float dps = pe::column_tendency<true, 2>(
-        p.cur[0], p.cur[1], p.cur[2], p.cur[3], p.cur[4], P, i, phisE, phisW,
-        phisN, phisS, cum_smem + threadIdx.y * BX + threadIdx.x, NT, p.levc,
-        k.L, k.col, emit);
-    p.out[4][i.c] = base_sum(p, k, 4, i.c) + k.c_dt * dps;
-}
+    const pe::Consts& kc = k.col;
+    pe::ColumnTerms col;
+    col.lnps_x = (logf(psx.e) - logf(psx.w)) * kc.cx;
+    col.lnps_y = (logf(psx.n) - logf(psx.s)) * kc.cy;
 
-// The stage at column (y, x) of the interior of a padded cur: the rows
-// above and below come from its halo, and so do the columns where kHaloX
-// (x wraps otherwise). out and the bases share one view (interior-shaped
-// arrays, or the interiors of padded blocks of one shape); phi_s is null.
-template <bool kHaloX>
-__device__ __forceinline__ void padded_column(const Ptrs& p,
-                                              const Consts& k, int y,
-                                              int x) {
-    extern __shared__ float cum_smem[];
-    const int nx = k.nx;
-    const Layout& c = p.lcur;
-    const size_t pitch = static_cast<size_t>(c.pitch);
-    const size_t row = static_cast<size_t>(c.oy + y) * pitch + c.ox;
-    const size_t ic = row + x;
-    const pe::Nbrs i{
-        ic, kHaloX ? ic + 1 : row + (x + 1 == nx ? 0 : x + 1),
-        kHaloX ? ic - 1 : row + (x == 0 ? nx - 1 : x - 1), ic + pitch,
-        ic - pitch};
-    const size_t o = static_cast<size_t>(y) * p.lout.pitch + x;
-    StageEmit emit{p, k, static_cast<size_t>(p.lout.plane), o};
-    const float dps = pe::column_tendency<true, 2>(
-        p.cur[0], p.cur[1], p.cur[2], p.cur[3], p.cur[4],
-        static_cast<size_t>(c.plane), i, 0.0f, 0.0f, 0.0f, 0.0f,
-        cum_smem + threadIdx.y * BX + threadIdx.x, NT, p.levc, k.L, k.col,
-        emit);
-    p.out[4][o] = base_sum(p, k, 4, o) + k.c_dt * dps;
-}
+    const int ci = (ty + 1) * PX + C0 + tx;   // the column in a plane
+    float* const my_cum = cum + tid;
 
-template <bool kHaloY, bool kHaloX>
-__global__ void __launch_bounds__(NT) pe_stage_kernel(Ptrs p, Consts k) {
-    const int x = blockIdx.x * BX + threadIdx.x;
-    const int y = blockIdx.y * BY + threadIdx.y;
-    if (x >= k.nx || y >= k.ny) return;   // no barriers below
-    if constexpr (kHaloY) {
-        padded_column<kHaloX>(p, k, y, x);
-    } else {
-        whole_column(p, k, y, x);
+    // top-down: flux divergence of (ps u, ps v), cumulative over levels;
+    // the ring holds TD levels of u and v, TD - 1 of them in flight
+    constexpr int TD = SLOTS * NF / 2;
+    float flux = 0.0f;
+#pragma unroll 1
+    for (int j = 0; j < TD - 1; ++j) {
+        if (j < L && PE_STAGE_PROBE != 2) load_level(j, ring + j * 2 * PLANE, 2);
+        cp_async_commit();
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < L && PE_STAGE_PROBE != 2; ++kk) {
+        cp_async_wait<TD - 2>();
+        __syncthreads();
+        const int nxt = kk + TD - 1;
+        if (nxt < L) load_level(nxt, ring + (nxt % TD) * 2 * PLANE, 2);
+        cp_async_commit();
+        const float* s = ring + (kk % TD) * 2 * PLANE;
+        const float fd = pe::flux_divergence(psx, s[ci + 1], s[ci - 1],
+                                             s[PLANE + ci + PX],
+                                             s[PLANE + ci - PX], kc);
+        flux = kk == 0 ? fd : flux + fd;
+        my_cum[kk * NT] = flux;
+    }
+    cp_async_wait<0>();
+    __syncthreads();    // the ring is free again
+
+    const float dps = -flux * kc.dsig;
+    const float inv_ps = 1.0f / psx.c;
+    col.dps_over_ps = dps * inv_ps;
+    const long long o = static_cast<long long>(y) * p.out_pitch + x;
+
+    // bottom-up: phi at the four neighbour columns, sigma-dot carried
+#pragma unroll 1
+    for (int j = 0; j < SLOTS - 1; ++j) {
+        const int lv = L - 1 - j;
+        if (lv >= 0 && PE_STAGE_PROBE != 1) {
+            load_level(lv, ring + (lv % SLOTS) * SLOT, NF);
+        }
+        cp_async_commit();
+    }
+    float phiE = 0.0f, phiW = 0.0f, phiN = 0.0f, phiS = 0.0f;
+    pe::Cross T;                               // T around the column at kk
+    float uk = 0.0f, vk = 0.0f, qk = 0.0f;
+    float sd_dn = 0.0f;
+    float u_lo = 0.0f, v_lo = 0.0f, T_lo = 0.0f, q_lo = 0.0f;  // level kk+1
+#pragma unroll 1
+    for (int kk = L - 1; kk >= 0 && PE_STAGE_PROBE != 1; --kk) {
+        const long long ok = kk * p.out_plane + o;
+        float bu[NB], bv[NB], bT[NB], bq[NB];
+        if (inside) {
+            load_bases(p, k, 0, ok, bu);
+            load_bases(p, k, 1, ok, bv);
+            load_bases(p, k, 2, ok, bT);
+            load_bases(p, k, 3, ok, bq);
+        }
+        cp_async_wait<SLOTS - 3>();
+        __syncthreads();    // levels kk and kk - 1 are in the ring
+        const int nxt = kk - (SLOTS - 1);
+        if (nxt >= 0) load_level(nxt, ring + (nxt % SLOTS) * SLOT, NF);
+        cp_async_commit();
+
+        const float* s = ring + (kk % SLOTS) * SLOT;
+        const float* sT = s + 2 * PLANE;
+        if (kk == L - 1) {
+            T = {sT[ci], sT[ci + 1], sT[ci - 1], sT[ci + PX], sT[ci - PX]};
+            phiE = kc.phibot * T.e + phisE;
+            phiW = kc.phibot * T.w + phisW;
+            phiN = kc.phibot * T.n + phisN;
+            phiS = kc.phibot * T.s + phisS;
+            uk = s[ci];
+            vk = s[PLANE + ci];
+            qk = s[3 * PLANE + ci];
+        }
+        // level kk - 1: the centres, and T around the column
+        pe::Cross Th = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float u_hi = 0.0f, v_hi = 0.0f, q_hi = 0.0f;
+        if (kk > 0) {
+            const float* h = ring + ((kk - 1) % SLOTS) * SLOT;
+            const float* hT = h + 2 * PLANE;
+            u_hi = h[ci];
+            v_hi = h[PLANE + ci];
+            q_hi = h[3 * PLANE + ci];
+            Th = {hT[ci], hT[ci + 1], hT[ci - 1], hT[ci + PX], hT[ci - PX]};
+        }
+        const float sd_up = kk == 0 ? 0.0f
+            : -0.5f * (static_cast<float>(kk) * col.dps_over_ps
+                       + my_cum[(kk - 1) * NT] * inv_ps);
+        const float* su = s;
+        const float* sv = s + PLANE;
+        const float* sq = s + 3 * PLANE;
+        const pe::Cross u = {uk, su[ci + 1], su[ci - 1], su[ci + PX],
+                             su[ci - PX]};
+        const pe::Cross v = {vk, sv[ci + 1], sv[ci - 1], sv[ci + PX],
+                             sv[ci - PX]};
+        const pe::Cross q = {qk, sq[ci + 1], sq[ci - 1], sq[ci + PX],
+                             sq[ci - PX]};
+        const float phi_x = (phiE - phiW) * kc.cx;
+        const float phi_y = (phiN - phiS) * kc.cy;
+        const pe::Tendency d = pe::level_tendency(
+            u, v, T, q, u_hi, v_hi, Th.c, q_hi, u_lo, v_lo, T_lo, q_lo, phi_x,
+            phi_y, sd_up, sd_dn, __ldg(p.levc + L + kk), kk == 0,
+            kk == L - 1, col, kc);
+        if (inside) {
+            p.out[0][ok] = base_sum(bu, k) + k.c_dt * d.du;
+            p.out[1][ok] = base_sum(bv, k) + k.c_dt * d.dv;
+            p.out[2][ok] = base_sum(bT, k) + k.c_dt * d.dT;
+            p.out[3][ok] = base_sum(bq, k) + k.c_dt * d.dq;
+        }
+        if (kk > 0) {
+            const float thick = __ldg(p.levc + kk);
+            phiE = phiE + thick * (Th.e + T.e);
+            phiW = phiW + thick * (Th.w + T.w);
+            phiN = phiN + thick * (Th.n + T.n);
+            phiS = phiS + thick * (Th.s + T.s);
+            sd_dn = sd_up;
+            u_lo = uk; v_lo = vk; T_lo = T.c; q_lo = qk;
+            uk = u_hi; vk = v_hi; qk = q_hi;
+            T = Th;
+        }
+    }
+    cp_async_wait<0>();
+    if (inside) {
+        float b[NB];
+        load_bases(p, k, 4, o, b);
+        p.out[4][o] = base_sum(b, k) + k.c_dt * dps;
     }
 }
 
-template <bool kHaloY, bool kHaloX>
+template <int TY, int NB>
+cudaError_t prepare(const Consts& k) {
+    const long long smem = smem_bytes(TY, k.L);
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(pe_stage_kernel<TY, NB>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+}
+
+template <int TY, int NB>
 int launch(const Ptrs& p, const Consts& k, cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(k.L) * NT * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            pe_stage_kernel<kHaloY, kHaloX>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const dim3 grid((k.nx + BX - 1) / BX, (k.ny + BY - 1) / BY);
-    const dim3 block(BX, BY);
-    pe_stage_kernel<kHaloY, kHaloX><<<grid, block, smem, stream>>>(p, k);
+    cudaError_t err = prepare<TY, NB>(k);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((k.nx + TX - 1) / TX, (k.ny + TY - 1) / TY);
+    pe_stage_kernel<TY, NB>
+        <<<grid, TX * TY, smem_bytes(TY, k.L), stream>>>(p, k);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int TY>
+int launch_bases(const Ptrs& p, const Consts& k, cudaStream_t stream) {
+    return k.nbase == 1 ? launch<TY, 1>(p, k, stream)
+                        : launch<TY, MAXB>(p, k, stream);
+}
+
+// The built kernel of TY rows and NB bases at L levels: registers, local
+// (spill) bytes a thread, dynamic shared bytes, threads, blocks per SM,
+// static shared bytes.
+template <int TY, int NB>
+int attributes(int L, int* out) {
+    Consts k{};
+    k.L = L;
+    cudaError_t err = prepare<TY, NB>(k);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, pe_stage_kernel<TY, NB>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pe_stage_kernel<TY, NB>, TX * TY, smem_bytes(TY, L));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+    out[2] = static_cast<int>(smem_bytes(TY, L));
+    out[3] = TX * TY;
+    out[4] = per_sm;
+    out[5] = static_cast<int>(a.sharedSizeBytes);
+    return 0;
+}
+
+// tile_rows 0: the rule's; 8, 4 or 2 where the block fits; 0 otherwise.
+int checked_rows(int L, int rows) {
+    if (rows == 0) return tile_rows(L);
+    if ((rows != 8 && rows != 4 && rows != 2) || L < 1 || L > kMaxLevels
+        || smem_bytes(rows, L) > kSmemMax) {
+        return 0;
+    }
+    return rows;
+}
+
+bool aligned16(const void* q) {
+    return reinterpret_cast<unsigned long long>(q) % 16 == 0;
 }
 
 }  // namespace
@@ -201,8 +477,9 @@ int launch(const Ptrs& p, const Consts& k, cudaStream_t stream) {
 // least one row (column) of neighbour data around the interior, 0 where
 // that axis wraps; a halo in x needs one in y. Base pointers beyond
 // `nbase` may be null. The outputs must not alias cur (they may alias a
-// base, read at the same point first). Returns the CUDA error code of the
-// launch (0 on success).
+// base, read at the same point first). tile_rows: 0 for the rule's tile
+// height, or 8, 4 or 2 where that block fits. Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int pe_stage_launch(
     const float* u, const float* v, const float* T, const float* q,
     const float* ps, const float* phi_s, long long cur_pitch,
@@ -220,23 +497,48 @@ extern "C" int pe_stage_launch(
     long long out_pitch, long long out_plane,
     const float* levc, int L, int ny, int nx, int halo_y, int halo_x,
     float cx, float cy, float f, float dsig, float r_dry, float kappa,
-    float phibot, float c_dt, void* stream) {
-    if (nbase < 1 || nbase > MAXB || L < 1) {
+    float phibot, float c_dt, int tile_rows, void* stream) {
+    const int rows = checked_rows(L, tile_rows);
+    if (nbase < 1 || nbase > MAXB || rows == 0 || ny < 1 || nx < 1
+        || (halo_x && !halo_y) || (phi_s != nullptr && (halo_y || halo_x))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Ptrs p{{u, v, T, q, ps}, phi_s,
                  {{b0u, b0v, b0T, b0q, b0ps}, {b1u, b1v, b1T, b1q, b1ps},
                   {b2u, b2v, b2T, b2q, b2ps}, {b3u, b3v, b3T, b3q, b3ps}},
-                 {ou, ov, oT, oq, ops}, levc,
-                 {cur_pitch, cur_plane, cur_oy, cur_ox},
-                 {out_pitch, out_plane, 0, 0}};
+                 {ou, ov, oT, oq, ops}, levc, cur_pitch, cur_plane,
+                 out_pitch, out_plane};
+    const int vec = aligned16(u) && aligned16(v) && aligned16(T)
+                    && aligned16(q) && cur_pitch % 4 == 0
+                    && cur_plane % 4 == 0 && cur_ox % 4 == 0;
     const Consts k{{cx, cy, f, dsig, r_dry, kappa, phibot}, c_dt,
-                   {c0, c1, c2, c3}, nbase, L, ny, nx};
+                   {c0, c1, c2, c3}, nbase, L, ny, nx, cur_oy, cur_ox,
+                   halo_y, halo_x, vec};
     const auto s = static_cast<cudaStream_t>(stream);
-    if (!halo_y && !halo_x) return launch<false, false>(p, k, s);
-    if (phi_s != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (halo_y && !halo_x) return launch<true, false>(p, k, s);
-    if (halo_y && halo_x) return launch<true, true>(p, k, s);
+    if (rows == 8) return launch_bases<8>(p, k, s);
+    if (rows == 4) return launch_bases<4>(p, k, s);
+    return launch_bases<2>(p, k, s);
+}
+
+// The built kernel the launch takes at L levels, tile_rows (as
+// pe_stage_launch) and nbase bases: registers, spill bytes, dynamic shared
+// bytes, threads, blocks per SM, static shared bytes and the tile's rows
+// into out[7]. Returns the CUDA error code; cudaErrorInvalidValue where no
+// block fits.
+extern "C" int pe_stage_attributes(int L, int tile_rows, int nbase,
+                                   int* out) {
+    const int rows = checked_rows(L, tile_rows);
+    out[6] = rows;
+    if (nbase < 1 || nbase > MAXB) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool one = nbase == 1;
+    if (rows == 8) return one ? attributes<8, 1>(L, out)
+                              : attributes<8, MAXB>(L, out);
+    if (rows == 4) return one ? attributes<4, 1>(L, out)
+                              : attributes<4, MAXB>(L, out);
+    if (rows == 2) return one ? attributes<2, 1>(L, out)
+                              : attributes<2, MAXB>(L, out);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -54,7 +54,10 @@ from njw_tpu_torch.weather.integrators import Stepper
 from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
 
 MAX_BASES = 4
-STAGE_THREADS = 128          # csrc/pe_stage.cu NT
+STAGE_MAX_LEVELS = 454       # csrc/pe_stage.cu kMaxLevels: the stage reach
+STAGE_TILE_ROWS = (8, 4, 2)  # the tile heights csrc/pe_stage.cu builds
+STAGE_SLOTS = 5              # levels in its ring (SLOTS)
+STAGE_REGION_PITCH = 40      # floats a row of its halo region (PX)
 RK4_THREADS = 512            # csrc/pe_rk4.cu NT
 RK4_TILE_MAX = 8             # the largest output tile the wrapper picks
 RK4_CLUSTERS = (1, 2, 4, 8)  # blocks per cluster the whole-step kernel takes
@@ -66,7 +69,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _STAGE_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 * MAX_BASES
                    + [_I] + [_F] * MAX_BASES + [_P] * 5 + [_L, _L] + [_P]
-                   + [_I] * 5 + [_F] * 8 + [_P])
+                   + [_I] * 5 + [_F] * 8 + [_I, _P])
 _RK4_ARGTYPES = ([_P] * 6 + [_L, _L, _I, _I] + [_P] * 5 + [_L, _L]
                  + [_P] + [_I] * 7 + [_F] * 11 + [_I, _P])
 NO_HALO = (0, 0)             # the whole periodic domain: both axes wrap
@@ -256,11 +259,19 @@ def _ptrs(st: PEState) -> list:
 
 def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
                   phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
-                  levc: torch.Tensor, halo: tuple = NO_HALO) -> PEState:
+                  levc: torch.Tensor, halo: tuple = NO_HALO,
+                  tile_rows: int = 0) -> PEState:
     """Launch on the current stream. ``cur``: the input block, whose
     interior starts at ``halo`` = (hy, hx) (0: that axis wraps); the bases
     and ``out``: interior-shaped views of one layout; ``grid``: the
-    interior's."""
+    interior's. ``tile_rows``: 0 for the rule's tile (``stage_tile_rows``),
+    or another height of ``STAGE_TILE_ROWS`` whose block fits (the card
+    tests and the profiler)."""
+    rows = stage_tile_rows(grid.levels) if tile_rows == 0 else tile_rows
+    if rows not in STAGE_TILE_ROWS or \
+            stage_smem_bytes(rows, grid.levels) > SMEM_PER_BLOCK:
+        raise ValueError(f"pe_stage: a tile of {rows} rows at "
+                         f"{grid.levels} levels does not fit a block")
     base_ptrs = [p for b in bases for p in _ptrs(b)]
     base_ptrs += [None] * (5 * MAX_BASES - len(base_ptrs))
     hy, hx = halo
@@ -273,13 +284,69 @@ def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
             *(0.0,) * (MAX_BASES - len(coeffs)),
             *_ptrs(out), *_pitches(out),
             levc.data_ptr(), grid.levels, grid.ny, grid.nx, int(hy > 0),
-            int(hx > 0), *k, c_dt, torch.cuda.current_stream().cuda_stream)
+            int(hx > 0), *k, c_dt, rows,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, err_string, "pe_stage")
     pe_stage_cuda.launches += 1
     return out
 
 
 pe_stage_cuda.launches = 0
+
+
+def stage_smem_bytes(rows: int, levels: int) -> int:
+    """Shared bytes a block of the stage kernel takes with tiles of 32 x
+    ``rows`` columns at ``levels`` (``smem_bytes`` in csrc/pe_stage.cu):
+    the ring of ``STAGE_SLOTS`` levels of u, v, T and q on the (rows + 2)
+    rows of the halo region, ``levels`` floats of cum a column, and the
+    region's row (8 B) and column (4 B) offsets into cur."""
+    ring = 4 * STAGE_SLOTS * 4 * (rows + 2) * STAGE_REGION_PITCH
+    return ring + 4 * levels * 32 * rows + 8 * (rows + 2) + 4 * 34
+
+
+def stage_tile_rows(levels: int) -> int:
+    """The rule (``tile_rows`` in csrc/pe_stage.cu, which asserts its
+    bounds): the tallest tile of ``STAGE_TILE_ROWS`` whose block fits, 8
+    rows up to L = 195, 4 up to 416, 2 up to the reach (454). Raises
+    ValueError for levels the kernel does not take (fewer than 1, more
+    than ``STAGE_MAX_LEVELS``)."""
+    if 1 <= levels <= STAGE_MAX_LEVELS:
+        for rows in STAGE_TILE_ROWS:
+            if stage_smem_bytes(rows, levels) <= SMEM_PER_BLOCK:
+                return rows
+    raise ValueError(f"pe_stage: {levels} levels: the stage kernel takes 1 "
+                     f"to {STAGE_MAX_LEVELS}")
+
+
+def stage_kernel_fits(levels: int) -> bool:
+    """Whether the stage kernel takes ``levels`` (``stage_tile_rows``)."""
+    try:
+        stage_tile_rows(levels)
+    except ValueError:
+        return False
+    return True
+
+
+def stage_kernel_attributes(levels: int, tile_rows: int = 0,
+                            nbase: int = 1, index: int = 0) -> dict:
+    """The built stage kernel the launch takes at ``levels``, ``tile_rows``
+    (0: the rule's) and ``nbase`` bases (one instantiation for one base,
+    one for 2 to 4) on CUDA device ``index``: registers and local (spill)
+    bytes a thread, dynamic and static shared bytes, threads a block,
+    resident blocks an SM and the tile (rows, columns)."""
+    fn = _build.load("pe_stage").pe_stage_attributes
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 7)()
+    with torch.cuda.device(index):
+        err = fn(levels, tile_rows, nbase, vals)
+    if err != 0:
+        msg = _build.bind("pe_stage", _STAGE_ARGTYPES)[1](err).decode()
+        raise RuntimeError(f"pe_stage attributes: {msg} ({err})")
+    out = dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
+                    "blocks_per_sm", "static_smem_bytes"), vals))
+    out["tile"] = [vals[6], 32]
+    return out
 
 
 def _rolls() -> tuple:
@@ -726,7 +793,7 @@ def _stage_padded_args(cur_p: PEState, bases, *, halo: tuple, c_dt: float,
                          f"{len(base_coeffs)} coefficients (1 to {MAX_BASES})")
     grid = _padded_grid("pe_stage_padded", cur_p, tuple(halo), STAGE_HALO,
                         dx, dy, bases, out)
-    if grid.levels * STAGE_THREADS * 4 > SMEM_PER_BLOCK:
+    if not stage_kernel_fits(grid.levels):
         raise ValueError(f"pe_stage_padded: {grid.levels} levels do not fit "
                          "a block")
     dev = cur_p.ps.device
@@ -834,14 +901,14 @@ def pe_rk4_carry2d(s_p: PEState, *, hy: int = RK4_HALO, hx: int = RK4_HALO,
 
 def pe_kernel_supported(grid: GridSpec, params: PhysicsParams) -> bool:
     """Eligibility for the kernels: the TPU rule without its tile and VMEM
-    terms (the kernels mask ragged edges). The stage kernel keeps L floats
-    per thread in shared memory, which bounds L at 454; the whole-step
-    kernel is taken only on request."""
+    terms (the kernels mask ragged edges). The stage kernel takes L up to
+    454 (``stage_tile_rows``); the whole-step kernel is taken only on
+    request."""
     return (
         grid.bc == "periodic"
         and grid.grid_type == "cartesian"
         and 2 <= grid.levels
-        and grid.levels * STAGE_THREADS * 4 <= SMEM_PER_BLOCK
+        and stage_kernel_fits(grid.levels)
         and isinstance(params.coriolis_f, numbers.Number)
         and isinstance(params.beta, numbers.Number)
         and float(params.beta) == 0.0

@@ -53,7 +53,10 @@ the card's name and power limit:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
+import inspect
 import json
 import re
 import subprocess
@@ -544,6 +547,419 @@ def _mountain(grid, height=1500.0):
                                  + ((x - cx) / sx) ** 2))).contiguous()
 
 
+# ------------------------------------------------ K5 and K3 beside a parent
+
+def _variant_lib(src_dir, name: str, tag: str, edits=(), defines=()):
+    """Build ``<src_dir>/<name>.cu`` (with the ``*.cuh`` beside it) with the
+    kernels' nvcc flags into a temporary directory, after ``edits`` ((file,
+    old text, new text), each old text occurring exactly once) and with
+    ``defines`` (-D flags). Returns (library, ptxas report)."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    from njw_tpu_torch.ops import _build
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"{name}_{tag}_"))
+    for f in Path(src_dir).iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp / f.name)
+    for fname, old, new in edits:
+        text = (tmp / fname).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {old!r} occurs {text.count(old)} "
+                               f"times in {fname}, not once")
+        (tmp / fname).write_text(text.replace(old, new))
+    so = tmp / f"lib{name}_{tag}.so"
+    build = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                            *defines, "-o", str(so), str(tmp / f"{name}.cu")],
+                           capture_output=True, text=True)
+    if build.returncode != 0:
+        raise RuntimeError(f"{tag} build failed:\n{build.stderr}")
+    return ctypes.CDLL(str(so)), build.stdout + build.stderr
+
+
+def ptxas_entries(log: str) -> dict:
+    """{entry: registers, spill bytes, static shared bytes} of a ptxas
+    report."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def blocks_per_sm(registers: int, threads: int, smem_bytes: int) -> int:
+    """Resident blocks an SM of the H100 takes, from a kernel's registers
+    a thread, threads a block and shared bytes a block (65,536 registers
+    allocated 256 a warp, 233,472 shared bytes with 1 KB reserved a block,
+    2048 threads, 32 blocks)."""
+    warps = -(-threads // 32)
+    regs_warp = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // (warps * regs_warp) if registers else 32
+    by_smem = 233472 // (smem_bytes + 1024)
+    return min(by_regs, by_smem, 2048 // threads, 32)
+
+
+@contextlib.contextmanager
+def _bound_to(name: str, lib, argtypes: list, drop: int = None):
+    """Route ``_build.bind(name, ...)`` (the wrappers' launch) to ``lib``
+    while the block runs; ``drop``: the index of an argument the wrappers
+    pass and ``lib``'s entry does not take."""
+    from njw_tpu_torch.ops import _build
+
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    if drop is None:
+        fn.argtypes, launch = argtypes, fn
+    else:
+        fn.argtypes = argtypes[:drop] + argtypes[drop + 1:]
+
+        def launch(*a):
+            return fn(*a[:drop], *a[drop + 1:])
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    before = _build._bound.get(name)
+    _build._bound[name] = (launch, err)
+    try:
+        yield
+    finally:
+        if before is None:
+            _build._bound.pop(name, None)
+        else:
+            _build._bound[name] = before
+
+
+def _in_turns(runs: dict, reps: int) -> dict:
+    """ms a call of each of ``runs`` ({who: fn}), timed in turns (a, b, b,
+    a for two), the device spinning while the host queues."""
+    order = list(runs) + list(runs)[::-1]
+    times = {who: [] for who in runs}
+    for fn in runs.values():
+        device_ms(fn, 2)
+    for who in order:
+        times[who].append(device_ms(runs[who], reps))
+    return {who: {"ms": t, "ms_mean": sum(t) / len(t)}
+            for who, t in times.items()}
+
+
+def _same(a: list, b: list) -> dict:
+    torch.cuda.synchronize()
+    return {"equal_bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "max_abs_diff": max(float((x - y).abs().max())
+                                for x, y in zip(a, b))}
+
+
+# parts of the parent pe_stage.cu (PR 2's column walk): the bottom-up walk
+# cut to no level leaves the top-down one and the stores of out.ps; the
+# top-down walk cut to no level leaves the bottom-up one (cum unset)
+PE_PARENT_PARTS = {
+    "top_down": [("pe_column.cuh", "for (int kk = L - 1; kk >= 0; --kk) {",
+                  "for (int kk = L - 1; kk >= L; --kk) {")],
+    "bottom_up": [("pe_column.cuh", "for (int kk = 0; kk < L; ++kk) {",
+                   "for (int kk = 0; kk < 0; ++kk) {")],
+}
+# the current source's probe (PE_STAGE_PROBE: 1 the top-down walk alone,
+# 2 the bottom-up walk alone)
+PE_PARTS = {"top_down": ["-DPE_STAGE_PROBE=1"],
+            "bottom_up": ["-DPE_STAGE_PROBE=2"]}
+PE_LEVELS = (20, 40, 80, 454)
+PE_SHAPES = (  # form, (L, ly, lx), halo
+    ("whole", (20, 512, 512), (0, 0)),
+    ("whole", (40, 512, 2048), (0, 0)),
+    ("whole", (40, 1024, 1024), (0, 0)),
+    ("local", (40, 512, 2048), (1, 0)),
+    ("local2d", (40, 1024, 1024), (1, 1)),
+)
+
+
+def _pe_padded_case(L: int, ly: int, lx: int, halo: tuple, nbase: int):
+    """cur: a padded (L, ly + 2 hy, lx + 2 hx) block of the noisy config-4
+    state; bases and out: interiors of padded blocks of the same shape, as
+    the sharded stage stepper holds them (whole domain: plain states)."""
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    path = MAIN_PATHS["primitive"]
+    hy, hx = halo
+    cfg = path.sim_config(device="cuda", num_levels=L,
+                          grid_width=lx + 2 * hx, grid_height=ly + 2 * hy)
+    grid = cfg.grid_spec()
+    cur = _noisy_state(grid, 1, None, path.ic_params)
+    bases = [ps.interior(_noisy_state(grid, 2 + g, None, path.ic_params),
+                         halo) for g in range(nbase)]
+    out = ps.interior(cur.map(torch.empty_like), halo)
+    return cfg, cur, bases, out
+
+
+def _pe_stage_args(cfg, cur, bases, out, halo) -> tuple:
+    """The arguments of ``pe_stencil._launch_stage`` for one stage of the
+    case (one base: stages 1-3; four: the RK4 combine)."""
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    third = 1.0 / 3.0
+    nbase = len(bases)
+    kw = dict(c_dt=0.5 * cfg.dt if nbase == 1 else cfg.dt / 6.0,
+              base_coeffs=(1.0,) if nbase == 1 else
+              (-third, third, 2.0 * third, third),
+              coriolis_f=float(cfg.coriolis_f), out=out)
+    if halo != (0, 0):
+        return ps._stage_padded_args(cur, bases, halo=halo, dx=cfg.dx,
+                                     dy=cfg.dy, **kw)
+    grid = cfg.grid_spec()
+    return (cur, tuple(bases), tuple(ps._f32(c) for c in kw["base_coeffs"]),
+            out, None, grid, ps.column_constants(grid, kw["coriolis_f"]),
+            ps._f32(kw["c_dt"]), ps.level_constants(grid.levels, "cuda"),
+            ps.NO_HALO)
+
+
+def pe_stage_study(gpu: str, parent: str = None) -> None:
+    """K5 alone: each form at its path's shape and at the config-5 shard
+    shapes (1 and 4 bases), at each tile height that fits (the rule's as
+    ``new``), the parent's source beside it in turns with the outputs
+    compared bit for bit; the top-down and bottom-up walks alone; an L
+    sweep at 512^2; the built kernels' registers, spills, shared bytes and
+    blocks per SM."""
+    from njw_tpu_torch.ops import _build
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    csrc = _build.CSRC
+    has_probe = "PE_STAGE_PROBE" in (csrc / "pe_stage.cu").read_text()
+    # PR 2's entry has no tile_rows (the argument before the stream)
+    tiled = "tile_rows" in inspect.signature(ps._launch_stage).parameters
+    binds = {"new": (ps._STAGE_ARGTYPES, None),
+             "parent": (ps._STAGE_ARGTYPES,
+                        len(ps._STAGE_ARGTYPES) - 2 if tiled else None)}
+    libs = {}   # who -> {part: (lib, log)}
+    if parent:
+        libs["parent"] = {"all": _variant_lib(parent, "pe_stage", "parent")}
+        for part, edits in PE_PARENT_PARTS.items():
+            libs["parent"][part] = _variant_lib(parent, "pe_stage",
+                                                f"parent_{part}", edits)
+    libs["new"] = {"all": (_build.load("pe_stage"),
+                           _build.build_log("pe_stage"))}
+    if has_probe:
+        for part, defines in PE_PARTS.items():
+            libs["new"][part] = _variant_lib(csrc, "pe_stage", f"new_{part}",
+                                             defines=defines)
+    print(json.dumps({"phase": "pe_stage_ptxas", "card": gpu, **{
+        who: ptxas_entries(v["all"][1]) for who, v in libs.items()}}),
+        flush=True)
+
+    def attrs(who, L, halo, nbase, rows=0):
+        if who == "new" and tiled:
+            return ps.stage_kernel_attributes(L, rows, nbase)
+        ent = ptxas_entries(libs[who]["all"][1])
+        mode = {(0, 0): "Lb0ELb0E", (1, 0): "Lb1ELb0E",
+                (1, 1): "Lb1ELb1E"}[(min(halo[0], 1), min(halo[1], 1))]
+        e = next(v for k, v in ent.items() if mode in k)
+        smem = L * 128 * 4 + e["static_smem_bytes"]
+        return {**e, "smem_bytes": smem, "threads": 128,
+                "blocks_per_sm": blocks_per_sm(e["registers"], 128, smem),
+                "tile": [4, 32], "from": "ptxas"}
+
+    def runner(who, lib, args, rows=0):
+        def run():
+            with _bound_to("pe_stage", lib, *binds[who]):
+                if tiled:
+                    ps._launch_stage(*args, tile_rows=rows)
+                else:
+                    ps._launch_stage(*args)
+        return run
+
+    def timed(form, shape, halo, nbase, parts):
+        L, ly, lx = shape
+        cfg, cur, bases, out = _pe_padded_case(L, ly, lx, halo, nbase)
+        args = _pe_stage_args(cfg, cur, bases, out, halo)
+        reps = max(10, int(2e10 / (L * ly * lx * 4 * (2 + nbase))))
+        runs, outs = {}, {}
+        for who, v in libs.items():
+            heights = [0] if who == "parent" or not tiled else [0] + [
+                r for r in ps.STAGE_TILE_ROWS
+                if r != ps.stage_tile_rows(L)
+                and ps.stage_smem_bytes(r, L) <= ps.SMEM_PER_BLOCK]
+            for rows in heights:
+                name = who if rows == 0 else f"{who}_{rows}_rows"
+                runs[name] = runner(who, v["all"][0], args, rows)
+                runs[name]()
+                outs[name] = [t.clone() for _, t in out.items()]
+        row = {"form": form, "shape": list(shape), "halo": list(halo),
+               "bases": nbase, "times": _in_turns(runs, reps)}
+        if "parent" in outs:
+            row.update(_same(outs["new"], outs["parent"]))
+        row["heights_equal_rule"] = {
+            name: _same(o, outs["new"])["equal_bit_for_bit"]
+            for name, o in outs.items() if name.startswith("new_")}
+        row["attributes"] = {who: attrs(who, L, halo, nbase)
+                             for who in libs}
+        if tiled:
+            row["attributes"].update({
+                name: attrs("new", L, halo, nbase, int(name.split("_")[1]))
+                for name in runs if name.startswith("new_")})
+        if parts:
+            row["parts_ms"] = {}
+            for who, v in libs.items():
+                for part, (lib, _) in v.items():
+                    if part == "all":
+                        continue
+                    run = runner(who, lib, args)
+                    device_ms(run, 2)
+                    row["parts_ms"][f"{who}_{part}"] = device_ms(run, reps)
+        print(json.dumps({"phase": "pe_stage_study", "card": gpu, **row}),
+              flush=True)
+        del cur, bases, out, outs, args
+        torch.cuda.empty_cache()
+
+    for form, shape, halo in PE_SHAPES:
+        for nbase in (1, 4):
+            timed(form, shape, halo, nbase, parts=nbase == 1)
+    for L in PE_LEVELS:
+        timed("whole", (L, 512, 512), (0, 0), 1, parts=False)
+
+
+# parts of the parent baro_stage.cu (PR 2's 32 x 32 tiles): the tile loads
+# alone (a store no value reaches keeps them), and an empty body
+BARO_PARENT_PARTS = {
+    "tile_load": [("baro_stage.cu",
+                   "    const int gx = blockIdx.x * TX + threadIdx.x;\n"
+                   "    if (gx >= nx) return;",
+                   "    if (sp[tid] == -1.25e-38f) out[0] = sz[tid];\n"
+                   "    return;\n"
+                   "    const int gx = blockIdx.x * TX + threadIdx.x;\n"
+                   "    if (gx >= nx) return;")],
+    "empty": [("baro_stage.cu", "    __shared__ float sp[PY * PX];",
+               "    if (ny > 0) return;\n    __shared__ float sp[PY * PX];")],
+}
+BARO_GRIDS = (512, 1024, 2048)
+
+
+def baro_stage_study(gpu: str, parent: str = None) -> None:
+    """K3 alone at 512^2, 1024^2 and 2048^2 (rotating buffers past L2),
+    at each strip it builds (the rule's as ``new``), the parent's source
+    beside it in turns with the outputs compared bit for bit, the parent's
+    tile loads alone and its empty launch; and the same on odd and
+    sub-tile grids."""
+    from njw_tpu_torch.ops import _build
+    from njw_tpu_torch.ops import baro_stencil as bs
+    from njw_tpu_torch.weather import GridSpec
+
+    # PR 2's entry has no strip (the argument before the stream)
+    striped = "strip" in inspect.signature(bs._launch).parameters
+    drop = len(bs._ARGTYPES) - 2 if striped else None
+    libs = {"new": (_build.load("baro_stage"), _build.build_log("baro_stage"))}
+    parts = {}
+    if parent:
+        pdir = str(Path(parent).parent)
+        libs["parent"] = _variant_lib(pdir, "baro_stage", "parent")
+        for part, edits in BARO_PARENT_PARTS.items():
+            parts[part] = _variant_lib(pdir, "baro_stage", f"parent_{part}",
+                                       edits)
+    print(json.dumps({"phase": "baro_stage_ptxas", "card": gpu, **{
+        who: ptxas_entries(log) for who, (_, log) in libs.items()}}),
+        flush=True)
+    cfg = MAIN_PATHS["barotropic"].config
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n in (*BARO_GRIDS, (3, 5), (33, 65), (1000, 1024), (37, 131)):
+        ny, nx = (n, n) if isinstance(n, int) else n
+        grid = GridSpec(nx=nx, ny=ny)
+        nsets = max(1, -(-150_000_000 // (16 * ny * nx)))
+        sets = [tuple(torch.rand(ny, nx, device="cuda", generator=gen)
+                      for _ in range(4)) for _ in range(nsets)]
+        k = bs.baro_constants(grid, 0.5 * cfg["dt"], cfg["beta"],
+                              cfg["viscosity"])
+
+        def runner(lib, who, strip=-1):
+            turn = [0]
+
+            def run():
+                p, z, b, o = sets[turn[0]]
+                with _bound_to("baro_stage", lib, bs._ARGTYPES,
+                               drop if who == "parent" else None):
+                    if striped:
+                        bs._launch(p, z, b, o, grid, k, strip)
+                    else:
+                        bs._launch(p, z, b, o, grid, k)
+                turn[0] = (turn[0] + 1) % nsets
+            return run
+
+        runs = {}
+        for who, (lib, _) in libs.items():
+            runs[who] = runner(lib, who)
+            if who == "new" and striped:
+                rule = bs.baro_strip(nx)
+                for i, (v, h) in enumerate(bs.BARO_STRIPS):
+                    if i != rule and (v == 1 or nx % 4 == 0):
+                        runs[f"new_strip_{v}x{h}"] = runner(lib, who, i)
+        outs = {}
+        for name, run in runs.items():
+            sets[0][3].fill_(float("nan"))
+            run()
+            outs[name] = [sets[0][3].clone()]
+            for _ in range(nsets - 1):
+                run()
+        row = {"grid": [ny, nx], "rotating_sets": nsets,
+               "times": _in_turns(runs, 400)}
+        if "parent" in outs:
+            row.update(_same(outs["new"], outs["parent"]))
+        row["strips_equal_rule"] = {
+            name: _same(o, outs["new"])["equal_bit_for_bit"]
+            for name, o in outs.items() if name.startswith("new_")}
+        row["plain_vs_new"] = _same(outs["new"], [bs.baro_stage_plain(
+            *sets[0][:3], grid=grid, c_dt=0.5 * cfg["dt"], beta=cfg["beta"],
+            nu=cfg["viscosity"])])
+        if striped:
+            row["attributes"] = {
+                f"{v}x{h}": bs.baro_kernel_attributes(i)
+                for i, (v, h) in enumerate(bs.BARO_STRIPS)}
+        if isinstance(n, int):
+            row["parts_ms"] = {}
+            for part, (lib, _) in parts.items():
+                run = runner(lib, "parent")
+                device_ms(run, 2)
+                row["parts_ms"][f"parent_{part}"] = device_ms(run, 400)
+        print(json.dumps({"phase": "baro_stage_study", "card": gpu, **row}),
+              flush=True)
+        del sets, outs
+        torch.cuda.empty_cache()
+
+
+def pe_rk4_parent_check(gpu: str, parent: str) -> None:
+    """K4 built from the parent's pe_rk4.cu and pe_column.cuh beside the
+    current one at config 4 (flat and with terrain): equal bit for bit?"""
+    from njw_tpu_torch.ops import pe_stencil as ps
+
+    lib, _ = _variant_lib(parent, "pe_rk4", "parent")
+    path = MAIN_PATHS["primitive"]
+    cfg = path.sim_config(device="cuda")
+    grid = cfg.grid_spec()
+    rows = {}
+    for terrain in (False, True):
+        phi_s = _mountain(grid) if terrain else None
+        s = _noisy_state(grid, 1, phi_s, path.ic_params)
+        kw = dict(grid=grid, dt=cfg.dt, coriolis_f=cfg.coriolis_f,
+                  phi_s=phi_s)
+        new = ps.pe_rk4_step_cuda(s, **kw)
+        with _bound_to("pe_rk4", lib, ps._RK4_ARGTYPES):
+            old = ps.pe_rk4_step_cuda(s, **kw)
+        rows["terrain" if terrain else "flat"] = _same(
+            [t for _, t in new.items()], [t for _, t in old.items()])
+    print(json.dumps({"phase": "pe_rk4_parent", "card": gpu,
+                      "shape": [grid.levels, grid.ny, grid.nx], **rows}),
+          flush=True)
+
+
 def fir_extras(gpu: str) -> None:
     from njw_tpu_torch.signal import fir_cuda as fc
     from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
@@ -574,11 +990,19 @@ def fir_extras(gpu: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
-                    choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "all"])
+                    choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
+                             "baro_stage", "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
                     "kernel (--model swe)")
+    ap.add_argument("--parent-pe-stage", metavar="DIR",
+                    help="a directory with an earlier pe_stage.cu, "
+                    "pe_rk4.cu and pe_column.cuh to time and compare beside "
+                    "the current K5 and K4 (--model pe_stage)")
+    ap.add_argument("--parent-baro", metavar="FILE",
+                    help="an earlier baro_stage.cu to time and compare "
+                    "beside the current K3 (--model baro_stage)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
@@ -587,6 +1011,14 @@ def main() -> int:
     models = [*MAIN_PATHS, *VARIANT_PATHS, "fir"] if args.model == "all" \
         else [args.model]
     for model in models:
+        if model == "pe_stage":
+            pe_stage_study(gpu, args.parent_pe_stage)
+            if args.parent_pe_stage:
+                pe_rk4_parent_check(gpu, args.parent_pe_stage)
+            continue
+        if model == "baro_stage":
+            baro_stage_study(gpu, args.parent_baro)
+            continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)
             fir_extras(gpu)

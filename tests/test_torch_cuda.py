@@ -247,6 +247,98 @@ class TestStageKernelsOnCard:
                                        atol=2e-4 if terrain else 1e-4,
                                        msg=name)
 
+    # every strip K3 builds (an index of BARO_STRIPS; the 4-column ones
+    # need nx % 4 == 0) on grids under one strip (3 x 5, 33 x 65), ragged
+    # in both axes (37 x 131, 1000 x 1024 against 4-row strips) and square
+    @pytest.mark.parametrize("ny,nx", [(3, 5), (33, 65), (37, 131), (5, 8),
+                                       (1000, 1024), (130, 260)])
+    @pytest.mark.parametrize("strip", range(4))
+    def test_baro_strips_match_plain_version(self, cuda_device, ny, nx,
+                                             strip):
+        from njw_tpu_torch.ops import baro_stencil as bs
+
+        cols, _ = bs.BARO_STRIPS[strip]
+        if cols == 4 and nx % 4:
+            pytest.skip("4 columns a lane need nx % 4 == 0")
+        grid = GridSpec(nx=nx, ny=ny, dx=0.9, dy=1.3)
+        psi, z, base = _torch(_fields(ny, nx, seed=ny + nx), cuda_device)
+        k = bs.baro_constants(grid, 0.7, 0.3, 0.02)
+        out = torch.full_like(z, float("nan"))
+        bs._launch(psi, z, base, out, grid, k, strip)
+        ref = baro_stage_plain(psi, z, base, grid=grid, c_dt=0.7, beta=0.3,
+                               nu=0.02)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        # each strip computes the rule's bits
+        rule = torch.empty_like(z)
+        bs._launch(psi, z, base, rule, grid, k)
+        assert torch.equal(out, rule)
+
+    def test_baro_strip_rule_matches_the_built_kernel(self, cuda_device):
+        from njw_tpu_torch.ops import baro_stencil as bs
+
+        for i, (cols, rows) in enumerate(bs.BARO_STRIPS):
+            a = bs.baro_kernel_attributes(i)
+            assert (a["columns_per_lane"], a["rows_per_warp"]) == (cols, rows)
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
+        assert bs.BARO_STRIPS[bs.baro_strip(1024)] == (4, 4)
+        assert bs.BARO_STRIPS[bs.baro_strip(1026)][0] == 1
+
+    # K5 at every tile height it builds (0: the rule's), on grids ragged
+    # against the 32-column tile and each height, with terrain, 1 and 4
+    # bases; the reach (L = 454, 2-row tiles) on a small grid
+    @pytest.mark.parametrize("L,ny,nx,nbase,terrain,rows", [
+        (40, 37, 50, 1, True, 0), (40, 37, 50, 4, False, 4),
+        (40, 37, 50, 1, False, 2), (20, 9, 100, 4, True, 8),
+        (3, 3, 5, 1, False, 0), (7, 70, 33, 4, True, 2),
+        (195, 11, 40, 1, False, 8), (196, 11, 40, 4, True, 0),
+        (454, 5, 37, 1, False, 0), (454, 5, 37, 4, True, 0)])
+    def test_pe_stage_tiles_match_plain_version(self, cuda_device, L, ny,
+                                                nx, nbase, terrain, rows):
+        from njw_tpu_torch.ops import pe_stencil as ps
+
+        grid = GridSpec(nx=nx, ny=ny, levels=L, dx=1e5, dy=1e5)
+        cur = _pe_state(L, ny, nx, 0, cuda_device)
+        bases = tuple(_pe_state(L, ny, nx, g + 1, cuda_device)
+                      for g in range(nbase))
+        coeffs = (1.0,) if nbase == 1 else (-1 / 3, 1 / 3, 2 / 3, 1 / 3)
+        phi_s = (torch.rand(ny, nx, device=cuda_device) * 5000.0
+                 if terrain else None)
+        k = ps.column_constants(grid, 1e-4)
+        levc = ps.level_constants(L, "cuda")
+        out = cur.map(lambda a: torch.full_like(a, float("nan")))
+        ps._launch_stage(cur, bases, tuple(ps._f32(c) for c in coeffs), out,
+                         phi_s, grid, k, ps._f32(60.0), levc,
+                         tile_rows=rows)
+        ref = pe_stage_plain(cur, bases, grid=grid, c_dt=60.0,
+                             coriolis_f=1e-4, base_coeffs=coeffs,
+                             phi_s=phi_s)
+        torch.cuda.synchronize()
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=2e-4 if terrain else 1e-4,
+                                       msg=name)
+        # every height computes the rule's bits
+        rule = pe_stage_cuda(cur, bases, grid=grid, c_dt=60.0,
+                             coriolis_f=1e-4, base_coeffs=coeffs,
+                             phi_s=phi_s)
+        for (name, a), (_, b) in zip(out.items(), rule.items()):
+            assert torch.equal(a, b), name
+
+    def test_pe_stage_rule_matches_the_built_kernel(self, cuda_device):
+        from njw_tpu_torch.ops import pe_stencil as ps
+
+        for L in (2, 20, 40, 195, 196, 416, 417, 454):
+            for nbase in (1, 4):
+                a = ps.stage_kernel_attributes(L, nbase=nbase)
+                rows = ps.stage_tile_rows(L)
+                assert a["tile"] == [rows, 32], L
+                assert a["smem_bytes"] == ps.stage_smem_bytes(rows, L), L
+                assert a["threads"] == 32 * rows and a["local_bytes"] == 0
+                assert a["blocks_per_sm"] >= 1, L
+        with pytest.raises(RuntimeError):
+            ps.stage_kernel_attributes(455)
+
     # layout None: the rule's (rk4_layout: one block, tile 8 up to L = 21;
     # a cluster of two at L = 40; eight blocks past L = 84, tile 1 at the
     # limit L = 688); others as (blocks per cluster, tile); ragged tiles in
@@ -542,6 +634,39 @@ class TestShardedKernelsOnCard:
             cur = cur.map(lambda a: _nan_framed(a, halo, 1))
         before = pe_stage_cuda.launches
         out = pe_stage_padded(cur, bases, **kw)
+        torch.cuda.synchronize()
+        assert pe_stage_cuda.launches == before + 1
+        for (name, a), (_, b) in zip(out.items(), ref.items()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4,
+                                       msg=name)
+
+    # rows of cur 16-byte aligned (the 16-byte copies: pitch and the
+    # interior's first column multiples of 4), whole tiles and ragged ones,
+    # at every tile height K5 builds
+    @pytest.mark.parametrize("halo,ly,lx,nbase,rows", [
+        ((1, 0), 37, 72, 1, 0), ((4, 4), 21, 72, 4, 0),
+        ((4, 4), 21, 72, 1, 2), ((2, 0), 9, 96, 4, 4),
+        ((1, 1), 19, 64, 1, 8)])
+    @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
+    def test_pe_stage_padded_tiles_match_plain(self, cuda_device, halo, ly,
+                                               lx, nbase, rows, nan):
+        from njw_tpu_torch.ops import pe_stencil as ps
+
+        L = 6
+        cur = _padded_pe(L, ly, lx, halo, 1, cuda_device)
+        bases = [_pe_state(L, ly, lx, 2 + g, cuda_device)
+                 for g in range(nbase)]
+        coeffs = (1.0,) if nbase == 1 else (-1 / 3, 1 / 3, 2 / 3, 1 / 3)
+        kw = dict(halo=halo, c_dt=60.0, dx=1e5, dy=1.2e5, coriolis_f=1e-4,
+                  base_coeffs=coeffs)
+        ref = ps.pe_stage_padded(cur.map(torch.Tensor.cpu),
+                                 [b.map(torch.Tensor.cpu) for b in bases],
+                                 **kw)
+        if nan:
+            cur = cur.map(lambda a: _nan_framed(a, halo, 1))
+        args = ps._stage_padded_args(cur, bases, **kw)
+        before = pe_stage_cuda.launches
+        out = ps._launch_stage(*args, tile_rows=rows)
         torch.cuda.synchronize()
         assert pe_stage_cuda.launches == before + 1
         for (name, a), (_, b) in zip(out.items(), ref.items()):
