@@ -33,15 +33,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # csrc/baro_stage.cu kStrips: (columns a lane, rows a warp) of each strip
 # built; the launch's rule takes entry 0 where nx % 4 == 0 and every field
-# is 16-byte aligned, entry 2 otherwise
-BARO_STRIPS = ((4, 4), (4, 2), (1, 8), (1, 4))
+# is 16-byte aligned, entry 1 otherwise
+BARO_STRIPS = ((4, 4), (1, 4))
 
 
 def baro_strip(nx: int, aligned: bool = True) -> int:
     """The rule of csrc/baro_stage.cu: the index (into ``BARO_STRIPS``) of
     the strip the launch takes for a row of ``nx`` points, ``aligned``
     when every field starts on 16 bytes (as torch allocates)."""
-    return 0 if nx % 4 == 0 and aligned else 2
+    return 0 if nx % 4 == 0 and aligned else 1
 
 
 def baro_kernel_attributes(strip: int, index: int = 0) -> dict:

@@ -199,10 +199,11 @@ __global__ void __launch_bounds__(NT) baro_stage_kernel(
     }
 }
 
-// The strips built: {V, H}. Entry 0 is the rule's for nx % 4 == 0
-// (aligned), entry 2 the rule's otherwise; the others are timed beside
-// them by scripts/profile_torch.py.
-constexpr int kStrips[][2] = {{4, 4}, {4, 2}, {1, 8}, {1, 4}};
+// The strips built: {V, H}, the fastest the H100 timed at 1024^2 (and on
+// odd grids for V = 1) among 4 x 4, 4 x 2, 1 x 8 and 1 x 4 (PERF.md).
+// Entry 0 is the rule's where nx % 4 == 0 and the fields are 16-byte
+// aligned, entry 1 otherwise.
+constexpr int kStrips[][2] = {{4, 4}, {1, 4}};
 constexpr int kNumStrips = sizeof(kStrips) / sizeof(kStrips[0]);
 
 template <int V, int H>
@@ -221,12 +222,10 @@ int with_strip(int index, const F& f) {
     switch (index) {
         case 0: return f.template run<kStrips[0][0], kStrips[0][1]>();
         case 1: return f.template run<kStrips[1][0], kStrips[1][1]>();
-        case 2: return f.template run<kStrips[2][0], kStrips[2][1]>();
-        case 3: return f.template run<kStrips[3][0], kStrips[3][1]>();
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
-static_assert(kNumStrips == 4, "with_strip names every strip");
+static_assert(kNumStrips == 2, "with_strip names every strip");
 
 struct Launch {
     const float *psi, *zeta, *base;
@@ -271,7 +270,7 @@ bool aligned16(const void* q) {
 // Launch one stage on `stream`. `out` must not alias psi or zeta (it may
 // alias base). strip: -1 for the rule's (4 columns a lane and 4 rows a
 // warp where nx % 4 == 0 and every field is 16-byte aligned, else 1 and
-// 8), or an index of kStrips (one with 4 columns a lane needs what the
+// 4), or an index of kStrips (one with 4 columns a lane needs what the
 // rule needs for it). Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int baro_stage_launch(
@@ -281,7 +280,7 @@ extern "C" int baro_stage_launch(
     void* stream) {
     const bool vec = nx % 4 == 0 && aligned16(psi) && aligned16(zeta)
                      && aligned16(base) && aligned16(out);
-    if (strip < 0) strip = vec ? 0 : 2;
+    if (strip < 0) strip = vec ? 0 : 1;
     if (ny < 3 || nx < 3 || strip >= kNumStrips
         || (kStrips[strip][0] == 4 && !vec)) {
         return static_cast<int>(cudaErrorInvalidValue);

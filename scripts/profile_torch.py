@@ -53,6 +53,7 @@ the card's name and power limit:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -677,6 +678,13 @@ PE_PARENT_PARTS = {
 PE_PARTS = {"top_down": ["-DPE_STAGE_PROBE=1"],
             "bottom_up": ["-DPE_STAGE_PROBE=2"]}
 PE_LEVELS = (20, 40, 80, 454)
+# builds of the current source with other options, timed beside it by
+# --pe-stage-variants: name -> (nvcc defines, tile rows; 0 the rule's)
+PE_VARIANTS = {
+    "tx64_8_rows": (["-DPE_STAGE_TX=64"], 8),
+    "tx64_4_rows": (["-DPE_STAGE_TX=64"], 4),
+    "tx64_2_rows": (["-DPE_STAGE_TX=64"], 2),
+}
 PE_SHAPES = (  # form, (L, ly, lx), halo
     ("whole", (20, 512, 512), (0, 0)),
     ("whole", (40, 512, 2048), (0, 0)),
@@ -725,7 +733,8 @@ def _pe_stage_args(cfg, cur, bases, out, halo) -> tuple:
             ps.NO_HALO)
 
 
-def pe_stage_study(gpu: str, parent: str = None) -> None:
+def pe_stage_study(gpu: str, parent: str = None,
+                   variants: bool = False) -> None:
     """K5 alone: each form at its path's shape and at the config-5 shard
     shapes (1 and 4 bases), at each tile height that fits (the rule's as
     ``new``), the parent's source beside it in turns with the outputs
@@ -742,18 +751,37 @@ def pe_stage_study(gpu: str, parent: str = None) -> None:
     binds = {"new": (ps._STAGE_ARGTYPES, None),
              "parent": (ps._STAGE_ARGTYPES,
                         len(ps._STAGE_ARGTYPES) - 2 if tiled else None)}
-    libs = {}   # who -> {part: (lib, log)}
+    # every build at once (one nvcc each)
+    jobs = {}
     if parent:
-        libs["parent"] = {"all": _variant_lib(parent, "pe_stage", "parent")}
+        jobs[("parent", "all")] = (parent, "parent", (), ())
         for part, edits in PE_PARENT_PARTS.items():
-            libs["parent"][part] = _variant_lib(parent, "pe_stage",
-                                                f"parent_{part}", edits)
-    libs["new"] = {"all": (_build.load("pe_stage"),
-                           _build.build_log("pe_stage"))}
+            jobs[("parent", part)] = (parent, f"parent_{part}", edits, ())
     if has_probe:
         for part, defines in PE_PARTS.items():
-            libs["new"][part] = _variant_lib(csrc, "pe_stage", f"new_{part}",
-                                             defines=defines)
+            jobs[("new", part)] = (csrc, f"new_{part}", (), defines)
+    for name, (d, _) in (PE_VARIANTS.items() if variants else ()):
+        jobs[("variant", name)] = (csrc, name, (), d)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) or 1) as pool:
+        futures = {key: pool.submit(_variant_lib, src, "pe_stage", tag,
+                                    edits, defines)
+                   for key, (src, tag, edits, defines) in jobs.items()}
+        done = {key: f.result() for key, f in futures.items()}
+    libs = {}   # who -> {part: (lib, log)}
+    for (who, part), lib in done.items():
+        if who != "variant":
+            libs.setdefault(who, {})[part] = lib
+    libs["new"] = {"all": (_build.load("pe_stage"),
+                           _build.build_log("pe_stage")),
+                   **libs.get("new", {})}
+    if "parent" in libs:   # the parent first in every turn
+        libs = {"parent": libs["parent"], "new": libs["new"]}
+    built = {name: lib for (who, name), lib in done.items()
+             if who == "variant"}
+    if built:
+        print(json.dumps({"phase": "pe_stage_variants_ptxas", "card": gpu,
+                          **{n: ptxas_entries(log)
+                             for n, (_, log) in built.items()}}), flush=True)
     print(json.dumps({"phase": "pe_stage_ptxas", "card": gpu, **{
         who: ptxas_entries(v["all"][1]) for who, v in libs.items()}}),
         flush=True)
@@ -795,13 +823,20 @@ def pe_stage_study(gpu: str, parent: str = None) -> None:
                 runs[name] = runner(who, v["all"][0], args, rows)
                 runs[name]()
                 outs[name] = [t.clone() for _, t in out.items()]
+        for name, (lib, _) in built.items():
+            if form == "whole" and L > 40:
+                continue
+            runs[f"var_{name}"] = runner("new", lib, args,
+                                         PE_VARIANTS[name][1])
+            runs[f"var_{name}"]()
+            outs[f"var_{name}"] = [t.clone() for _, t in out.items()]
         row = {"form": form, "shape": list(shape), "halo": list(halo),
                "bases": nbase, "times": _in_turns(runs, reps)}
         if "parent" in outs:
             row.update(_same(outs["new"], outs["parent"]))
         row["heights_equal_rule"] = {
             name: _same(o, outs["new"])["equal_bit_for_bit"]
-            for name, o in outs.items() if name.startswith("new_")}
+            for name, o in outs.items() if name.startswith(("new_", "var_"))}
         row["attributes"] = {who: attrs(who, L, halo, nbase)
                              for who in libs}
         if tiled:
@@ -1003,6 +1038,9 @@ def main() -> int:
     ap.add_argument("--parent-baro", metavar="FILE",
                     help="an earlier baro_stage.cu to time and compare "
                     "beside the current K3 (--model baro_stage)")
+    ap.add_argument("--pe-stage-variants", action="store_true",
+                    help="also time builds of the current pe_stage.cu with "
+                    "the options of PE_VARIANTS (--model pe_stage)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
@@ -1012,7 +1050,8 @@ def main() -> int:
         else [args.model]
     for model in models:
         if model == "pe_stage":
-            pe_stage_study(gpu, args.parent_pe_stage)
+            pe_stage_study(gpu, args.parent_pe_stage,
+                           args.pe_stage_variants)
             if args.parent_pe_stage:
                 pe_rk4_parent_check(gpu, args.parent_pe_stage)
             continue

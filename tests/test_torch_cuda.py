@@ -252,7 +252,7 @@ class TestStageKernelsOnCard:
     # in both axes (37 x 131, 1000 x 1024 against 4-row strips) and square
     @pytest.mark.parametrize("ny,nx", [(3, 5), (33, 65), (37, 131), (5, 8),
                                        (1000, 1024), (130, 260)])
-    @pytest.mark.parametrize("strip", range(4))
+    @pytest.mark.parametrize("strip", range(2))
     def test_baro_strips_match_plain_version(self, cuda_device, ny, nx,
                                              strip):
         from njw_tpu_torch.ops import baro_stencil as bs
@@ -282,7 +282,7 @@ class TestStageKernelsOnCard:
             assert (a["columns_per_lane"], a["rows_per_warp"]) == (cols, rows)
             assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
         assert bs.BARO_STRIPS[bs.baro_strip(1024)] == (4, 4)
-        assert bs.BARO_STRIPS[bs.baro_strip(1026)][0] == 1
+        assert bs.BARO_STRIPS[bs.baro_strip(1026)] == (1, 4)
 
     # K5 at every tile height it builds (0: the rule's), on grids ragged
     # against the 32-column tile and each height, with terrain, 1 and 4
