@@ -569,9 +569,10 @@ def baro_kernel() -> dict:
     b_ms, b_by = roofline_ms(distinct_bytes(*sets[0]), BARO_FLOP * n * n)
     host_us = host_us_per_launch(launch)
     strip = bs.baro_strip(n)
+    unit = main_grid.dx == 1.0 and main_grid.dy == 1.0
     built = dict(bs.baro_kernel_attributes(
-        strip, index=torch.cuda.current_device()),
-        strip=list(bs.BARO_STRIPS[strip]))
+        strip, unit=unit, index=torch.cuda.current_device()),
+        strip=list(bs.BARO_STRIPS[strip]), unit_spacing=unit)
     emit("kernel_time", ok=True, kernel="baro_stage", shape=[n, n], ms=ms,
          ms_inputs_in_l2=ms_l2, plain_ms=plain_ms, bound_ms=b_ms,
          bound_by=b_by, fraction_of_bound=b_ms / ms, library_ms=None,
@@ -634,9 +635,10 @@ def pe_kernel() -> dict:
         ("terrain_512x512x20", main_grid, 1, True),
         ("ragged_200x328x5", _pe_grid(5, 200, 328), 4, True),
         ("tiny_3x5x2", _pe_grid(2, 3, 5), 1, False),
-        # ragged against the 32-column tile and the rule's rows at L = 40
+        # ragged against the 64-column tile and the rule's rows at L = 40
         ("ragged_37x50x40", _pe_grid(40, 37, 50), 4, True),
-        # the reach: the largest L the stage kernel takes (2-row tiles)
+        ("ragged_13x200x40", _pe_grid(40, 13, 200), 1, False),
+        # the reach: the largest L the stage kernel takes (1-row tiles)
         (f"reach_5x37x{ps.STAGE_MAX_LEVELS}",
          _pe_grid(ps.STAGE_MAX_LEVELS, 5, 37), 4, True),
     ]
@@ -719,8 +721,9 @@ def pe_stage_built(levels: int) -> dict:
     for nbase in (1, 4):
         a = ps.stage_kernel_attributes(levels, nbase=nbase,
                                        index=torch.cuda.current_device())
-        if (a["tile"], a["smem_bytes"]) != ([rows, 32], ps.stage_smem_bytes(
-                rows, levels)):
+        if (a["tile"], a["smem_bytes"]) != (
+                [rows, ps.STAGE_TILE_COLUMNS],
+                ps.stage_smem_bytes(rows, levels)):
             fail("kernel_time", f"pe_stage at L = {levels}: the wrapper's "
                  "tile rule disagrees with the built kernel's")
         built = a if nbase == 1 else dict(built, registers_4_bases=a[

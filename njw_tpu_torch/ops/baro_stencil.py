@@ -44,17 +44,19 @@ def baro_strip(nx: int, aligned: bool = True) -> int:
     return 0 if nx % 4 == 0 and aligned else 1
 
 
-def baro_kernel_attributes(strip: int, index: int = 0) -> dict:
-    """The built kernel of strip ``strip`` (an index of ``BARO_STRIPS``)
-    on CUDA device ``index``: registers, local (spill) bytes, static shared
+def baro_kernel_attributes(strip: int, unit: bool = False,
+                           index: int = 0) -> dict:
+    """The built kernel of strip ``strip`` (an index of ``BARO_STRIPS``;
+    ``unit``: the instantiation the launch takes where dx = dy = 1) on
+    CUDA device ``index``: registers, local (spill) bytes, static shared
     bytes, threads a block, resident blocks an SM, columns a lane and rows
     a warp."""
     fn = _build.load("baro_stage").baro_stage_attributes
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 7)()
     with torch.cuda.device(index):
-        err = fn(strip, vals)
+        err = fn(strip, int(unit), vals)
     if err != 0:
         msg = _build.bind("baro_stage", _ARGTYPES)[1](err).decode()
         raise RuntimeError(f"baro_stage attributes: {msg} ({err})")

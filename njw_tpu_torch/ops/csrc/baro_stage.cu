@@ -22,19 +22,26 @@
 // flight and how few instructions surround them.
 //
 // Design against that bound: no shared memory and no barrier. Each warp
-// owns a strip of H rows of 32 V columns (V = 4 where nx % 4 == 0 and the
-// fields are 16-byte aligned: one float4 a lane and row; else V = 1), and
-// issues every load of its strip at once: the H + 2 rows of psi and zeta
-// it reads (one wrapped row above and below), the two halo columns (lane 0
-// the west one, lane 31 the east one) and the H rows of base, so each lane
-// has all its bytes in flight before it computes. The side neighbours come
-// from the next lanes by warp shuffles, the rows above and below from the
-// lane's own registers. Rows and columns wrap by a modulo once a row and
-// once a lane when the strip starts; lanes past a ragged edge read wrapped
-// columns (so the last column's east neighbour is column 0) and store
-// nothing, and so do rows past the last. The halo rows are re-read by the
-// neighbouring strips ((H + 2) / H of the psi and zeta bytes), which L2
-// serves. A block is four independent warps.
+// owns a strip of H = 4 rows of 32 V columns (V = 4 where nx % 4 == 0 and
+// the fields are 16-byte aligned: one float4 a lane and row; else V = 1),
+// and issues every load of its strip at once: the H + 2 rows of psi and
+// zeta it reads (one wrapped row above and below), the two halo columns
+// (lane 0 the west one, lane 31 the east one) and the H rows of base, so
+// each lane has all its bytes in flight before it computes. The side
+// neighbours come from the next lanes by warp shuffles, the rows above and
+// below from the lane's own registers. Rows and columns wrap by a modulo
+// once a row and once a lane when the strip starts; lanes past a ragged
+// edge read wrapped columns (so the last column's east neighbour is column
+// 0) and store nothing, and so do rows past the last. The halo rows are
+// re-read by the neighbouring strips ((H + 2) / H of the psi and zeta
+// bytes), which L2 serves. A block is four independent warps. Where dx =
+// dy = 1 (the main path) the divisions by dx^2 and dy^2 are identities and
+// are left out (an instantiation of its own): nvcc's IEEE division takes
+// its slow path on a subnormal numerator, and most of the main path's far
+// field is subnormal or zero. Each point's
+// arithmetic is kept apart from its neighbour's (opaque() below), so nvcc
+// contracts it as it does one point alone: the outputs equal those of the
+// earlier one-point-a-thread tile kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -105,7 +112,7 @@ struct Row {
     }
 };
 
-template <int V, int H>
+template <int V, int H, bool kUnit>
 __global__ void __launch_bounds__(NT) baro_stage_kernel(
     const float* __restrict__ psi, const float* __restrict__ zeta,
     const float* base, float* out, int ny, int nx, Consts k) {
@@ -177,7 +184,7 @@ __global__ void __launch_bounds__(NT) baro_stage_kernel(
             float zSE = zs_.at(j + 1), zSW = zs_.at(j - 1);
             // each point's arithmetic on its own (no expression shared with
             // the next point's), so that nvcc contracts it as it does one
-            // point alone: the PR 2 kernel's bits
+            // point alone
             opaque(pE, pW, pN, pS, pNE, pNW, pSE, pSW, zc);
             opaque(zE, zW, zN, zS, zNE, zNW, zSE, zSW, zc);
 
@@ -189,8 +196,10 @@ __global__ void __launch_bounds__(NT) baro_stage_kernel(
             float dz = (j1 + j2 + j3) * k.m12;
             if (k.has_beta) dz = dz - k.beta * ((pE - pW) * k.cx);
             if (k.has_nu) {
-                const float lap = (zE - 2.0f * zc + zW) / k.dx2
-                                  + (zN - 2.0f * zc + zS) / k.dy2;
+                // kUnit: dx = dy = 1, and x / 1 is x, subnormal x too
+                const float lx = zE - 2.0f * zc + zW;
+                const float ly = zN - 2.0f * zc + zS;
+                const float lap = kUnit ? lx + ly : lx / k.dx2 + ly / k.dy2;
                 dz = dz + k.nu * lap;
             }
             o[j] = b[i][j] + k.c_dt * dz;
@@ -206,22 +215,27 @@ __global__ void __launch_bounds__(NT) baro_stage_kernel(
 constexpr int kStrips[][2] = {{4, 4}, {1, 4}};
 constexpr int kNumStrips = sizeof(kStrips) / sizeof(kStrips[0]);
 
-template <int V, int H>
+template <int V, int H, bool kUnit>
 int launch(const float* psi, const float* zeta, const float* base,
            float* out, int ny, int nx, const Consts& k,
            cudaStream_t stream) {
     const int strips = (ny + H - 1) / H;
-    const dim3 grid((nx + 32 * V - 1) / (32 * V), (strips + WARPS - 1) / WARPS);
-    baro_stage_kernel<V, H><<<grid, NT, 0, stream>>>(psi, zeta, base, out, ny,
-                                                   nx, k);
+    const dim3 grid((nx + 32 * V - 1) / (32 * V),
+                    (strips + WARPS - 1) / WARPS);
+    baro_stage_kernel<V, H, kUnit><<<grid, NT, 0, stream>>>(
+        psi, zeta, base, out, ny, nx, k);
     return static_cast<int>(cudaGetLastError());
 }
 
+// Run f.run<V, H, kUnit>() for strip `index` of kStrips; kUnit where dx =
+// dy = 1.
 template <class F>
-int with_strip(int index, const F& f) {
-    switch (index) {
-        case 0: return f.template run<kStrips[0][0], kStrips[0][1]>();
-        case 1: return f.template run<kStrips[1][0], kStrips[1][1]>();
+int with_strip(int index, bool unit, const F& f) {
+    switch (index * 2 + unit) {
+        case 0: return f.template run<kStrips[0][0], kStrips[0][1], false>();
+        case 1: return f.template run<kStrips[0][0], kStrips[0][1], true>();
+        case 2: return f.template run<kStrips[1][0], kStrips[1][1], false>();
+        case 3: return f.template run<kStrips[1][0], kStrips[1][1], true>();
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -233,22 +247,23 @@ struct Launch {
     int ny, nx;
     Consts k;
     cudaStream_t stream;
-    template <int V, int H>
+    template <int V, int H, bool kUnit>
     int run() const {
-        return launch<V, H>(psi, zeta, base, out, ny, nx, k, stream);
+        return launch<V, H, kUnit>(psi, zeta, base, out, ny, nx, k, stream);
     }
 };
 
 struct AttributeQuery {
     int* out;
-    template <int V, int H>
+    template <int V, int H, bool kUnit>
     int run() const {
+        const auto kernel = baro_stage_kernel<V, H, kUnit>;
         cudaFuncAttributes a;
-        cudaError_t err = cudaFuncGetAttributes(&a, baro_stage_kernel<V, H>);
+        cudaError_t err = cudaFuncGetAttributes(&a, kernel);
         if (err != cudaSuccess) return static_cast<int>(err);
         int per_sm = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, baro_stage_kernel<V, H>, NT, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            NT, 0);
         if (err != cudaSuccess) return static_cast<int>(err);
         out[0] = a.numRegs;
         out[1] = static_cast<int>(a.localSizeBytes);
@@ -286,15 +301,17 @@ extern "C" int baro_stage_launch(
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Consts k{m12, cx, beta, dx2, dy2, nu, c_dt, has_beta, has_nu};
-    return with_strip(strip, Launch{psi, zeta, base, out, ny, nx, k,
-                                    static_cast<cudaStream_t>(stream)});
+    return with_strip(strip, dx2 == 1.0f && dy2 == 1.0f,
+                      Launch{psi, zeta, base, out, ny, nx, k,
+                             static_cast<cudaStream_t>(stream)});
 }
 
-// The built kernel of strip index `strip` (of kStrips): registers, spill
-// bytes, static shared bytes, threads, blocks per SM, columns a lane and
-// rows a warp into out[7]. Returns the CUDA error code.
-extern "C" int baro_stage_attributes(int strip, int* out) {
-    return with_strip(strip, AttributeQuery{out});
+// The built kernel of strip index `strip` (of kStrips), unit: 1 for the
+// dx = dy = 1 instantiation: registers, spill bytes, static shared bytes,
+// threads, blocks per SM, columns a lane and rows a warp into out[7].
+// Returns the CUDA error code.
+extern "C" int baro_stage_attributes(int strip, int unit, int* out) {
+    return with_strip(strip, unit != 0, AttributeQuery{out});
 }
 
 // Name of a CUDA error code, for the Python wrapper's messages.

@@ -55,9 +55,11 @@ from njw_tpu_torch.weather.primitive import KAPPA, R_DRY, PEState
 
 MAX_BASES = 4
 STAGE_MAX_LEVELS = 454       # csrc/pe_stage.cu kMaxLevels: the stage reach
-STAGE_TILE_ROWS = (8, 4, 2)  # the tile heights csrc/pe_stage.cu builds
+STAGE_TILE_COLUMNS = 64      # its tiles' width (TX)
+STAGE_TILE_ROWS = (4, 2, 1)  # the tile heights it builds
 STAGE_SLOTS = 5              # levels in its ring (SLOTS)
-STAGE_REGION_PITCH = 40      # floats a row of its halo region (PX)
+STAGE_REGION_PITCH = STAGE_TILE_COLUMNS + 8   # floats a region row (PX)
+SMEM_PER_SM = 233472         # shared bytes an SM of the H100 holds
 RK4_THREADS = 512            # csrc/pe_rk4.cu NT
 RK4_TILE_MAX = 8             # the largest output tile the wrapper picks
 RK4_CLUSTERS = (1, 2, 4, 8)  # blocks per cluster the whole-step kernel takes
@@ -295,27 +297,39 @@ pe_stage_cuda.launches = 0
 
 
 def stage_smem_bytes(rows: int, levels: int) -> int:
-    """Shared bytes a block of the stage kernel takes with tiles of 32 x
+    """Shared bytes a block of the stage kernel takes with tiles of 64 x
     ``rows`` columns at ``levels`` (``smem_bytes`` in csrc/pe_stage.cu):
     the ring of ``STAGE_SLOTS`` levels of u, v, T and q on the (rows + 2)
     rows of the halo region, ``levels`` floats of cum a column, and the
-    region's row (8 B) and column (4 B) offsets into cur."""
+    region's row offsets into cur and shifts (12 B a row) and column
+    offsets (4 B)."""
     ring = 4 * STAGE_SLOTS * 4 * (rows + 2) * STAGE_REGION_PITCH
-    return ring + 4 * levels * 32 * rows + 8 * (rows + 2) + 4 * 34
+    return (ring + 4 * levels * STAGE_TILE_COLUMNS * rows + 12 * (rows + 2)
+            + 4 * (STAGE_TILE_COLUMNS + 2))
+
+
+def stage_resident_threads(rows: int, levels: int) -> int:
+    """Threads an SM holds with tiles of ``rows`` rows at ``levels`` as
+    shared memory allows it (``resident_threads`` in csrc/pe_stage.cu:
+    233,472 bytes an SM, 1 KB of them reserved a block); 0 where a block
+    does not fit."""
+    need = stage_smem_bytes(rows, levels)
+    if need > SMEM_PER_BLOCK:
+        return 0
+    return SMEM_PER_SM // (need + 1024) * STAGE_TILE_COLUMNS * rows
 
 
 def stage_tile_rows(levels: int) -> int:
-    """The rule (``tile_rows`` in csrc/pe_stage.cu, which asserts its
-    bounds): the tallest tile of ``STAGE_TILE_ROWS`` whose block fits, 8
-    rows up to L = 195, 4 up to 416, 2 up to the reach (454). Raises
-    ValueError for levels the kernel does not take (fewer than 1, more
-    than ``STAGE_MAX_LEVELS``)."""
-    if 1 <= levels <= STAGE_MAX_LEVELS:
-        for rows in STAGE_TILE_ROWS:
-            if stage_smem_bytes(rows, levels) <= SMEM_PER_BLOCK:
-                return rows
-    raise ValueError(f"pe_stage: {levels} levels: the stage kernel takes 1 "
-                     f"to {STAGE_MAX_LEVELS}")
+    """The rule (``tile_rows`` in csrc/pe_stage.cu, which asserts some of
+    its values): of ``STAGE_TILE_ROWS``, the tile height whose blocks let
+    an SM hold the most threads, the taller on a tie (4 rows at L = 20 and
+    40, 1 at the reach). Raises ValueError for levels the kernel does not
+    take (fewer than 1, more than ``STAGE_MAX_LEVELS``)."""
+    if not 1 <= levels <= STAGE_MAX_LEVELS:
+        raise ValueError(f"pe_stage: {levels} levels: the stage kernel "
+                         f"takes 1 to {STAGE_MAX_LEVELS}")
+    return max(STAGE_TILE_ROWS,
+               key=lambda r: (stage_resident_threads(r, levels), r))
 
 
 def stage_kernel_fits(levels: int) -> bool:
@@ -345,7 +359,7 @@ def stage_kernel_attributes(levels: int, tile_rows: int = 0,
         raise RuntimeError(f"pe_stage attributes: {msg} ({err})")
     out = dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
                     "blocks_per_sm", "static_smem_bytes"), vals))
-    out["tile"] = [vals[6], 32]
+    out["tile"] = [vals[6], STAGE_TILE_COLUMNS]
     return out
 
 

@@ -3,7 +3,8 @@
 
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
-                                     fir|all] [--steps 50]
+                                     fir|pe_stage|baro_stage|all]
+                                    [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
 configurations ``chip_smoke.py`` drives) through ``Simulation.from_config``
@@ -44,6 +45,24 @@ the card's name and power limit:
     and ``levels_accuracy``: K4 against its plain version by L on
     chip_smoke.py's limit case (37 x 23, flat and with terrain), beside
     chip_smoke.py's gate;
+  * pe_stage (no path profile) ``pe_stage_study``: the stage kernel K5
+    alone at config 4 (512^2 x 20) and at the config-5 shard shapes (512 x
+    2048 and 1024^2 x 40: whole domain, local and local2d as the sharded
+    stepper holds them), one base and four, at each tile height that fits
+    (the rule's as ``new``), its top-down and bottom-up walks alone
+    (PE_STAGE_PROBE builds), an L sweep at 512^2, and the built kernels'
+    registers, spills, shared bytes and blocks per SM; ``--parent-pe-stage
+    DIR`` builds an earlier pe_stage.cu (with its pe_column.cuh) with the
+    same flags outside the repository and times it beside the current one
+    in turns (parent, new, new, parent), with its walks alone (the source
+    cut by text edits that must each apply once) and whether the outputs
+    are equal bit for bit, and (``pe_rk4_parent``) checks K4 built from
+    that directory against the current K4 bit for bit;
+  * baro_stage (no path profile) ``baro_stage_study``: K3 alone at 512^2,
+    1024^2 and 2048^2 (rotating buffers past L2) and on odd and sub-strip
+    grids, at each strip it builds; ``--parent-baro FILE`` times an earlier
+    baro_stage.cu beside it in turns, with its tile loads alone and an
+    empty launch of its grid, and compares the outputs bit for bit;
   * fir ``profile``: the fir_batch path of
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
@@ -313,25 +332,16 @@ def swe_parent(path: str, gpu: str) -> None:
     built with the same flags outside the repository, timed in turns for
     K1, K1-bf16 and K2 at each size of the sweep, outputs compared bit for
     bit."""
-    import ctypes
-    import tempfile
-
-    from njw_tpu_torch.ops import _build
     from njw_tpu_torch.ops import stencil as st
 
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     argtypes = ([P] * 3 + [L, I, I] + [P] * 3 + [L, I, I] + [I] * 4
                 + [F] * 10 + [I] * 3 + [F] * 2 + [P])
-    tmp = tempfile.mkdtemp(prefix="swe_parent_")
-    so = Path(tmp) / "libswe_parent.so"
-    build = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                            str(so), path], capture_output=True, text=True)
-    if build.returncode != 0:
-        raise RuntimeError(f"parent build failed:\n{build.stderr}")
-    regs = [ln.strip() for ln in (build.stdout + build.stderr).splitlines()
+    lib, log = _variant_lib(Path(path).parent, Path(path).stem, "parent")
+    regs = [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
-    fn = ctypes.CDLL(str(so)).swe_rk4_launch
+    fn = lib.swe_rk4_launch
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
     def parent(ins, out, k):
@@ -555,7 +565,6 @@ def _variant_lib(src_dir, name: str, tag: str, edits=(), defines=()):
     kernels' nvcc flags into a temporary directory, after ``edits`` ((file,
     old text, new text), each old text occurring exactly once) and with
     ``defines`` (-D flags). Returns (library, ptxas report)."""
-    import ctypes
     import shutil
     import tempfile
 
@@ -664,9 +673,10 @@ def _same(a: list, b: list) -> dict:
                                 for x, y in zip(a, b))}
 
 
-# parts of the parent pe_stage.cu (PR 2's column walk): the bottom-up walk
-# cut to no level leaves the top-down one and the stores of out.ps; the
-# top-down walk cut to no level leaves the bottom-up one (cum unset)
+# parts of the parent pe_stage.cu (one thread a column walking device
+# memory, 32 x 4 threads a block): the bottom-up walk cut to no level
+# leaves the top-down one and the stores of out.ps; the top-down walk cut
+# to no level leaves the bottom-up one (cum unset)
 PE_PARENT_PARTS = {
     "top_down": [("pe_column.cuh", "for (int kk = L - 1; kk >= 0; --kk) {",
                   "for (int kk = L - 1; kk >= L; --kk) {")],
@@ -678,13 +688,6 @@ PE_PARENT_PARTS = {
 PE_PARTS = {"top_down": ["-DPE_STAGE_PROBE=1"],
             "bottom_up": ["-DPE_STAGE_PROBE=2"]}
 PE_LEVELS = (20, 40, 80, 454)
-# builds of the current source with other options, timed beside it by
-# --pe-stage-variants: name -> (nvcc defines, tile rows; 0 the rule's)
-PE_VARIANTS = {
-    "tx64_8_rows": (["-DPE_STAGE_TX=64"], 8),
-    "tx64_4_rows": (["-DPE_STAGE_TX=64"], 4),
-    "tx64_2_rows": (["-DPE_STAGE_TX=64"], 2),
-}
 PE_SHAPES = (  # form, (L, ly, lx), halo
     ("whole", (20, 512, 512), (0, 0)),
     ("whole", (40, 512, 2048), (0, 0)),
@@ -733,8 +736,7 @@ def _pe_stage_args(cfg, cur, bases, out, halo) -> tuple:
             ps.NO_HALO)
 
 
-def pe_stage_study(gpu: str, parent: str = None,
-                   variants: bool = False) -> None:
+def pe_stage_study(gpu: str, parent: str = None) -> None:
     """K5 alone: each form at its path's shape and at the config-5 shard
     shapes (1 and 4 bases), at each tile height that fits (the rule's as
     ``new``), the parent's source beside it in turns with the outputs
@@ -746,7 +748,8 @@ def pe_stage_study(gpu: str, parent: str = None,
 
     csrc = _build.CSRC
     has_probe = "PE_STAGE_PROBE" in (csrc / "pe_stage.cu").read_text()
-    # PR 2's entry has no tile_rows (the argument before the stream)
+    # the one-thread-a-column kernel's entry has no tile_rows (the
+    # argument before the stream)
     tiled = "tile_rows" in inspect.signature(ps._launch_stage).parameters
     binds = {"new": (ps._STAGE_ARGTYPES, None),
              "parent": (ps._STAGE_ARGTYPES,
@@ -760,8 +763,6 @@ def pe_stage_study(gpu: str, parent: str = None,
     if has_probe:
         for part, defines in PE_PARTS.items():
             jobs[("new", part)] = (csrc, f"new_{part}", (), defines)
-    for name, (d, _) in (PE_VARIANTS.items() if variants else ()):
-        jobs[("variant", name)] = (csrc, name, (), d)
     with concurrent.futures.ThreadPoolExecutor(len(jobs) or 1) as pool:
         futures = {key: pool.submit(_variant_lib, src, "pe_stage", tag,
                                     edits, defines)
@@ -769,19 +770,12 @@ def pe_stage_study(gpu: str, parent: str = None,
         done = {key: f.result() for key, f in futures.items()}
     libs = {}   # who -> {part: (lib, log)}
     for (who, part), lib in done.items():
-        if who != "variant":
-            libs.setdefault(who, {})[part] = lib
+        libs.setdefault(who, {})[part] = lib
     libs["new"] = {"all": (_build.load("pe_stage"),
                            _build.build_log("pe_stage")),
                    **libs.get("new", {})}
     if "parent" in libs:   # the parent first in every turn
         libs = {"parent": libs["parent"], "new": libs["new"]}
-    built = {name: lib for (who, name), lib in done.items()
-             if who == "variant"}
-    if built:
-        print(json.dumps({"phase": "pe_stage_variants_ptxas", "card": gpu,
-                          **{n: ptxas_entries(log)
-                             for n, (_, log) in built.items()}}), flush=True)
     print(json.dumps({"phase": "pe_stage_ptxas", "card": gpu, **{
         who: ptxas_entries(v["all"][1]) for who, v in libs.items()}}),
         flush=True)
@@ -823,20 +817,13 @@ def pe_stage_study(gpu: str, parent: str = None,
                 runs[name] = runner(who, v["all"][0], args, rows)
                 runs[name]()
                 outs[name] = [t.clone() for _, t in out.items()]
-        for name, (lib, _) in built.items():
-            if form == "whole" and L > 40:
-                continue
-            runs[f"var_{name}"] = runner("new", lib, args,
-                                         PE_VARIANTS[name][1])
-            runs[f"var_{name}"]()
-            outs[f"var_{name}"] = [t.clone() for _, t in out.items()]
         row = {"form": form, "shape": list(shape), "halo": list(halo),
                "bases": nbase, "times": _in_turns(runs, reps)}
         if "parent" in outs:
             row.update(_same(outs["new"], outs["parent"]))
         row["heights_equal_rule"] = {
             name: _same(o, outs["new"])["equal_bit_for_bit"]
-            for name, o in outs.items() if name.startswith(("new_", "var_"))}
+            for name, o in outs.items() if name.startswith("new_")}
         row["attributes"] = {who: attrs(who, L, halo, nbase)
                              for who in libs}
         if tiled:
@@ -862,10 +849,62 @@ def pe_stage_study(gpu: str, parent: str = None,
             timed(form, shape, halo, nbase, parts=nbase == 1)
     for L in PE_LEVELS:
         timed("whole", (L, 512, 512), (0, 0), 1, parts=False)
+    if "parent" in libs:
+        pe_stage_paths(gpu, {who: (v["all"][0], binds[who])
+                             for who, v in libs.items()})
 
 
-# parts of the parent baro_stage.cu (PR 2's 32 x 32 tiles): the tile loads
-# alone (a store no value reaches keeps them), and an empty body
+def pe_stage_paths(gpu: str, libs: dict) -> None:
+    """The paths K5 carries, with each kernel of ``libs`` ({who: (library,
+    binding)}) in turns (parent, new, new, parent): PE config 4 on the
+    auto (stage) path, 20 steps a run (a warm-up and four runs stay inside
+    the 150 steps validated for it), and the config-5 stage paths on a
+    LocalMesh, 10 steps from the same shards each run; ms/step by CUDA
+    events around each run."""
+    from njw_tpu_torch.parallel import LocalMesh
+    from njw_tpu_torch.weather.main_paths import SHARDED_PATHS
+
+    def timed(run, steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / steps
+
+    rows = {}
+    sim = MAIN_PATHS["primitive"].simulation()
+    paths = {"primitive": (lambda: sim.step(20), 20)}
+    for name in ("pe5_stage_4x1", "pe5_stage_2x2"):
+        path = SHARDED_PATHS[name]
+        mesh = LocalMesh(*path.mesh)
+        stepper = path.make_stepper(mesh)
+        shards = mesh.shard_state(path.initial_state())
+        paths[name] = (lambda st=stepper, sh=shards: st(sh), path.steps)
+    for name, (run, steps) in paths.items():
+        def with_lib(who):
+            lib, bind = libs[who]
+
+            def go():
+                with _bound_to("pe_stage", lib, *bind):
+                    run()
+            return go
+
+        for who in libs:
+            with_lib(who)()   # warm-up
+        times = {who: [] for who in libs}
+        for who in ("parent", "new", "new", "parent"):
+            times[who].append(timed(with_lib(who), steps))
+        rows[name] = {who: {"ms_per_step": t, "mean": sum(t) / len(t)}
+                      for who, t in times.items()}
+    print(json.dumps({"phase": "pe_stage_paths", "card": gpu, **rows}),
+          flush=True)
+
+
+# parts of the parent baro_stage.cu (32 x 32 shared-memory tiles): the tile
+# loads alone (a store no value reaches keeps them), and an empty body
 BARO_PARENT_PARTS = {
     "tile_load": [("baro_stage.cu",
                    "    const int gx = blockIdx.x * TX + threadIdx.x;\n"
@@ -890,7 +929,8 @@ def baro_stage_study(gpu: str, parent: str = None) -> None:
     from njw_tpu_torch.ops import baro_stencil as bs
     from njw_tpu_torch.weather import GridSpec
 
-    # PR 2's entry has no strip (the argument before the stream)
+    # the tile kernel's entry has no strip (the argument before the
+    # stream)
     striped = "strip" in inspect.signature(bs._launch).parameters
     drop = len(bs._ARGTYPES) - 2 if striped else None
     libs = {"new": (_build.load("baro_stage"), _build.build_log("baro_stage"))}
@@ -946,6 +986,19 @@ def baro_stage_study(gpu: str, parent: str = None) -> None:
                 run()
         row = {"grid": [ny, nx], "rotating_sets": nsets,
                "times": _in_turns(runs, 400)}
+        if n == 1024:   # chip_smoke.py's timing: the wrapper, four sets
+            turn4 = [0]
+
+            def wrapped():
+                p_, z_, b_, o_ = sets[turn4[0]]
+                bs.baro_stage_cuda(p_, z_, b_, out=o_, grid=grid,
+                                   c_dt=0.5 * cfg["dt"], beta=cfg["beta"],
+                                   nu=cfg["viscosity"])
+                turn4[0] = (turn4[0] + 1) % 4
+
+            device_ms(wrapped, 20)
+            row["wrapper_four_sets_ms"] = [device_ms(wrapped, 200)
+                                           for _ in range(2)]
         if "parent" in outs:
             row.update(_same(outs["new"], outs["parent"]))
         row["strips_equal_rule"] = {
@@ -968,6 +1021,55 @@ def baro_stage_study(gpu: str, parent: str = None) -> None:
               flush=True)
         del sets, outs
         torch.cuda.empty_cache()
+    baro_main_data(gpu, libs, drop)
+
+
+def baro_main_data(gpu: str, libs: dict, drop) -> None:
+    """K3 on the barotropic main path's own fields (psi and zeta of its
+    initial vortex at 1024^2, as chip_smoke.py times it; four rotating
+    sets), each library in turns, with the share of zeta values that are
+    subnormal or zero (a division by dx^2 or dy^2 of a subnormal takes
+    the slow path)."""
+    from njw_tpu_torch.ops import baro_stencil as bs
+    from njw_tpu_torch.ops.spectral import poisson_solve
+    from njw_tpu_torch.weather import GridSpec, diagnostics, make_initial_state
+
+    path = MAIN_PATHS["barotropic"]
+    cfg = path.config
+    n = cfg["grid_width"]
+    grid = GridSpec(nx=n, ny=n)
+    s0 = make_initial_state(path.ic, grid, device="cuda", **path.ic_params)
+    zeta = diagnostics(s0, grid)["vorticity"].contiguous()
+    psi = poisson_solve(zeta, grid.dx, grid.dy)
+    sets = [(psi.clone(), zeta.clone(), zeta + 0.1, torch.empty_like(zeta))
+            for _ in range(4)]
+    k = bs.baro_constants(grid, 0.5 * cfg["dt"], cfg["beta"],
+                          cfg["viscosity"])
+    runs = {}
+    for who, (lib, _) in libs.items():
+        turn = [0]
+
+        def run(lib=lib, who=who, turn=turn):
+            p_, z_, b_, o_ = sets[turn[0]]
+            with _bound_to("baro_stage", lib, bs._ARGTYPES,
+                           drop if who == "parent" else None):
+                bs._launch(p_, z_, b_, o_, grid, k)
+            turn[0] = (turn[0] + 1) % len(sets)
+        runs[who] = run
+    tiny = float(((zeta.abs() < torch.finfo(torch.float32).tiny)
+                  .float().mean()))
+    row = {"grid": [n, n], "zeta_subnormal_or_zero_share": tiny,
+           "times": _in_turns(runs, 200)}
+    if "parent" in runs:   # the stage as the stepper runs it: base = zeta
+        outs = {}
+        for who, (lib, _) in libs.items():
+            with _bound_to("baro_stage", lib, bs._ARGTYPES,
+                           drop if who == "parent" else None):
+                outs[who] = [bs._launch(psi, zeta, zeta,
+                                        torch.empty_like(zeta), grid, k)]
+        row.update(_same(outs["new"], outs["parent"]))
+    print(json.dumps({"phase": "baro_main_data", "card": gpu, **row}),
+          flush=True)
 
 
 def pe_rk4_parent_check(gpu: str, parent: str) -> None:
@@ -1038,9 +1140,6 @@ def main() -> int:
     ap.add_argument("--parent-baro", metavar="FILE",
                     help="an earlier baro_stage.cu to time and compare "
                     "beside the current K3 (--model baro_stage)")
-    ap.add_argument("--pe-stage-variants", action="store_true",
-                    help="also time builds of the current pe_stage.cu with "
-                    "the options of PE_VARIANTS (--model pe_stage)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
@@ -1050,8 +1149,7 @@ def main() -> int:
         else [args.model]
     for model in models:
         if model == "pe_stage":
-            pe_stage_study(gpu, args.parent_pe_stage,
-                           args.pe_stage_variants)
+            pe_stage_study(gpu, args.parent_pe_stage)
             if args.parent_pe_stage:
                 pe_rk4_parent_check(gpu, args.parent_pe_stage)
             continue

@@ -274,25 +274,46 @@ class TestStageKernelsOnCard:
         bs._launch(psi, z, base, rule, grid, k)
         assert torch.equal(out, rule)
 
+    # dx = dy = 1 (the main path's spacing) takes an instantiation without
+    # the divisions by dx^2 and dy^2; fields with subnormal far fields, as
+    # a decayed vortex has
+    @pytest.mark.parametrize("ny,nx", [(64, 128), (37, 131)])
+    def test_baro_unit_spacing_matches_plain_version(self, cuda_device, ny,
+                                                     nx):
+        grid = GridSpec(nx=nx, ny=ny)
+        psi, z, base = _torch(_fields(ny, nx, seed=ny), cuda_device)
+        z[:, : nx // 2] *= 1e-40
+        base[:, : nx // 2] *= 1e-40
+        kw = dict(grid=grid, c_dt=0.7, beta=0.3, nu=0.02)
+        out = baro_stage(psi, z, base, **kw)
+        ref = baro_stage_plain(psi, z, base, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
     def test_baro_strip_rule_matches_the_built_kernel(self, cuda_device):
         from njw_tpu_torch.ops import baro_stencil as bs
 
         for i, (cols, rows) in enumerate(bs.BARO_STRIPS):
-            a = bs.baro_kernel_attributes(i)
-            assert (a["columns_per_lane"], a["rows_per_warp"]) == (cols, rows)
-            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
+            for unit in (False, True):
+                a = bs.baro_kernel_attributes(i, unit=unit)
+                assert (a["columns_per_lane"], a["rows_per_warp"]) == (
+                    cols, rows)
+                assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
         assert bs.BARO_STRIPS[bs.baro_strip(1024)] == (4, 4)
         assert bs.BARO_STRIPS[bs.baro_strip(1026)] == (1, 4)
 
     # K5 at every tile height it builds (0: the rule's), on grids ragged
-    # against the 32-column tile and each height, with terrain, 1 and 4
-    # bases; the reach (L = 454, 2-row tiles) on a small grid
+    # against the 64-column tile and each height, with terrain, 1 and 4
+    # bases, rows 16-byte aligned (nx % 4 == 0) and not; the reach
+    # (L = 454, 1-row tiles) on a small grid
     @pytest.mark.parametrize("L,ny,nx,nbase,terrain,rows", [
         (40, 37, 50, 1, True, 0), (40, 37, 50, 4, False, 4),
-        (40, 37, 50, 1, False, 2), (20, 9, 100, 4, True, 8),
-        (3, 3, 5, 1, False, 0), (7, 70, 33, 4, True, 2),
-        (195, 11, 40, 1, False, 8), (196, 11, 40, 4, True, 0),
-        (454, 5, 37, 1, False, 0), (454, 5, 37, 4, True, 0)])
+        (40, 37, 50, 1, False, 2), (20, 9, 100, 4, True, 4),
+        (3, 3, 5, 1, False, 0), (7, 70, 33, 4, True, 1),
+        (6, 13, 200, 1, True, 0), (6, 13, 200, 4, False, 1),
+        (6, 7, 131, 1, False, 2), (8, 5, 256, 4, True, 0),
+        (41, 11, 40, 1, False, 0), (193, 11, 72, 4, True, 0),
+        (454, 5, 37, 1, False, 0), (454, 5, 70, 4, True, 0)])
     def test_pe_stage_tiles_match_plain_version(self, cuda_device, L, ny,
                                                 nx, nbase, terrain, rows):
         from njw_tpu_torch.ops import pe_stencil as ps
@@ -328,13 +349,13 @@ class TestStageKernelsOnCard:
     def test_pe_stage_rule_matches_the_built_kernel(self, cuda_device):
         from njw_tpu_torch.ops import pe_stencil as ps
 
-        for L in (2, 20, 40, 195, 196, 416, 417, 454):
+        for L in (2, 20, 40, 41, 80, 193, 232, 454):
             for nbase in (1, 4):
                 a = ps.stage_kernel_attributes(L, nbase=nbase)
                 rows = ps.stage_tile_rows(L)
-                assert a["tile"] == [rows, 32], L
+                assert a["tile"] == [rows, 64], L
                 assert a["smem_bytes"] == ps.stage_smem_bytes(rows, L), L
-                assert a["threads"] == 32 * rows and a["local_bytes"] == 0
+                assert a["threads"] == 64 * rows and a["local_bytes"] == 0
                 assert a["blocks_per_sm"] >= 1, L
         with pytest.raises(RuntimeError):
             ps.stage_kernel_attributes(455)
@@ -646,7 +667,8 @@ class TestShardedKernelsOnCard:
     @pytest.mark.parametrize("halo,ly,lx,nbase,rows", [
         ((1, 0), 37, 72, 1, 0), ((4, 4), 21, 72, 4, 0),
         ((4, 4), 21, 72, 1, 2), ((2, 0), 9, 96, 4, 4),
-        ((1, 1), 19, 64, 1, 8)])
+        ((1, 1), 19, 64, 1, 1), ((1, 1), 19, 130, 4, 0),
+        ((1, 0), 6, 192, 4, 0)])
     @pytest.mark.parametrize("nan", [False, True], ids=["clean", "nan"])
     def test_pe_stage_padded_tiles_match_plain(self, cuda_device, halo, ly,
                                                lx, nbase, rows, nan):

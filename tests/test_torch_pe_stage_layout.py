@@ -41,7 +41,10 @@ class TestStageTileRule:
     def test_constants_mirror_the_source(self):
         assert _constant("pe_stage.cu", "kMaxLevels") == ps.STAGE_MAX_LEVELS
         assert _constant("pe_stage.cu", "SLOTS") == ps.STAGE_SLOTS
-        assert _constant("pe_stage.cu", "PX") == ps.STAGE_REGION_PITCH
+        assert _constant("pe_stage.cu", "TX") == ps.STAGE_TILE_COLUMNS
+        assert "constexpr int PX = TX + 8;" in (CSRC / "pe_stage.cu"
+                                                ).read_text()
+        assert ps.STAGE_REGION_PITCH == ps.STAGE_TILE_COLUMNS + 8
         assert _constant("pe_stage.cu", "kSmemMax") == SMEM_PER_BLOCK
 
     @pytest.mark.parametrize("levels", range(1, ps.STAGE_MAX_LEVELS + 1))
@@ -49,18 +52,21 @@ class TestStageTileRule:
         rows = ps.stage_tile_rows(levels)
         assert rows in ps.STAGE_TILE_ROWS
         assert ps.stage_smem_bytes(rows, levels) <= SMEM_PER_BLOCK
-        # the tallest that fits
-        taller = [r for r in ps.STAGE_TILE_ROWS if r > rows]
-        assert all(ps.stage_smem_bytes(r, levels) > SMEM_PER_BLOCK
-                   for r in taller)
+        # the most threads an SM, the taller on a tie
+        best = ps.stage_resident_threads(rows, levels)
+        assert best > 0
+        for r in ps.STAGE_TILE_ROWS:
+            held = ps.stage_resident_threads(r, levels)
+            assert held < best or (held == best and r <= rows), r
         assert ps.stage_kernel_fits(levels)
 
     def test_the_source_asserts_the_same_bounds(self):
         text = (CSRC / "pe_stage.cu").read_text()
         for levels, rows in re.findall(r"tile_rows\((\d+)\) == (\d)", text):
             assert ps.stage_tile_rows(int(levels)) == int(rows), levels
-        assert "tile_rows(kMaxLevels) == 2" in text
-        assert ps.stage_tile_rows(ps.STAGE_MAX_LEVELS) == 2
+        assert "tile_rows(kMaxLevels) == 1" in text
+        assert len(re.findall(r"tile_rows\((\d+)\) == (\d)", text)) >= 6
+        assert ps.stage_tile_rows(ps.STAGE_MAX_LEVELS) == 1
         assert "tile_rows(kMaxLevels + 1) == 0" in text
 
     @pytest.mark.parametrize("levels", [0, -1, ps.STAGE_MAX_LEVELS + 1, 1000])
@@ -70,11 +76,11 @@ class TestStageTileRule:
         assert not ps.stage_kernel_fits(levels)
 
     def test_bytes_match_the_source_formula(self):
-        # ring of 5 levels x 4 fields on (rows + 2) x 40, cum, offsets
-        assert ps.stage_smem_bytes(8, 40) == (4 * 5 * 4 * 10 * 40
-                                              + 4 * 40 * 256 + 12 * 10
-                                              + 4 * 34)
-        assert ps.stage_smem_bytes(2, 454) == 129208
+        # ring of 5 levels x 4 fields on (rows + 2) x 72, cum, offsets
+        assert ps.stage_smem_bytes(4, 40) == (4 * 5 * 4 * 6 * 72
+                                              + 4 * 40 * 256 + 12 * 6
+                                              + 4 * 66)
+        assert ps.stage_smem_bytes(1, 454) == 133804
 
 
 @contextlib.contextmanager
@@ -138,7 +144,7 @@ class TestStageLaunchArguments:
         with _recorded("pe_stage") as calls:
             ps._launch_stage(*args)
         a = calls[0]
-        assert a[-2] == ps.stage_tile_rows(levels) == 8
+        assert a[-2] == ps.stage_tile_rows(levels) == 4
         # the interior's origin and the halo flags
         assert a[8:10] == (hy, hx)
         assert a[-12:-10] == (int(hy > 0), int(hx > 0))
@@ -151,7 +157,7 @@ class TestStageLaunchArguments:
               ps.level_constants(300, "cpu"))
         with _recorded("pe_stage") as calls:
             ps._launch_stage(*kw, tile_rows=2)
-            for rows in (8, 3):
+            for rows in (4, 3, 8):
                 with pytest.raises(ValueError):
                     ps._launch_stage(*kw, tile_rows=rows)
         assert [c[-2] for c in calls] == [2]
