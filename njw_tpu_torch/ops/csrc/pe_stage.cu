@@ -57,7 +57,10 @@
 // (ring and cum) let an SM hold the most threads, the taller on a tie: 4
 // at the main paths' L = 20 and 40, 1 at the reach, L = 454.
 // The register cap gives one-base launches 24 warps an SM at 4 rows, the
-// others 16 (the four-base sums take more registers).
+// others 16 (the four-base sums take more registers). So placed, the walks
+// move device memory at about a plain copy's rate on the H100; what the
+// kernel still pays over the bound is mostly the second read of u and v
+// (keeping them in shared memory costs the occupancy that hides latency).
 //
 // Addressing: cur, the bases and out are each a view (base pointer, row
 // pitch, plane pitch, origin of the (ny, nx) interior), so the bases and
