@@ -151,48 +151,16 @@ struct Consts {
     int shift0;                     // (u's address / 4) % 4
 };
 
-#ifndef PE_STAGE_NO_HINTS
-#define PE_STAGE_NO_HINTS 0
-#endif
-
-// L2 policies: keep u and v from the top-down walk for the bottom-up one,
-// let what is read or written once go first.
-__device__ __forceinline__ unsigned long long l2_policy(bool keep) {
-    unsigned long long policy;
-    if (keep) {
-        asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-                     : "=l"(policy));
-    } else {
-        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-                     : "=l"(policy));
-    }
-    return policy;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          unsigned long long policy) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if (PE_STAGE_NO_HINTS) {
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    } else {
-        asm volatile(
-            "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n"
-            :: "r"(d), "l"(src), "l"(policy) : "memory");
-    }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           unsigned long long policy) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if (PE_STAGE_NO_HINTS) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    } else {
-        asm volatile(
-            "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
-            :: "r"(d), "l"(src), "l"(policy) : "memory");
-    }
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -229,10 +197,7 @@ __device__ __forceinline__ void load_bases(const Ptrs& p, const Consts& k,
                                            float (&b)[NB]) {
 #pragma unroll
     for (int g = 0; g < NB; ++g)
-        b[g] = g == 0 || g < k.nbase
-                   ? (PE_STAGE_NO_HINTS ? p.base[g][f][i]
-                                        : __ldcs(p.base[g][f] + i))
-                   : 0.0f;
+        b[g] = g == 0 || g < k.nbase ? p.base[g][f][i] : 0.0f;
 }
 
 template <int TY, int NB>
@@ -302,15 +267,13 @@ pe_stage_kernel(Ptrs p, Consts k) {
             copy(r, c, src, dst0 + f * PLANE + r * PX);
         }
     };
-    auto load_level = [&](int kk, float* dst0, int f0, int nf,
-                          unsigned long long policy) {
+    auto load_level = [&](int kk, float* dst0, int f0, int nf) {
         if (mode == 1) {   // up to PX / 4 aligned chunks a row
             each_copy(std::integral_constant<int, PX / 4>(), kk, dst0, f0, nf,
                       [&](int r, int c, const float* src, float* dst) {
                           if (4 * c < shift[r] + TX + 2) {
                               cp_async16(dst + 4 * c,
-                                         src + coloff[0] - shift[r] + 4 * c,
-                                         policy);
+                                         src + coloff[0] - shift[r] + 4 * c);
                           }
                       });
         } else if (mode == 2) {   // TX / 4 chunks and the halo columns
@@ -318,28 +281,17 @@ pe_stage_kernel(Ptrs p, Consts k) {
                       nf, [&](int, int c, const float* src, float* dst) {
                           if (c < TX / 4) {
                               cp_async16(dst + 4 + 4 * c,
-                                         src + coloff[1] + 4 * c, policy);
+                                         src + coloff[1] + 4 * c);
                           } else {
                               const int cc = c == TX / 4 ? 0 : TX + 1;
-                              cp_async4(dst + 3 + cc, src + coloff[cc],
-                                        policy);
+                              cp_async4(dst + 3 + cc, src + coloff[cc]);
                           }
                       });
         } else {           // TX + 2 columns
             each_copy(std::integral_constant<int, TX + 2>(), kk, dst0, f0, nf,
                       [&](int, int c, const float* src, float* dst) {
-                          cp_async4(dst + 3 + c, src + coloff[c], policy);
+                          cp_async4(dst + 3 + c, src + coloff[c]);
                       });
-        }
-    };
-
-    const unsigned long long keep = l2_policy(true), once = l2_policy(false);
-    // out is written once: a streaming store
-    auto put = [](float* q, float val) {
-        if (PE_STAGE_NO_HINTS) {
-            *q = val;
-        } else {
-            __stcs(q, val);
         }
     };
 
@@ -378,7 +330,7 @@ pe_stage_kernel(Ptrs p, Consts k) {
 #pragma unroll 1
     for (int j = 0; j < TD - 1; ++j) {
         if (j < L && PE_STAGE_PROBE != 2) {
-            load_level(j, ring + j * 2 * PLANE, 0, 2, keep);
+            load_level(j, ring + j * 2 * PLANE, 0, 2);
         }
         cp_async_commit();
     }
@@ -387,9 +339,7 @@ pe_stage_kernel(Ptrs p, Consts k) {
         cp_async_wait<TD - 2>();
         __syncthreads();
         const int nxt = kk + TD - 1;
-        if (nxt < L) {
-            load_level(nxt, ring + (nxt % TD) * 2 * PLANE, 0, 2, keep);
-        }
+        if (nxt < L) load_level(nxt, ring + (nxt % TD) * 2 * PLANE, 0, 2);
         cp_async_commit();
         const float* s = ring + (kk % TD) * 2 * PLANE;
         const float fd = pe::flux_divergence(psx, s[ci + 1], s[ci - 1],
@@ -412,7 +362,7 @@ pe_stage_kernel(Ptrs p, Consts k) {
     for (int j = 0; j < SLOTS - 1; ++j) {
         const int lv = L - 1 - j;
         if (lv >= 0 && PE_STAGE_PROBE != 1) {
-            load_level(lv, ring + (lv % SLOTS) * SLOT, 0, NF, once);
+            load_level(lv, ring + (lv % SLOTS) * SLOT, 0, NF);
         }
         cp_async_commit();
     }
@@ -448,9 +398,7 @@ pe_stage_kernel(Ptrs p, Consts k) {
         cp_async_wait<SLOTS - 3>();
         __syncthreads();    // levels kk and kk - 1 are in the ring
         const int nxt = kk - (SLOTS - 1);
-        if (nxt >= 0) {
-            load_level(nxt, ring + (nxt % SLOTS) * SLOT, 0, NF, once);
-        }
+        if (nxt >= 0) load_level(nxt, ring + (nxt % SLOTS) * SLOT, 0, NF);
         cp_async_commit();
 
         const float* su = ring + (kk % SLOTS) * SLOT;
@@ -494,10 +442,10 @@ pe_stage_kernel(Ptrs p, Consts k) {
             phi_y, sd_up, sd_dn, __ldg(p.levc + L + kk), kk == 0,
             kk == L - 1, col, kc);
         if (inside) {
-            put(p.out[0] + ok, au + k.c_dt * d.du);
-            put(p.out[1] + ok, av + k.c_dt * d.dv);
-            put(p.out[2] + ok, aT + k.c_dt * d.dT);
-            put(p.out[3] + ok, aq + k.c_dt * d.dq);
+            p.out[0][ok] = au + k.c_dt * d.du;
+            p.out[1][ok] = av + k.c_dt * d.dv;
+            p.out[2][ok] = aT + k.c_dt * d.dT;
+            p.out[3][ok] = aq + k.c_dt * d.dq;
             if (kk > 0) {
                 au = base_sum(bu, k);
                 av = base_sum(bv, k);
@@ -521,7 +469,7 @@ pe_stage_kernel(Ptrs p, Consts k) {
     if (inside) {
         float b[NB];
         load_bases(p, k, 4, o, b);
-        put(p.out[4] + o, base_sum(b, k) + k.c_dt * dps);
+        p.out[4][o] = base_sum(b, k) + k.c_dt * dps;
     }
 }
 

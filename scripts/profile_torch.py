@@ -686,8 +686,7 @@ PE_PARENT_PARTS = {
 # the current source's probe (PE_STAGE_PROBE: 1 the top-down walk alone,
 # 2 the bottom-up walk alone)
 PE_PARTS = {"top_down": ["-DPE_STAGE_PROBE=1"],
-            "bottom_up": ["-DPE_STAGE_PROBE=2"],
-            "no_cache_hints": ["-DPE_STAGE_NO_HINTS=1"]}
+            "bottom_up": ["-DPE_STAGE_PROBE=2"]}
 PE_LEVELS = (20, 40, 80, 454)
 PE_SHAPES = (  # form, (L, ly, lx), halo
     ("whole", (20, 512, 512), (0, 0)),
