@@ -717,19 +717,18 @@ def pe_stage_built(levels: int) -> dict:
     from njw_tpu_torch.ops import pe_stencil as ps
 
     rows = ps.stage_tile_rows(levels)
-    built = {}
-    for nbase in (1, 4):
-        a = ps.stage_kernel_attributes(levels, nbase=nbase,
-                                       index=torch.cuda.current_device())
+    one, four = (ps.stage_kernel_attributes(
+        levels, nbase=nbase, index=torch.cuda.current_device())
+        for nbase in (1, 4))
+    for a in (one, four):
         if (a["tile"], a["smem_bytes"]) != (
                 [rows, ps.STAGE_TILE_COLUMNS],
                 ps.stage_smem_bytes(rows, levels)):
             fail("kernel_time", f"pe_stage at L = {levels}: the wrapper's "
                  "tile rule disagrees with the built kernel's")
-        built = a if nbase == 1 else dict(built, registers_4_bases=a[
-            "registers"], local_bytes_4_bases=a["local_bytes"],
-            blocks_per_sm_4_bases=a["blocks_per_sm"])
-    return built
+    return dict(one, registers_4_bases=four["registers"],
+                local_bytes_4_bases=four["local_bytes"],
+                blocks_per_sm_4_bases=four["blocks_per_sm"])
 
 
 def pe_rk4_kernel() -> dict:
