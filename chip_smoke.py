@@ -45,7 +45,12 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 version for passes 0, 1, 2, 3 and 6 at the fir_batch shape,
                 the fir_suite shape (16 x 10^6) and at (3, 1000), (9, 4096),
                 (2, 300), (3, 1000) with NaN in memory past the last row,
-                and (5, 1280) through the flat wrapper (rtol 1e-5 /
+                and (5, 1280) through the flat wrapper; the design's edges:
+                rows the staging branch takes ((7, 777), (3, 65537), a view
+                4 bytes into a NaN buffer), fewer tiles than SMs ((1, 10^6),
+                (2, 8192)), rows ending on a tile and ring boundary and one
+                frame past it ((2, 16384), (2, 16512), NaN behind), and 1,
+                16 and 128 taps (rtol 1e-5 /
                 atol 1e-5, or the float32
                 summation spread measured against a float64 evaluation of
                 the same products, whichever is larger), and against the
@@ -53,7 +58,8 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 0, 3, 6, and 5e-3 of max|ref| at passes 1 and 2, the JAX
                 tests' bands); fir_band_bf16 (K8) against its plain version
                 within one bf16 ulp (+ that spread) and against the oracle
-                within 1.5e-2 of max|ref|; each kernel's time beside its
+                within 1.5e-2 of max|ref|, on the same kinds of edges (NaN
+                behind the rows; a view 2 bytes in); each kernel's time beside its
                 plain version's, the bound (bytes, or tensor-core
                 operations at the bf16 peak), the wrapper's host cost and
                 the one PyTorch call that computes the same function
@@ -1123,6 +1129,17 @@ def _nan_after(t):
     return buf[:t.numel()].view(t.shape)
 
 
+def _nan_around(t, offset: int):
+    """``t`` as a view ``offset`` elements into a NaN buffer: rows that
+    are not 16-byte aligned, with NaN on both sides."""
+    import torch
+
+    buf = torch.full((t.numel() + offset + 4096,), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    buf[offset:offset + t.numel()] = t.flatten()
+    return buf[offset:offset + t.numel()].view(t.shape)
+
+
 def _fir_spread(x, taps, plan) -> float:
     """The float32 summation spread of the plain version: twice its
     largest distance from a float64 evaluation of the same bf16 products,
@@ -1210,10 +1227,14 @@ def _fir_time(kernel, x, taps, launch, plain, products, library_call,
     k = len(taps)
     w = torch.from_numpy(taps[::-1].copy()).to(x.device, x.dtype)
     w = w.view(1, 1, k)
+    tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    conv = lambda: F.conv1d(x[:, None], w, padding=k - 1)[..., :x.shape[1]]  # noqa: E731,E501
-    _events_ms(conv, 2)
-    library_ms = _events_ms(conv, 10)
+    try:
+        conv = lambda: F.conv1d(x[:, None], w, padding=k - 1)[..., :x.shape[1]]  # noqa: E731,E501
+        _events_ms(conv, 2)
+        library_ms = _events_ms(conv, 10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     rows, n = x.shape
     frames = -(-n // 128)
     n_bytes = distinct_bytes(x) * 2
@@ -1256,6 +1277,26 @@ def fir_kernel() -> dict:
          rnd_taps, fc.fir_batch_lanes),
         ("flat_5x1280", _fir_signal((5, 1280), 5), rnd_taps,
          fc.fir_batch_flat),
+        # the design's edges (fir_band.cuh): the staging branch, fewer
+        # tiles than SMs, a tile and ring boundary, the band's extremes
+        ("staged_7x777", _fir_signal((7, 777), 9), rnd_taps,
+         fc.fir_batch_lanes),
+        ("staged_3x65537", _fir_signal((3, 65537), 10), rnd_taps,
+         fc.fir_batch_lanes),
+        ("staged_view_4B_in_3x1000", _nan_around(_fir_signal((3, 1000), 11),
+                                                 1), rnd_taps,
+         fc.fir_batch_lanes),
+        ("1x1000000", _fir_signal((1, 10**6), 12), rnd_taps,
+         fc.fir_batch_lanes),
+        ("2x8192", _fir_signal((2, 8192), 13), rnd_taps, fc.fir_batch_lanes),
+        ("ring_end_2x16384", _nan_after(_fir_signal((2, 16384), 14)),
+         rnd_taps, fc.fir_batch_lanes),
+        ("ring_end_plus_frame_2x16512",
+         _nan_after(_fir_signal((2, 16512), 15)), rnd_taps,
+         fc.fir_batch_lanes),
+        *((f"taps{k}_3x20000", _fir_signal((3, 20000), 16 + k),
+           np.random.default_rng(k).standard_normal(k).astype(np.float32)
+           * 0.1, fc.fir_batch_lanes) for k in (1, 16, 128)),
     ]
     main_err, worst = None, 0.0
     for name, x, taps, wrapper in cases:
@@ -1299,7 +1340,8 @@ def fir_kernel() -> dict:
         "F.conv1d float32, cudnn.allow_tf32=False", passes=3)
     del x
     torch.cuda.empty_cache()
-    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst, **t}
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+            "built": fc.fir_kernel_attributes(torch.float32, 3), **t}
 
 
 def fir_bf16_kernel() -> dict:
@@ -1316,7 +1358,17 @@ def fir_bf16_kernel() -> dict:
     cases = [("main_1000x100000", _fir_signal(path_.shape, 1), taps_main),
              ("3x1000", _fir_signal((3, 1000), 2), rnd_taps),
              ("2x300", _fir_signal((2, 300), 4), rnd_taps),
-             ("nan_after_3x1000", _fir_signal((3, 1000), 6), rnd_taps)]
+             ("nan_after_3x1000", _fir_signal((3, 1000), 6), rnd_taps),
+             # the design's edges: the staging branch (n no multiple of
+             # 8; a view 2 bytes in), fewer tiles than SMs, a ring's end
+             ("nan_after_staged_7x777", _fir_signal((7, 777), 9), rnd_taps),
+             ("staged_view_2B_in_3x1000", _fir_signal((3, 1000), 11),
+              rnd_taps),
+             ("1x1000000", _fir_signal((1, 10**6), 12), rnd_taps),
+             ("nan_after_ring_end_2x24576", _fir_signal((2, 24576), 14),
+              rnd_taps),
+             ("nan_after_ring_end_plus_frame_2x24704",
+              _fir_signal((2, 24704), 15), rnd_taps)]
     main_err, worst = None, 0.0
     for name, x32, taps in cases:
         oracle = _fir_oracle(x32, taps)
@@ -1324,6 +1376,8 @@ def fir_bf16_kernel() -> dict:
         x = x32.to(torch.bfloat16)
         if name.startswith("nan_after"):
             x = _nan_after(x)
+        elif name.startswith("staged_view"):
+            x = _nan_around(x, 1)
         for taps_passes, out_dtype in ((1, torch.bfloat16),
                                        (2, torch.bfloat16),
                                        (1, torch.float32)):
@@ -1362,7 +1416,8 @@ def fir_bf16_kernel() -> dict:
         "F.conv1d bfloat16", taps_passes=1)
     del x
     torch.cuda.empty_cache()
-    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst, **t}
+    return {"max_abs_err": main_err, "max_abs_err_all_cases": worst,
+            "built": fc.fir_kernel_attributes(torch.bfloat16, 1), **t}
 
 
 def main_path_fir(name: str) -> dict:
@@ -2205,6 +2260,14 @@ def main() -> int:
     mv = variant_paths(m1)
     si = semi_implicit()
 
+    def fir_built(b):
+        """The built FIR kernel of the main path's instantiation."""
+        return {"ptxas_registers": b["registers"],
+                "spill_bytes": b["local_bytes"], "smem_bytes": b["smem_bytes"],
+                "threads_per_block": b["threads"],
+                "blocks_per_sm": b["blocks_per_sm"],
+                "tile_frames": b["frames"], "ring_stages": b["stages"]}
+
     def sharded(kernel):
         """The padded forms' numbers and the sharded paths' launches."""
         paths = {n: r for n, r in sp.items()
@@ -2299,12 +2362,14 @@ def main() -> int:
             also_replaces=[f"{fir}:250 _fir_lanes_kernel",
                            f"{fir}:37 _fir_batch_kernel",
                            f"{fir}:110 _fir_flat_kernel"],
-            max_abs_err_all_cases=k7["max_abs_err_all_cases"]),
+            max_abs_err_all_cases=k7["max_abs_err_all_cases"],
+            **fir_built(k7["built"])),
         row("fir_band_bf16", "fir_band_bf16.cu", f"{fir}:418",
             "_fir_lanes_bf16_kernel", k8, m8["launches"]["fir_band_bf16"],
             m8, per="call", main_path="main_path_fir_bf16",
             also_replaces=[f"{fir}:384 _fir_lanes_bf16_nonscratch_kernel"],
-            max_abs_err_all_cases=k8["max_abs_err_all_cases"]),
+            max_abs_err_all_cases=k8["max_abs_err_all_cases"],
+            **fir_built(k8["built"])),
         row("swe_rk4_bf16", "swe_rk4.cu", f"{st}:155-174",
             "swe_rk4_kernel variant bf16/bf16s (tendency_bf16)", kv["bf16"],
             mv["swe_bf16"]["launches"]["swe_rk4_bf16"], mv["swe_bf16"],

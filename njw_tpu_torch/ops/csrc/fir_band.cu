@@ -35,6 +35,21 @@ extern "C" int fir_band_launch(const float* x, const void* h, float* y,
     }
 }
 
+// The built kernel of `passes` (fir::attributes: registers, local bytes,
+// dynamic and static shared bytes, threads, blocks an SM, frames a tile,
+// ring stages into vals[0..8)). Returns a CUDA error code.
+extern "C" int fir_band_attributes(int passes, int* vals) {
+    using fir::attributes;
+    switch (passes) {
+        case 0: return attributes<float, float, 0, 6, 3, 3>(vals);
+        case 1: return attributes<float, float, 1, 1, 1, 1>(vals);
+        case 2: return attributes<float, float, 1, 2, 2, 1>(vals);
+        case 3:
+        case 6: return attributes<float, float, 1, 3, 2, 2>(vals);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 // Name of a CUDA error code, for the Python wrapper's messages.
 extern "C" const char* fir_band_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,8 +6,9 @@
 // accumulation, output rounded to bf16 (round to nearest even) or kept in
 // float32. The signal is used as it is (no split); taps_passes = 1 is
 // x B_hi, 2 adds x B_lo, the taps' bf16 residual. Same kernel as
-// fir_band.cu (fir_band.cuh); bound by memory: 4 B per sample with a bf16
-// output (0.4 GB for 1000 x 100000, 0.119 ms at the H100 SXM's 3.35 TB/s).
+// fir_band.cu (the template in fir_band.cuh, which holds the design); bound
+// by memory: 4 B per sample with a bf16 output (0.4 GB for 1000 x 100000,
+// 0.119 ms at the H100 SXM's 3.35 TB/s).
 
 #include "fir_band.cuh"
 
@@ -31,6 +32,21 @@ extern "C" int fir_band_bf16_launch(const void* x, const void* h, void* y,
         auto* yb = static_cast<bf16*>(y);
         if (taps_passes == 1) return launch<bf16, bf16, 2, 1, 1, 1>(xb, hb, yb, rows, n, k, s);
         if (taps_passes == 2) return launch<bf16, bf16, 2, 2, 1, 2>(xb, hb, yb, rows, n, k, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The built kernel of (taps_passes, out_f32), as fir_band_attributes.
+extern "C" int fir_band_bf16_attributes(int taps_passes, int out_f32,
+                                        int* vals) {
+    using fir::attributes;
+    using fir::bf16;
+    if (out_f32) {
+        if (taps_passes == 1) return attributes<bf16, float, 2, 1, 1, 1>(vals);
+        if (taps_passes == 2) return attributes<bf16, float, 2, 2, 1, 2>(vals);
+    } else {
+        if (taps_passes == 1) return attributes<bf16, bf16, 2, 1, 1, 1>(vals);
+        if (taps_passes == 2) return attributes<bf16, bf16, 2, 2, 1, 2>(vals);
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,10 +26,16 @@ CUDA tensors, its plain PyTorch version (the same splits and products, as
 float32 matrix products) for CPU tensors. ``fir_band_cuda.launches`` and
 ``fir_band_bf16_cuda.launches`` count the launches. Nothing catches a
 build or launch failure and falls back.
+
+``fir_layout`` mirrors the kernels' launch geometry (``fir_band.cuh``: the
+tile of frames, the ring's depth, the blocks an SM, the persistent grid
+and whether TMA streams the rows) and ``fir_schedule`` the tiles each
+block of that grid walks; ``fir_kernel_attributes`` reads a built kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Callable
 
 import torch
@@ -55,6 +61,105 @@ PLANS = {
 }
 TAPS_PLANS = {1: ((0, 0),), 2: ((0, 0), (0, 1))}
 OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The launch geometry (mirrors fir_band.cuh)
+# ---------------------------------------------------------------------------
+
+TILE_FRAMES = 64        # FR: frames a tile
+THREADS = 128           # NT: four warps, 16 frames of a tile each
+PITCH = 136             # term plane row pitch, in bf16
+BOX = 256               # samples a TMA box
+SMEM_PER_SM = 233472    # shared bytes an SM (1 KB a block reserved)
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class FIRLayout:
+    frames: int          # frames a tile
+    stages: int          # tiles the ring holds
+    threads: int
+    blocks_per_sm: int
+    smem_bytes: int      # dynamic shared memory a block
+    tiles: int           # rows x runs of frames
+    grid: int            # persistent blocks
+    streamed: bool       # TMA streams the rows (else the staging branch)
+
+
+def _terms(dtype: torch.dtype, passes: int) -> int:
+    """Signal terms a sample is split into (NA)."""
+    if dtype == torch.bfloat16:
+        return 1
+    return 1 + max(a for a, _ in PLANS[passes])
+
+
+def fir_layout(rows: int, n: int, dtype=torch.float32, passes: int = 3, *,
+               out_dtype=None, sms: int = H100_SMS,
+               data_ptr: int = 0) -> FIRLayout:
+    """The launch of ``fir_band`` (float32 ``dtype``, ``passes``) or
+    ``fir_band_bf16`` (bf16, ``out_dtype`` bf16 unless given) on ``rows``
+    x ``n`` at address ``data_ptr`` (the output is allocated aligned) on a
+    card with ``sms`` SMs, as ``fir_band.cuh`` computes it. A ring stage
+    holds a tile of x in, then the same tile of y out."""
+    in_bytes = 2 if dtype == torch.bfloat16 else 4
+    out_bytes = 4 if in_bytes == 4 or out_dtype == torch.float32 else 2
+    na = _terms(dtype, passes)
+    if in_bytes == 2:
+        stages = bpsm = 3 if out_bytes == 2 else 2
+    else:
+        stages, bpsm = (1 if na == 3 else 2), 2
+    plane = (TILE_FRAMES + 1) * PITCH
+    stage = TILE_FRAMES * FRAME * max(in_bytes, out_bytes)
+    smem = stages * (stage + 8) + na * plane * 2
+    if bpsm * (smem + 1024) > SMEM_PER_SM:
+        raise ValueError(f"{bpsm} blocks of {smem} shared bytes do not fit "
+                         "an SM")
+    frames = -(-n // FRAME)
+    tiles = rows * -(-frames // TILE_FRAMES)
+    streamed = (data_ptr % 16 == 0 and (n * in_bytes) % 16 == 0
+                and BOX <= n <= 0x7FFFFFFF - TILE_FRAMES * FRAME)
+    return FIRLayout(TILE_FRAMES, stages, THREADS, bpsm, smem, tiles,
+                     min(tiles, bpsm * sms), streamed)
+
+
+def fir_schedule(rows: int, n: int, grid: int) -> list[list[tuple]]:
+    """For each block of the persistent grid, the (row, first sample) of
+    the tiles it walks, in order: block b takes the contiguous tiles
+    [b T / G, (b+1) T / G) of the T tiles in row order."""
+    runs = -(-(-(-n // FRAME)) // TILE_FRAMES)
+    tiles = rows * runs
+    return [[(i // runs, (i % runs) * TILE_FRAMES * FRAME)
+             for i in range(tiles * b // grid, tiles * (b + 1) // grid)]
+            for b in range(grid)]
+
+
+def fir_kernel_attributes(dtype=torch.float32, passes: int = 3, *,
+                          out_dtype=torch.bfloat16, index: int = 0) -> dict:
+    """The built kernel that ``fir_band`` (float32, ``passes``) or
+    ``fir_band_bf16`` (bf16, ``passes`` = taps_passes, ``out_dtype``)
+    launches, on CUDA device ``index``: registers and local (spill) bytes a
+    thread, dynamic and static shared bytes, threads, resident blocks an
+    SM, frames a tile and ring stages."""
+    bf16 = dtype == torch.bfloat16
+    name = "fir_band_bf16" if bf16 else "fir_band"
+    fn = getattr(_build.load(name), f"{name}_attributes")
+    vals = (ctypes.c_int * 8)()
+    if bf16:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        args = (passes, int(out_dtype == torch.float32), vals)
+    else:
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        args = (passes, vals)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        err = fn(*args)
+    if err != 0:
+        msg = _build.bind(name, _ARGTYPES_BF16 if bf16 else _ARGTYPES)[1](err)
+        raise RuntimeError(f"{name} attributes: {msg.decode()} ({err})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
+                     "blocks_per_sm", "static_smem_bytes", "frames",
+                     "stages"), vals))
 
 
 # ---------------------------------------------------------------------------

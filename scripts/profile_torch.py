@@ -67,7 +67,15 @@ the card's name and power limit:
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
     and host enqueue per call; and ``fir_passes``: each FIR kernel alone at
-    that shape for every precision it offers (CUDA events).
+    that shape for every precision it offers (CUDA events); then
+    ``fir_forms`` (or ``fir_parent`` with ``--parent-fir DIR``): K7 and K8
+    alone at the three FIR main paths' shapes, passes 0-3 and taps_passes
+    1-2, the current build beside its parts (the streamed copy without
+    products, the products without loads) and other geometries
+    (``FIR_VARIANTS``) and an earlier fir_band.cuh / .cu / _bf16.cu built
+    outside the repository, in turns (parent first each turn), with the
+    largest difference from the parent; ``fir_built``: registers, spills,
+    shared bytes and blocks per SM of every build.
 """
 from __future__ import annotations
 
@@ -1124,6 +1132,137 @@ def fir_extras(gpu: str) -> None:
                       "ms": rows}), flush=True)
 
 
+# builds of the current fir_band sources timed beside the rule's: its
+# parts (no products: the streamed copy, splits and stores; no loads: the
+# products and stores on whatever the planes hold; loads alone: the
+# streamed loads and splits, nothing stored) and other geometries
+# (fir_band.cuh FIR_FORM 1: one ring stage less and one block an SM more;
+# 2: y stored from registers, not through the stage by TMA; 3: every row
+# through the staging branch, no TMA; 4: the products by wgmma)
+FIR_VARIANTS = {"no_products": ("-DFIR_PROBE=1",),
+                "no_loads": ("-DFIR_PROBE=2",),
+                "loads_alone": ("-DFIR_PROBE=3",),
+                "form1": ("-DFIR_FORM=1",),
+                "direct_stores": ("-DFIR_FORM=2",),
+                "staged": ("-DFIR_FORM=3",),
+                "wgmma": ("-DFIR_FORM=4",)}
+
+
+def _band_entries(log: str) -> dict:
+    """ptxas's report of each band_kernel instantiation, keyed by its
+    template arguments as mangled (In, Out, PLAN, NPROD, NA, NB)."""
+    out = {}
+    for name, v in ptxas_entries(log).items():
+        m = re.search(r"band_kernelI(\w+?)EEv", name)
+        out[m.group(1) if m else name] = v
+    return out
+
+
+def fir_study(gpu: str, parent: str = None) -> None:
+    """K7 and K8 alone at the three FIR main paths' shapes (passes 0-3 on
+    float32, taps_passes 1-2 on bf16), the current build beside its parts
+    and other geometries (FIR_VARIANTS) and, with ``parent``, the parent's
+    fir_band.cu / fir_band_bf16.cu (with its fir_band.cuh) built outside
+    the repository, in turns (parent first each turn); the largest
+    difference from the parent; the built kernels' registers, spills,
+    shared bytes and blocks per SM."""
+    from njw_tpu_torch.ops import _build
+    from njw_tpu_torch.signal import fir_cuda as fc
+    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
+
+    names = ("fir_band", "fir_band_bf16")
+    jobs = {(tag, name): (str(_build.CSRC), name, tag, defines)
+            for tag, defines in FIR_VARIANTS.items() for name in names}
+    if parent:
+        jobs.update({("parent", name): (parent, name, "parent", ())
+                     for name in names})
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as ex:
+        futs = {key: ex.submit(_variant_lib, src, name, tag, (), d)
+                for key, (src, name, tag, d) in jobs.items()}
+        for name in names:
+            ex.submit(_build.load, name).result()
+        libs = {key: f.result() for key, f in futs.items()}
+    for name in names:
+        libs[("new", name)] = (_build.load(name), _build.build_log(name))
+    order = (["parent"] if parent else []) + ["new", *FIR_VARIANTS]
+    argtypes = {"fir_band": fc._ARGTYPES, "fir_band_bf16": fc._ARGTYPES_BF16}
+
+    built = {who: {name: _band_entries(libs[(who, name)][1])
+                   for name in names} for who in order}
+    attrs = {f"passes={p}": fc.fir_kernel_attributes(torch.float32, p)
+             for p in (0, 1, 2, 3)}
+    attrs.update({f"bf16 taps_passes={p}": fc.fir_kernel_attributes(
+        torch.bfloat16, p) for p in (1, 2)})
+    if parent:   # the parent's blocks an SM: 256 threads, its smem rule
+        for key, v in built["parent"]["fir_band"].items():
+            na = int(re.findall(r"Li(\d+)E", key)[2]) if key.count("Li") > 2 \
+                else 1
+            v["blocks_per_sm"] = blocks_per_sm(
+                v["registers"], 256, na * 65 * 144 * 2 + 8 * 256 * 4)
+        for v in built["parent"]["fir_band_bf16"].values():
+            v["blocks_per_sm"] = blocks_per_sm(v["registers"], 256,
+                                               65 * 144 * 2 + 8 * 256 * 4)
+    print(json.dumps({"phase": "fir_built", "card": gpu, "ptxas": built,
+                      "new_attributes": attrs}), flush=True)
+
+    def runner(who, name, call):
+        lib = libs[(who, name)][0]
+
+        def run():
+            with _bound_to(name, lib, argtypes[name]):
+                return call()
+        return run
+
+    for path_name in ("fir_batch", "fir_suite", "fir_bf16"):
+        path = SIGNAL_PATHS[path_name]
+        x, taps = path.signal(seed=1), path.taps()
+        bf16 = path.dtype == torch.bfloat16
+        name = "fir_band_bf16" if bf16 else "fir_band"
+        copy = torch.empty_like(x)
+        print(json.dumps({"phase": "fir_copy", "card": gpu,
+                          "path": path_name, "shape": list(x.shape),
+                          "copy_ms": device_ms(lambda: copy.copy_(x), 20)}),
+              flush=True)
+        del copy
+        for p in ((1, 2) if bf16 else (3, 1, 2, 0)):
+            if bf16:
+                def call(p=p):
+                    return fc.fir_band_bf16_cuda(x, taps, taps_passes=p)
+            else:
+                def call(p=p):
+                    return fc.fir_band_cuda(x, taps, passes=p)
+            runs, failed = {}, {}
+            for who in order:
+                run = runner(who, name, call)
+                try:
+                    run()
+                    torch.cuda.synchronize()
+                    runs[who] = run
+                except RuntimeError as e:
+                    failed[who] = str(e)
+            times = _in_turns(runs, 20)
+            row = {"phase": "fir_parent" if parent else "fir_forms",
+                   "card": gpu, "path": path_name, "shape": list(x.shape),
+                   "dtype": str(path.dtype), "taps": len(taps),
+                   ("taps_passes" if bf16 else "passes"): p,
+                   "ms": {who: t["ms_mean"] for who, t in times.items()},
+                   "ms_turns": {who: t["ms"] for who, t in times.items()},
+                   "failed": failed}
+            new = runs["new"]()
+            if "parent" in runs:
+                row.update(_same([new.float()], [runs["parent"]().float()]))
+            # the other whole forms against the rule's build
+            row["max_abs_diff_vs_new"] = {
+                who: _same([runs[who]().float()], [new.float()])[
+                    "max_abs_diff"]
+                for who in ("form1", "direct_stores", "staged", "wgmma")
+                if who in runs}
+            del new
+            print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
@@ -1140,6 +1279,10 @@ def main() -> int:
     ap.add_argument("--parent-baro", metavar="FILE",
                     help="an earlier baro_stage.cu to time and compare "
                     "beside the current K3 (--model baro_stage)")
+    ap.add_argument("--parent-fir", metavar="DIR",
+                    help="a directory with an earlier fir_band.cuh, "
+                    "fir_band.cu and fir_band_bf16.cu to time and compare "
+                    "beside the current K7 and K8 (--model fir)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
@@ -1159,6 +1302,7 @@ def main() -> int:
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)
             fir_extras(gpu)
+            fir_study(gpu, args.parent_fir)
             continue
         print(json.dumps(profile_path(model, args.steps, gpu)), flush=True)
         if model == "swe":

@@ -26,7 +26,7 @@ from njw_tpu_torch.ops.stencil import (  # noqa: E402
 from njw_tpu_torch.signal import FIRFilter, fir_batch_bf16  # noqa: E402
 from njw_tpu_torch.signal.fir_cuda import (  # noqa: E402
     fir_band_bf16_cuda, fir_band_bf16_plain, fir_band_cuda, fir_band_plain,
-    fir_batch_lanes,
+    fir_batch_lanes, fir_kernel_attributes, fir_layout,
 )
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation,
@@ -560,6 +560,88 @@ class TestFIRKernelsOnCard:
                          <= _bf16_ulp(ref) + BF16_SUM_ATOL).all())
         else:
             torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+    # the new design's edges: rows the staging branch takes (n no multiple
+    # of 4 or 8), fewer tiles than SMs, a row ending on a tile and ring
+    # boundary (two tiles of 64 frames) and one frame past it
+    @pytest.mark.parametrize("shape,streamed", [
+        ((7, 777), False), ((3, 65537), False), ((1, 10**6), True),
+        ((2, 8192), True), ((2, 16384), True), ((2, 16384 + 128), True)])
+    @pytest.mark.parametrize("passes", [0, 3])
+    def test_fir_band_edges(self, cuda_device, shape, streamed, passes):
+        rng = np.random.default_rng(shape[1])
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+        taps = rng.standard_normal(101).astype(np.float32) * 0.1
+        assert fir_layout(*shape, data_ptr=x.data_ptr()).streamed is streamed
+        out = fir_band_cuda(x, taps, passes=passes)
+        torch.testing.assert_close(out, fir_band_plain(x, taps, passes=passes),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("k", [1, 16, 128])
+    @pytest.mark.parametrize("passes", [0, 3])
+    def test_fir_band_tap_counts(self, cuda_device, k, passes):
+        rng = np.random.default_rng(k)
+        x = torch.from_numpy(rng.standard_normal((3, 20000)).astype(
+            np.float32)).to(cuda_device)
+        taps = rng.standard_normal(k).astype(np.float32) * 0.1
+        torch.testing.assert_close(fir_band_cuda(x, taps, passes=passes),
+                                   fir_band_plain(x, taps, passes=passes),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("offset", [1, 4])
+    def test_fir_band_row_inside_a_buffer(self, cuda_device, offset):
+        """Rows starting 4 (or 16) bytes into a buffer, NaN around them:
+        the 4-byte view takes the staging branch, the 16-byte one TMA."""
+        rng = np.random.default_rng(offset)
+        x = torch.from_numpy(rng.standard_normal((3, 1000)).astype(
+            np.float32)).to(cuda_device)
+        taps = rng.standard_normal(101).astype(np.float32) * 0.1
+        buf = torch.full((x.numel() + 4096,), float("nan"),
+                         device=cuda_device)
+        buf[offset:offset + x.numel()] = x.flatten()
+        view = buf[offset:offset + x.numel()].view(3, 1000)
+        assert fir_layout(3, 1000, data_ptr=view.data_ptr()).streamed is (
+            offset == 4)
+        torch.testing.assert_close(fir_band_cuda(view, taps, passes=3),
+                                   fir_band_plain(x, taps, passes=3),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("shape", [(3, 1000), (7, 777), (2, 8200)])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_fir_band_bf16_never_reads_past_the_rows(self, cuda_device, shape,
+                                                     offset):
+        """bf16 rows (at the buffer's start, or 2 bytes in) in front of
+        NaN; no sample at or past n may reach a valid output."""
+        rng = np.random.default_rng(shape[1] + offset)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+        taps = rng.standard_normal(101).astype(np.float32) * 0.1
+        buf = torch.full((x.numel() + 4096,), float("nan"),
+                         device=cuda_device, dtype=torch.bfloat16)
+        buf[offset:offset + x.numel()] = x.flatten()
+        view = buf[offset:offset + x.numel()].view(shape)
+        out = fir_band_bf16_cuda(view, taps)
+        ref = fir_band_bf16_plain(x, taps)
+        assert bool(((out.float() - ref.float()).abs()
+                     <= _bf16_ulp(ref) + BF16_SUM_ATOL).all())
+
+    @pytest.mark.parametrize("dtype,passes,out", [
+        (torch.float32, 0, None), (torch.float32, 1, None),
+        (torch.float32, 2, None), (torch.float32, 3, None),
+        (torch.bfloat16, 1, torch.bfloat16), (torch.bfloat16, 2, torch.bfloat16),
+        (torch.bfloat16, 1, torch.float32), (torch.bfloat16, 2, torch.float32)])
+    def test_fir_layout_matches_the_built_kernel(self, cuda_device, dtype,
+                                                 passes, out):
+        got = fir_kernel_attributes(dtype, passes, out_dtype=out
+                                    or torch.bfloat16)
+        lay = fir_layout(1000, 100_000, dtype, passes, out_dtype=out,
+                         sms=torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+        assert (got["frames"], got["stages"], got["threads"],
+                got["smem_bytes"]) == (lay.frames, lay.stages, lay.threads,
+                                       lay.smem_bytes)
+        assert got["blocks_per_sm"] >= lay.blocks_per_sm
 
     def test_fir_apply_batch_branch_launches_the_kernel(self, cuda_device):
         x = torch.randn(8, 65536 + 40, device=cuda_device)

@@ -450,3 +450,130 @@ class TestMainPathsAndPlatform:
         ("NVIDIA A100-SXM4-80GB", None)])
     def test_tensor_core_peak(self, name, peak):
         assert spec_for(name)[2] == peak
+
+
+def _source_constant(name: str) -> int:
+    import re
+    from njw_tpu_torch.ops import _build
+    text = (_build.CSRC / "fir_band.cuh").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert m, name
+    return int(m.group(1))
+
+
+class TestKernelLayout:
+    """fir_cuda.fir_layout / fir_schedule, the Python mirror of the launch
+    geometry in ops/csrc/fir_band.cuh, and the band tiles the kernel keeps
+    in registers (the card tests hold the built kernels to the mirror)."""
+
+    def test_constants_match_the_source(self):
+        assert _source_constant("F") == tf.FRAME
+        assert _source_constant("FR") == fc.TILE_FRAMES
+        assert _source_constant("WARPS") * 32 == fc.THREADS
+        assert _source_constant("PITCH") == fc.PITCH
+        assert _source_constant("BOX") == fc.BOX
+        assert _source_constant("SMEM_PER_SM") == fc.SMEM_PER_SM
+
+    # (dtype, passes, output) -> ring stages, blocks an SM, shared bytes:
+    # the rule of fir_band.cuh (ring_stages, blocks_per_sm, smem_bytes; a
+    # stage holds a tile of x, then of y)
+    @pytest.mark.parametrize("dtype,passes,out,stages,bpsm,smem", [
+        (torch.float32, 1, None, 2, 2, 2 * 32768 + 17680 + 16),
+        (torch.float32, 2, None, 2, 2, 2 * 32768 + 2 * 17680 + 16),
+        (torch.float32, 3, None, 2, 2, 2 * 32768 + 2 * 17680 + 16),
+        (torch.float32, 6, None, 2, 2, 2 * 32768 + 2 * 17680 + 16),
+        (torch.float32, 0, None, 1, 2, 32768 + 3 * 17680 + 8),
+        (torch.bfloat16, 1, None, 3, 3, 3 * 16384 + 17680 + 24),
+        (torch.bfloat16, 2, torch.bfloat16, 3, 3, 3 * 16384 + 17680 + 24),
+        (torch.bfloat16, 1, torch.float32, 2, 2, 2 * 32768 + 17680 + 16)])
+    def test_layout_of_each_instantiation(self, dtype, passes, out, stages,
+                                          bpsm, smem):
+        lay = fc.fir_layout(1000, 100_000, dtype, passes, out_dtype=out)
+        assert (lay.stages, lay.blocks_per_sm, lay.smem_bytes) == (
+            stages, bpsm, smem)
+        assert lay.frames == 64 and lay.threads == 128
+        assert bpsm * (smem + 1024) <= fc.SMEM_PER_SM
+        assert lay.tiles == 1000 * 13 and lay.grid == bpsm * 132
+        assert lay.streamed
+        assert fc.fir_layout(1, 100, dtype, passes, sms=7).grid == 1
+
+    @pytest.mark.parametrize("rows,n", [
+        (7, 777), (3, 65537), (1, 10**6), (2, 8192), (2, 16384),
+        (2, 16384 + 128), (16, 10**6), (1000, 100_000), (1, 1), (5, 1280)])
+    @pytest.mark.parametrize("sms", [1, 3, 132])
+    def test_schedule_covers_every_frame_once(self, rows, n, sms):
+        lay = fc.fir_layout(rows, n, sms=sms)
+        sched = fc.fir_schedule(rows, n, lay.grid)
+        frames = -(-n // tf.FRAME)
+        seen = np.zeros((rows, frames), np.int32)
+        assert len(sched) == lay.grid == min(lay.tiles, 2 * sms)
+        assert sum(len(b) for b in sched) == lay.tiles
+        flat = [t for b in sched for t in b]
+        assert flat == sorted(flat)          # contiguous, in row order
+        for block in sched:
+            assert block                     # no block without a tile
+            for i, (row, t0) in enumerate(block):
+                f0 = t0 // tf.FRAME
+                seen[row, f0:f0 + fc.TILE_FRAMES] += 1
+                if i and t0:   # the previous frame is the last tile's last
+                    assert block[i - 1] == (row, t0 - fc.TILE_FRAMES
+                                            * tf.FRAME)
+        assert (seen == 1).all()
+
+    @pytest.mark.parametrize("shape,dtype,offset,streamed", [
+        ((1000, 100_000), torch.float32, 0, True),
+        ((16, 10**6), torch.float32, 0, True),
+        ((1000, 100_000), torch.bfloat16, 0, True),
+        ((7, 777), torch.float32, 0, False),        # row stride 3108 B
+        ((3, 65537), torch.float32, 0, False),
+        ((3, 1000), torch.float32, 4, False),       # a view 4 B in
+        ((7, 777), torch.bfloat16, 0, False),
+        ((3, 1000), torch.bfloat16, 2, False),
+        ((3, 1000), torch.bfloat16, 0, True),       # 2000 B rows
+        ((2, 300), torch.float32, 0, True),
+        ((2, 200), torch.float32, 0, False),        # shorter than a box
+        ((1, 10**6), torch.float32, 0, True),
+        ((2, 8192), torch.float32, 0, True)])
+    def test_each_shape_takes_the_branch_the_source_says(self, shape, dtype,
+                                                         offset, streamed):
+        lay = fc.fir_layout(*shape, dtype, data_ptr=4096 + offset)
+        assert lay.streamed is streamed
+
+    @pytest.mark.parametrize("k", [1, 16, 101, 128])
+    def test_band_tiles_the_kernel_holds(self, k):
+        """The kernel keeps only the 16 x 16 tiles (kt = d, jt = 0), d =
+        0..8, of each term, as mma.sync B fragments, and uses tile d for
+        every (kt, jt) with kt - jt = d >= (129 - k) // 16: every other
+        tile of the band must be zero and each used one equal to its d's."""
+        taps = np.random.default_rng(k).standard_normal(k).astype(np.float32)
+        terms = tf.fir_bands(taps, CPU).terms.float().numpy()
+        c = (129 - k) // 16
+
+        def tile(j, kt, jt):
+            return terms[j, 16 * kt:16 * kt + 16, 16 * jt:16 * jt + 16]
+
+        # the fragments as the kernel gathers them, lane by lane:
+        # b[j][d][half][reg] = rows 16 d + 2 (lane % 4) + 8 reg (+1),
+        # column 8 half + lane / 4
+        held = np.zeros((3, 9, 16, 16), np.float32)
+        for j in range(3):
+            for d in range(9):
+                for half in range(2):
+                    for reg in range(2):
+                        for lane in range(32):
+                            r = 2 * (lane % 4) + 8 * reg
+                            col = 8 * half + lane // 4
+                            for e in range(2):
+                                held[j, d, r + e, col] = terms[
+                                    j, 16 * d + r + e, col]
+        for j in range(3):
+            for d in range(9):
+                np.testing.assert_array_equal(held[j, d], tile(j, d, 0))
+            for kt in range(16):
+                for jt in range(8):
+                    d = kt - jt
+                    if c <= d <= 8:
+                        np.testing.assert_array_equal(tile(j, kt, jt),
+                                                      held[j, d])
+                    else:
+                        assert not tile(j, kt, jt).any(), (j, kt, jt)
