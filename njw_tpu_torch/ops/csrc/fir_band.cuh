@@ -76,8 +76,14 @@
 //   the first form of this kernel store-bound (PERF.md). The staging
 //   branch stores from registers: 16 bytes (8 for bf16 output) a lane,
 //   scalar where a row end or a misaligned row cuts a group of 4.
+// * mma.sync, not wgmma: a wgmma form (the 64 frames as M, the window and
+//   a Toeplitz strip of the band both in shared memory) was slower on
+//   every main path (PERF.md) and is not built.
 //
-// Measured (H100 80GB HBM3, PERF.md §6 PR 9): see PERF.md.
+// Measured (H100 80GB HBM3, 700 W; PERF.md §6 PR 9, in one process with
+// the design before): fir_batch (1000 x 100000, passes 3) 0.764 -> 0.313
+// ms, a device copy of x 0.267; fir_suite (16 x 10^6) 0.130 -> 0.064;
+// fir_bf16 0.397 -> 0.157. The outputs equal the earlier design's.
 
 #pragma once
 
@@ -105,11 +111,7 @@ constexpr int FR = 64;                 // frames a tile
 constexpr int WARPS = 4;               // 16 frames of the tile each
 constexpr int NT = WARPS * 32;         // 128 threads
 constexpr int PITCH = 136;             // term plane row pitch, in bf16
-constexpr bool WG = FIR_FORM == 4;     // wgmma products (timed beside mma.sync)
-constexpr int CHUNK = (FR + 1) * 8;    // WG: 8 samples of every frame, in bf16
-constexpr int PLANE = WG ? 16 * CHUNK : (FR + 1) * PITCH;  // a term, in bf16
-constexpr int STRIP_ROWS = 376;        // WG: the band as rows of 8 taps
-constexpr int STRIP = STRIP_ROWS * 8;  // WG: one band term's strip, in bf16
+constexpr int PLANE = (FR + 1) * PITCH;  // one term's frames, in bf16
 constexpr int KT = 2 * F / 16;         // k-tiles of Hcat: 16
 constexpr int DT = KT / 2 + 1;         // distinct band tiles: d = 0..8
 constexpr int HPLANE = 2 * F * F;      // one term of Hcat, in bf16
@@ -131,7 +133,7 @@ __host__ __device__ constexpr int stage_bytes(int in_bytes, int out_bytes) {
 __host__ __device__ constexpr int ring_stages(int in_bytes, int out_bytes,
                                               int na) {
     return FIR_FORM == 1 ? (in_bytes == 2 && out_bytes == 2 ? 2 : 1)
-         : in_bytes == 2 ? (out_bytes == 2 && !WG ? 3 : 2) : (na == 3 ? 1 : 2);
+         : in_bytes == 2 ? (out_bytes == 2 ? 3 : 2) : (na == 3 ? 1 : 2);
 }
 __host__ __device__ constexpr int blocks_per_sm(int in_bytes, int out_bytes,
                                                 int na) {
@@ -140,10 +142,10 @@ __host__ __device__ constexpr int blocks_per_sm(int in_bytes, int out_bytes,
          : in_bytes == 2 && out_bytes == 2 ? 3 : 2;
 }
 __host__ __device__ constexpr int smem_bytes(int in_bytes, int out_bytes,
-                                             int na, int nb) {
+                                             int na) {
     return ring_stages(in_bytes, out_bytes, na)
                * (stage_bytes(in_bytes, out_bytes) + 8)
-           + na * PLANE * 2 + (WG ? nb * STRIP * 2 : 0);
+           + na * PLANE * 2;
 }
 
 // the (signal term, band term) of product i of each plan
@@ -219,38 +221,6 @@ __device__ __forceinline__ void fence_async_shared() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// wgmma (the timed form 4): a K-major no-swizzle shared-memory operand
-// (8 x 16-byte core matrices; lbo: along K, sbo: along M or N, in bytes)
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo) {
-    return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4)
-           | (static_cast<uint64_t>(lbo >> 4) << 16)
-           | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit_wait() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n"
-                 "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// d (64 x 64 f32, this thread's 32) += A (64 x 16) B (16 x 64), both from
-// shared memory
-__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
@@ -272,22 +242,8 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 
 // ------------------------------------------------------- staging x in
 
-// Sample s of plane frame p (0: the previous frame) in a term plane: rows
-// of PITCH; for wgmma, the samples of a frame in reverse order (u = 127 -
-// s) cut into 8-sample chunks, a chunk holding 16 bytes of every frame:
-// the K-major no-swizzle layout with the frames as M.
-__host__ __device__ constexpr int slot(int p, int s) {
-    return WG ? ((F - 1 - s) / 8) * CHUNK + p * 8 + (F - 1 - s) % 8
-              : p * PITCH + s;
-}
-// The lowest element of the len samples from s0 of plane frame p.
-__host__ __device__ constexpr int group_slot(int p, int s0, int len) {
-    return WG ? slot(p, s0 + len - 1) : slot(p, s0);
-}
-// Two bf16 of a word, swapped.
-__device__ __forceinline__ uint32_t swap16(uint32_t w) {
-    return __byte_perm(w, 0, 0x1032);
-}
+// Sample s of plane frame p (0: the previous frame) in a term plane.
+__host__ __device__ constexpr int slot(int p, int s) { return p * PITCH + s; }
 
 // Samples a 16-byte group of the ring, and groups a frame.
 template <typename In> constexpr int EPG = 16 / sizeof(In);
@@ -316,17 +272,14 @@ template <int NA>
 __device__ __forceinline__ void split_group(const float* ring, int g,
                                             bf16* planes) {
     const float4 v = reinterpret_cast<const float4*>(ring)[g];
-    bf16* at = planes + group_slot(g / GPF<float> + 1, (g % GPF<float>) * 4, 4);
-    if (WG) put_terms<NA>(v.w, v.z, v.y, v.x, at);
-    else put_terms<NA>(v.x, v.y, v.z, v.w, at);
+    put_terms<NA>(v.x, v.y, v.z, v.w,
+                  planes + slot(g / GPF<float> + 1, (g % GPF<float>) * 4));
 }
 template <int NA>
 __device__ __forceinline__ void split_group(const bf16* ring, int g,
                                             bf16* planes) {
-    uint4 w = reinterpret_cast<const uint4*>(ring)[g];
-    if (WG) w = make_uint4(swap16(w.w), swap16(w.z), swap16(w.y), swap16(w.x));
-    *reinterpret_cast<uint4*>(planes + group_slot(g / GPF<bf16> + 1,
-                                                  (g % GPF<bf16>) * 8, 8)) = w;
+    *reinterpret_cast<uint4*>(planes + slot(g / GPF<bf16> + 1, (g % GPF<bf16>) * 8))
+        = reinterpret_cast<const uint4*>(ring)[g];
 }
 
 // Group g of a tile straight from the row (no alignment assumed), zero at
@@ -342,11 +295,9 @@ __device__ __forceinline__ bf16 at_or_zero(const bf16* xr, long long t,
 template <int NA>
 __device__ __forceinline__ void stage_group(const float* xr, long long n,
                                             long long t, int g, bf16* planes) {
-    const float v0 = at_or_zero(xr, t, n), v1 = at_or_zero(xr, t + 1, n);
-    const float v2 = at_or_zero(xr, t + 2, n), v3 = at_or_zero(xr, t + 3, n);
-    bf16* at = planes + group_slot(g / GPF<float> + 1, (g % GPF<float>) * 4, 4);
-    if (WG) put_terms<NA>(v3, v2, v1, v0, at);
-    else put_terms<NA>(v0, v1, v2, v3, at);
+    put_terms<NA>(at_or_zero(xr, t, n), at_or_zero(xr, t + 1, n),
+                  at_or_zero(xr, t + 2, n), at_or_zero(xr, t + 3, n),
+                  planes + slot(g / GPF<float> + 1, (g % GPF<float>) * 4));
 }
 template <int NA>
 __device__ __forceinline__ void stage_group(const bf16* xr, long long n,
@@ -356,10 +307,8 @@ __device__ __forceinline__ void stage_group(const bf16* xr, long long n,
     for (int e = 0; e < 4; ++e)
         v[e] = bits(__halves2bfloat162(at_or_zero(xr, t + 2 * e, n),
                                        at_or_zero(xr, t + 2 * e + 1, n)));
-    *reinterpret_cast<uint4*>(planes + group_slot(g / GPF<bf16> + 1,
-                                                  (g % GPF<bf16>) * 8, 8)) =
-        WG ? make_uint4(swap16(v[3]), swap16(v[2]), swap16(v[1]), swap16(v[0]))
-           : make_uint4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(planes + slot(g / GPF<bf16> + 1, (g % GPF<bf16>) * 8))
+        = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 // One sample of the previous frame (0 <= t < n) into plane row 0.
@@ -449,8 +398,7 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
     constexpr int RING = FR * F;                       // samples a tile
     extern __shared__ __align__(1024) unsigned char smem[];
     bf16* planes = reinterpret_cast<bf16*>(smem + STAGES * SB);
-    bf16* strip = planes + NA * PLANE;                 // WG only
-    uint64_t* full = reinterpret_cast<uint64_t*>(strip + (WG ? NB * STRIP : 0));
+    uint64_t* full = reinterpret_cast<uint64_t*>(planes + NA * PLANE);
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const long long lo = tiles * blockIdx.x / gridDim.x;
@@ -462,7 +410,7 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
     // [8 half + lane / 4]
     uint32_t b[NB][DT][2][2];
 #pragma unroll
-    for (int j = 0; j < (WG ? 0 : NB); ++j)
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int d = 0; d < DT; ++d)
 #pragma unroll
@@ -475,17 +423,6 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
                     b[j][d][half][r] = bits(__halves2bfloat162(p[0], p[F]));
                 }
 
-    if (WG) {
-        // the band as B of Y = W_rev Hcat_rev: row r of the strip holds
-        // taps r - 127 .. r - 120 (zero outside [0, k)); Hcat[128 - d][0]
-        // is tap d
-        for (int e = tid; e < NB * STRIP; e += NT) {
-            const int j = e / STRIP, d = (e % STRIP) / 8 - (F - 1) + e % 8;
-            strip[e] = d >= 0 && d < F ? h[j * HPLANE + (F - d) * F]
-                                       : __float2bfloat16_rn(0.0f);
-        }
-        fence_async_shared();
-    }
     if (stream && tid == 0) {
         for (int s = 0; s < STAGES; ++s) mbar_init(full + s, 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -541,10 +478,8 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
                 if (r >= 0 && r < GPF<In>) {
                     constexpr int W = EPG<In> * 2;   // bytes a term
                     for (int a = 0; a < NA; ++a) {
-                        bf16* row0 = planes + a * PLANE
-                                     + group_slot(0, r * EPG<In>, EPG<In>);
-                        const bf16* last = planes + a * PLANE
-                                           + group_slot(FR, r * EPG<In>, EPG<In>);
+                        bf16* row0 = planes + a * PLANE + slot(0, r * EPG<In>);
+                        const bf16* last = planes + a * PLANE + slot(FR, r * EPG<In>);
                         if (W == 8)
                             *reinterpret_cast<uint2*>(row0) =
                                 *reinterpret_cast<const uint2*>(last);
@@ -567,11 +502,10 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
                 for (int g = tid; g < groups; g += NT)
                     stage_group<NA>(xr, n, t0 + g * EPG<In>, g, planes);
             }
-            if (WG) fence_async_shared();
         }
         __syncthreads();   // planes complete; the tile's stage takes its y
 
-        if (!WG && 16 * warp >= vf) continue;
+        if (16 * warp >= vf) continue;
         float acc[KT / 2][2][4];
 #pragma unroll
         for (int jt = 0; jt < KT / 2; ++jt)
@@ -580,35 +514,12 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[jt][half][e] = 0.0f;
 
-        if constexpr (WG) {
-            // Y (64 frames x 64 columns, half ch) += A B over the window's
-            // k-steps J (reversed: J < 8 the frame itself from plane row
-            // 1, J >= 8 the frame before from row 0) where the half's band
-            // can be nonzero at any k: J from 4 - 4 ch to 15 - 4 ch (a
-            // branch-free run: ptxas waits after every wgmma otherwise)
-            wg_fence();
-#pragma unroll
-            for (int pr = 0; pr < NPROD; ++pr)
-#pragma unroll
-                for (int ch = 0; ch < 2; ++ch)
-#pragma unroll
-                    for (int J = 4 - 4 * ch; J < 16 - 4 * ch; ++J) {
-                        if (FIR_PROBE == 1 || FIR_PROBE == 3) continue;
-                        const bf16* a = planes + plan_a(PLAN, pr) * PLANE
-                                        + (J % 8) * 2 * CHUNK + (J < 8 ? 8 : 0);
-                        const bf16* bb = strip + plan_b(PLAN, pr) * STRIP
-                                         + (64 * ch + 16 * J) * 8;
-                        wgmma(&acc[4 * ch][0][0], wg_desc(a, CHUNK * 2, 128),
-                              wg_desc(bb, 128, 128));
-                    }
-            wg_commit_wait();
-        }
         // A of k-tile kt for frame f is 16 samples of plane row f + kt / 8
         // at column 16 (kt % 8); lane l gives the row of matrix l / 8
         const bf16* a_at = planes + (16 * warp + lane % 16) * PITCH + (lane / 16) * 8;
 #pragma unroll
         for (int kt = 0; kt < KT; ++kt) {
-            if (WG || FIR_PROBE == 1 || FIR_PROBE == 3 || kt < c) continue;
+            if (FIR_PROBE == 1 || FIR_PROBE == 3 || kt < c) continue;
             uint32_t a[NA][4];
 #pragma unroll
             for (int i2 = 0; i2 < NA; ++i2)
@@ -724,7 +635,7 @@ inline int grid_blocks(long long tiles, int bpsm) {
 // (once an instantiation). Returns a CUDA error code.
 template <typename In, typename Out, int PLAN, int NPROD, int NA, int NB>
 static int prepare() {
-    constexpr int smem = smem_bytes(sizeof(In), sizeof(Out), NA, NB);
+    constexpr int smem = smem_bytes(sizeof(In), sizeof(Out), NA);
     constexpr int bpsm = blocks_per_sm(sizeof(In), sizeof(Out), NA);
     static_assert(bpsm * (smem + 1024) <= SMEM_PER_SM,
                   "the layout's blocks fit an SM's shared memory");
@@ -763,7 +674,7 @@ int launch(const In* x, const bf16* h, Out* y, int rows, long long n, int k,
     }
     band_kernel<In, Out, PLAN, NPROD, NA, NB>
         <<<grid_blocks(tiles, blocks_per_sm(sizeof(In), sizeof(Out), NA)), NT,
-           smem_bytes(sizeof(In), sizeof(Out), NA, NB), stream>>>(
+           smem_bytes(sizeof(In), sizeof(Out), NA), stream>>>(
         xmap, ymap, x, h, y, n, runs, tiles, k, tma ? 1 : 0);
     return static_cast<int>(cudaGetLastError());
 }
@@ -779,7 +690,7 @@ int attributes(int* vals) {
     auto kernel = band_kernel<In, Out, PLAN, NPROD, NA, NB>;
     cudaError_t e = cudaFuncGetAttributes(&a, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
-    constexpr int smem = smem_bytes(sizeof(In), sizeof(Out), NA, NB);
+    constexpr int smem = smem_bytes(sizeof(In), sizeof(Out), NA);
     int resident = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, NT, smem);
     if (e != cudaSuccess) return static_cast<int>(e);

@@ -1138,14 +1138,13 @@ def fir_extras(gpu: str) -> None:
 # streamed loads and splits, nothing stored) and other geometries
 # (fir_band.cuh FIR_FORM 1: one ring stage less and one block an SM more;
 # 2: y stored from registers, not through the stage by TMA; 3: every row
-# through the staging branch, no TMA; 4: the products by wgmma)
+# through the staging branch, no TMA)
 FIR_VARIANTS = {"no_products": ("-DFIR_PROBE=1",),
                 "no_loads": ("-DFIR_PROBE=2",),
                 "loads_alone": ("-DFIR_PROBE=3",),
                 "form1": ("-DFIR_FORM=1",),
                 "direct_stores": ("-DFIR_FORM=2",),
-                "staged": ("-DFIR_FORM=3",),
-                "wgmma": ("-DFIR_FORM=4",)}
+                "staged": ("-DFIR_FORM=3",)}
 
 
 def _band_entries(log: str) -> dict:
@@ -1255,7 +1254,7 @@ def fir_study(gpu: str, parent: str = None) -> None:
             row["max_abs_diff_vs_new"] = {
                 who: _same([runs[who]().float()], [new.float()])[
                     "max_abs_diff"]
-                for who in ("form1", "direct_stores", "staged", "wgmma")
+                for who in ("form1", "direct_stores", "staged")
                 if who in runs}
             del new
             print(json.dumps(row), flush=True)
