@@ -81,9 +81,9 @@
 //   every main path (PERF.md) and is not built.
 //
 // Measured (H100 80GB HBM3, 700 W; PERF.md §6 PR 9, in one process with
-// the design before): fir_batch (1000 x 100000, passes 3) 0.764 -> 0.313
-// ms, a device copy of x 0.267; fir_suite (16 x 10^6) 0.130 -> 0.064;
-// fir_bf16 0.397 -> 0.157. The outputs equal the earlier design's.
+// the design before): fir_batch (1000 x 100000, passes 3) 0.761 -> 0.314
+// ms, a device copy of x 0.267; fir_suite (16 x 10^6) 0.129 -> 0.064;
+// fir_bf16 0.392 -> 0.156. The outputs equal the earlier design's.
 
 #pragma once
 
@@ -94,9 +94,6 @@
 
 #include <cstdint>
 
-#ifndef FIR_FORM
-#define FIR_FORM 0   // 0: the rule; others are timed by scripts/profile_torch.py
-#endif
 #ifndef FIR_PROBE
 #define FIR_PROBE 0  // profiling only: 1 no products; 2 no loads or splits;
                      // 3 loads and splits alone
@@ -132,14 +129,11 @@ __host__ __device__ constexpr int stage_bytes(int in_bytes, int out_bytes) {
 }
 __host__ __device__ constexpr int ring_stages(int in_bytes, int out_bytes,
                                               int na) {
-    return FIR_FORM == 1 ? (in_bytes == 2 && out_bytes == 2 ? 2 : 1)
-         : in_bytes == 2 ? (out_bytes == 2 ? 3 : 2) : (na == 3 ? 1 : 2);
+    return in_bytes == 2 ? (out_bytes == 2 ? 3 : 2) : (na == 3 ? 1 : 2);
 }
 __host__ __device__ constexpr int blocks_per_sm(int in_bytes, int out_bytes,
                                                 int na) {
-    return FIR_FORM == 1 ? (in_bytes == 2 && out_bytes == 2 ? 4
-                            : (na == 3 ? 2 : 3))
-         : in_bytes == 2 && out_bytes == 2 ? 3 : 2;
+    return in_bytes == 2 && out_bytes == 2 ? 3 : 2;
 }
 __host__ __device__ constexpr int smem_bytes(int in_bytes, int out_bytes,
                                              int na) {
@@ -374,9 +368,8 @@ __device__ __forceinline__ void stage4(bf16* p, float a, float b, float c,
 // strides multiples of 16 bytes, a row at least one box long, coordinates
 // in int. Other rows take the staging branch.
 template <typename In, typename Out>
-__host__ __device__ inline bool streamed(const In* x, const Out* y,
-                                         long long n) {
-    return FIR_FORM != 3 && (reinterpret_cast<uintptr_t>(x) & 15) == 0
+inline bool streamed(const In* x, const Out* y, long long n) {
+    return (reinterpret_cast<uintptr_t>(x) & 15) == 0
            && (reinterpret_cast<uintptr_t>(y) & 15) == 0
            && (n * static_cast<long long>(sizeof(In))) % 16 == 0
            && (n * static_cast<long long>(sizeof(Out))) % 16 == 0
@@ -542,7 +535,7 @@ band_kernel(const __grid_constant__ CUtensorMap xmap,
         // Streamed: into the tile's stage (frame f at f F), then TMA stores
         // this warp's 16 frames (boxes past n skipped, the box holding n
         // clipped); else straight to y.
-        constexpr bool TMA_OUT = FIR_FORM != 2 && FIR_PROBE != 3;
+        constexpr bool TMA_OUT = FIR_PROBE != 3;
         Out* yr = y + row * n;
         Out* out = reinterpret_cast<Out*>(smem + (li % STAGES) * SB);
         const int q = lane % 4, odd = q & 1;

@@ -66,16 +66,15 @@ the card's name and power limit:
   * fir ``profile``: the fir_batch path of
     ``njw_tpu_torch.signal.main_paths`` (FIRFilter.apply on 1000 x 100000,
     101 taps) called ``--steps`` times: device time by kernel, busy share
-    and host enqueue per call; and ``fir_passes``: each FIR kernel alone at
-    that shape for every precision it offers (CUDA events); then
-    ``fir_forms`` (or ``fir_parent`` with ``--parent-fir DIR``): K7 and K8
-    alone at the three FIR main paths' shapes, passes 0-3 and taps_passes
-    1-2, the current build beside its parts (the streamed copy without
-    products, the products without loads) and other geometries
-    (``FIR_VARIANTS``) and an earlier fir_band.cuh / .cu / _bf16.cu built
-    outside the repository, in turns (parent first each turn), with the
-    largest difference from the parent; ``fir_built``: registers, spills,
-    shared bytes and blocks per SM of every build.
+    and host enqueue per call; then ``fir_forms`` (or ``fir_parent`` with
+    ``--parent-fir DIR``): K7 and K8 alone at the three FIR main paths'
+    shapes for every precision (passes 0-3, taps_passes 1-2) beside a
+    device copy of x, the current build beside its parts
+    (``FIR_VARIANTS``: the streamed copy without products, the products
+    without loads, the loads alone) and an earlier fir_band.cuh / .cu /
+    _bf16.cu built outside the repository, in turns (parent first each
+    turn), with the largest difference from the parent; ``fir_built``:
+    registers, spills, shared bytes and blocks per SM of every build.
 """
 from __future__ import annotations
 
@@ -1105,46 +1104,13 @@ def pe_rk4_parent_check(gpu: str, parent: str) -> None:
           flush=True)
 
 
-def fir_extras(gpu: str) -> None:
-    from njw_tpu_torch.signal import fir_cuda as fc
-    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
-
-    path = SIGNAL_PATHS["fir_batch"]
-    x, taps = path.signal(), path.taps()
-    rows = {}
-    for passes in (1, 2, 3, 0):
-        def launch():
-            fc.fir_band_cuda(x, taps, passes=passes)
-
-        events_ms(launch, 3)
-        rows[f"fir_band passes={passes}"] = events_ms(launch, 20)
-    xb = x.to(torch.bfloat16)
-    del x
-    for taps_passes in (1, 2):
-        def launch():
-            fc.fir_band_bf16_cuda(xb, taps, taps_passes=taps_passes)
-
-        events_ms(launch, 3)
-        rows[f"fir_band_bf16 taps_passes={taps_passes}"] = events_ms(launch,
-                                                                    20)
-    print(json.dumps({"phase": "fir_passes", "card": gpu,
-                      "shape": list(path.shape), "taps": path.num_taps,
-                      "ms": rows}), flush=True)
-
-
-# builds of the current fir_band sources timed beside the rule's: its
-# parts (no products: the streamed copy, splits and stores; no loads: the
-# products and stores on whatever the planes hold; loads alone: the
-# streamed loads and splits, nothing stored) and other geometries
-# (fir_band.cuh FIR_FORM 1: one ring stage less and one block an SM more;
-# 2: y stored from registers, not through the stage by TMA; 3: every row
-# through the staging branch, no TMA)
+# builds of the current fir_band sources timed beside it: its parts (no
+# products: the streamed copy, splits and stores; no loads: the products
+# and stores on whatever the planes hold; loads alone: the streamed loads
+# and splits, nothing stored)
 FIR_VARIANTS = {"no_products": ("-DFIR_PROBE=1",),
                 "no_loads": ("-DFIR_PROBE=2",),
-                "loads_alone": ("-DFIR_PROBE=3",),
-                "form1": ("-DFIR_FORM=1",),
-                "direct_stores": ("-DFIR_FORM=2",),
-                "staged": ("-DFIR_FORM=3",)}
+                "loads_alone": ("-DFIR_PROBE=3",)}
 
 
 def _band_entries(log: str) -> dict:
@@ -1247,16 +1213,9 @@ def fir_study(gpu: str, parent: str = None) -> None:
                    "ms": {who: t["ms_mean"] for who, t in times.items()},
                    "ms_turns": {who: t["ms"] for who, t in times.items()},
                    "failed": failed}
-            new = runs["new"]()
             if "parent" in runs:
-                row.update(_same([new.float()], [runs["parent"]().float()]))
-            # the other whole forms against the rule's build
-            row["max_abs_diff_vs_new"] = {
-                who: _same([runs[who]().float()], [new.float()])[
-                    "max_abs_diff"]
-                for who in ("form1", "direct_stores", "staged")
-                if who in runs}
-            del new
+                row.update(_same([runs["new"]().float()],
+                                 [runs["parent"]().float()]))
             print(json.dumps(row), flush=True)
         del x
         torch.cuda.empty_cache()
@@ -1300,7 +1259,6 @@ def main() -> int:
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)
-            fir_extras(gpu)
             fir_study(gpu, args.parent_fir)
             continue
         print(json.dumps(profile_path(model, args.steps, gpu)), flush=True)
