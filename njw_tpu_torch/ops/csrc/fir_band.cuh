@@ -28,12 +28,12 @@
 //
 // Bound on this card. The function reads x once and writes y once: 8 B a
 // sample in float32 (0.8 GB for 1000 x 100000: 0.239 ms at the H100 SXM's
-// 3.35 TB/s, about 0.34 ms at the 2.34 TB/s a device copy reaches), 4 B in
-// bf16 (6 B with float32 output). The tensor work over the band's nonzero
-// k-tiles is 8 of 16 at k = 101: 77 GFLOP for three products at that
-// shape, 0.08 ms at 989 TFLOP/s. So bytes bound it, if the products and
-// the staging overlap the stream; the design before this one ran its
-// phases in series and paid ~0.13 ms a product (PERF.md).
+// 3.35 TB/s; a device copy of x takes 0.267 ms), 4 B in bf16 (6 B with
+// float32 output). The tensor work over the band's nonzero k-tiles is 8
+// of 16 at k = 101: 77 GFLOP for three products at that shape, 0.08 ms at
+// 989 TFLOP/s. So bytes bound it, if the products and the staging overlap
+// the stream; the design before this one ran its phases in series and
+// paid ~0.13 ms a product (PERF.md).
 //
 // Design.
 // * A persistent grid (BPSM blocks an SM) walks tiles of FR = 64 frames of
@@ -45,12 +45,13 @@
 // * x streams through a ring of STAGES tiles in shared memory, filled by
 //   TMA (a 2-D tensor map over (rows, n), boxes of 256 samples of one
 //   row). The zero fill of a box past n gives the ragged last frame its
-//   zeros without reading a sample at or past n. Warp 0 keeps the next
-//   STAGES tiles in flight: it refills a stage as soon as every warp has
-//   split it, so the loads overlap the products and stores of the tiles
-//   before. Rows TMA cannot take (a row stride or base not a multiple of
-//   16 bytes, n < 256) take a staging branch in the same kernel: masked
-//   loads straight into the term planes.
+//   zeros without reading a sample at or past n. Warp 0 keeps tiles in
+//   flight: a stage is refilled, with the tile STAGES on, as soon as its
+//   tile's y has left it (below), so the loads overlap the splits,
+//   products and stores of the tiles before. Rows TMA cannot take (an x
+//   or y base or row stride not a multiple of 16 bytes, n < 256) take a
+//   staging branch in the same kernel: masked loads straight into the
+//   term planes.
 // * Each sample is split into its bf16 terms once, after it lands: the
 //   ring feeds term planes of FR + 1 frames (the previous frame in row
 //   0), 136 bf16 a frame row so that ldmatrix's eight 16-byte rows fall
