@@ -81,7 +81,7 @@
 //   a Toeplitz strip of the band both in shared memory) was slower on
 //   every main path (PERF.md) and is not built.
 //
-// Measured (H100 80GB HBM3, 700 W; PERF.md §6 PR 9, in one process with
+// Measured (H100 80GB HBM3, 700 W; PERF.md §6, in one process with
 // the design before): fir_batch (1000 x 100000, passes 3) 0.761 -> 0.314
 // ms, a device copy of x 0.267; fir_suite (16 x 10^6) 0.129 -> 0.064;
 // fir_bf16 0.392 -> 0.156. The outputs equal the earlier design's.
@@ -583,7 +583,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// the driver's tensor-map encoder, looked up once in the loaded driver
+// cuTensorMapEncodeTiled, looked up once in the loaded libcuda
 // (static functions: each library that includes this header keeps its own
 // local statics; an inline function's would be one for the whole process)
 static EncodeTiled encode_tiled() {
