@@ -127,6 +127,29 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 sharing one scale); PE SI against the K4 path at dt 5 s, 40
                 steps (ps rtol 2e-4, u atol 2e-2:
                 tests/test_weather_primitive.py:470-484), K4 forced
+  15 plain sharded paths  every PLAIN_SHARDED_PATHS entry (the plain
+                sharded steppers: SWE 2048^2 with overlap on (4, 1), (2, 2)
+                and (2, 2) with reflective walls and beta 1e-3, PE config
+                4 with overlap on (2, 2) and (4, 1), barotropic config 3 on
+                (4, 1) and (2, 2)) on a LocalMesh on cuda:0, held against
+                the whole-domain run of the same configuration with
+                backend plain on the card over the same steps (SWE rtol /
+                atol 1e-5, PE 2e-5, barotropic rtol 5e-4 / atol 5e-5: the
+                JAX sharded tests'), its largest difference ("bit-equal"
+                where 0), every launch count 0; ms and grid-points/s per
+                step by CUDA events, the host's enqueue per step,
+                paced_by, the device ms of one step's exchanges (halo pads,
+                and the all-to-alls of the barotropic Poisson solves) and
+                the mesh's exchange count and bytes per step; SWE 2048^2
+                on (2, 2) with overlap equal to the padded form bit for
+                bit; SWE 256^2 with winds across reflective walls on (2, 2)
+                against the whole-domain plain run (1e-5); then
+                njw_tpu_torch.bench.scaling on the card:
+                swe_scaling_sweep(2048, 10 steps a call, 1, 2, 4 shards),
+                halo_overlap_efficiency(2048, 4 shards, 10 steps) with
+                overlap on and off, pe_mesh_shape_sweep(4 shards, 512^2 x
+                20, dt 240: K4 per shard, its launches exact), every row
+                ok
 Then the kernel table ({"kernels": [...]}), the card line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1889,6 +1912,238 @@ def sharded_paths() -> dict:
     return results
 
 
+# the JAX plain sharded tests' tolerances (tests/test_parallel_halo.py:
+# SWE :58-129, PE :220-245, barotropic :478-533), (rtol, atol) by field
+PLAIN_TOL = {"shallow_water": dict.fromkeys(("u", "v", "h"), (1e-5, 1e-5)),
+             "primitive": dict.fromkeys(("u", "v", "T", "q", "ps"),
+                                        (2e-5, 2e-5)),
+             "barotropic": {"zeta": (5e-4, 5e-5)}}
+
+
+def _plain_reference(p) -> tuple:
+    """(s0, state after p.steps, ms per step, stepper name) of the
+    whole-domain run of a plain sharded path's configuration with backend
+    plain on the card; fails if it launched a kernel."""
+    import torch
+
+    sim = p.simulation(backend="plain")
+    s0 = sim.state.map(torch.clone)
+    reset_counts()
+    sim.step(p.steps)
+    if any(counts().values()):
+        fail("plain_sharded_reference", f"backend plain launched {counts()}")
+    ref = sim.state.map(torch.clone)
+    ms, _ = _time_steps(lambda: sim.step(p.steps), p.steps)
+    return s0, ref, ms, sim.stepper.name
+
+
+def _scaling_rows() -> dict:
+    """njw_tpu_torch.bench.scaling on the card; every row must be ok."""
+    import torch
+    from njw_tpu_torch.bench.scaling import (
+        halo_overlap_efficiency, pe_mesh_shape_sweep, swe_scaling_sweep,
+    )
+
+    rows = {"swe_scaling_sweep": swe_scaling_sweep(
+        2048, steps_per_call=10, device_counts=[1, 2, 4])}
+    rows["halo_overlap_efficiency"] = [
+        halo_overlap_efficiency(2048, 4, n_steps=10, overlap=ov)
+        for ov in (True, False)]
+    reset_counts()
+    pe = pe_mesh_shape_sweep(4, ny=512, nx=512, L=20, dt=240.0)
+    torch.cuda.synchronize()
+    launched = counts()
+    # two one-step calls a mesh shape (the first makes the padded blocks)
+    want = {k: 0 for k in launched}
+    want["pe_rk4"] = 2 * sum(r["mesh"][0] * r["mesh"][1] for r in pe)
+    rows["pe_mesh_shape_sweep"] = pe
+    for fn, rs in rows.items():
+        for r in rs:
+            emit(f"scaling_{fn}", **r)
+    bad = [(fn, r) for fn, rs in rows.items() for r in rs if not r["ok"]]
+    emit("scaling_pe_launches", ok=launched == want and len(pe) == 3,
+         launches=launched, expected_launches=want)
+    if bad:
+        fail("scaling", f"rows not ok: {bad}")
+    if launched != want or len(pe) != 3:
+        fail("scaling_pe_launches", f"{len(pe)} mesh shapes, launch counts "
+             f"{launched}, expected {want}")
+    return rows
+
+
+def _plain_step_costs(stepper, shards, reps: int = 3) -> tuple:
+    """(host ms, device ms) of one step of a plain sharded stepper. Host:
+    a two-step call less a one-step call, each enqueued after a
+    synchronise, the median of ``reps``. Device: the time of the kernels
+    of a one-step call under torch.profiler (CUDA activity alone: the
+    host side's trace of thousands of calls costs seconds). CUDA events
+    cannot time the device's own work here: a step enqueues thousands of
+    calls, more than the launch queue holds, so a spin ahead of them ends
+    before the host has queued them."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = stepper.n_steps
+    host = []
+    try:
+        for _ in range(reps):
+            h = {}
+            for k in (1, 2):
+                stepper.n_steps = k
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stepper(shards)
+                h[k] = (time.perf_counter() - t0) * 1e3
+            host.append(h[2] - h[1])
+        stepper.n_steps = 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stepper(shards)
+            torch.cuda.synchronize()
+    finally:
+        stepper.n_steps = n
+    device_us = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return statistics.median(host), device_us / 1e3
+
+
+def _reflective_walls() -> dict:
+    """SWE with winds across reflective walls (the state of
+    tests/test_parallel_halo.py:107-129: random, u + 0.5, v - 0.3; the
+    main path's vortex is all but still at the walls, so only such a state
+    shows the ghost's sign) on (2, 2) with overlap, 10 steps, against the
+    whole-domain plain run on the card (1e-5)."""
+    import torch
+    from njw_tpu_torch.parallel import LocalMesh, sharded_swe_step
+    from njw_tpu_torch.weather import SimConfig, Simulation, WeatherState
+    from njw_tpu_torch.weather.dynamics import make_tendency_fn
+
+    cfg = SimConfig(grid_width=256, grid_height=256, dt=0.005,
+                    coriolis_f=1e-4, boundary_condition="reflective")
+    grid, params = cfg.grid_spec(), cfg.physics()
+    s = Simulation.from_config(cfg, "random").state
+    s0 = WeatherState(u=s.u + 0.5, v=s.v - 0.3, h=s.h)
+    whole = Simulation(s0, make_tendency_fn("shallow_water", grid, params),
+                       dt=cfg.dt, grid=grid)
+    mesh = LocalMesh(2, 2)
+    got = mesh.gather_state(sharded_swe_step(grid, params, mesh, dt=cfg.dt,
+                                             n_steps=10)(
+        mesh.shard_state(s0)))
+    whole.step(10)
+    diff = _max_abs(got, whole.state)
+    ok = _within(got, whole.state, PLAIN_TOL["shallow_water"])
+    emit("plain_sharded_reflective_walls", ok=ok, mesh=[2, 2], steps=10,
+         grid=[256, 256], max_abs_diff=diff)
+    if not ok:
+        fail("plain_sharded_reflective_walls", "the sharded run disagrees "
+             "with the whole-domain plain run at the walls")
+    return {"max_abs_diff": diff}
+
+
+def plain_sharded_paths() -> dict:
+    """Phase 15: every PLAIN_SHARDED_PATHS entry on a LocalMesh on
+    cuda:0, SWE overlap against padded, and the scaling harness."""
+    import torch
+    from njw_tpu_torch.parallel import LocalMesh, sharded_swe_step
+    from njw_tpu_torch.weather.main_paths import PLAIN_SHARDED_PATHS
+
+    t0 = time.perf_counter()
+    results, refs = {}, {}
+    for name, p in PLAIN_SHARDED_PATHS.items():
+        cfg = p.sim_config()
+        key = (p.model, tuple(sorted(p.overrides.items())), p.steps)
+        if key not in refs:
+            refs.clear()
+            torch.cuda.empty_cache()
+            refs[key] = _plain_reference(p)
+        s0, ref, whole_ms, whole_name = refs[key]
+        mesh = LocalMesh(*p.mesh)
+        stepper = p.make_stepper(mesh)
+        shards = mesh.shard_state(s0)
+        host_ms, device_ms = _plain_step_costs(stepper, shards)  # warms up
+        reset_counts()
+        mesh.exchanges = mesh.exchange_bytes = 0
+        out = []
+        ms, call_host_ms = _time_steps(lambda: out.append(stepper(shards)),
+                                       p.steps)
+        launched = counts()
+        exchanges = mesh.exchanges / p.steps
+        exchange_bytes = mesh.exchange_bytes / p.steps
+        got = mesh.gather_state(out.pop())
+        diff = _max_abs(got, ref)
+        tol = PLAIN_TOL[cfg.model]
+        ok_ref = _within(got, ref, tol)
+        del got
+
+        def exchange():
+            stepper.exchange(shards)
+
+        _events_ms(exchange, 2)
+        exchange_ms = _events_ms(exchange, 10) * stepper.stages
+        n = cfg.grid_width * cfg.grid_height
+        r = {"stepper": stepper.name, "mesh": list(p.mesh),
+             "shards": mesh.size, "steps": p.steps,
+             "options": p.options, "overrides": p.overrides,
+             "launches": launched,
+             "max_abs_diff_vs_whole_domain": diff,
+             "equal": "bit-equal" if diff == 0.0 else "within tolerance",
+             "whole_domain_path": whole_name,
+             "ms_per_step": ms, "grid_points_per_s": n / (ms / 1e3),
+             "whole_domain_plain_ms_per_step": whole_ms,
+             "host_enqueue_ms_per_step": host_ms,
+             "host_ms_per_step_of_call": call_host_ms,
+             "device_ms_per_step": device_ms,
+             "device_busy_share": device_ms / ms,
+             "paced_by": paced_by(ms, call_host_ms, device_ms),
+             "exchange_ms_per_step": exchange_ms,
+             "exchange_share": exchange_ms / ms,
+             "exchanges_per_step": exchanges,
+             "exchange_bytes_per_step": exchange_bytes,
+             "card": card_state()}
+        no_launch = not any(launched.values())
+        emit(f"plain_sharded_path_{name}", ok=ok_ref and no_launch, tol=tol,
+             **r)
+        if not no_launch:
+            fail(f"plain_sharded_path_{name}", f"a plain path launched "
+                 f"kernels: {launched}")
+        if not ok_ref:
+            fail(f"plain_sharded_path_{name}", "the sharded run disagrees "
+                 "with the whole-domain plain run")
+        results[name] = r
+        del stepper, shards, out
+    refs.clear()
+    torch.cuda.empty_cache()
+
+    # the interior/edge form against the padded form: the same arithmetic
+    p = PLAIN_SHARDED_PATHS["swe_plain_2x2"]
+    cfg = p.sim_config()
+    mesh = LocalMesh(*p.mesh)
+    s0 = p.initial_state()
+    forms = {}
+    for overlap in (True, False):
+        step = sharded_swe_step(cfg.grid_spec(), cfg.physics(), mesh,
+                                dt=cfg.dt, n_steps=10, overlap=overlap)
+        forms[overlap] = mesh.gather_state(step(mesh.shard_state(s0)))
+    diff = _max_abs(forms[True], forms[False])
+    emit("plain_sharded_overlap_vs_padded", ok=diff == 0.0, mesh=[2, 2],
+         steps=10, max_abs_diff=diff)
+    if diff != 0.0:
+        fail("plain_sharded_overlap_vs_padded", "overlap=True differs from "
+             f"overlap=False by {diff}")
+    del forms, s0
+    results["reflective_walls"] = _reflective_walls()
+    torch.cuda.empty_cache()
+    results["scaling"] = _scaling_rows()
+    emit("plain_sharded_summary", ok=True,
+         seconds=time.perf_counter() - t0,
+         ms_per_step={n: results[n]["ms_per_step"]
+                      for n in PLAIN_SHARDED_PATHS})
+    return results
+
+
 BF16_VS_PLAIN = 1e-3    # of max|h| per step: 1/20 of the JAX band below
 # RMS of (bf16 kernel - plain) over RMS of (float32 kernel - plain). On an
 # H100 a sound kernel reads <= 1.5e-4 over the smoke's cases; one
@@ -2259,6 +2514,7 @@ def main() -> int:
     kv = variant_kernels()
     mv = variant_paths(m1)
     si = semi_implicit()
+    plain_sharded_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

@@ -13,8 +13,10 @@ steps per pass); the barotropic vorticity core (``torch.fft`` Poisson
 solve) with the Arakawa stage kernel ``ops/csrc/baro_stage.cu``; the
 primitive equations with the whole-step kernel ``ops/csrc/pe_rk4.cu``,
 the stage kernel ``ops/csrc/pe_stage.cu`` and the semi-implicit stepper;
-the kernel-backed sharded weather steppers of ``parallel``; and the FIR
-half of ``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
+every cartesian sharded path of ``parallel`` (the kernel-backed steppers,
+the plain SWE and PE steppers with the halo exchange overlapped, the
+sharded barotropic core on the distributed FFT) and the scaling harness
+of ``bench``; and the FIR half of ``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
 ``MultirateFilter``, ``StreamingFIR``) with the banded-product
 tensor-core kernels ``ops/csrc/fir_band.cu`` and
 ``ops/csrc/fir_band_bf16.cu``. All kernels are CUDA C++ written by hand

@@ -1,20 +1,26 @@
 """Sharded weather paths (counterpart of ``njw_tpu.parallel``).
 
   mesh.py   LocalMesh (every shard in one process) and ProcessMesh (one
-            shard per torch.distributed rank): ring_shift, shard_state,
-            gather_state
-  halo.py   halo_pad_2d and the kernel-backed sharded steppers (SWE on K1,
-            PE on the whole-step kernel K4 or the stage kernel K5, 1-D and
-            2-D, with the persistent carry forms)
+            shard per torch.distributed rank): ring_shift (and its
+            non-blocking start), all_to_all, shard_state, gather_state,
+            and the mesh's own counts of its exchanges
+  halo.py   halo_pad_2d; the plain sharded steppers (SWE and PE on every
+            BC and integrator, with the exchange overlapped with the
+            interior, and the barotropic core, 1-D and 2-D); and the
+            kernel-backed sharded steppers (SWE on K1, PE on the
+            whole-step kernel K4 or the stage kernel K5, 1-D and 2-D, with
+            the persistent carry forms)
+  fft.py    the distributed transpose-FFT and pencil-FFT Poisson solves
 
-The plain sharded steppers, the sharded barotropic core with
-``parallel/fft.py``, ``parallel/sphere.py`` and ``parallel/icosa.py`` are
-not yet ported (ROADMAP).
+Every cartesian path of the JAX package's ``parallel`` is ported;
+``parallel/sphere.py`` and ``parallel/icosa.py`` are not yet (ROADMAP).
 """
 from njw_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
 from njw_tpu_torch.parallel.halo import (
-    ShardedStepper, halo_pad_2d, interior_crop, make_padded_shift_fn,
-    sharded_pe_step_kernel, sharded_pe_step_kernel_2d,
-    sharded_pe_step_kernel_fused, sharded_pe_step_kernel_fused_2d,
+    PlainShardedStepper, ShardedStepper, halo_pad_2d, interior_crop,
+    make_padded_shift_fn, sharded_barotropic_step,
+    sharded_barotropic_step_2d, sharded_pe_step, sharded_pe_step_kernel,
+    sharded_pe_step_kernel_2d, sharded_pe_step_kernel_fused,
+    sharded_pe_step_kernel_fused_2d, sharded_swe_step,
     sharded_swe_step_kernel, sharded_swe_step_kernel_2d,
 )

@@ -1,16 +1,24 @@
-"""Halo exchange and the kernel-backed sharded weather steppers.
+"""Halo exchange and the sharded weather steppers.
 
 Counterpart of ``njw_tpu/parallel/halo.py``: ``halo_pad_2d``,
-``make_padded_shift_fn``, ``interior_crop`` and the sharded steppers that
-run the fused kernels per shard (``sharded_swe_step_pallas`` :743 and
-``_2d`` :820, ``sharded_pe_step_pallas`` :590 and ``_2d`` :1029,
+``make_padded_shift_fn``, ``interior_crop``; the plain sharded steppers
+(``sharded_swe_step`` :149, ``sharded_pe_step`` :276, with the
+interior/edge overlap; the sharded barotropic core
+``sharded_barotropic_step`` :421 and ``_2d`` :523 on the distributed FFT
+of ``parallel/fft.py``), which run the plain tendencies and launch no
+kernel; and the steppers that run the fused kernels per shard
+(``sharded_swe_step_pallas`` :743 and ``_2d`` :820,
+``sharded_pe_step_pallas`` :590 and ``_2d`` :1029,
 ``sharded_pe_step_pallas_fused`` :664 and ``_fused_2d`` :886), named with
 ``kernel`` for ``pallas``. They run on either mesh of
 ``njw_tpu_torch.parallel.mesh``.
 
 Each constructor returns a stepper: ``step(shards) -> shards`` advances
 the shards this process holds (a list, row-major) by ``n_steps`` and
-returns new interior-shaped shards. Inside, each shard's state lives in
+returns new interior-shaped shards. The plain steppers
+(``PlainShardedStepper``) are the JAX ones: any BC, the beta-plane,
+viscosity and any explicit integrator, a 1-point halo exchanged at every
+tendency evaluation. In the kernel steppers each shard's state lives in
 padded blocks with exactly the halo its kernel reads (4 rows, and 4
 columns on a 2-D mesh, for the whole-step kernels K1 and K4; 1 for the
 stage kernel K5). Each step refreshes only those halo bands by exchange
@@ -21,8 +29,8 @@ allocates nothing (on a ``ProcessMesh`` the exchange's send and receive
 buffers excepted). On ``LocalMesh`` the shards' launches follow one
 another on one stream.
 
-As in the JAX package: periodic BC and a numeric f only
-(``NotImplementedError`` otherwise); a mesh with px > 1 takes the 2-D
+The kernel steppers, as in the JAX package: periodic BC and a numeric f
+only (``NotImplementedError`` otherwise); a mesh with px > 1 takes the 2-D
 form; the fused 2-D form falls back to the stage path where the
 whole-step kernel does not fit (here ``pe_rk4_kernel_fits``, the port's
 own rule: a one-column tile of L levels in the shared memory of a cluster
@@ -38,13 +46,19 @@ from __future__ import annotations
 import numbers
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from njw_tpu_torch.ops import pe_stencil
 from njw_tpu_torch.ops.stencil import HALO as SWE_HALO
 from njw_tpu_torch.ops.stencil import swe_rk4_step_padded
+from njw_tpu_torch.weather.barotropic import BarotropicState
+from njw_tpu_torch.weather.dynamics import (
+    coriolis_field, scalar_bc, swe_tendencies_from_shifts,
+)
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
-from njw_tpu_torch.weather.primitive import PEState
+from njw_tpu_torch.weather.integrators import INTEGRATORS, make_stepper
+from njw_tpu_torch.weather.primitive import PEState, pe_tendencies_from_shifts
 
 SWE_FIELDS = ("u", "v", "h")
 
@@ -63,25 +77,62 @@ def halo_pad_2d(mesh, fields: Sequence[torch.Tensor], halo: int = 1, *,
     own edge, times ``wall_sign_{x,y}`` (-1 for the wall-normal velocity
     of a reflective wall; the x flip comes before the y clamp, so corners
     get exactly one flip)."""
-    h = halo
-    clamp = bc in ("clamped", "reflective")
+    blocks = pad_blocks(mesh, [(f,) for f in fields], halo, bc=bc,
+                        signs_x=(wall_sign_x,), signs_y=(wall_sign_y,))
+    return [b[0] for b in blocks]
 
-    def pad(fs, axis, sign):
-        dim = -1 if axis == "x" else -2
-        n = mesh.axis_size(axis)
-        lo = mesh.ring_shift([(f.narrow(dim, f.shape[dim] - h, h),)
-                              for f in fs], axis, +1)
-        hi = mesh.ring_shift([(f.narrow(dim, 0, h),) for f in fs], axis, -1)
-        out = []
-        for f, (a,), (b,), i in zip(fs, lo, hi, mesh.axis_index(axis)):
+
+def pad_blocks(mesh, blocks: Sequence[tuple], halo: int = 1, *,
+               bc: str = "periodic", signs_x: Sequence[float] = None,
+               signs_y: Sequence[float] = None) -> list[tuple]:
+    """``halo_pad_2d`` of several fields a shard at once (``blocks``: one
+    tuple of fields per local shard; ``signs_*``: each field's wall sign,
+    1 by default): one exchange carries them all."""
+    started = pad_start(mesh, blocks, "x", halo)
+    padded = pad_finish(mesh, blocks, started, "x", halo, bc, signs_x)
+    started = pad_start(mesh, padded, "y", halo)
+    return pad_finish(mesh, padded, started, "y", halo, bc, signs_y)
+
+
+def _dim(axis: str) -> int:
+    return -1 if axis == "x" else -2
+
+
+def pad_start(mesh, blocks: Sequence[tuple], axis: str, halo: int) -> tuple:
+    """Post the exchange of every field's edge strips along ``axis`` (both
+    directions): the last ``halo`` rows or columns go to the next shard,
+    the first to the previous one. ``pad_finish`` completes it."""
+    dim = _dim(axis)
+    lo = mesh.ring_shift_start(
+        [tuple(f.narrow(dim, f.shape[dim] - halo, halo) for f in b)
+         for b in blocks], axis, +1)
+    hi = mesh.ring_shift_start(
+        [tuple(f.narrow(dim, 0, halo) for f in b) for b in blocks], axis, -1)
+    return lo, hi
+
+
+def pad_finish(mesh, blocks: Sequence[tuple], started: tuple, axis: str,
+               halo: int, bc: str = "periodic",
+               signs: Sequence[float] = None) -> list[tuple]:
+    """Wait for ``pad_start``'s exchange and pad every field along
+    ``axis``; under a clamped or reflective ``bc`` the shards on the
+    global boundary take their own edge times the field's sign instead."""
+    dim = _dim(axis)
+    n = mesh.axis_size(axis)
+    clamp = bc in ("clamped", "reflective")
+    lo, hi = (h.wait() for h in started)
+    out = []
+    for b, low, high, i in zip(blocks, lo, hi, mesh.axis_index(axis)):
+        fields = []
+        for k, (f, a, c) in enumerate(zip(b, low, high)):
+            sign = 1.0 if signs is None else signs[k]
             if clamp and i == 0:
                 a = sign * f.narrow(dim, 0, 1).expand_as(a)
             if clamp and i == n - 1:
-                b = sign * f.narrow(dim, f.shape[dim] - 1, 1).expand_as(b)
-            out.append(torch.cat([a, f, b], dim=dim))
-        return out
-
-    return pad(pad(list(fields), "x", wall_sign_x), "y", wall_sign_y)
+                c = sign * f.narrow(dim, f.shape[dim] - 1, 1).expand_as(c)
+            fields.append(torch.cat([a, f, c], dim=dim))
+        out.append(tuple(fields))
+    return out
 
 
 def make_padded_shift_fn(halo: int, ly: int, lx: int) -> Callable:
@@ -169,6 +220,24 @@ def _block(grid: GridSpec, mesh, need: int, name: str) -> tuple[int, int]:
     return ly, lx
 
 
+def _check_shards(name: str, mesh, shards: Sequence, cls, fields: tuple,
+                  inner: tuple) -> None:
+    """Refuse shards that are not ``cls`` states of ``fields``, of interior
+    shape ``inner``, float32 on the mesh's device."""
+    mesh._check_shards(shards)
+    for s in shards:
+        if not isinstance(s, cls) or tuple(n for n, _ in s.items()) != fields:
+            raise TypeError(f"{name}: shards must be {cls.__name__}s of "
+                            f"{fields}")
+        for n, t in s.items():
+            if tuple(t.shape[-2:]) != tuple(inner) or \
+                    t.device != mesh.device or t.dtype != torch.float32:
+                raise ValueError(
+                    f"{name}: shard field {n} is {tuple(t.shape)} {t.dtype} "
+                    f"on {t.device}; expected (..., {inner[0]}, {inner[1]}) "
+                    f"float32 on {mesh.device}")
+
+
 class ShardedStepper:
     """``step(shards) -> shards`` over ``n_steps`` steps (see the module
     docstring). ``name``: the form."""
@@ -201,21 +270,8 @@ class ShardedStepper:
         return st.map(lambda a: a[..., hy:hy + ly, hx:hx + lx])
 
     def _check(self, shards: Sequence) -> None:
-        mesh = self.mesh
-        mesh._check_shards(shards)
-        for s in shards:
-            if not isinstance(s, self.cls) or tuple(
-                    n for n, _ in s.items()) != self.fields:
-                raise TypeError(f"{self.name}: shards must be "
-                                f"{self.cls.__name__}s of {self.fields}")
-            for n, t in s.items():
-                if tuple(t.shape[-2:]) != tuple(self.inner) or \
-                        t.device != mesh.device or t.dtype != torch.float32:
-                    raise ValueError(
-                        f"{self.name}: shard field {n} is {tuple(t.shape)} "
-                        f"{t.dtype} on {t.device}; expected (..., "
-                        f"{self.inner[0]}, {self.inner[1]}) float32 on "
-                        f"{mesh.device}")
+        _check_shards(self.name, self.mesh, shards, self.cls, self.fields,
+                      self.inner)
 
     def __call__(self, shards: Sequence) -> list:
         self._check(shards)
@@ -521,3 +577,369 @@ def sharded_pe_step_kernel_fused_2d(grid: GridSpec, params: PhysicsParams,
     h = pe_stencil.RK4_HALO
     return _pe_stepper(_PEFusedCarry2d if carry else _PEFusedLocal2d, grid,
                        params, mesh, dt, n_steps, (h, h), name)
+
+
+# ------------------------------------------------------ the plain steppers
+
+class _Shards(list):
+    """The local shard states as one state for the integrators of
+    ``weather/integrators.py``: ``map`` maps each shard's fields, so every
+    stage combine runs in the integrator's own order on each shard."""
+
+    def map(self, fn, *others):
+        return _Shards(s.map(fn, *(o[i] for o in others))
+                       for i, s in enumerate(self))
+
+
+class PlainShardedStepper:
+    """``step(shards) -> shards`` over ``n_steps`` steps of an integrator
+    of ``weather/integrators.py`` (the JAX package's ``lax.scan`` inside
+    ``shard_map``): each tendency evaluation exchanges the halos it needs
+    and evaluates every local shard with plain PyTorch operations. There is
+    no ``donate``: the stages' temporaries go back to PyTorch's allocator
+    as soon as a stage drops them. ``stages``: tendency evaluations a
+    step; ``exchange(shards)`` runs the exchanges of one of them, for
+    measurement."""
+
+    def __init__(self, name: str, mesh, cls, fields: tuple, inner: tuple,
+                 tendency, exchange, *, method: str, dt: float,
+                 n_steps: int):
+        if method not in INTEGRATORS:
+            raise ValueError(f"{name}: unknown method {method!r}; the "
+                             f"sharded steppers take {sorted(INTEGRATORS)}")
+        self.name, self.mesh, self.inner = name, mesh, inner
+        self.cls, self.fields = cls, fields
+        self.n_steps = int(n_steps)
+        self._integrator = make_stepper(method, tendency)
+        self.stages = self._integrator.stages
+        # dt enters as a float32 value, as in Simulation
+        self._dt = float(np.float32(dt))
+        self._exchange = exchange
+
+    def __call__(self, shards: Sequence) -> list:
+        _check_shards(self.name, self.mesh, shards, self.cls, self.fields,
+                      self.inner)
+        s = _Shards(shards)
+        carry = self._integrator.init(s)
+        for _ in range(self.n_steps):
+            carry, s = self._integrator.step(carry, s, self._dt)
+        return list(s)
+
+    def exchange(self, shards: Sequence) -> None:
+        self._exchange(shards)
+
+
+def _stitch(top, left, interior, right, bot):
+    """Reassemble (1, lx) + (h, 1) + (h, w) + (h, 1) + (1, lx) edge strips
+    into the whole (ly, lx) block (leading dims broadcast)."""
+    mid = torch.cat([left, interior, right], dim=-1)
+    return torch.cat([top, mid, bot], dim=-2)
+
+
+def _wall_signs(bc: str, fields: tuple) -> tuple:
+    """Each field's (x, y) wall signs: under a reflective BC the
+    wall-normal velocity's ghost flips (u at the x walls, v at the y
+    walls)."""
+    refl = bc == "reflective"
+    return (tuple(-1.0 if refl and f == "u" else 1.0 for f in fields),
+            tuple(-1.0 if refl and f == "v" else 1.0 for f in fields))
+
+
+def _halo_tendency(mesh, grid: GridSpec, cls, fields: tuple, inner: tuple,
+                   physics, overlap: bool):
+    """(T, exchange): T(shards) evaluates ``physics(j, block, shift, crop,
+    rows)`` (the tendency fields of local shard j, from its fields
+    ``block`` read through ``shift``, cropped by ``crop``; ``rows``: the
+    shard's rows the output covers) over every local shard, from a 1-point
+    halo. ``overlap=False``: on the padded block. ``overlap=True``: the
+    interior (ly - 2, lx - 2) from the unpadded block while the x exchange
+    is in flight, the left and right strips from the x-padded block while
+    the y exchange is in flight, then the top and bottom rows, stitched
+    (``halo.py:149-273``); the same arithmetic per point."""
+    ly, lx = inner
+    sx, sy = _wall_signs(grid.bc, fields)
+    bc = scalar_bc(grid.bc)
+    shift, crop = make_padded_shift_fn(1, ly, lx), interior_crop(1, ly, lx)
+    shift_i = make_padded_shift_fn(1, ly - 2, lx - 2)
+    crop_i = interior_crop(1, ly - 2, lx - 2)
+    whole, mid = slice(0, ly), slice(1, ly - 1)
+
+    def blocks_of(states):
+        return [tuple(getattr(s, f) for f in fields) for s in states]
+
+    def exchange(states):
+        return pad_blocks(mesh, blocks_of(states), 1, bc=bc, signs_x=sx,
+                          signs_y=sy)
+
+    def region(j, block, rows, cols, h, w, out_rows):
+        return physics(j, tuple(f[..., rows, cols] for f in block),
+                       make_padded_shift_fn(1, h, w), interior_crop(1, h, w),
+                       out_rows)
+
+    def padded(states):
+        return _Shards(cls(*physics(j, b, shift, crop, whole))
+                       for j, b in enumerate(exchange(states)))
+
+    def overlapped(states):
+        blocks = blocks_of(states)
+        started = pad_start(mesh, blocks, "x", 1)
+        inner_t = [physics(j, b, shift_i, crop_i, mid)
+                   for j, b in enumerate(blocks)]
+        px_blocks = pad_finish(mesh, blocks, started, "x", 1, bc, sx)
+        started = pad_start(mesh, px_blocks, "y", 1)
+        # rows 0..ly-1 of the x-padded block are rows 1..ly of the padded
+        left = [region(j, b, whole, slice(0, 3), ly - 2, 1, mid)
+                for j, b in enumerate(px_blocks)]
+        right = [region(j, b, whole, slice(lx - 1, lx + 2), ly - 2, 1, mid)
+                 for j, b in enumerate(px_blocks)]
+        full = pad_finish(mesh, px_blocks, started, "y", 1, bc, sy)
+        out = _Shards()
+        for j, b in enumerate(full):
+            top = region(j, b, slice(0, 3), slice(None), 1, lx, slice(0, 1))
+            bot = region(j, b, slice(ly - 1, ly + 2), slice(None), 1, lx,
+                         slice(ly - 1, ly))
+            out.append(cls(*(_stitch(*parts) for parts in zip(
+                top, left[j], inner_t[j], right[j], bot))))
+        return out
+
+    return (overlapped if overlap else padded), exchange
+
+
+def sharded_swe_step(grid: GridSpec, params: PhysicsParams, mesh, *,
+                     dt: float, method: str = "rk4", n_steps: int = 1,
+                     overlap: bool = True) -> PlainShardedStepper:
+    """Sharded SWE step on the plain tendencies (``sharded_swe_step``,
+    ``njw_tpu/parallel/halo.py:149``): every tendency evaluation exchanges
+    a 1-point halo of u, v and h (one exchange a direction carries all
+    three) and evaluates ``swe_tendencies_from_shifts`` per shard; any
+    integrator of ``weather/integrators.py``; every BC (clamped and
+    reflective walls through the halo pad's wall signs), the beta-plane
+    (each shard's rows of ``dynamics.coriolis_field``) and viscosity.
+    ``overlap=True`` computes the interior from the unpadded block while
+    the exchange is in flight (``_halo_tendency``); it falls back to the
+    padded form when a shard has fewer than 4 rows or columns."""
+    ly, lx = mesh.block_shape(grid.ny, grid.nx)
+    overlap = overlap and ly >= 4 and lx >= 4
+    f = None
+    if params.beta != 0.0:
+        f = coriolis_field(grid, params, mesh.device)
+    rows0 = [iy * ly for iy in mesh.axis_index("y")]
+
+    def physics(j, block, shift, crop, rows):
+        p = params
+        if f is not None:
+            # the shard's rows of the whole domain's (ny, 1) field
+            p = params.replace(
+                coriolis_f=f[rows0[j]:rows0[j] + ly][rows])
+        u, v, h = block
+        return swe_tendencies_from_shifts(u, v, h, shift, grid, p,
+                                          interior=crop)
+
+    tendency, exchange = _halo_tendency(mesh, grid, WeatherState, SWE_FIELDS,
+                                        (ly, lx), physics, overlap)
+    return PlainShardedStepper("sharded_swe_step", mesh, WeatherState,
+                               SWE_FIELDS, (ly, lx), tendency, exchange,
+                               method=method, dt=dt, n_steps=n_steps)
+
+
+def sharded_pe_step(grid: GridSpec, params: PhysicsParams, mesh, *,
+                    dt: float, method: str = "rk4", n_steps: int = 1,
+                    overlap: bool = True) -> PlainShardedStepper:
+    """Sharded primitive-equations step on the plain tendencies
+    (``sharded_pe_step``, ``njw_tpu/parallel/halo.py:276``): the levels
+    stay whole; every tendency evaluation exchanges a 1-point halo of u,
+    v, T, q and ps in one exchange a direction and evaluates
+    ``pe_tendencies_from_shifts`` per shard (f-plane, viscosity, every
+    BC, no terrain). ``overlap`` as in ``sharded_swe_step``."""
+    ly, lx = mesh.block_shape(grid.ny, grid.nx)
+    overlap = overlap and ly >= 4 and lx >= 4
+
+    def physics(j, block, shift, crop, rows):
+        out = pe_tendencies_from_shifts(PEState(*block), shift, grid, params,
+                                        interior=crop)
+        return tuple(t for _, t in out.items())
+
+    tendency, exchange = _halo_tendency(mesh, grid, PEState, PEState.FIELDS,
+                                        (ly, lx), physics, overlap)
+    return PlainShardedStepper("sharded_pe_step", mesh, PEState,
+                               PEState.FIELDS, (ly, lx), tendency, exchange,
+                               method=method, dt=dt, n_steps=n_steps)
+
+
+# --------------------------------------------- the sharded barotropic core
+
+def _halo_pad_y(mesh, blocks: Sequence[tuple], bc: str = "periodic"
+                ) -> list[tuple]:
+    """Pad only the row axis of every field with 1-row neighbour halos (x
+    stays whole; ``halo.py:378``): one exchange a direction carries all
+    the fields of a shard."""
+    started = pad_start(mesh, blocks, "y", 1)
+    return pad_finish(mesh, blocks, started, "y", 1, bc)
+
+
+def _arakawa(sh, p, z, dx: float, dy: float) -> torch.Tensor:
+    """The arithmetic of ``weather.barotropic.arakawa_jacobian`` over the
+    neighbour accessor ``sh(f, dx_, dy_)``."""
+    pE, pW = sh(p, 1, 0), sh(p, -1, 0)
+    pN, pS = sh(p, 0, 1), sh(p, 0, -1)
+    pNE, pNW = sh(p, 1, 1), sh(p, -1, 1)
+    pSE, pSW = sh(p, 1, -1), sh(p, -1, -1)
+    zE, zW = sh(z, 1, 0), sh(z, -1, 0)
+    zN, zS = sh(z, 0, 1), sh(z, 0, -1)
+    zNE, zNW = sh(z, 1, 1), sh(z, -1, 1)
+    zSE, zSW = sh(z, 1, -1), sh(z, -1, -1)
+
+    j1 = (pE - pW) * (zN - zS) - (pN - pS) * (zE - zW)
+    j2 = (pE * (zNE - zSE) - pW * (zNW - zSW)
+          - pN * (zNE - zNW) + pS * (zSE - zSW))
+    j3 = (zN * (pNE - pNW) - zS * (pSE - pSW)
+          - zE * (pNE - pSE) + zW * (pNW - pSW))
+    return (j1 + j2 + j3) / (12.0 * dx * dy)
+
+
+def _arakawa_padded(p: torch.Tensor, z: torch.Tensor, dx: float,
+                    dy: float) -> torch.Tensor:
+    """Arakawa Jacobian on y-padded (ly + 2, nx) blocks; x wraps locally
+    (``halo.py:390``)."""
+    ly = p.shape[-2] - 2
+
+    def sh(f, dx_, dy_):
+        out = f[..., 1 + dy_:1 + dy_ + ly, :]
+        return torch.roll(out, -dx_, dims=-1) if dx_ else out
+
+    return _arakawa(sh, p, z, dx, dy)
+
+
+def _arakawa_padded_2d(p: torch.Tensor, z: torch.Tensor, dx: float,
+                       dy: float) -> torch.Tensor:
+    """Arakawa Jacobian on (ly + 2, lx + 2) blocks padded on both axes
+    (``halo.py:495``): slicing only."""
+    ly, lx = p.shape[-2] - 2, p.shape[-1] - 2
+
+    def sh(f, dx_, dy_):
+        return f[..., 1 + dy_:1 + dy_ + ly, 1 + dx_:1 + dx_ + lx]
+
+    return _arakawa(sh, p, z, dx, dy)
+
+
+def _baro_stepper(name, mesh, inner, tendency, exchange, method, dt,
+                  n_steps):
+    return PlainShardedStepper(name, mesh, BarotropicState,
+                               BarotropicState.FIELDS, inner, tendency,
+                               exchange, method=method, dt=dt,
+                               n_steps=n_steps)
+
+
+def sharded_barotropic_step(grid: GridSpec, params: PhysicsParams, mesh, *,
+                            dt: float, method: str = "rk4", n_steps: int = 1
+                            ) -> PlainShardedStepper:
+    """Sharded barotropic vorticity step over a 1-D row decomposition
+    (``halo.py:421``): each tendency evaluation inverts zeta by the
+    distributed transpose-FFT Poisson solve (``parallel/fft.py``), pads
+    psi and zeta by one row from the y neighbours, and evaluates the
+    Arakawa Jacobian, beta and viscosity as the whole-domain core does. A
+    mesh with px > 1 takes the 2-D decomposition
+    (``sharded_barotropic_step_2d``). Periodic only; ny and nx must divide
+    by the number of shards (the transpose re-shards x)."""
+    from njw_tpu_torch.parallel.fft import (
+        distributed_poisson_solve, transpose_round_trip,
+    )
+
+    name = "sharded_barotropic_step"
+    if grid.bc != "periodic":
+        raise NotImplementedError("barotropic requires periodic BC")
+    if mesh.px > 1:
+        return sharded_barotropic_step_2d(grid, params, mesh, dt=dt,
+                                          method=method, n_steps=n_steps)
+    n = mesh.size
+    if grid.ny % n or grid.nx % n:
+        raise ValueError(
+            f"grid {grid.ny}x{grid.nx} must divide the {n}-device mesh "
+            "in BOTH axes (the transpose FFT re-shards x)")
+    dx, dy = grid.dx, grid.dy
+    beta, nu = params.beta, params.viscosity
+
+    def tendency(states):
+        zetas = [s.zeta for s in states]
+        psis = distributed_poisson_solve(mesh, zetas, dx, dy, "y")
+        out = _Shards()
+        for zeta, psi, (pp, zp) in zip(
+                zetas, psis, _halo_pad_y(mesh, list(zip(psis, zetas)))):
+            dz = -_arakawa_padded(pp, zp, dx, dy)
+            if beta != 0.0:
+                v = (torch.roll(psi, -1, dims=-1)
+                     - torch.roll(psi, 1, dims=-1)) * (0.5 / dx)
+                dz = dz - beta * v
+            if nu != 0.0:
+                lap_x = (torch.roll(zeta, -1, dims=-1) - 2 * zeta
+                         + torch.roll(zeta, 1, dims=-1)) / (dx * dx)
+                lap_y = (zp[..., 2:, :] - 2 * zeta
+                         + zp[..., :-2, :]) / (dy * dy)
+                dz = dz + nu * (lap_x + lap_y)
+            out.append(BarotropicState(zeta=dz))
+        return out
+
+    def exchange(states):
+        zetas = [s.zeta for s in states]
+        _halo_pad_y(mesh, [(z, z) for z in zetas])
+        transpose_round_trip(mesh, [z.to(torch.complex64) for z in zetas])
+
+    return _baro_stepper(name, mesh, mesh.block_shape(grid.ny, grid.nx),
+                         tendency, exchange, method, dt, n_steps)
+
+
+def sharded_barotropic_step_2d(grid: GridSpec, params: PhysicsParams, mesh,
+                               *, dt: float, method: str = "rk4",
+                               n_steps: int = 1) -> PlainShardedStepper:
+    """Sharded barotropic vorticity step over a ('y', 'x') mesh
+    (``halo.py:523``): the pencil transpose-FFT Poisson solve
+    (``parallel/fft.py`` ``distributed_poisson_solve_2d``) and a 1-point
+    halo on both axes for the Arakawa Jacobian, beta and viscosity.
+    Periodic only; the grid must tile the mesh, ny and nx divide by the
+    number of shards and the local rows by px."""
+    from njw_tpu_torch.parallel.fft import (
+        distributed_poisson_solve_2d, transpose_round_trip,
+    )
+
+    if grid.bc != "periodic":
+        raise NotImplementedError("barotropic requires periodic BC")
+    py, px = mesh.shape
+    n = py * px
+    if grid.ny % py or grid.nx % px:
+        raise ValueError(f"grid {grid.ny}x{grid.nx} must tile the "
+                         f"({py},{px}) mesh")
+    if (grid.ny // py) % px or grid.ny % n or grid.nx % n:
+        raise ValueError(
+            f"grid {grid.ny}x{grid.nx} must divide the {n}-device mesh "
+            "in BOTH axes (the pencil transpose FFT re-shards x)")
+    dx, dy = grid.dx, grid.dy
+    beta, nu = params.beta, params.viscosity
+
+    def tendency(states):
+        zetas = [s.zeta for s in states]
+        psis = distributed_poisson_solve_2d(mesh, zetas, dx, dy)
+        out = _Shards()
+        for zeta, (pp, zp) in zip(
+                zetas, pad_blocks(mesh, list(zip(psis, zetas)), 1)):
+            dz = -_arakawa_padded_2d(pp, zp, dx, dy)
+            if beta != 0.0:
+                v = (pp[..., 1:-1, 2:] - pp[..., 1:-1, :-2]) * (0.5 / dx)
+                dz = dz - beta * v
+            if nu != 0.0:
+                lap_x = (zp[..., 1:-1, 2:] - 2 * zeta
+                         + zp[..., 1:-1, :-2]) / (dx * dx)
+                lap_y = (zp[..., 2:, 1:-1] - 2 * zeta
+                         + zp[..., :-2, 1:-1]) / (dy * dy)
+                dz = dz + nu * (lap_x + lap_y)
+            out.append(BarotropicState(zeta=dz))
+        return out
+
+    def exchange(states):
+        zetas = [s.zeta for s in states]
+        pad_blocks(mesh, [(z, z) for z in zetas], 1)
+        transpose_round_trip(mesh, [z.to(torch.complex64) for z in zetas],
+                             pencils=True)
+
+    return _baro_stepper("sharded_barotropic_step_2d", mesh,
+                         mesh.block_shape(grid.ny, grid.nx), tendency,
+                         exchange, method, dt, n_steps)

@@ -17,10 +17,25 @@ written once against that list and ``ring_shift``:
   on CPU tensors), rank r holding (iy, ix) = divmod(r, px).
   ``ring_shift`` posts the sends and receives of one axis and direction as
   one ``dist.batch_isend_irecv``.
+
+The exchanges:
+
+* ``ring_shift(payloads, axis, shift)``: ``lax.ppermute`` over a ring.
+  ``ring_shift_start`` posts it and returns a handle whose ``wait()`` gives
+  the payloads, so that work which needs no halo runs while the sends are
+  in flight (on ``LocalMesh`` the handle is complete at once);
+  ``ring_shift`` is start, then wait.
+* ``all_to_all(blocks, axis, split_dim, concat_dim)``: ``lax.all_to_all(...,
+  tiled=False)`` along 'y', 'x' or the combined ('y', 'x') axis (row-major
+  index iy * px + ix).
+
+Both move ``exchanges`` (one a call that moves data) and
+``exchange_bytes`` (the payload bytes the shards of this process send):
+the port's own counts of its exchanges, which a caller may set to 0.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -29,7 +44,24 @@ from njw_tpu_torch.platform.device import require_device
 from njw_tpu_torch.weather.grid import FieldState
 
 AXES = ("y", "x")
+Axis = Union[str, tuple]  # 'y', 'x' or the combined ('y', 'x')
 Payload = tuple  # the tensors one shard sends in one exchange
+
+
+class Ready:
+    """The handle of an exchange that is complete: ``wait()`` gives its
+    payloads."""
+
+    def __init__(self, payloads: list):
+        self._payloads = payloads
+
+    def wait(self) -> list:
+        return self._payloads
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
 
 
 def _device(device) -> torch.device:
@@ -51,6 +83,8 @@ class _Mesh:
         self.shape = (int(py), int(px))
         self.coords = coords
         self.device = device
+        self.exchanges = 0
+        self.exchange_bytes = 0
 
     @property
     def py(self) -> int:
@@ -64,13 +98,45 @@ class _Mesh:
     def size(self) -> int:
         return self.py * self.px
 
-    def axis_size(self, axis: str) -> int:
-        return self.shape[AXES.index(axis)]
+    def axis_size(self, axis: Axis) -> int:
+        if tuple(axis) == AXES:
+            return self.size
+        return self.shape[self._axis(axis)]
 
-    def axis_index(self, axis: str) -> list[int]:
-        """Each local shard's index along ``axis``."""
-        i = AXES.index(axis)
+    def axis_index(self, axis: Axis) -> list[int]:
+        """Each local shard's index along ``axis`` (along ('y', 'x'):
+        iy * px + ix, as ``lax.axis_index(('y', 'x'))``)."""
+        if tuple(axis) == AXES:
+            return [iy * self.px + ix for iy, ix in self.coords]
+        i = self._axis(axis)
         return [c[i] for c in self.coords]
+
+    @staticmethod
+    def _axis(axis) -> int:
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}: expected 'y', "
+                             "'x' or ('y', 'x')")
+        return AXES.index(axis)
+
+    def axis_members(self, coord: tuple, axis: Axis) -> list[tuple]:
+        """The coordinates of the shards on ``coord``'s ring along
+        ``axis``, in the order of their index along it."""
+        if tuple(axis) == AXES:
+            return [(iy, ix) for iy in range(self.py) for ix in range(self.px)]
+        if self._axis(axis) == 0:
+            return [(iy, coord[1]) for iy in range(self.py)]
+        return [(coord[0], ix) for ix in range(self.px)]
+
+    def ring_shift(self, payloads: Sequence[Payload], axis: str,
+                   shift: int) -> list[Payload]:
+        """For each local shard, the payload of the shard ``shift`` places
+        back along ``axis`` (src i -> dst i + shift, as ``_ring_shift``):
+        ``ring_shift_start``, then wait."""
+        return self.ring_shift_start(payloads, axis, shift).wait()
+
+    def _count(self, tensors) -> None:
+        self.exchanges += 1
+        self.exchange_bytes += _nbytes(tensors)
 
     def shifted(self, coord: tuple, axis: str, shift: int) -> tuple:
         """The coordinate ``shift`` places along ``axis`` from ``coord``
@@ -120,6 +186,27 @@ class _Mesh:
                              f"{len(self.coords)}")
 
 
+def _check_split(block: torch.Tensor, split_dim: int, n: int) -> None:
+    if block.shape[split_dim] != n:
+        raise ValueError(f"all_to_all: dimension {split_dim} of a block of "
+                         f"shape {tuple(block.shape)} must be the axis size "
+                         f"{n}")
+
+
+class _Posted:
+    """The handle of a posted ``batch_isend_irecv``; holds the send
+    buffers until the exchange is done."""
+
+    def __init__(self, works, sends, recvs):
+        self._works, self._sends, self._recvs = works, sends, recvs
+
+    def wait(self) -> list:
+        for work in self._works:
+            work.wait()
+        self._works = self._sends = ()
+        return [tuple(self._recvs)]
+
+
 class LocalMesh(_Mesh):
     """All py x px shards in this process, on one device (CUDA by
     default; raises without a card unless ``device='cpu'``)."""
@@ -131,15 +218,36 @@ class LocalMesh(_Mesh):
     def index(self, coord: tuple) -> int:
         return coord[0] * self.px + coord[1]
 
-    def ring_shift(self, payloads: Sequence[Payload], axis: str,
-                   shift: int) -> list[Payload]:
+    def ring_shift_start(self, payloads: Sequence[Payload], axis: str,
+                         shift: int) -> Ready:
         """For each shard i along ``axis``, the payload of shard i - shift
         (mod n): src i -> dst i + shift, as ``_ring_shift``. A reindexing
-        of the list; the tensors are the senders' own (views)."""
+        of the list; the tensors are the senders' own (views). Complete at
+        once."""
         if self.axis_size(axis) == 1:
-            return list(payloads)
-        return [payloads[self.index(self.shifted(c, axis, -shift))]
-                for c in self.coords]
+            return Ready(list(payloads))
+        self._count(t for p in payloads for t in p)
+        return Ready([payloads[self.index(self.shifted(c, axis, -shift))]
+                      for c in self.coords])
+
+    def all_to_all(self, blocks: Sequence[torch.Tensor], axis: Axis,
+                   split_dim: int, concat_dim: int) -> list[torch.Tensor]:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=False)``
+        for each local block: block.shape[split_dim] is the axis size n;
+        slice j along it goes to the shard of index j along ``axis``, and
+        the n slices a shard receives are stacked, in source order, at
+        ``concat_dim`` of the result (whose split dimension is gone). A
+        reindexing of slice views; the one copy is the stack."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return list(blocks)
+        for b in blocks:
+            _check_split(b, split_dim, n)
+        self._count(blocks)
+        return [torch.stack([blocks[self.index(src)].select(split_dim, me)
+                             for src in self.axis_members(c, axis)],
+                            dim=concat_dim)
+                for c, me in zip(self.coords, self.axis_index(axis))]
 
     def gather_state(self, shards: Sequence) -> FieldState:
         """The whole-domain state (a new one) from the shards."""
@@ -155,6 +263,7 @@ class ProcessMesh(_Mesh):
     """
 
     _TAG_BASE = {("y", 1): 0, ("y", -1): 16, ("x", 1): 32, ("x", -1): 48}
+    _TAG_SPAN = 16
 
     def __init__(self, py: int, px: int = 1, group=None, device="cuda"):
         if not dist.is_initialized():
@@ -166,6 +275,7 @@ class ProcessMesh(_Mesh):
                              "mesh")
         self.group = group
         self.rank = dist.get_rank(group)
+        self._groups: dict = {}
         super().__init__(py, px, [divmod(self.rank, px)], _device(device))
 
     def _peer(self, coord: tuple) -> int:
@@ -173,14 +283,21 @@ class ProcessMesh(_Mesh):
         return r if self.group is None else dist.get_global_rank(self.group,
                                                                  r)
 
-    def ring_shift(self, payloads: Sequence[Payload], axis: str,
-                   shift: int) -> list[Payload]:
-        """This rank's payload goes to the rank ``shift`` places along
-        ``axis``; the one ``shift`` places back arrives (new contiguous
-        tensors), in one ``batch_isend_irecv``."""
+    def ring_shift_start(self, payloads: Sequence[Payload], axis: str,
+                         shift: int):
+        """Post the exchange: this rank's payload goes to the rank
+        ``shift`` places along ``axis``, the one ``shift`` places back
+        arrives (new contiguous tensors), in one ``batch_isend_irecv``.
+        ``wait()`` on the handle waits for it and gives the payloads. Tag
+        ``_TAG_BASE[(axis, sign)] + i`` for the i-th tensor of the payload:
+        one exchange of each axis and direction may be in flight at a time
+        (the halo pads post the two directions of one axis together)."""
         if self.axis_size(axis) == 1:
-            return list(payloads)
+            return Ready(list(payloads))
         (payload,) = payloads
+        if len(payload) > self._TAG_SPAN:
+            raise ValueError(f"{len(payload)} tensors in one exchange; at "
+                             f"most {self._TAG_SPAN}")
         me = self.coords[0]
         dst = self._peer(self.shifted(me, axis, shift))
         src = self._peer(self.shifted(me, axis, -shift))
@@ -191,9 +308,60 @@ class ProcessMesh(_Mesh):
                for i, t in enumerate(sends)]
         ops += [dist.P2POp(dist.irecv, t, src, self.group, tag + i)
                 for i, t in enumerate(recvs)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return [tuple(recvs)]
+        self._count(sends)
+        return _Posted(dist.batch_isend_irecv(ops), sends, recvs)
+
+    def _axis_group(self, axis: Axis):
+        """(process group, this mesh's global ranks of the members of this
+        rank's ring along ``axis`` in index order). The rings of one axis
+        are made together, by every rank, at the first all-to-all along
+        it."""
+        members = self.axis_members(self.coords[0], axis)
+        ranks = [self._peer(c) for c in members]
+        if len(members) == self.size:
+            return self.group, ranks
+        key = AXES[self._axis(axis)]
+        if key not in self._groups:
+            if self.group is not None:
+                raise NotImplementedError(
+                    "ProcessMesh.all_to_all along one axis of a 2-D mesh "
+                    "needs the mesh on the default process group")
+            heads = ([(0, ix) for ix in range(self.px)] if key == "y"
+                     else [(iy, 0) for iy in range(self.py)])
+            rings = {}
+            for head in heads:
+                ring = tuple(self._peer(m)
+                             for m in self.axis_members(head, axis))
+                rings[ring] = dist.new_group(list(ring))
+            self._groups[key] = rings
+        return self._groups[key][tuple(ranks)], ranks
+
+    def all_to_all(self, blocks: Sequence[torch.Tensor], axis: Axis,
+                   split_dim: int, concat_dim: int) -> list[torch.Tensor]:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=False)``
+        (see ``LocalMesh.all_to_all``) as one ``dist.all_to_all`` over the
+        ranks of this rank's ring along ``axis``; complex blocks travel as
+        their real views."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return list(blocks)
+        (block,) = blocks
+        _check_split(block, split_dim, n)
+        group, ranks = self._axis_group(axis)
+        # a group numbers its members in the order of their global ranks
+        slot = [sorted(ranks).index(r) for r in ranks]
+        sends = [None] * n
+        for j in range(n):
+            part = block.select(split_dim, j).contiguous()
+            sends[slot[j]] = (torch.view_as_real(part) if part.is_complex()
+                              else part)
+        recvs = [torch.empty_like(t) for t in sends]
+        self._count(sends)
+        dist.all_to_all(recvs, sends, group=group)
+        got = [recvs[slot[j]] for j in range(n)]
+        if block.is_complex():
+            got = [torch.view_as_complex(t) for t in got]
+        return [torch.stack(got, dim=concat_dim)]
 
     def gather_state(self, shards: Sequence) -> FieldState:
         """The whole-domain state on every rank (an all-gather of each

@@ -73,14 +73,20 @@ def pe_state_to_numpy(s: PEState) -> dict[str, np.ndarray]:
 def shards_from_numpy(src, mesh) -> list:
     """The shards ``mesh`` holds (``njw_tpu_torch.parallel``) of a whole
     state given as a dict of arrays or any object with the fields (a JAX
-    state, sharded or not): a ``PEState`` when it has ps, else the
-    ``WeatherState`` of u, v, h. The fields are read with ``np.asarray``."""
+    state, sharded or not): a ``PEState`` when it has ps, a
+    ``BarotropicState`` when it has zeta, else the ``WeatherState`` of u,
+    v, h. The fields are read with ``np.asarray``."""
     get = src.__getitem__ if isinstance(src, Mapping) else \
         (lambda name: getattr(src, name))
-    has_ps = (("ps" in src) if isinstance(src, Mapping)
-              else getattr(src, "ps", None) is not None)
-    if has_ps:
+
+    def has(name):
+        return ((name in src) if isinstance(src, Mapping)
+                else getattr(src, name, None) is not None)
+
+    if has("ps"):
         state = _fields_from(PEState, src, "cpu")
+    elif has("zeta"):
+        state = _fields_from(BarotropicState, src, "cpu")
     else:
         state = WeatherState(**{name: tensor_from_numpy(np.asarray(get(name)),
                                                         "cpu")

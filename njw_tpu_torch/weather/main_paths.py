@@ -44,6 +44,22 @@ full width, each a main path's configuration on a mesh:
               (2, 2); 10 steps (config 5 names no step count; the JAX
               package's mesh sweep, njw_tpu/bench/scaling.py:136, checks
               one step per mesh)
+
+``PLAIN_SHARDED_PATHS`` are the plain sharded steppers (no kernel of the
+port launches: the launch count is 0) at full width:
+
+  swe_plain_*        the swe main path on (4, 1) and (2, 2), and on (2, 2)
+                     with reflective walls and beta 1e-3 (what the kernel
+                     path refuses); sharded_swe_step, overlap, 100 steps
+  pe4_plain_*        the primitive main path (BASELINE config 4) on (2, 2)
+                     and (4, 1); sharded_pe_step, overlap, 20 steps
+  baro_*             the barotropic main path (BASELINE config 3) on (4, 1)
+                     (the transpose FFT) and (2, 2) (the 2-D branch, pencil
+                     FFT); sharded_barotropic_step, 100 steps
+
+Config 5 stays on the kernel paths: its plain whole-domain run, the
+comparison a plain path is held to, keeps tens of state-sized
+temporaries of 2048^2 x 40 alive.
 """
 from __future__ import annotations
 
@@ -99,9 +115,9 @@ class ShardedPath:
     overrides: dict[str, Any]    # SimConfig fields changed
     mesh: tuple[int, int]
     stepper: str                 # constructor in njw_tpu_torch.parallel
-    options: dict[str, Any]      # its keyword options (carry)
-    kernel: str                  # the launch counter the path must move
-    launches_per_step: int       # launches per shard per step
+    options: dict[str, Any]      # its keyword options (carry, overlap)
+    kernel: Optional[str]        # the launch counter the path must move
+    launches_per_step: int       # launches per shard per step (0: plain)
     steps: int
 
     @property
@@ -158,6 +174,26 @@ SHARDED_PATHS = {
     "pe5_stage_2x2": ShardedPath(
         "primitive", _CONFIG5, (2, 2), "sharded_pe_step_kernel", {},
         "pe_stage", 4, 10),
+}
+
+
+_OVERLAP = {"overlap": True}
+PLAIN_SHARDED_PATHS = {
+    "swe_plain_4x1": ShardedPath("swe", {}, (4, 1), "sharded_swe_step",
+                                 _OVERLAP, None, 0, 100),
+    "swe_plain_2x2": ShardedPath("swe", {}, (2, 2), "sharded_swe_step",
+                                 _OVERLAP, None, 0, 100),
+    "swe_plain_refl_beta_2x2": ShardedPath(
+        "swe", {"boundary_condition": "reflective", "beta": 1e-3}, (2, 2),
+        "sharded_swe_step", _OVERLAP, None, 0, 100),
+    "pe4_plain_2x2": ShardedPath("primitive", {}, (2, 2), "sharded_pe_step",
+                                 _OVERLAP, None, 0, 20),
+    "pe4_plain_4x1": ShardedPath("primitive", {}, (4, 1), "sharded_pe_step",
+                                 _OVERLAP, None, 0, 20),
+    "baro_4x1": ShardedPath("barotropic", {}, (4, 1),
+                            "sharded_barotropic_step", {}, None, 0, 100),
+    "baro_2x2": ShardedPath("barotropic", {}, (2, 2),
+                            "sharded_barotropic_step", {}, None, 0, 100),
 }
 
 

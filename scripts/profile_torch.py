@@ -3,7 +3,8 @@
 
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
-                                     fir|pe_stage|baro_stage|all]
+                                     fir|pe_stage|baro_stage|plain_sharded|
+                                     all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -74,7 +75,12 @@ the card's name and power limit:
     without loads, the loads alone) and an earlier fir_band.cuh / .cu /
     _bf16.cu built outside the repository, in turns (parent first each
     turn), with the largest difference from the parent; ``fir_built``:
-    registers, spills, shared bytes and blocks per SM of every build.
+    registers, spills, shared bytes and blocks per SM of every build;
+  * plain_sharded (no path profile) ``plain_sharded``: one step of each
+    ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh, and of the SWE and PE
+    ones with overlap off too: device ms by kind of PyTorch kernel, the
+    kernels a step and their mean time, beside the wall ms a step and
+    the host's enqueue.
 """
 from __future__ import annotations
 
@@ -204,6 +210,80 @@ def profile_path(model: str, steps: int, gpu: str) -> dict:
             "stepper": sim.stepper.name, "steps": steps,
             **summary(by_name, steps, wall_ms, "step"),
             "host_enqueue_ms_per_step": enqueue_ms}
+
+
+def torch_group(name: str) -> str:
+    """The kind of a PyTorch kernel, by its name."""
+    low = name.lower()
+    for kind, keys in (("cufft", ("fft",)), ("cat", ("catarray",)),
+                       ("reduce_scan", ("reduce", "scan")),
+                       ("copy", ("copy",)),
+                       ("elementwise", ("elementwise", "vectorized"))):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def plain_sharded(gpu: str) -> None:
+    """One step of each ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh on
+    the card under torch.profiler (CUDA activity alone), and for SWE and
+    PE the same step with overlap off: the device ms a step by kind of
+    kernel (elementwise, cat, copy, reduce and scan, cuFFT), the kernels a
+    step and their mean time, beside the wall ms a step (CUDA events over
+    a few steps) and the host's enqueue of one."""
+    from njw_tpu_torch.parallel import LocalMesh
+    from njw_tpu_torch.weather.main_paths import PLAIN_SHARDED_PATHS
+
+    for name, p in PLAIN_SHARDED_PATHS.items():
+        forms = [p.options] + ([{"overlap": False}] if p.options else [])
+        s0 = p.initial_state()
+        for opts in forms:
+            path = dataclasses.replace(p, options=opts, steps=1)
+            mesh = LocalMesh(*path.mesh)
+            step = path.make_stepper(mesh)
+            shards = mesh.shard_state(s0)
+            step(shards)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(shards)
+                torch.cuda.synchronize()
+            by_kind: dict[str, float] = {}
+            kernels = 0
+            for evt in prof.key_averages():
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                us = getattr(evt, "self_device_time_total", 0.0)
+                kind = torch_group(evt.key)
+                by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+                kernels += evt.count
+            device = sum(by_kind.values())
+            # no spin ahead: the host's pace is what a step takes here
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            step.n_steps = 3
+            torch.cuda.synchronize()
+            start.record()
+            step(shards)
+            end.record()
+            end.synchronize()
+            wall = start.elapsed_time(end) / 3
+            step.n_steps = 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(shards)
+            enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "phase": "plain_sharded", "card": gpu, "path": name,
+                "mesh": list(p.mesh), "options": opts,
+                "wall_ms_per_step": wall, "host_enqueue_ms_per_step": enqueue,
+                "device_ms_per_step": device,
+                "device_busy_share": device / wall,
+                "kernels_per_step": kernels,
+                "mean_kernel_us": device * 1e3 / max(kernels, 1),
+                "device_ms_by_kind": by_kind}), flush=True)
+            del step, shards
+        torch.cuda.empty_cache()
 
 
 def profile_fir(calls: int, gpu: str) -> dict:
@@ -1225,7 +1305,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
-                             "baro_stage", "all"])
+                             "baro_stage", "plain_sharded", "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
@@ -1256,6 +1336,9 @@ def main() -> int:
             continue
         if model == "baro_stage":
             baro_stage_study(gpu, args.parent_baro)
+            continue
+        if model == "plain_sharded":
+            plain_sharded(gpu)
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

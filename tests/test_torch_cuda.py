@@ -860,3 +860,82 @@ class TestShardedKernelsOnCard:
             carry, s = ref.step(carry, s, None)
         for (name, a), (_, b) in zip(got.items(), s.items()):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+class TestPlainShardedOnCard:
+    """The plain sharded steppers on a LocalMesh on the card against the
+    whole-domain plain run on the card (the JAX sharded tests'
+    tolerances; the SWE overlap form equal to the padded form bit for bit),
+    with no kernel launched; and the config-5 mesh sweep on K4."""
+
+    def _counts(self):
+        return (swe_rk4_step_cuda.launches, baro_stage_cuda.launches,
+                pe_stage_cuda.launches, pe_rk4_step_cuda.launches)
+
+    @pytest.mark.parametrize("shape,bc", [((2, 2), "reflective"),
+                                          ((4, 1), "periodic")])
+    def test_swe_matches_whole_domain(self, cuda_device, shape, bc):
+        from njw_tpu_torch.parallel import LocalMesh, sharded_swe_step
+
+        cfg = SimConfig(grid_width=128, grid_height=96, dt=0.01,
+                        coriolis_f=1e-4, beta=0.5, boundary_condition=bc,
+                        backend="plain")
+        sim = Simulation.from_config(cfg, "vortex", strength=2.0)
+        s0 = sim.state
+        mesh = LocalMesh(*shape)
+        before = self._counts()
+        outs = [mesh.gather_state(sharded_swe_step(
+            cfg.grid_spec(), cfg.physics(), mesh, dt=0.01, n_steps=5,
+            overlap=ov)(mesh.shard_state(s0))) for ov in (True, False)]
+        sim.step(5)
+        assert self._counts() == before
+        for (name, a), (_, b), (_, w) in zip(outs[0].items(),
+                                             outs[1].items(),
+                                             sim.state.items()):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5, msg=name)
+
+    @pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+    def test_barotropic_matches_whole_domain(self, cuda_device, shape):
+        from njw_tpu_torch.parallel import LocalMesh, sharded_barotropic_step
+
+        cfg = SimConfig(model="barotropic", grid_width=128, grid_height=128,
+                        dt=0.05, beta=1e-3, viscosity=1e-3, backend="plain")
+        sim = Simulation.from_config(cfg, "vortex", strength=3.0)
+        mesh = LocalMesh(*shape)
+        before = self._counts()
+        got = mesh.gather_state(sharded_barotropic_step(
+            cfg.grid_spec(), cfg.physics(), mesh, dt=0.05, n_steps=5)(
+            mesh.shard_state(sim.state)))
+        sim.step(5)
+        assert self._counts() == before
+        torch.testing.assert_close(got.zeta, sim.state.zeta, rtol=5e-4,
+                                   atol=5e-5)
+
+    def test_pe_matches_whole_domain(self, cuda_device):
+        from njw_tpu_torch.parallel import LocalMesh, sharded_pe_step
+
+        cfg = SimConfig(model="primitive", grid_width=96, grid_height=64,
+                        num_levels=4, dx=1e5, dy=1e5, dt=30.0,
+                        coriolis_f=1e-4, backend="plain")
+        sim = Simulation.from_config(cfg, "baroclinic", u_jet=15.0,
+                                     perturb=0.5)
+        mesh = LocalMesh(2, 2)
+        got = mesh.gather_state(sharded_pe_step(
+            cfg.grid_spec(), cfg.physics(), mesh, dt=30.0, n_steps=4)(
+            mesh.shard_state(sim.state)))
+        sim.step(4)
+        for (name, a), (_, b) in zip(got.items(), sim.state.items()):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, msg=name)
+
+    def test_pe_mesh_shape_sweep_on_k4(self, cuda_device):
+        from njw_tpu_torch.bench.scaling import pe_mesh_shape_sweep
+
+        before = pe_rk4_step_cuda.launches
+        rows = pe_mesh_shape_sweep(4, ny=64, nx=128, L=6, dt=10.0)
+        torch.cuda.synchronize()
+        assert [r["mesh"] for r in rows] == [[4, 1], [2, 2], [1, 4]]
+        assert all(r["ok"] for r in rows), rows
+        assert pe_rk4_step_cuda.launches == before + 2 * 4 * 3
+        assert rows[0]["device"].startswith("cuda")
