@@ -150,8 +150,35 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 overlap on and off, pe_mesh_shape_sweep(4 shards, 512^2 x
                 20, dt 240: K4 per shard, its launches exact), every row
                 ok
-Then the kernel table ({"kernels": [...]}), the card line, and as the last
-line {"ok": true, "device": {...}}.
+  16 global paths  the C-grid, nested, spectral and icosahedral cores and
+                their sharded forms (GLOBAL_PATHS): each core at a small
+                size, 20 steps on the card against the port on the CPU
+                (staggered 256^2, nested 128^2, nlat 64 with the fold on
+                and off, icosa n = 32; normalised by field group, 1e-4);
+                the C-grid tendency against a float64 NumPy evaluation of
+                its formulas (1e-4); the whole-domain paths at full width
+                through Simulation (staggered 2048^2, nested 512^2, T341
+                SWE and BVE, T170 SI order 2 beside RK4, icosa 256) with the
+                JAX tests' invariants (the C-grid's mass tendency, the
+                Rossby-Haurwitz BVE's phase speed, TC2 on the T341
+                transform and on the icosahedron), every launch count 0;
+                ms/step and grid-points/s by CUDA events, host enqueue,
+                device work (torch.profiler), paced_by, peak memory and, on
+                the spectral paths, the Legendre table bytes a step and
+                their time at the card's memory rate, and one step under
+                torch.profiler in which no op but the products touches a
+                table-shaped tensor (no table copy), beside the bytes the
+                step allocates; T341 unfolded on
+                LocalMesh(4, 1) and icosa 256 on (5, 1) against the
+                whole-domain run of the same RK4 arithmetic (the JAX
+                sharded tests' tolerances) with the mesh's exchanges a
+                step; the folded T341 transform against the unfolded one
+                (the stacked contractions 1e-5, 50 steps 1e-4); the CLI on
+                each new grid type, --nest-patch, and an --output-format
+                netcdf run read back with read_netcdf
+Phases 6, 13 and 14 also read the device's work over one step (the
+profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
+card line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -990,17 +1017,41 @@ def _drive(sim, warm: int, steps: int) -> dict:
     finite = all(bool(torch.isfinite(t).all()) for _, t in sim.state.items())
     ms_step = start.elapsed_time(end) / steps
     host_ms = sim.metrics.compute_time_ms / steps
+    peak = torch.cuda.max_memory_allocated()
     # host cost of one step: enqueued with no synchronise inside
     n_host = 20
     t0 = time.perf_counter()
     sim.step(n_host, synchronize=False)
     host_enqueue_ms = (time.perf_counter() - t0) * 1e3 / n_host
     torch.cuda.synchronize()
+    # None where the profiler recorded no kernel of the step (it saw none
+    # of the bf16 and two-step SWE kernels' steps in phase 13)
+    device_ms = _device_ms(lambda: sim.step(1, synchronize=False)) or None
     return {"launches": launched, "finite": finite, "ms_per_step": ms_step,
             "host_ms_per_step": host_ms,
             "host_enqueue_ms_per_step": host_enqueue_ms,
-            "paced_by": paced_by(ms_step, host_enqueue_ms),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms and device_ms / ms_step,
+            "paced_by": paced_by(ms_step, host_enqueue_ms, device_ms),
+            "peak_mem_bytes": peak}
+
+
+def _device_ms(fn) -> float:
+    """The device's own work in one call of fn(): the summed time of the
+    kernels it ran, under torch.profiler (CUDA activity alone: tracing the
+    host side of thousands of calls costs seconds). CUDA events cannot
+    time it where a step enqueues more calls than the launch queue holds:
+    a spin ahead of them ends before the host has queued them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def paced_by(ms: float, host_ms: float, device_ms: float = None) -> str:
@@ -1971,19 +2022,14 @@ def _scaling_rows() -> dict:
     return rows
 
 
-def _plain_step_costs(stepper, shards, reps: int = 3) -> tuple:
-    """(host ms, device ms) of one step of a plain sharded stepper. Host:
-    a two-step call less a one-step call, each enqueued after a
-    synchronise, the median of ``reps``. Device: the time of the kernels
-    of a one-step call under torch.profiler (CUDA activity alone: the
-    host side's trace of thousands of calls costs seconds). CUDA events
-    cannot time the device's own work here: a step enqueues thousands of
-    calls, more than the launch queue holds, so a spin ahead of them ends
-    before the host has queued them."""
+def _plain_step_costs(stepper, *args, reps: int = 3) -> tuple:
+    """(host ms, device ms) of one step of a plain sharded stepper called
+    with ``args``. Host: a two-step call less a one-step call, each
+    enqueued after a synchronise, the median of ``reps``. Device:
+    ``_device_ms`` of a one-step call."""
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     n = stepper.n_steps
     host = []
@@ -1994,20 +2040,14 @@ def _plain_step_costs(stepper, shards, reps: int = 3) -> tuple:
                 stepper.n_steps = k
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                stepper(shards)
+                stepper(*args)
                 h[k] = (time.perf_counter() - t0) * 1e3
             host.append(h[2] - h[1])
         stepper.n_steps = 1
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            stepper(shards)
-            torch.cuda.synchronize()
+        device_ms = _device_ms(lambda: stepper(*args))
     finally:
         stepper.n_steps = n
-    device_us = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    return statistics.median(host), device_us / 1e3
+    return statistics.median(host), device_ms
 
 
 def _reflective_walls() -> dict:
@@ -2373,14 +2413,22 @@ def variant_paths(m1: dict) -> dict:
     return out
 
 
+# fields that share one scale: the winds, and the spectral winds' zeta and
+# div (a balanced state's div is orders below its zeta and carries the
+# winds' rounding)
+SCALE_GROUPS = (("u", "v"), ("zeta", "div"), ("coarse_u", "coarse_v"),
+                ("fine_u", "fine_v"))
+
+
 def _normalised_groups(a_state, b_state) -> dict:
-    """max |a - b| per field over the scale of b's group: the winds u, v
-    share one, every other field has its own."""
+    """max |a - b| per field over the scale of b's group (SCALE_GROUPS;
+    every other field has its own)."""
     bs = dict(b_state.items())
 
     def scale(name):
-        group = ("u", "v") if name in ("u", "v") else (name,)
-        return max(float(bs[g].abs().max()) for g in group) + 1e-30
+        group = next((g for g in SCALE_GROUPS if name in g), (name,))
+        return max(float(bs[g].abs().max()) for g in group if g in bs) \
+            + 1e-30
 
     return {name: float((a.cpu() - bs[name].cpu()).abs().max()) / scale(name)
             for name, a in a_state.items()}
@@ -2481,6 +2529,519 @@ def semi_implicit() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 16
+
+GLOBAL_CPU_TOL = 1e-4       # the card against the port on the CPU, 20 steps
+FOLD_TRANSFORM_ATOL = 1e-5  # tests/test_weather_spherical.py:114-129
+FOLD_STATE_ATOL = 1e-4      # :131-147
+SPHERE_SHARD_ATOL = 1e-4    # tests/test_parallel_sphere.py:42
+ICOSA_SHARD_ATOL = {"h": 1e-3, "V": 1e-5}  # tests/test_parallel_icosa.py:94
+RH_ROTATION_TOL = 1e-4      # tests/test_weather_spherical.py:176
+TC2_SPECTRAL = (1e-5, 1e-8)  # :208-209 (phi drift, max |div|)
+TC2_ICOSA = 2e-3            # tests/test_weather_icosa.py:165
+MASS_TOL = 1e-3             # tests/test_weather_staggered.py:57
+CGRID_REF_TOL = 1e-4        # vs float64 NumPy: float32 rounding of g h + K
+#                             differenced over a cell reads 2e-5 of max|du|
+# ops that may take a table without copying it: the products and views
+TABLE_VIEW_OPS = {"aten::bmm", "aten::select", "aten::slice",
+                  "aten::as_strided", "aten::view", "aten::expand",
+                  "aten::transpose", "aten::permute", "aten::resolve_conj",
+                  "aten::resolve_neg", "aten::alias", "aten::unsqueeze",
+                  "aten::squeeze", "aten::narrow", "aten::detach"}
+# the Legendre tables each spectral tendency reads (weather/spherical.py)
+CORE_TABLES = {"swe": ("P", "H", "Pw_over_c2", "Hw_over_c2", "Pw"),
+               "bve": ("P", "H", "Pw_over_c2", "Hw_over_c2")}
+
+
+def _global(name: str):
+    from njw_tpu_torch.weather.main_paths import GLOBAL_PATHS
+
+    return GLOBAL_PATHS[name]
+
+
+def _spectral_core(cfg) -> str:
+    return "bve" if cfg.model == "barotropic" else "swe"
+
+
+def _table_bound(sim, cfg) -> dict:
+    """The Legendre table bytes one step reads (each tendency reads its
+    tables once, ``stages`` tendencies a step) and their time at the
+    card's memory rate: the step's bytes bound."""
+    core = _spectral_core(cfg)
+    per_tendency = sum(sim.sht.table_bytes(t) for t in CORE_TABLES[core])
+    n_bytes = sim.stepper.stages * per_tendency
+    ms, by = roofline_ms(n_bytes, 0.0)
+    return {"table_bytes_per_step": n_bytes, "tables_per_tendency":
+            list(CORE_TABLES[core]), "folded": sim.sht.fold_parity,
+            "table_bound_ms": ms}
+
+
+def _table_copies(sim) -> dict:
+    """One step of a spectral path under torch.profiler (CPU and CUDA,
+    input shapes recorded): the ops other than the products and views
+    (TABLE_VIEW_OPS) that took a tensor of a Legendre table's shape (a
+    table-sized copy or upcast: there must be none), and, to read beside
+    it, the memory one step allocates beyond what it started with (at
+    T341 the step's own grids and stacks come to about one folded
+    table half)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sht = sim.sht
+    tables = ([t for pair in sht.folded.values() for t in pair]
+              if sht.folded is not None else list(sht.tables.values()))
+    shapes = {list(t.shape).__repr__() for t in tables}
+    smallest = min(t.numel() * t.element_size() for t in tables)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        sim.step(1)
+    step_bytes = torch.cuda.max_memory_allocated() - before
+    copies = sorted({e.key for e in prof.key_averages(
+        group_by_input_shape=True)
+        if e.key not in TABLE_VIEW_OPS and any(repr(list(s)) in shapes
+                                        for s in e.input_shapes if s)})
+    return {"ops_copying_a_table": copies,
+            "step_alloc_bytes": step_bytes,
+            "smallest_table_bytes": smallest, "ok": not copies}
+
+
+def _cgrid_numpy(u, v, h, g, f, dx, dy):
+    """The Sadourny C-grid tendencies in float64 NumPy, written from the
+    formulas (weather/staggered.py's docstring), not from the port."""
+    import numpy as np
+
+    def at(a, di=0, dj=0):   # a[j + dj, i + di], periodic
+        return np.roll(np.roll(a, -dj, 0), -di, 1)
+
+    U = 0.5 * (h + at(h, 1)) * u
+    V = 0.5 * (h + at(h, 0, 1)) * v
+    zeta = (at(v, 1) - v) / dx - (at(u, 0, 1) - u) / dy
+    hq = 0.25 * (h + at(h, 1) + at(h, 0, 1) + at(h, 1, 1))
+    q = (zeta + f) / hq
+    K = 0.25 * (u * u + at(u * u, -1) + v * v + at(v * v, 0, -1))
+    phi = g * h + K
+    V_u = 0.25 * (V + at(V, 0, -1) + at(V, 1) + at(V, 1, -1))
+    U_v = 0.25 * (U + at(U, -1) + at(U, 0, 1) + at(U, -1, 1))
+    du = 0.5 * (q + at(q, 0, -1)) * V_u - (at(phi, 1) - phi) / dx
+    dv = -0.5 * (q + at(q, -1)) * U_v - (at(phi, 0, 1) - phi) / dy
+    dh = -((U - at(U, -1)) / dx + (V - at(V, 0, -1)) / dy)
+    return du, dv, dh
+
+
+def _small_cases() -> dict:
+    """The card-vs-CPU configurations (20 steps each): for each, a function
+    of the device that makes its Simulation."""
+    from njw_tpu_torch.weather import SimConfig, Simulation
+    from njw_tpu_torch.weather.nested import make_nested_sim
+
+    def staggered(dev):
+        return Simulation.from_config(SimConfig(
+            grid_width=256, grid_height=256, grid_type="staggered",
+            coriolis_f=1e-4, dt=0.01, device=dev), "vortex", strength=1.0)
+
+    def nested(dev):
+        return make_nested_sim(Simulation, SimConfig(
+            grid_width=128, grid_height=128, coriolis_f=1e-4, dt=0.02,
+            device=dev), "vortex", patch=(32, 96, 32, 96), ratio=2,
+            strength=1.0)
+
+    def spectral(fold):
+        def build(dev):
+            return Simulation.from_config(SimConfig(
+                grid_type="spherical_harmonic", grid_width=128,
+                grid_height=64, dt=900.0, device=dev), "rossby_haurwitz",
+                nu4=1e15, fold_parity=fold)
+        return build
+
+    def icosa(dev):
+        return Simulation.from_config(SimConfig(
+            grid_type="icosahedral", grid_width=32, grid_height=32,
+            dt=450.0, device=dev), "gaussian", amplitude=50.0)
+
+    return {"staggered_256": staggered, "nested_128": nested,
+            "sph_swe_nlat64_fold": spectral(True),
+            "sph_swe_nlat64_unfolded": spectral(False), "icosa_32": icosa}
+
+
+def _global_cpu_vs_card() -> dict:
+    """Each core at a small size, 20 steps on the card and on the CPU,
+    normalised by field group: within GLOBAL_CPU_TOL."""
+    import numpy as np
+
+    out = {}
+    for name, build in _small_cases().items():
+        card, cpu = build("cuda"), build("cpu")
+        card.step(20)
+        cpu.step(20)
+        diffs = _normalised_groups(card.state, cpu.state)
+        worst = max(diffs.values())
+        ok = bool(np.isfinite(worst)) and worst <= GLOBAL_CPU_TOL
+        emit("global_cpu_vs_card", ok=ok, case=name, steps=20,
+             stepper=card.stepper.name, normalised_max_diff=diffs,
+             tol=GLOBAL_CPU_TOL)
+        if not ok:
+            fail("global_cpu_vs_card", f"{name}: the card and the CPU "
+                 "disagree")
+        out[name] = worst
+    return out
+
+
+def _cgrid_reference() -> dict:
+    """The card's C-grid tendencies at 256^2 against the float64 NumPy
+    evaluation of the same formulas (normalised by field group)."""
+    import numpy as np
+    from njw_tpu_torch.weather.dynamics import make_tendency_fn
+
+    sim = _small_cases()["staggered_256"]("cuda")
+    cfg = sim.config
+    s = sim.state
+    t = make_tendency_fn("shallow_water", cfg.grid_spec(), cfg.physics())(s)
+    ref = _cgrid_numpy(*(a.double().cpu().numpy() for a in (s.u, s.v, s.h)),
+                       cfg.gravity, cfg.coriolis_f, cfg.dx, cfg.dy)
+    wind = max(np.abs(ref[0]).max(), np.abs(ref[1]).max())
+    diffs = {n: float(np.abs(getattr(t, n).double().cpu().numpy() - r).max()
+                      / (wind if n != "h" else np.abs(r).max()))
+             for n, r in zip(("u", "v", "h"), ref)}
+    ok = max(diffs.values()) <= CGRID_REF_TOL
+    emit("global_cgrid_vs_numpy", ok=ok, grid=[256, 256],
+         normalised_max_diff=diffs, tol=CGRID_REF_TOL)
+    if not ok:
+        fail("global_cgrid_vs_numpy", "the C-grid tendency disagrees with "
+             "its float64 NumPy evaluation")
+    return diffs
+
+
+def _check_global(phase: str, r: dict) -> None:
+    if not r["finite"]:
+        fail(phase, "non-finite fields")
+    if any(r["launches"].values()):
+        fail(phase, f"a global path launched kernels: {r['launches']}")
+
+
+def _global_path(name: str) -> dict:
+    """One whole-domain GLOBAL_PATHS entry through Simulation, timed by
+    _drive, with its invariant where the JAX tests hold one."""
+    import numpy as np
+    import torch
+
+    p = _global(name)
+    cfg = p.sim_config()
+    phase = f"global_path_{name}"
+    torch.cuda.empty_cache()
+    sim = p.simulation()
+    s0 = sim.state
+    check = {}
+    if name == "staggered_2048":
+        from njw_tpu_torch.weather.dynamics import make_tendency_fn
+
+        dh = make_tendency_fn("shallow_water", cfg.grid_spec(),
+                              cfg.physics())(s0).h.double()
+        ratio = float(dh.sum().abs() / dh.abs().sum())
+        check = {"mass_tendency_sum_over_abs_sum": ratio,
+                 "tol": MASS_TOL, "ok": ratio < MASS_TOL}
+    r = _drive(sim, p.warm, p.steps)
+    _check_global(phase, r)
+    if name == "sph_bve_T341":
+        m, n = 4, 5        # rossby_haurwitz_bve's mode
+        om_r = 2.0 * sim.omega / (n * (n + 1))
+        exact = s0.zeta * np.exp(1j * m * om_r * sim.time)
+        got, want = sim.sht.synthesis(sim.state.zeta), \
+            sim.sht.synthesis(exact)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check = {"rotation_rel_err": rel, "model_seconds": sim.time,
+                 "phase_rad": m * om_r * sim.time, "tol": RH_ROTATION_TOL,
+                 "ok": rel < RH_ROTATION_TOL}
+    elif name == "icosa_256":
+        h0, h1 = s0.h.double(), sim.state.h.double()
+        rel = float(torch.sqrt(((h1 - h0) ** 2).mean() / (h0 ** 2).mean()))
+        V = sim.state.V
+        vr = float((V * sim.icosa_ops.r).sum(-1).abs().max()
+                   / V.abs().max())
+        check = {"tc2_h_rel_drift": rel, "model_seconds": sim.time,
+                 "tol": TC2_ICOSA, "radial_over_max_V": vr,
+                 "ok": rel < TC2_ICOSA and vr < 1e-3}
+    elif name == "sph_swe_T341":
+        check = _tc2_spectral(sim)
+    extra = {}
+    if cfg.grid_type == "spherical_harmonic":
+        extra = _table_bound(sim, cfg)
+        extra["fraction_of_table_bound"] = (extra["table_bound_ms"]
+                                            / r["ms_per_step"])
+        extra["table_copies"] = _table_copies(sim)
+        if not extra["table_copies"]["ok"]:
+            fail(phase, f"a step copies a table: {extra['table_copies']}")
+    ok = check.get("ok", True)
+    emit(phase, ok=ok, config=p.config, ic=p.ic, ic_params=p.ic_params,
+         steps=p.steps, warm_steps=p.warm, stepper=sim.stepper.name,
+         grid_points=p.points,
+         grid_points_per_s=p.points / (r["ms_per_step"] / 1e3),
+         invariant=check, **extra, **r)
+    if not ok:
+        fail(phase, f"the invariant does not hold: {check}")
+    return {**r, **extra, "invariant": check}
+
+
+def _tc2_spectral(sim) -> dict:
+    """Williamson TC2 on the path's (folded) T341 transform, RK4 with no
+    hyperdiffusion, 96 steps of the path's dt: the JAX test's band."""
+    from njw_tpu_torch.weather import make_stepper
+    from njw_tpu_torch.weather.spherical import (
+        swe_tendencies, williamson2_state)
+
+    sht, omega = sim.sht, sim.omega
+    s = williamson2_state(sht, omega)
+    p0 = sht.synthesis(s.phi)
+    step = make_stepper("rk4", lambda x: swe_tendencies(x, sht, omega)).step
+    for _ in range(96):
+        _, s = step((), s, sim._dt_f32)
+    p1 = sht.synthesis(s.phi)
+    rel = float((p1 - p0).norm() / p0.norm())
+    div = float(sht.synthesis(s.div).abs().max())
+    return {"tc2_phi_rel_drift": rel, "tc2_max_div": div, "steps": 96,
+            "tol": list(TC2_SPECTRAL),
+            "ok": rel < TC2_SPECTRAL[0] and div < TC2_SPECTRAL[1]}
+
+
+def _global_si() -> dict:
+    """sph_si_T170: semi-implicit order 2 at dt 480 beside its RK4 partner
+    at dt 240, 80 steps each."""
+    p = _global("sph_si_T170")
+    out = {}
+    for kind, over in (("si", {}), ("rk4", p.partner)):
+        sim = p.simulation(**over)
+        r = _drive(sim, p.warm, p.steps)
+        _check_global(f"global_path_sph_si_T170_{kind}", r)
+        dt = p.sim_config(**over).dt
+        r.update(_table_bound(sim, p.sim_config(**over)), dt=dt,
+                 stepper=sim.stepper.name,
+                 grid_points_per_s=p.points / (r["ms_per_step"] / 1e3),
+                 sim_seconds_per_wall_second=dt / r["ms_per_step"] * 1e3)
+        out[kind] = r
+        del sim
+    emit("global_path_sph_si_T170", ok=True, steps=p.steps, **out)
+    return out
+
+
+def _sharded_global(name: str, whole, same_arithmetic) -> dict:
+    """A sharded GLOBAL_PATHS entry on its LocalMesh: the stepper's call
+    of ``steps`` steps timed by CUDA events, its host time, the device's
+    work over one step (torch.profiler), the mesh's exchanges a step; and
+    the result against the whole-domain run of the same RK4 arithmetic
+    (``same_arithmetic(steps)``)."""
+    import torch
+    from njw_tpu_torch.parallel import LocalMesh
+
+    p = _global(name)
+    mesh = LocalMesh(*p.mesh)
+    stepper, states = p.sharded(whole, mesh)
+    dt = whole.dt
+    host_ms, device_ms = _plain_step_costs(stepper, states, dt)  # warms up
+    reset_counts()
+    mesh.exchanges = mesh.exchange_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    ms, call_host_ms = _time_steps(lambda: out.append(stepper(states, dt)),
+                                   p.steps)
+    launched = counts()
+    exchanges = mesh.exchanges / p.steps
+    exchange_bytes = mesh.exchange_bytes / p.steps
+    return {"stepper": stepper, "mesh": mesh, "out": out.pop(),
+            "ref": same_arithmetic(p.steps), "launches": launched,
+            "ms_per_step": ms,
+            "grid_points_per_s": p.points / (ms / 1e3),
+            "host_enqueue_ms_per_step": host_ms,
+            "host_ms_per_step_of_call": call_host_ms,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / ms,
+            "paced_by": paced_by(ms, call_host_ms, device_ms),
+            "exchanges_per_step": exchanges,
+            "exchange_bytes_per_step": exchange_bytes,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "card": card_state()}
+
+
+def _sphere_sharded_and_fold() -> dict:
+    """sph_swe_T341_4x1 against the unfolded whole-domain run, and the
+    folded T341 transform against the unfolded one: the stacked
+    contractions on the path's state (FOLD_TRANSFORM_ATOL) and 50 RK4
+    steps (FOLD_STATE_ATOL), in this call."""
+    import torch
+    from njw_tpu_torch.weather.integrators import rk4_lists
+    from njw_tpu_torch.weather.spherical import swe_tendencies
+
+    name = "sph_swe_T341_4x1"
+    p = _global(name)
+    torch.cuda.empty_cache()
+    whole = p.simulation()                      # the unfolded transform
+    s0, sht, omega = whole.state, whole.sht, whole.omega
+    nu4 = p.ic_params["nu4"]
+
+    def same_arithmetic(steps):
+        return rk4_lists(lambda ss: [swe_tendencies(ss[0], sht, omega,
+                                                    nu4)],
+                         [s0], whole.dt, steps)[0]
+
+    r = _sharded_global(name, whole, same_arithmetic)
+    diffs = _normalised_groups(r.pop("out")[0], r.pop("ref"))
+    stepper, mesh = r.pop("stepper"), r.pop("mesh")
+    ok = max(diffs.values()) <= SPHERE_SHARD_ATOL and not any(
+        r["launches"].values())
+    r.update(_table_bound(whole, p.sim_config()))
+    emit(f"global_path_{name}", ok=ok, mesh=list(p.mesh), steps=p.steps,
+         stepper=stepper.name, normalised_max_diff_vs_whole=diffs,
+         tol=SPHERE_SHARD_ATOL, **r)
+    if not ok:
+        fail(f"global_path_{name}", "the sharded run disagrees with the "
+             "whole-domain run")
+    del stepper, mesh
+
+    # the fold: the folded path's transform against the unfolded one
+    folded = _global("sph_swe_T341").simulation()
+    a = torch.stack([s0.zeta, s0.div, s0.phi])
+    transforms = {}
+    for which in ("P", "H", "Pw", "Pw_over_c2", "Hw_over_c2"):
+        f0 = sht.syn_stack(a, which)
+        f1 = folded.sht.syn_stack(a, which)
+        b0 = sht.anal_stack(f0, which)
+        b1 = folded.sht.anal_stack(f0, which)
+        transforms[which] = max(
+            float((f1 - f0).abs().max() / f0.abs().max()),
+            float((b1 - b0).abs().max() / b0.abs().max()))
+    steps = _global("sph_swe_T341").steps
+    whole.step(steps)       # from s0: no step has run on ``whole`` yet
+    folded.step(steps)
+    state = _normalised_groups(folded.state, whole.state)
+    ok = (max(transforms.values()) <= FOLD_TRANSFORM_ATOL
+          and max(state.values()) <= FOLD_STATE_ATOL)
+    emit("global_fold_vs_unfolded", ok=ok, nlat=sht.nlat, steps=steps,
+         transforms_normalised_max_diff=transforms,
+         state_normalised_max_diff=state,
+         tol=[FOLD_TRANSFORM_ATOL, FOLD_STATE_ATOL])
+    if not ok:
+        fail("global_fold_vs_unfolded", "the folded transform disagrees "
+             "with the unfolded one")
+    r["fold"] = {"transforms": transforms, "state": state}
+    return r
+
+
+def _icosa_sharded() -> dict:
+    """icosa_256_5x1 against the whole-domain run of the same RK4
+    arithmetic (the JAX test's absolute tolerances)."""
+    import torch
+    from njw_tpu_torch.parallel.icosa import unshard_state
+    from njw_tpu_torch.weather.icosa import swe_tendencies_icosa
+    from njw_tpu_torch.weather.integrators import rk4_lists
+
+    name = "icosa_256_5x1"
+    p = _global(name)
+    torch.cuda.empty_cache()
+    whole = p.simulation()
+    cfg = p.sim_config()
+    ops, s0 = whole.icosa_ops, whole.state
+
+    def same_arithmetic(steps):
+        return rk4_lists(lambda ss: [swe_tendencies_icosa(
+            ss[0], ops, g=cfg.gravity, omega=7.292e-5, nu=cfg.viscosity)],
+            [s0], whole.dt, steps)[0]
+
+    r = _sharded_global(name, whole, same_arithmetic)
+    mesh = r.pop("mesh")
+    got, ref = unshard_state(r.pop("out"), mesh), r.pop("ref")
+    diffs = {n: float((getattr(got, n) - getattr(ref, n)).abs().max())
+             for n in ("V", "h")}
+    stepper = r.pop("stepper")
+    ok = all(diffs[n] <= ICOSA_SHARD_ATOL[n] for n in diffs) and not any(
+        r["launches"].values())
+    emit(f"global_path_{name}", ok=ok, mesh=list(p.mesh), steps=p.steps,
+         stepper=stepper.name, max_abs_diff_vs_whole=diffs,
+         equal="bit-equal" if not any(diffs.values()) else
+         "within tolerance", tol=ICOSA_SHARD_ATOL, **r)
+    if not ok:
+        fail(f"global_path_{name}", "the sharded run disagrees with the "
+             "whole-domain run")
+    return r
+
+
+def _global_cli() -> None:
+    """The CLI's --json on each new grid type at a small size, and one
+    --output-format netcdf run read back with the port's read_netcdf."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from njw_tpu_torch.utils.netcdf3 import read_netcdf
+    from njw_tpu_torch.weather.__main__ import main as cli_main
+
+    runs = {
+        "staggered": ["--grid-type", "staggered", "--width", "128",
+                      "--height", "128", "--coriolis", "1e-4", "--steps",
+                      "20", "--json"],
+        "spherical_harmonic": ["--grid-type", "spherical_harmonic",
+                               "--width", "128", "--height", "64", "--dt",
+                               "900", "--steps", "20", "--json"],
+        "icosahedral": ["--grid-type", "icosahedral", "--width", "32",
+                        "--height", "32", "--dt", "450", "--steps", "20",
+                        "--json"],
+        "nest_patch": ["--width", "128", "--height", "128", "--dt", "0.02",
+                       "--nest-patch", "32,96,32,96", "--nest-ratio", "2",
+                       "--steps", "20", "--json"],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["netcdf"] = ["--width", "64", "--height", "64", "--steps", "11",
+                          "--output-interval", "5", "--output-format",
+                          "netcdf", "--output-dir", tmp, "--json"]
+        for name, argv in runs.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            ok = rc == 0 and line.get("num_steps") == int(
+                argv[argv.index("--steps") + 1]) - 1
+            extra = {}
+            if name == "netcdf":
+                files = sorted(os.listdir(tmp))
+                variables, dims, gatts = read_netcdf(os.path.join(
+                    tmp, files[-1]))
+                finite = all(np.isfinite(a).all()
+                             for _, a in variables.values())
+                ok = ok and files == ["weather_00000006.nc",
+                                      "weather_00000011.nc"] and finite \
+                    and dims == {"y": 64, "x": 64} and \
+                    int(gatts["step"]) == 11
+                extra = {"files": files, "variables": sorted(variables),
+                         "dims": dims, "finite": finite}
+            emit("global_cli", ok=ok, run=name, rc=rc, result=line, **extra)
+            if not ok:
+                fail("global_cli", f"CLI {name} run failed")
+
+
+def global_paths() -> dict:
+    """Phase 16: the C-grid, nested, spectral and icosahedral cores and
+    their sharded forms (GLOBAL_PATHS) at full width on cuda:0."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {"cpu_vs_card": _global_cpu_vs_card(),
+           "cgrid_vs_numpy": _cgrid_reference()}
+    for name in ("staggered_2048", "nested_512", "sph_swe_T341",
+                 "sph_bve_T341", "icosa_256"):
+        res[name] = _global_path(name)
+    res["sph_si_T170"] = _global_si()
+    res["sph_swe_T341_4x1"] = _sphere_sharded_and_fold()
+    res["icosa_256_5x1"] = _icosa_sharded()
+    _global_cli()
+    torch.cuda.empty_cache()
+    emit("global_summary", ok=True, seconds=time.perf_counter() - t0,
+         ms_per_step={n: r["ms_per_step"] for n, r in res.items()
+                      if isinstance(r, dict) and "ms_per_step" in r},
+         paced_by={n: r["paced_by"] for n, r in res.items()
+                   if isinstance(r, dict) and "paced_by" in r})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2515,6 +3076,7 @@ def main() -> int:
     mv = variant_paths(m1)
     si = semi_implicit()
     plain_sharded_paths()
+    global_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

@@ -5,23 +5,30 @@ module layout so each counterpart is easy to find, and is held against it
 by ``tests/test_torch_*.py``. It imports ``torch``, ``numpy`` and the
 standard library only, never ``jax`` or ``njw_tpu``.
 
-Ported so far: the three planar weather cores through ``Simulation`` and
-the CLI: shallow water (grid, initial conditions, tendencies, integrators
-including the semi-implicit ones, the NumPy oracles) with the fused RK4
-kernel ``ops/csrc/swe_rk4.cu`` (float32 and bf16 tendencies, one or two
-steps per pass); the barotropic vorticity core (``torch.fft`` Poisson
-solve) with the Arakawa stage kernel ``ops/csrc/baro_stage.cu``; the
-primitive equations with the whole-step kernel ``ops/csrc/pe_rk4.cu``,
-the stage kernel ``ops/csrc/pe_stage.cu`` and the semi-implicit stepper;
-every cartesian sharded path of ``parallel`` (the kernel-backed steppers,
-the plain SWE and PE steppers with the halo exchange overlapped, the
-sharded barotropic core on the distributed FFT) and the scaling harness
-of ``bench``; and the FIR half of ``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
+Ported: the whole weather package. The three planar cores through
+``Simulation`` and the CLI: shallow water (grid, initial conditions,
+tendencies, integrators including the semi-implicit ones, the NumPy
+oracles) with the fused RK4 kernel ``ops/csrc/swe_rk4.cu`` (float32 and
+bf16 tendencies, one or two steps per pass); the barotropic vorticity
+core (``torch.fft`` Poisson solve) with the Arakawa stage kernel
+``ops/csrc/baro_stage.cu``; the primitive equations with the whole-step
+kernel ``ops/csrc/pe_rk4.cu``, the stage kernel ``ops/csrc/pe_stage.cu``
+and the semi-implicit stepper. The C-grid core, two-way nesting, the
+global spectral cores (``ops/sht.py``: batched float32 products over the
+Legendre tables) and the icosahedral core, with their sharded forms; the
+snapshot writers and checkpoints (``utils``). Every sharded path of
+``parallel`` (the kernel-backed steppers, the plain steppers with the
+halo exchange overlapped, the sharded barotropic core on the
+distributed FFT, the latitude-sharded sphere and the panel-pair
+icosahedron) and the scaling harness of ``bench``; and the FIR half of
+``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
 ``MultirateFilter``, ``StreamingFIR``) with the banded-product
 tensor-core kernels ``ops/csrc/fir_band.cu`` and
 ``ops/csrc/fir_band_bf16.cu``. All kernels are CUDA C++ written by hand
 for sm_90a, and every Pallas kernel of the JAX package has its
-counterpart. Entry points run on the CUDA device unless the caller passes
+counterpart; the global cores, nesting and the C-grid run on PyTorch's
+own operations (the JAX package runs them on XLA, with no Pallas
+kernel). Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 

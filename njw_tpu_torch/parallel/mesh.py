@@ -28,8 +28,9 @@ The exchanges:
 * ``all_to_all(blocks, axis, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=False)`` along 'y', 'x' or the combined ('y', 'x') axis (row-major
   index iy * px + ix).
+* ``all_reduce_sum(blocks, axis)``: ``lax.psum`` along an axis.
 
-Both move ``exchanges`` (one a call that moves data) and
+Each moves ``exchanges`` (one a call that moves data) and
 ``exchange_bytes`` (the payload bytes the shards of this process send):
 the port's own counts of its exchanges, which a caller may set to 0.
 """
@@ -186,6 +187,17 @@ class _Mesh:
                              f"{len(self.coords)}")
 
 
+def _real(t: torch.Tensor) -> torch.Tensor:
+    """A complex tensor's real view (its last axis the real and imaginary
+    parts); a real tensor as it is."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _unreal(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_real`` for a result shaped as ``like``."""
+    return torch.view_as_complex(t) if like.is_complex() else t
+
+
 def _check_split(block: torch.Tensor, split_dim: int, n: int) -> None:
     if block.shape[split_dim] != n:
         raise ValueError(f"all_to_all: dimension {split_dim} of a block of "
@@ -249,6 +261,29 @@ class LocalMesh(_Mesh):
                             dim=concat_dim)
                 for c, me in zip(self.coords, self.axis_index(axis))]
 
+    def all_reduce_sum(self, blocks: Sequence[torch.Tensor],
+                       axis: Axis) -> list[torch.Tensor]:
+        """``lax.psum(x, axis)`` for each local block: the sum of the
+        blocks on its ring along ``axis``, added in index order, one
+        tensor handed to every shard of the ring. Complex blocks are summed
+        as their real views (stacked real and imaginary parts, as the JAX
+        package reduces them)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return list(blocks)
+        self._count(blocks)
+        sums: dict = {}
+        out = []
+        for c in self.coords:
+            members = tuple(self.axis_members(c, axis))
+            if members not in sums:
+                total = _real(blocks[self.index(members[0])]).clone()
+                for m in members[1:]:
+                    total += _real(blocks[self.index(m)])
+                sums[members] = _unreal(total, blocks[0])
+            out.append(sums[members])
+        return out
+
     def gather_state(self, shards: Sequence) -> FieldState:
         """The whole-domain state (a new one) from the shards."""
         self._check_shards(shards)
@@ -275,7 +310,10 @@ class ProcessMesh(_Mesh):
                              "mesh")
         self.group = group
         self.rank = dist.get_rank(group)
-        self._groups: dict = {}
+        if self.rank < 0:
+            raise ValueError("ProcessMesh: this rank is not a member of "
+                             "the process group")
+        self._rings: dict = {}
         super().__init__(py, px, [divmod(self.rank, px)], _device(device))
 
     def _peer(self, coord: tuple) -> int:
@@ -313,28 +351,19 @@ class ProcessMesh(_Mesh):
 
     def _axis_group(self, axis: Axis):
         """(process group, this mesh's global ranks of the members of this
-        rank's ring along ``axis`` in index order). The rings of one axis
-        are made together, by every rank, at the first all-to-all along
-        it."""
+        rank's ring along ``axis`` in index order). This rank's ring's group
+        is made at its first exchange along the axis, by the ring's members
+        alone (``use_local_synchronization``), so the mesh may sit on any
+        process group and the ranks outside a ring make no call."""
         members = self.axis_members(self.coords[0], axis)
         ranks = [self._peer(c) for c in members]
         if len(members) == self.size:
             return self.group, ranks
-        key = AXES[self._axis(axis)]
-        if key not in self._groups:
-            if self.group is not None:
-                raise NotImplementedError(
-                    "ProcessMesh.all_to_all along one axis of a 2-D mesh "
-                    "needs the mesh on the default process group")
-            heads = ([(0, ix) for ix in range(self.px)] if key == "y"
-                     else [(iy, 0) for iy in range(self.py)])
-            rings = {}
-            for head in heads:
-                ring = tuple(self._peer(m)
-                             for m in self.axis_members(head, axis))
-                rings[ring] = dist.new_group(list(ring))
-            self._groups[key] = rings
-        return self._groups[key][tuple(ranks)], ranks
+        ring = tuple(sorted(ranks))
+        if ring not in self._rings:
+            self._rings[ring] = dist.new_group(
+                list(ring), use_local_synchronization=True)
+        return self._rings[ring], ranks
 
     def all_to_all(self, blocks: Sequence[torch.Tensor], axis: Axis,
                    split_dim: int, concat_dim: int) -> list[torch.Tensor]:
@@ -353,15 +382,26 @@ class ProcessMesh(_Mesh):
         sends = [None] * n
         for j in range(n):
             part = block.select(split_dim, j).contiguous()
-            sends[slot[j]] = (torch.view_as_real(part) if part.is_complex()
-                              else part)
+            sends[slot[j]] = _real(part)
         recvs = [torch.empty_like(t) for t in sends]
         self._count(sends)
         dist.all_to_all(recvs, sends, group=group)
-        got = [recvs[slot[j]] for j in range(n)]
-        if block.is_complex():
-            got = [torch.view_as_complex(t) for t in got]
+        got = [_unreal(recvs[slot[j]], block) for j in range(n)]
         return [torch.stack(got, dim=concat_dim)]
+
+    def all_reduce_sum(self, blocks: Sequence[torch.Tensor],
+                       axis: Axis) -> list[torch.Tensor]:
+        """``lax.psum(x, axis)`` (see ``LocalMesh.all_reduce_sum``) as one
+        ``dist.all_reduce`` over the ranks of this rank's ring along
+        ``axis``; complex blocks travel as their real views."""
+        if self.axis_size(axis) == 1:
+            return list(blocks)
+        (block,) = blocks
+        group, _ = self._axis_group(axis)
+        total = _real(block).clone(memory_format=torch.contiguous_format)
+        self._count([total])
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return [_unreal(total, block)]
 
     def gather_state(self, shards: Sequence) -> FieldState:
         """The whole-domain state on every rank (an all-gather of each

@@ -7,15 +7,19 @@
   primitive.py    primitive-equations core (PEState, sigma levels)
   integrators.py  euler / rk2 / rk4 / ab2 Steppers
   semi_implicit.py  semi-implicit SWE and PE steppers (spectral solves)
+  staggered.py    Arakawa C-grid SWE core (Sadourny enstrophy form)
+  nested.py       two-way nested refinement patch (NestedGrid, stepper)
+  spherical.py    global spectral BVE and SWE cores (ops/sht.py)
+  icosa.py        icosahedral 10-panel SWE core
+  output.py       CSV / NPZ / NetCDF-3 / VTK snapshot writers
   model.py        SimConfig, Simulation step loop, PerformanceMetrics
   oracle.py       NumPy references of the three cores (the oracles)
-  main_paths.py   each core's main path at full width (MAIN_PATHS)
+  main_paths.py   each core's main path at full width (MAIN_PATHS,
+                  GLOBAL_PATHS, ...)
   convert.py      carry states and parameters across from the JAX package
   __main__.py     CLI: python -m njw_tpu_torch.weather
 
-Every stepper of the cartesian SWE and PE cores is ported. The staggered,
-spherical and icosahedral grids, nesting and the output writers are not
-yet (ROADMAP).
+Every weather configuration the JAX package's CLI accepts runs here.
 """
 from njw_tpu_torch.weather.grid import (
     FieldState, GridSpec, PhysicsParams, WeatherState,

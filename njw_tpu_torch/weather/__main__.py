@@ -2,20 +2,23 @@
 
 Counterpart of ``python -m njw_tpu.weather``: the same argument surface,
 plus ``--device {cuda,cpu}`` (default cuda, which fails without a CUDA
-device) and backends auto | plain | kernel. The shallow-water,
-barotropic and primitive-equation cores run, with every integrator the
-JAX CLI offers (``--method semi_implicit --si-order 1|2`` included);
-options that are not yet ported (``--grid-type`` other than cartesian,
-``--nest-patch``, ``--output-format``) exit with code 2. ``--validate`` checks the shallow-water core
-against its NumPy oracle, whatever ``--model`` says, as in the JAX CLI.
+device) and backends auto | plain | kernel. Every core the JAX CLI runs
+runs here: shallow water, barotropic and primitive equations on the
+cartesian grid with every integrator (``--method semi_implicit
+--si-order 1|2`` included), the C-grid (``--grid-type staggered``), the
+global spectral cores (``--grid-type spherical_harmonic``, width 2 x
+height; ``vortex`` maps to rossby_haurwitz or williamson2), the
+icosahedral core (``--grid-type icosahedral``, height = cells per rhombus
+edge), two-way nesting (``--nest-patch Y0,Y1,X0,X1 --nest-ratio R``) and
+the snapshot writers (``--output-format csv|npz|vtk|netcdf --output-dir
+DIR``). ``--validate`` checks the shallow-water core against its NumPy
+oracle, whatever ``--model`` says, as in the JAX CLI.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-
-NOT_PORTED = "not yet ported (ROADMAP)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,9 +51,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grid-type", default="cartesian",
                    choices=["cartesian", "staggered", "spherical_harmonic",
                             "icosahedral"],
-                   help="only cartesian is ported")
+                   help="cartesian = collocated A-grid; staggered = "
+                        "Arakawa C-grid (Sadourny enstrophy-conserving); "
+                        "spherical_harmonic = global spectral core on a "
+                        "Gaussian grid (width must be 2x height); "
+                        "icosahedral = global 10-panel finite-volume core "
+                        "(height = cells per rhombus edge, power of 2)")
     p.add_argument("--nest-patch", default=None, metavar="Y0,Y1,X0,X1",
-                   help=NOT_PORTED)
+                   help="two-way nested refinement patch in coarse-cell "
+                        "indices (half-open; shallow_water model only)")
+    p.add_argument("--nest-ratio", type=int, default=2,
+                   help="space/time refinement ratio for --nest-patch")
     p.add_argument("--coriolis", type=float, default=0.0)
     p.add_argument("--beta", type=float, default=0.0)
     p.add_argument("--viscosity", type=float, default=0.0)
@@ -66,7 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default=None,
                    help="write the final state and diagnostics to this .npz")
     p.add_argument("--output-format", default=None,
-                   choices=["csv", "npz", "vtk", "netcdf"], help=NOT_PORTED)
+                   choices=["csv", "npz", "vtk", "netcdf"],
+                   help="write per-interval snapshots via an output "
+                        "manager into --output-dir")
+    p.add_argument("--output-dir", default="./output")
     p.add_argument("--device-info", action="store_true",
                    help="print device info and exit")
     p.add_argument("--validate", action="store_true",
@@ -77,16 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args) -> str | None:
-    if args.grid_type != "cartesian":
-        return f"--grid-type {args.grid_type}"
-    if args.nest_patch is not None:
-        return "--nest-patch"
-    if args.output_format is not None:
-        return "--output-format"
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -95,11 +99,6 @@ def main(argv=None) -> int:
 
         print(json.dumps(get_device_info(args.device)))
         return 0
-
-    missing = _unported(args)
-    if missing is not None:
-        print(f"error: {missing} is {NOT_PORTED}", file=sys.stderr)
-        return 2
 
     from njw_tpu_torch.platform import require_device
 
@@ -120,6 +119,10 @@ def main(argv=None) -> int:
     )
     if args.model == "primitive" and args.initial == "vortex":
         args.initial = "baroclinic"  # the PE default (vortex is SWE-only)
+    if args.grid_type == "spherical_harmonic" and args.initial == "vortex":
+        # cartesian ICs have no spherical meaning: the canonical one
+        args.initial = ("rossby_haurwitz" if args.model == "barotropic"
+                        else "williamson2")
     sim_kw = {}
     if args.mountain_height > 0.0:
         if args.model != "primitive":
@@ -133,11 +136,30 @@ def main(argv=None) -> int:
         sy, sx = max(args.height / 8, 1), max(args.width / 8, 1)
         sim_kw["orography"] = args.mountain_height * np.exp(
             -(((y - cy) / sy) ** 2 + ((x - cx) / sx) ** 2))
-    sim = Simulation.from_config(cfg, args.initial, **sim_kw)
+    if args.nest_patch is not None:
+        if args.model != "shallow_water" or args.grid_type != "cartesian":
+            print("error: --nest-patch requires --model shallow_water on "
+                  "the cartesian grid", file=sys.stderr)
+            return 2
+        from njw_tpu_torch.weather.nested import make_nested_sim
+
+        patch = tuple(int(t) for t in args.nest_patch.split(","))
+        sim = make_nested_sim(Simulation, cfg, args.initial, patch=patch,
+                              ratio=args.nest_ratio, **sim_kw)
+    else:
+        sim = Simulation.from_config(cfg, args.initial, **sim_kw)
+    callback = None
+    if args.output_format:
+        from njw_tpu_torch.weather.output import OutputConfig, attach_output
+
+        _, callback = attach_output(
+            sim, OutputConfig(path=args.output_dir,
+                              format=args.output_format))
     # Warm-up (kernel build and load) outside the timed region.
     sim.step(1)
     sim.metrics.reset()
-    sim.run(args.steps - 1, output_interval=args.output_interval)
+    sim.run(args.steps - 1, output_interval=args.output_interval,
+            callback=callback)
 
     m = sim.metrics.as_dict()
     if args.json:

@@ -11,8 +11,9 @@ with central differences, a beta-plane Coriolis f = f0 + beta (y_n - 1/2)
 and the four boundary conditions. The physics is written once against a
 ``shift(f, dxi, dyi)`` accessor (``swe_tendencies_from_shifts``), as in the
 JAX package. Tendency functions are pure: ``T(state) -> d(state)/dt``.
-``make_tendency_fn`` also hands out the barotropic and primitive-equation
-cores' tendencies (``barotropic.py``, ``primitive.py``).
+``make_tendency_fn`` also hands out the C-grid core's tendencies
+(``staggered.py``) and the barotropic and primitive-equation cores'
+(``barotropic.py``, ``primitive.py``).
 """
 from __future__ import annotations
 
@@ -169,10 +170,10 @@ def make_tendency_fn(model: str, grid: GridSpec, params: PhysicsParams
                      ) -> Callable[[WeatherState], WeatherState]:
     grid.validate()
     if model in ("shallow_water", "general"):
-        if grid.grid_type != "cartesian":
-            raise NotImplementedError(
-                f"grid_type={grid.grid_type!r} is not yet ported "
-                "(ROADMAP: open items, 1.4 rest of weather)")
+        if grid.grid_type == "staggered":
+            from njw_tpu_torch.weather.staggered import swe_tendencies_cgrid
+
+            return lambda s: swe_tendencies_cgrid(s, grid, params)
         return lambda s: swe_tendencies(s, grid, params)
     if model == "barotropic":
         from njw_tpu_torch.weather.barotropic import barotropic_tendencies

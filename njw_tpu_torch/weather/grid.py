@@ -26,7 +26,7 @@ class GridSpec:
     dx: float = 1.0
     dy: float = 1.0
     bc: str = "periodic"         # periodic | clamped | outflow | reflective
-    grid_type: str = "cartesian"  # cartesian (ported) | staggered (not yet)
+    grid_type: str = "cartesian"  # cartesian (A-grid) | staggered (C-grid)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -45,7 +45,7 @@ class GridSpec:
             raise ValueError(
                 f"unknown grid type: {self.grid_type!r} for a planar "
                 "GridSpec (spherical_harmonic and icosahedral are global "
-                "cores, not yet ported: ROADMAP)")
+                "cores: Simulation.from_config builds them)")
         if self.grid_type == "staggered" and self.bc != "periodic":
             raise ValueError("the C-grid core is periodic-only")
         if self.nx < 3 or self.ny < 3:

@@ -60,6 +60,28 @@ port launches: the launch count is 0) at full width:
 Config 5 stays on the kernel paths: its plain whole-domain run, the
 comparison a plain path is held to, keeps tens of state-sized
 temporaries of 2048^2 x 40 alive.
+
+``GLOBAL_PATHS`` are the C-grid, nested, spectral and icosahedral cores
+and their sharded forms at full width (no kernel of the port: launch
+count 0), each the JAX package's own measured configuration:
+
+  staggered_2048    C-grid SWE 2048^2, vortex 1.0, f 1e-4, dt 0.01, RK4,
+                    25 steps (scripts/measure_capability_cores.py:68-80)
+  nested_512        coarse 512^2, patch (128, 384, 128, 384), ratio 2,
+                    f 1e-4, vortex 1.0, dt 0.02, RK4, 50 steps (:85-123)
+  sph_swe_T341      spectral SWE, nlat 512 x 1024 (T341, the fold on),
+                    rossby_haurwitz, nu4 1e15, dt 112.5 s, RK4, 50 steps
+                    (scripts/measure_spherical.py:81, 90-95)
+  sph_bve_T341      BVE on the same grid, rossby_haurwitz, dt 112.5 s,
+                    RK4, 50 steps (the same)
+  sph_si_T170       spectral SWE, nlat 256 x 512, rossby_haurwitz, nu4
+                    1e15: semi-implicit order 2 at dt 480 beside its
+                    partner, RK4 at dt 240, 80 steps each
+                    (measure_capability_cores.py:246-264)
+  icosa_256         icosahedral SWE, n = 256 (655,360 cells), williamson2,
+                    dt 56.25 s, RK4, 100 steps (scripts/measure_icosa.py:41)
+  sph_swe_T341_4x1  sph_swe_T341 unfolded on LocalMesh(4, 1), 20 steps
+  icosa_256_5x1     icosa_256 on LocalMesh(5, 1), 20 steps
 """
 from __future__ import annotations
 
@@ -260,4 +282,100 @@ VARIANT_PATHS = {
          "integration_method": "semi_implicit", "si_order": 2},
         "baroclinic", {"u_jet": 5.0, "perturb": 0.5}, warm=2, steps=100),
         "auto", None, 0),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalPath(MainPath):
+    """A global or refined core at full width: a MainPath (through
+    ``Simulation.from_config``, or ``make_nested_sim`` when ``nest`` =
+    (patch, ratio) is set); ``partner``: SimConfig fields of the run it is
+    set beside (the RK4 partner of a semi-implicit path); ``mesh``: the
+    (D, 1) LocalMesh of a sharded path, whose stepper runs ``steps``
+    steps a call."""
+
+    nest: Optional[tuple] = None
+    partner: Optional[dict[str, Any]] = None
+    mesh: Optional[tuple[int, int]] = None
+
+    def simulation(self, **overrides) -> Simulation:
+        if self.nest is None:
+            return super().simulation(**overrides)
+        from njw_tpu_torch.weather.nested import make_nested_sim
+
+        overrides.setdefault("device", "cuda")
+        patch, ratio = self.nest
+        return make_nested_sim(Simulation, self.sim_config(**overrides),
+                               self.ic, patch=patch, ratio=ratio,
+                               **self.ic_params)
+
+    @property
+    def points(self) -> int:
+        """Grid points a step updates: nlat x nlon, 10 n^2 cells, or the
+        coarse grid's points plus the fine patch's."""
+        c = self.config
+        if c.get("grid_type") == "icosahedral":
+            return 10 * c["grid_height"] ** 2
+        n = c["grid_width"] * c["grid_height"]
+        if self.nest is not None:
+            (y0, y1, x0, x1), r = self.nest
+            n += (y1 - y0) * (x1 - x0) * r * r
+        return n
+
+    def sharded(self, sim, mesh):
+        """(stepper, local states) of this path on ``mesh``, from the
+        whole-domain ``sim``'s transform or operators and state."""
+        cfg = self.sim_config()
+        if cfg.grid_type == "icosahedral":
+            from njw_tpu_torch.parallel.icosa import (
+                shard_icosa, sharded_icosa_swe_step)
+
+            ops, states = shard_icosa(sim.icosa_ops, sim.state, mesh)
+            return sharded_icosa_swe_step(
+                ops, mesh, g=cfg.gravity or 9.80616,
+                omega=self.ic_params.get("omega", 7.292e-5),
+                nu=cfg.viscosity, n_steps=self.steps), states
+        from njw_tpu_torch.parallel.sphere import (
+            replicate, sharded_spherical_step)
+
+        core = "bve" if cfg.model == "barotropic" else "swe"
+        return sharded_spherical_step(
+            sim.sht, mesh, core=core, omega=sim.omega,
+            nu4=self.ic_params.get("nu4", 0.0),
+            n_steps=self.steps), replicate(sim.state, mesh)
+
+
+_T341 = dict(grid_type="spherical_harmonic", grid_width=1024,
+             grid_height=512, dt=112.5)
+_ICOSA = dict(grid_type="icosahedral", grid_width=256, grid_height=256,
+              dt=56.25)
+GLOBAL_PATHS = {
+    "staggered_2048": GlobalPath(
+        dict(grid_width=2048, grid_height=2048, grid_type="staggered",
+             coriolis_f=1e-4, dt=0.01),
+        "vortex", {"strength": 1.0}, warm=2, steps=25),
+    "nested_512": GlobalPath(
+        dict(grid_width=512, grid_height=512, coriolis_f=1e-4, dt=0.02),
+        "vortex", {"strength": 1.0}, warm=2, steps=50,
+        nest=((128, 384, 128, 384), 2)),
+    "sph_swe_T341": GlobalPath(
+        dict(model="shallow_water", **_T341), "rossby_haurwitz",
+        {"nu4": 1e15}, warm=2, steps=50),
+    "sph_bve_T341": GlobalPath(
+        dict(model="barotropic", **_T341), "rossby_haurwitz", {}, warm=2,
+        steps=50),
+    "sph_si_T170": GlobalPath(
+        dict(model="shallow_water", grid_type="spherical_harmonic",
+             grid_width=512, grid_height=256, dt=480.0,
+             integration_method="semi_implicit", si_order=2),
+        "rossby_haurwitz", {"nu4": 1e15}, warm=2, steps=80,
+        partner=dict(dt=240.0, integration_method="rk4")),
+    "icosa_256": GlobalPath(dict(model="shallow_water", **_ICOSA),
+                            "williamson2", {}, warm=2, steps=100),
+    "sph_swe_T341_4x1": GlobalPath(
+        dict(model="shallow_water", **_T341), "rossby_haurwitz",
+        {"nu4": 1e15, "fold_parity": False}, warm=1, steps=20, mesh=(4, 1)),
+    "icosa_256_5x1": GlobalPath(dict(model="shallow_water", **_ICOSA),
+                                "williamson2", {}, warm=1, steps=20,
+                                mesh=(5, 1)),
 }

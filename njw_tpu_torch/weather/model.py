@@ -6,7 +6,12 @@ n steps as a Python loop over the stepper (the JAX package's chunked
 the metrics time finished work. CUDA graphs of the chunk are later work.
 
 Models: shallow_water (and its alias general), barotropic
-(``weather/barotropic.py``) and primitive (``weather/primitive.py``).
+(``weather/barotropic.py``) and primitive (``weather/primitive.py``) on
+the cartesian grid; shallow water on the C-grid (grid_type staggered,
+``weather/staggered.py``); the spectral BVE and SWE on the sphere
+(spherical_harmonic or spectral, ``weather/spherical.py``) and the
+icosahedral SWE (icosahedral, ``weather/icosa.py``). Nested grids:
+``weather/nested.py`` ``make_nested_sim``.
 
 Backend selection (``SimConfig.backend``), the same for every model:
   auto    the model's kernel stepper (SWE: the fused RK4 kernel; the
@@ -38,6 +43,8 @@ from njw_tpu_torch.weather.ics import make_initial_state
 from njw_tpu_torch.weather.integrators import make_stepper
 
 BACKENDS = ("auto", "plain", "kernel")
+# the global cores (weather/spherical.py, weather/icosa.py)
+GLOBAL_GRIDS = ("spherical_harmonic", "spectral", "icosahedral")
 
 
 @dataclass(frozen=True)
@@ -49,7 +56,7 @@ class SimConfig:
     integration_method: str = "rk4"  # euler|rk2|rk4|adams_bashforth|semi_implicit
     si_order: int = 1                # semi_implicit: 1 (CN) | 2 (predictor-corrector)
     boundary_condition: str = "periodic"  # periodic | clamped | outflow | reflective
-    grid_type: str = "cartesian"
+    grid_type: str = "cartesian"     # cartesian | staggered | spherical_harmonic | icosahedral
 
     grid_width: int = 256
     grid_height: int = 256
@@ -187,6 +194,19 @@ class Simulation:
             raise ValueError(f"unknown backend {config.backend!r}; "
                              f"available: {list(BACKENDS)}")
         model = config.model
+        if config.grid_type in GLOBAL_GRIDS:
+            if config.backend == "kernel":
+                raise ValueError("backend='kernel' requires the cartesian "
+                                 "grid: the global cores run no kernel")
+            if config.grid_type == "icosahedral":
+                from njw_tpu_torch.weather.icosa import make_icosa_sim
+
+                return make_icosa_sim(cls, config, initial_condition,
+                                      device=device, **ic_params)
+            from njw_tpu_torch.weather.spherical import make_spherical_sim
+
+            return make_spherical_sim(cls, config, initial_condition,
+                                      device=device, **ic_params)
         if model == "barotropic":
             from njw_tpu_torch.weather.barotropic import make_barotropic_sim
 

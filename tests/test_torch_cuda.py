@@ -939,3 +939,108 @@ class TestPlainShardedOnCard:
         assert all(r["ok"] for r in rows), rows
         assert pe_rk4_step_cuda.launches == before + 2 * 4 * 3
         assert rows[0]["device"].startswith("cuda")
+
+
+def _group_diff(a_state, b_state, groups=(("u", "v"), ("zeta", "div"),
+                                          ("coarse_u", "coarse_v"),
+                                          ("fine_u", "fine_v"))):
+    """max |a - b| per field over the scale of b's field group."""
+    bs = {n: t.cpu() for n, t in b_state.items()}
+
+    def scale(name):
+        group = next((g for g in groups if name in g), (name,))
+        return max(float(bs[g].abs().max()) for g in group if g in bs)
+
+    return {n: float((a.cpu() - bs[n]).abs().max()) / scale(n)
+            for n, a in a_state.items()}
+
+
+@pytest.mark.cuda
+class TestGlobalCoresOnCard:
+    """The C-grid, nested, spectral and icosahedral cores and their
+    sharded forms on the card against the port on the CPU at a small
+    size (20 steps, normalised by field group at 1e-4), with no kernel
+    launched."""
+
+    def _counts(self):
+        return (swe_rk4_step_cuda.launches, baro_stage_cuda.launches,
+                pe_stage_cuda.launches, pe_rk4_step_cuda.launches)
+
+    @pytest.mark.parametrize("case", [
+        dict(grid_width=128, grid_height=128, grid_type="staggered",
+             coriolis_f=1e-4, dt=0.01),
+        dict(grid_type="spherical_harmonic", grid_width=128, grid_height=64,
+             dt=900.0),
+        dict(grid_type="spherical_harmonic", grid_width=128, grid_height=64,
+             dt=900.0, model="barotropic"),
+        dict(grid_type="icosahedral", grid_width=16, grid_height=16,
+             dt=450.0)], ids=["staggered", "sph_swe", "sph_bve", "icosa"])
+    @pytest.mark.parametrize("fold", [False, True])
+    def test_card_matches_cpu(self, cuda_device, case, fold):
+        ic = {"staggered": ("vortex", {"strength": 1.0}),
+              "icosahedral": ("gaussian", {"amplitude": 50.0})}.get(
+            case["grid_type"], ("rossby_haurwitz", {"fold_parity": fold}))
+        if case["grid_type"] != "spherical_harmonic" and fold:
+            pytest.skip("the parity fold is the spectral transform's")
+        before = self._counts()
+        sims = [Simulation.from_config(SimConfig(device=d, **case), ic[0],
+                                       **ic[1]) for d in ("cuda", "cpu")]
+        for sim in sims:
+            sim.step(20)
+        assert self._counts() == before
+        diffs = _group_diff(*(s.state for s in sims))
+        assert max(diffs.values()) <= 1e-4, diffs
+
+    def test_nested_matches_cpu(self, cuda_device):
+        from njw_tpu_torch.weather.nested import make_nested_sim
+
+        sims = [make_nested_sim(Simulation, SimConfig(
+            grid_width=64, grid_height=64, coriolis_f=1e-4, dt=0.02,
+            device=d), "vortex", patch=(16, 48, 16, 48), strength=1.0)
+            for d in ("cuda", "cpu")]
+        for sim in sims:
+            sim.step(20)
+        diffs = _group_diff(*(s.state for s in sims))
+        assert max(diffs.values()) <= 1e-4, diffs
+
+    def test_sht_products_stay_float32(self, cuda_device):
+        """With TF32 allowed for the process, the transform's products
+        still run in full float32: the card's synthesis equals the CPU's
+        to float32 rounding, and the setting comes back."""
+        from njw_tpu_torch.ops.sht import SphericalHarmonicTransform
+
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            t = {d: SphericalHarmonicTransform(64, device=d)
+                 for d in ("cuda", "cpu")}
+            a = t["cpu"].analysis(torch.from_numpy(np.random.default_rng(
+                0).standard_normal((64, 128)).astype(np.float32)))
+            got = t["cuda"].synthesis(a.cuda()).cpu()
+            want = t["cpu"].synthesis(a)
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+    def test_sharded_sphere_and_icosa(self, cuda_device):
+        from njw_tpu_torch.parallel import LocalMesh
+        from njw_tpu_torch.parallel.icosa import unshard_state
+        from njw_tpu_torch.weather.main_paths import GlobalPath
+
+        sph = GlobalPath(dict(grid_type="spherical_harmonic", grid_width=128,
+                              grid_height=64, dt=900.0), "rossby_haurwitz",
+                         {"nu4": 1e15, "fold_parity": False}, warm=0,
+                         steps=5, mesh=(4, 1))
+        ico = GlobalPath(dict(grid_type="icosahedral", grid_width=16,
+                              grid_height=16, dt=450.0), "williamson2", {},
+                         warm=0, steps=5, mesh=(5, 1))
+        for p in (sph, ico):
+            whole = p.simulation()
+            mesh = LocalMesh(*p.mesh)
+            step, states = p.sharded(whole, mesh)
+            out = step(states, whole.dt)
+            got = (unshard_state(out, mesh) if p is ico else out[0])
+            whole.step(p.steps)
+            diffs = _group_diff(got, whole.state)
+            assert max(diffs.values()) <= 1e-4, diffs

@@ -504,3 +504,93 @@ def test_process_mesh_over_gloo_equals_local_mesh(tmp_path):
         want = ns["run"](name, LocalMesh(*shape, device=CPU))
         for k, v in want.items():
             np.testing.assert_array_equal(got[name + "_" + k], v)
+
+
+# a ProcessMesh on a process group of 4 ranks of a world of 6
+_SUB_MEMBERS = (1, 2, 4, 5)
+_SUB_RUNS = textwrap.dedent('''
+    import torch
+    from njw_tpu_torch.parallel import sharded_barotropic_step_2d
+    from njw_tpu_torch.weather import SimConfig, Simulation
+
+    A2A = (("y", 0, 1), ("x", 1, 0), (("y", "x"), 0, 2))
+
+    def block(coord, n):
+        g = torch.Generator().manual_seed(7 + 10 * coord[0] + coord[1])
+        return torch.randn(n, n, 3, generator=g)
+
+    def run(mesh):
+        """{name: [array of each local shard]}"""
+        res = {}
+        for axis, split, concat in A2A:
+            n = mesh.axis_size(axis)
+            got = mesh.all_to_all([block(c, n) for c in mesh.coords], axis,
+                                  split, concat)
+            res["a2a_" + "".join(axis)] = [g.numpy() for g in got]
+        cfg = SimConfig(model="barotropic", grid_width=32, grid_height=32,
+                        dt=0.05, beta=1e-3, viscosity=1e-3, device="cpu")
+        s0 = Simulation.from_config(cfg, "vortex", strength=3.0).state
+        step = sharded_barotropic_step_2d(cfg.grid_spec(), cfg.physics(),
+                                          mesh, dt=0.05, n_steps=3)
+        whole = mesh.gather_state(step(mesh.shard_state(s0)))
+        res["baro2d_zeta"] = [whole.zeta.numpy()] * len(mesh.coords)
+        return res
+''')
+
+_SUB_WORKER = _SUB_RUNS + textwrap.dedent('''
+    import datetime, sys
+    import numpy as np, torch.distributed as dist
+    from njw_tpu_torch.parallel import ProcessMesh
+    torch.set_num_threads(1)
+    rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    members = [int(r) for r in sys.argv[4].split(",")]
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=6,
+                            timeout=datetime.timedelta(seconds=120))
+    if rank in members:
+        group = dist.new_group(members, use_local_synchronization=True)
+        mesh = ProcessMesh(2, 2, group=group, device="cpu")
+        got = run(mesh)
+        # a second mesh on the same ranks makes its own rings' groups
+        again = run(ProcessMesh(2, 2, group=group, device="cpu"))
+        assert all((again[k][0] == got[k][0]).all() for k in got)
+        np.savez(out + f"_{mesh.rank}.npz",
+                 **{k: v[0] for k, v in got.items()})
+    dist.destroy_process_group()
+''')
+
+
+def test_process_mesh_on_a_sub_group_equals_local_mesh(tmp_path):
+    """A (2, 2) ProcessMesh on a process group of 4 of a gloo world of 6
+    (global ranks 1, 2, 4, 5): all_to_all along 'y', 'x' and ('y', 'x')
+    and sharded_barotropic_step_2d equal LocalMesh(2, 2) bit for bit, and
+    so does a second mesh on the same ranks. The two ranks outside the
+    group only join the world and leave it: a ring group whose making
+    needed them would hang the members until their 120 s ran out."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(REPO),
+                                           os.environ.get("PYTHONPATH", "")]))
+    out = tmp_path / "shard"
+    members = ",".join(str(r) for r in _SUB_MEMBERS)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SUB_WORKER, str(r), str(tmp_path / "store"),
+         str(out), members], env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(6)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    ns: dict = {}
+    exec(_SUB_RUNS, ns)
+    want = ns["run"](LocalMesh(2, 2, device=CPU))
+    for r in range(4):
+        got = np.load(f"{out}_{r}.npz")
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v[r])

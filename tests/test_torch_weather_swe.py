@@ -153,9 +153,21 @@ class TestTendencies:
     @pytest.mark.parametrize("model,grid_type", [
         ("general", "staggered"), ("shallow_water", "staggered")])
     def test_unported_cores_raise(self, model, grid_type):
-        grid = GridSpec(nx=8, ny=8, grid_type=grid_type)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_tendency_fn(model, grid, PhysicsParams())
+        """The C-grid core, once refused here, now comes from
+        make_tendency_fn: it equals JAX's on the same state."""
+        from njw_tpu.weather.staggered import swe_tendencies_cgrid
+
+        jg = JGrid(nx=12, ny=8, grid_type=grid_type)
+        js, ts = _both(_random_state(8, 12, seed=5))
+        want = swe_tendencies_cgrid(js, jg, JParams(coriolis_f=0.3))
+        got = make_tendency_fn(model, GridSpec(nx=12, ny=8,
+                                               grid_type=grid_type),
+                               PhysicsParams(coriolis_f=0.3))(ts)
+        for name in ("u", "v", "h"):
+            w = np.asarray(getattr(want, name))
+            np.testing.assert_allclose(getattr(got, name).numpy(), w,
+                                       rtol=1e-5,
+                                       atol=1e-6 * np.abs(w).max())
 
 
 class TestIntegrators:
@@ -356,12 +368,20 @@ class TestCLI:
             assert "final_vorticity" in z
 
     @pytest.mark.parametrize("flags", [
-        ["--model", "barotropic", "--grid-type", "spherical_harmonic"],
-        ["--grid-type", "staggered"], ["--grid-type", "icosahedral"],
-        ["--nest-patch", "1,2,3,4"], ["--output-format", "csv"]])
-    def test_unported_flags_exit_2(self, flags, capsys):
-        assert cli_main(["--device", "cpu", *flags]) == 2
-        assert "not yet ported (ROADMAP)" in capsys.readouterr().err
+        ["--model", "barotropic", "--grid-type", "spherical_harmonic",
+         "--width", "64", "--height", "32", "--dt", "900"],
+        ["--grid-type", "staggered"],
+        ["--grid-type", "icosahedral", "--width", "8", "--height", "8",
+         "--dt", "450"],
+        ["--nest-patch", "4,12,4,12"], ["--output-format", "csv"]])
+    def test_unported_flags_exit_2(self, flags, tmp_path):
+        """Each flag the CLI once refused (exit 2) now runs on --device
+        cpu."""
+        rc, out = _cli(["--device", "cpu", "--width", "16", "--height",
+                        "16", "--steps", "3", "--output-dir",
+                        str(tmp_path), "--json", *flags])
+        assert rc == 0
+        assert json.loads(out.strip().splitlines()[-1])["num_steps"] == 2
 
     @pytest.mark.parametrize("flags", [
         ["--model", "primitive", "--levels", "3", "--dx", "1e5", "--dy",
