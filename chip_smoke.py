@@ -176,6 +176,34 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 (the stacked contractions 1e-5, 50 steps 1e-4); the CLI on
                 each new grid type, --nest-patch, and an --output-format
                 netcdf run read back with read_netcdf
+  17 analysis paths  the rest of the signal package: every ported
+                function on the card against the port on the CPU on the
+                same seeded input (normalised 1e-4: sos_apply both ways,
+                StreamingIIR, median_filter, LMS and NLMS on both
+                engines, block LMS and RLS at 4096 samples, RLS over its
+                first 512 samples and its final weights, the PSD, CSD,
+                coherence, spectrogram, cepstrum, pitch, the STFT and its
+                inverse (the interior), CWT, the DWT and WPT round trips,
+                MODWT, Wigner-Ville at n = 1024, mel and MFCC); every
+                ANALYSIS_PATHS entry of njw_tpu_torch.signal.main_paths at
+                its size (iir_8th_1m, lms_64_50k, blms_64_50k,
+                upsample_4x_1m, downsample_4x_1m, median_11_1m,
+                fft_1024_x1k, spectrogram_10s, modwt_16x1m), 20 calls
+                after 3 by CUDA events, every launch count set to 0 just
+                before and read just after (modwt_16x1m: fir_band 8 times
+                a call, also read over one call; every other path: no
+                kernel of the port), ms/call, GB/s over the inputs read
+                and the outputs written once, host enqueue, device work
+                (torch.profiler), paced_by and peak memory; the JAX
+                tests' invariants at full width: lms_64_50k's parallel
+                engine against the scan engine (2e-4 of max|y|, w 5e-4),
+                DWT("db4") and WPT round trips on the modwt_16x1m input
+                and the STFT's on two of its rows (atol 1e-3), iir_8th_1m's doubling scan against the
+                per-sample scan on its 2^20 samples (rtol / atol 1e-4) and
+                StreamingIIR over 1024-sample chunks of its first 2^17
+                samples against that scan (atol 1e-5), the scans timed;
+                and the per-sample engines' cost at 4096 samples (the IIR
+                scan and stream, LMS, NLMS and RLS with 64 taps)
 Phases 6, 13 and 14 also read the device's work over one step (the
 profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
 card line, and as the last line {"ok": true, "device": {...}}.
@@ -3042,6 +3070,381 @@ def global_paths() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 17
+
+SIGNAL_CPU_TOL = 1e-4       # the card against the port on the CPU, normalised
+IIR_TOL = 1e-4              # parallel vs scan: tests/test_signal.py:284
+STREAM_ATOL = 1e-5          # streamed vs one-shot scan: :639
+LMS_Y_REL, LMS_W_ATOL = 2e-4, 5e-4   # parallel vs scan engine: :356-358
+RECON_ATOL = 1e-3           # STFT / DWT / WPT round trips: :407, 430, 480
+RLS_HORIZON = 512           # RLS samples held card to CPU (ROADMAP.md §3)
+SEQ_N = 4096                # samples of the sequential engines' timed runs
+SEQ_CALLS = 3               # their timed calls, after one warm-up
+STREAM_SAMPLES = 1 << 17    # iir_8th_1m's samples streamed against the scan
+
+
+def _analysis(name: str):
+    from njw_tpu_torch.signal.main_paths import ANALYSIS_PATHS
+
+    return ANALYSIS_PATHS[name]
+
+
+def _signal_cases() -> dict:
+    """The card-vs-CPU cases: for each, a function of the device that runs
+    the port's call on the same seeded inputs and returns its outputs."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch import signal as sg
+    from njw_tpu_torch.signal.spectral import compute_csd
+
+    rng = np.random.default_rng(17)
+    x2 = rng.standard_normal((4, 8192)).astype(np.float32)
+    y2 = rng.standard_normal((4, 8192)).astype(np.float32)
+    x1 = rng.standard_normal(SEQ_N).astype(np.float32)
+    h = rng.standard_normal(16).astype(np.float32) * 0.3
+    d1 = (np.convolve(x1, h)[:SEQ_N]
+          + 0.01 * rng.standard_normal(SEQ_N)).astype(np.float32)
+    d_rls = np.convolve(x1, [0.5, -0.3, 0.2, 0.1])[:SEQ_N].astype(np.float32)
+    t = np.arange(16384) / 16000.0
+    harm = (sum(np.sin(2 * np.pi * k * 220.0 * t) / k for k in range(1, 6))
+            + 0.01 * rng.standard_normal(16384)).astype(np.float32)
+    sos = sg.IIRFilter(design="butterworth", order=8, cutoff=0.2,
+                       device="cpu").sos
+    scales = np.arange(2, 40, 2, dtype=np.float32)
+
+    def on(dev, a):
+        return torch.from_numpy(a).to(dev)
+
+    def stream(dev):
+        si = sg.StreamingIIR(sos, batch=4, device=dev)
+        return [torch.cat([si.process(c) for c in
+                           on(dev, x2[:, :2048]).split([300, 700, 1048], 1)],
+                          dim=1)]
+
+    def adaptive(method, engine, mu):
+        def run(dev):
+            return list(sg.AdaptiveFilter(
+                num_taps=16, method=method, mu=mu, engine=engine,
+                device=dev).apply(on(dev, x1), on(dev, d1)))
+        return run
+
+    def rls(dev):
+        y, e, w = sg.AdaptiveFilter(num_taps=4, method="rls",
+                                    device=dev).apply(on(dev, x1),
+                                                      on(dev, d_rls))
+        return [y[:RLS_HORIZON], e[:RLS_HORIZON], w]
+
+    def stft(dev):
+        # the inverse's interior: within a window of either end the
+        # window-square sum it divides by nears 0 (the JAX test's interior)
+        st = sg.STFT(256, 64, device=dev)
+        spec = st.forward(on(dev, x2))
+        return [spec, st.inverse(spec, 8192)[..., 256:-256]]
+
+    def dwt(dev):
+        d = sg.DWT("db4", device=dev)
+        c = d.decompose(on(dev, x2), 3)
+        return c + [d.reconstruct(c)]
+
+    def wpt(dev):
+        w = sg.WPT("db4", device=dev)
+        leaves = w.decompose(on(dev, x2), 2)
+        return leaves + [w.reconstruct(leaves)]
+
+    return {
+        "sos_scan": lambda dev: [sg.sos_apply(on(dev, x2[:, :2048]), sos,
+                                              "scan")],
+        "sos_parallel": lambda dev: [sg.sos_apply(on(dev, x2), sos,
+                                                  "parallel")],
+        "streaming_iir": stream,
+        "median_11": lambda dev: [sg.median_filter(on(dev, x2), 11)],
+        "lms_scan": adaptive("lms", "scan", 0.01),
+        "lms_parallel": adaptive("lms", "parallel", 0.01),
+        "nlms_scan": adaptive("nlms", "scan", 0.4),
+        "nlms_parallel": adaptive("nlms", "parallel", 0.4),
+        "block_lms": adaptive("block_lms", "auto", 0.05),
+        "rls": rls,
+        "psd": lambda dev: list(sg.compute_psd(on(dev, x2), 1000.0, 512)),
+        "csd": lambda dev: list(compute_csd(on(dev, x2), on(dev, y2),
+                                            1000.0, 512)),
+        "coherence": lambda dev: list(sg.compute_coherence(
+            on(dev, x2), on(dev, y2), 1000.0, 512)),
+        "spectrogram": lambda dev: list(sg.compute_spectrogram(
+            on(dev, x2), 1000.0, 512)),
+        "cepstrum": lambda dev: [sg.cepstrum(on(dev, harm))],
+        "pitch": lambda dev: [sg.pitch_detect(on(dev, harm), 16000.0)],
+        "stft_round_trip": stft,
+        "cwt": lambda dev: [sg.CWT(device=dev).forward(on(dev, x2[0, :2048]),
+                                                       scales)],
+        "dwt_round_trip": dwt,
+        "wpt_round_trip": wpt,
+        "modwt": lambda dev: sg.MODWT("db4", device=dev).decompose(
+            on(dev, x2), 4),
+        "wigner_ville_1024": lambda dev: [sg.WignerVille(device=dev).forward(
+            on(dev, x2[0, :1024]))],
+        "mel": lambda dev: [sg.mel_spectrogram(on(dev, harm), 16000.0)],
+        "mfcc": lambda dev: [sg.mfcc(on(dev, harm), 16000.0)],
+    }
+
+
+def _signal_cpu_vs_card() -> dict:
+    """Every ported function on the card against the port on the CPU,
+    normalised by each output's largest value: within SIGNAL_CPU_TOL."""
+    out = {}
+    for name, run in _signal_cases().items():
+        card, cpu = run("cuda"), run("cpu")
+        diffs = [_normalised_diff(a.cpu(), b) for a, b in zip(card, cpu)]
+        worst = max(diffs)
+        ok = (len(card) == len(cpu) and worst <= SIGNAL_CPU_TOL
+              and all(a.shape == b.shape for a, b in zip(card, cpu)))
+        out[name] = worst
+        if not ok:
+            emit("signal_cpu_vs_card", ok=False, case=name,
+                 normalised_max_diff=diffs, tol=SIGNAL_CPU_TOL)
+            fail("signal_cpu_vs_card", f"{name}: the card and the CPU "
+                 "disagree")
+    emit("signal_cpu_vs_card", ok=True, tol=SIGNAL_CPU_TOL,
+         normalised_max_diff=out)
+    return out
+
+
+def _analysis_path(name: str) -> dict:
+    """One ANALYSIS_PATHS entry as a user calls it: warm-up calls, then the
+    timed calls by CUDA events with every launch count set to 0 just
+    before and read just after, the host's enqueue per call, the device's
+    work over one call (torch.profiler), paced_by and peak memory."""
+    import torch
+
+    p = _analysis(name)
+    phase = f"analysis_path_{name}"
+    torch.cuda.empty_cache()
+    xs = p.inputs(seed=0)
+    call = p.call("cuda")
+    for _ in range(p.warm):
+        out = call(*xs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(p.calls):
+        out = call(*xs)
+    end.record()
+    end.synchronize()
+    launched = counts()
+    ms = start.elapsed_time(end) / p.calls
+    peak = torch.cuda.max_memory_allocated()
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    t0 = time.perf_counter()
+    for _ in range(p.calls):
+        call(*xs)
+    host_ms = (time.perf_counter() - t0) * 1e3 / p.calls
+    torch.cuda.synchronize()
+    reset_counts()
+    call(*xs)
+    one_call = counts()["fir_band"]
+    device_ms = _device_ms(lambda: call(*xs)) or None
+    n_bytes = sum(t.numel() * t.element_size() for t in xs + outs)
+    want = {**{k: 0 for k in launched}, "fir_band": p.fir_band * p.calls}
+    r = {"ms_per_call": ms, "gbps": n_bytes / (ms * 1e6),
+         "host_enqueue_ms_per_call": host_ms, "device_ms_per_call": device_ms,
+         "device_busy_share": device_ms and device_ms / ms,
+         "paced_by": paced_by(ms, host_ms, device_ms),
+         "peak_mem_bytes": peak, "launches": launched,
+         "fir_band_launches_one_call": one_call}
+    ok = finite and launched == want and one_call == p.fir_band
+    emit(phase, ok=ok, source=p.source, shapes=[list(s) for s in p.shapes],
+         output_shapes=[list(o.shape) for o in outs], calls=p.calls,
+         warm=p.warm, bytes_per_call=n_bytes, finite=finite, **r)
+    if not ok:
+        fail(phase, f"non-finite output or launch counts {launched} "
+             f"(one call: {one_call}), expected {want}")
+    del xs, out, outs
+    return r
+
+
+def _timed_once(fn) -> tuple:
+    """(result, seconds) of one call ended by a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _iir_full_width() -> dict:
+    """iir_8th_1m: the doubling scan against the per-sample scan on the
+    same 2^20 samples (rtol / atol IIR_TOL), and StreamingIIR over
+    1024-sample chunks of the first STREAM_SAMPLES against the one-shot
+    scan's outputs there (STREAM_ATOL; the same per-sample function, so
+    bit for bit expected). The scans run once and are timed: ~200 us a
+    sample on the card's host, so the stream is cut to a prefix."""
+    import torch
+    from njw_tpu_torch.signal import IIRFilter, StreamingIIR, sos_apply
+
+    x, = _analysis("iir_8th_1m").inputs(seed=0)
+    sos = IIRFilter(design="butterworth", order=8, cutoff=0.2).sos
+    y_par = sos_apply(x, sos, "parallel")
+    y_scan, scan_s = _timed_once(lambda: sos_apply(x, sos, "scan"))
+    si = StreamingIIR(sos)
+    y_stream, stream_s = _timed_once(lambda: torch.cat(
+        [si.process(c) for c in x[:STREAM_SAMPLES].split(1024)]))
+    d = (y_par - y_scan).abs()
+    par_ok = bool((d <= IIR_TOL + IIR_TOL * y_scan.abs()).all())
+    head = y_scan[:STREAM_SAMPLES]
+    stream_diff = float((y_stream - head).abs().max())
+    r = {"samples": x.numel(), "parallel_vs_scan_max_abs": float(d.max()),
+         "parallel_vs_scan_ok": par_ok, "tol": IIR_TOL,
+         "stream_samples": STREAM_SAMPLES,
+         "stream_vs_scan_max_abs": stream_diff,
+         "stream_bit_equal": bool(torch.equal(y_stream, head)),
+         "stream_atol": STREAM_ATOL, "scan_seconds": scan_s,
+         "scan_us_per_sample": scan_s / x.numel() * 1e6,
+         "stream_seconds": stream_s,
+         "stream_us_per_sample": stream_s / STREAM_SAMPLES * 1e6}
+    ok = par_ok and stream_diff <= STREAM_ATOL
+    emit("analysis_invariant_iir", ok=ok, **r)
+    if not ok:
+        fail("analysis_invariant_iir", "the parallel or streamed IIR "
+             "disagrees with the per-sample scan")
+    return r
+
+
+def _lms_full_width() -> dict:
+    """lms_64_50k: the parallel engine (the path) against the scan engine
+    on the same inputs: y and e within LMS_Y_REL of max|y|, w within
+    LMS_W_ATOL."""
+    from njw_tpu_torch.signal import AdaptiveFilter
+
+    x, d = _analysis("lms_64_50k").inputs(seed=0)
+    yp, ep, wp = AdaptiveFilter(num_taps=64, method="lms", mu=0.01,
+                                engine="parallel").apply(x, d)
+    (ys, es, ws), scan_s = _timed_once(lambda: AdaptiveFilter(
+        num_taps=64, method="lms", mu=0.01, engine="scan").apply(x, d))
+    scale = float(ys.abs().max())
+    r = {"y_max_abs": float((yp - ys).abs().max()),
+         "e_max_abs": float((ep - es).abs().max()),
+         "w_max_abs": float((wp - ws).abs().max()), "y_scale": scale,
+         "y_tol": LMS_Y_REL * scale, "w_tol": LMS_W_ATOL,
+         "scan_seconds": scan_s}
+    ok = (r["y_max_abs"] <= r["y_tol"] and r["e_max_abs"] <= r["y_tol"]
+          and r["w_max_abs"] <= LMS_W_ATOL)
+    emit("analysis_invariant_lms", ok=ok, samples=x.numel(), **r)
+    if not ok:
+        fail("analysis_invariant_lms", "the parallel LMS disagrees with the "
+             "scan engine")
+    return r
+
+
+def _reconstruction_full_width() -> dict:
+    """DWT("db4") (3 levels) and WPT("db4") (2 levels) on the modwt_16x1m
+    input reconstruct it within RECON_ATOL (their batches of 16 rows run
+    on fir_band), and so does STFT(1024, 256) on its first two rows away
+    from the ends (the JAX test's interior, tests/test_signal.py:407)."""
+    import torch
+    from njw_tpu_torch.signal import DWT, STFT, WPT
+
+    x, = _analysis("modwt_16x1m").inputs(seed=0)
+    n = x.shape[-1]
+    dwt = DWT("db4")
+    dwt_err = float((dwt.reconstruct(dwt.decompose(x, 3))[..., :n]
+                     - x).abs().max())
+    wpt = WPT("db4")
+    wpt_err = float((wpt.reconstruct(wpt.decompose(x, 2))[..., :n]
+                     - x).abs().max())
+    st = STFT(1024, 256)
+    y = st.inverse(st.forward(x[:2]))       # ends at the last whole frame
+    stft_err = float((y - x[:2, :y.shape[-1]])[..., 1024:-1024].abs().max())
+    torch.cuda.empty_cache()
+    ok = max(dwt_err, wpt_err, stft_err) <= RECON_ATOL
+    r = {"dwt_max_abs": dwt_err, "wpt_max_abs": wpt_err,
+         "stft_interior_max_abs": stft_err, "atol": RECON_ATOL}
+    emit("analysis_invariant_reconstruction", ok=ok, shape=list(x.shape),
+         **r)
+    if not ok:
+        fail("analysis_invariant_reconstruction", "a round trip misses "
+             "the input")
+    return r
+
+
+def _sequential_engines() -> dict:
+    """The per-sample engines at SEQ_N samples: ms per call by CUDA events
+    over SEQ_CALLS calls, the host's enqueue per call, the device's work
+    over one call (torch.profiler) and paced_by."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.signal import (
+        AdaptiveFilter, IIRFilter, StreamingIIR, sos_apply,
+    )
+
+    rng = np.random.default_rng(3)
+    x, d = (torch.from_numpy(rng.standard_normal(SEQ_N, dtype=np.float32))
+            .cuda() for _ in range(2))
+    sos = IIRFilter(design="butterworth", order=8, cutoff=0.2).sos
+
+    def stream():
+        si = StreamingIIR(sos)
+        return torch.cat([si.process(c) for c in x.split(1024)])
+
+    def adaptive(method):
+        af = AdaptiveFilter(num_taps=64, method=method, mu=0.01,
+                            engine="scan")
+        return lambda: af.apply(x, d)
+
+    engines = {"sos_scan_8th": lambda: sos_apply(x, sos, "scan"),
+               "streaming_iir_8th_1024": stream,
+               "lms_scan_64": adaptive("lms"), "nlms_scan_64":
+               adaptive("nlms"), "rls_64": adaptive("rls")}
+    out = {}
+    for name, fn in engines.items():
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(SEQ_CALLS):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / SEQ_CALLS
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / SEQ_CALLS
+        device_ms = _device_ms(fn) or None
+        out[name] = {"samples": SEQ_N, "ms_per_call": ms,
+                     "us_per_sample": ms / SEQ_N * 1e3,
+                     "host_enqueue_ms_per_call": host_ms,
+                     "device_ms_per_call": device_ms,
+                     "paced_by": paced_by(ms, host_ms, device_ms)}
+        emit(f"analysis_sequential_{name}", ok=True, **out[name])
+    return out
+
+
+def analysis_paths() -> dict:
+    """Phase 17: the rest of the signal package on cuda:0: every ported
+    function on the card against the port on the CPU, the ANALYSIS_PATHS
+    at full width, the JAX tests' invariants at full width, and the
+    per-sample engines' cost."""
+    from njw_tpu_torch.signal.main_paths import ANALYSIS_PATHS
+
+    t0 = time.perf_counter()
+    res = {"cpu_vs_card": _signal_cpu_vs_card()}
+    for name in ANALYSIS_PATHS:
+        res[name] = _analysis_path(name)
+    res["lms_invariant"] = _lms_full_width()
+    res["reconstruction"] = _reconstruction_full_width()
+    res["sequential"] = _sequential_engines()
+    res["iir_invariant"] = _iir_full_width()
+    emit("analysis_summary", ok=True, seconds=time.perf_counter() - t0,
+         ms_per_call={n: res[n]["ms_per_call"] for n in ANALYSIS_PATHS},
+         paced_by={n: res[n]["paced_by"] for n in ANALYSIS_PATHS},
+         scan_seconds_2e20=res["iir_invariant"]["scan_seconds"])
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3077,6 +3480,7 @@ def main() -> int:
     si = semi_implicit()
     plain_sharded_paths()
     global_paths()
+    analysis_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

@@ -20,15 +20,15 @@ snapshot writers and checkpoints (``utils``). Every sharded path of
 ``parallel`` (the kernel-backed steppers, the plain steppers with the
 halo exchange overlapped, the sharded barotropic core on the
 distributed FFT, the latitude-sharded sphere and the panel-pair
-icosahedron) and the scaling harness of ``bench``; and the FIR half of
-``signal`` (windows, FIR design, ``fir_apply``, ``FIRFilter``,
-``MultirateFilter``, ``StreamingFIR``) with the banded-product
-tensor-core kernels ``ops/csrc/fir_band.cu`` and
-``ops/csrc/fir_band_bf16.cu``. All kernels are CUDA C++ written by hand
-for sm_90a, and every Pallas kernel of the JAX package has its
-counterpart; the global cores, nesting and the C-grid run on PyTorch's
-own operations (the JAX package runs them on XLA, with no Pallas
-kernel). Entry points run on the CUDA device unless the caller passes
+icosahedron) and the scaling harness of ``bench``; and the whole
+``signal`` package: FIR filtering with the banded-product tensor-core
+kernels ``ops/csrc/fir_band.cu`` and ``ops/csrc/fir_band_bf16.cu``, IIR
+design and application, median and adaptive filters, spectral and
+time-frequency analysis. All kernels are CUDA C++ written by hand for
+sm_90a, and every Pallas kernel of the JAX package has its counterpart;
+the global cores, nesting, the C-grid and the signal package beyond FIR
+run on PyTorch's own operations (the JAX package runs them on XLA, with
+no Pallas kernel). Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 

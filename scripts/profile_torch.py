@@ -4,7 +4,7 @@
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
                                      fir|pe_stage|baro_stage|plain_sharded|
-                                     all]
+                                     analysis|all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -76,6 +76,10 @@ the card's name and power limit:
     _bf16.cu built outside the repository, in turns (parent first each
     turn), with the largest difference from the parent; ``fir_built``:
     registers, spills, shared bytes and blocks per SM of every build;
+  * analysis ``profile``: each ``ANALYSIS_PATHS`` entry of
+    ``njw_tpu_torch.signal.main_paths`` (the rest of the signal package,
+    ``chip_smoke.py`` phase 17) called min(``--steps``, 20) times: device
+    time by kernel group, busy share and host enqueue per call;
   * plain_sharded (no path profile) ``plain_sharded``: one step of each
     ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh, and of the SWE and PE
     ones with overlap off too: device ms by kind of PyTorch kernel, the
@@ -286,34 +290,51 @@ def plain_sharded(gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_fir(calls: int, gpu: str) -> dict:
-    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
-
-    path = SIGNAL_PATHS["fir_batch"]
-    x = path.signal()
-    call = path.call()
-    for _ in range(path.warm):
-        call(x)
+def profile_calls(call, args, calls: int) -> dict:
+    """``calls`` calls of a signal path under torch.profiler: device ms
+    by kernel group, busy share and host enqueue per call."""
+    for _ in range(3):
+        call(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            call(x)
+            call(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_ms_by_kernel(prof)
 
     t0 = time.perf_counter()
     for _ in range(10):
-        call(x)
+        call(*args)
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / 10
     torch.cuda.synchronize()
+    return {"calls": calls, **summary(by_name, calls, wall_ms, "call"),
+            "host_enqueue_ms_per_call": enqueue_ms}
+
+
+def profile_fir(calls: int, gpu: str) -> dict:
+    from njw_tpu_torch.signal.main_paths import MAIN_PATHS as SIGNAL_PATHS
+
+    path = SIGNAL_PATHS["fir_batch"]
     return {"phase": "profile", "card": gpu, "model": "fir",
             "path": "fir_batch", "shape": list(path.shape),
-            "taps": path.num_taps, "calls": calls,
-            **summary(by_name, calls, wall_ms, "call"),
-            "host_enqueue_ms_per_call": enqueue_ms}
+            "taps": path.num_taps,
+            **profile_calls(path.call(), (path.signal(),), calls)}
+
+
+def profile_analysis(calls: int, gpu: str) -> None:
+    """Each ANALYSIS_PATHS entry (chip_smoke.py phase 17) by kernel group."""
+    from njw_tpu_torch.signal.main_paths import ANALYSIS_PATHS
+
+    for name, path in ANALYSIS_PATHS.items():
+        print(json.dumps({
+            "phase": "profile", "card": gpu, "model": "analysis",
+            "path": name, "shapes": [list(s) for s in path.shapes],
+            **profile_calls(path.call("cuda"), path.inputs(), calls)}),
+            flush=True)
+        torch.cuda.empty_cache()
 
 
 def swe_extras(steps: int, gpu: str) -> None:
@@ -1305,7 +1326,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
-                             "baro_stage", "plain_sharded", "all"])
+                             "baro_stage", "plain_sharded", "analysis",
+                             "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
@@ -1339,6 +1361,9 @@ def main() -> int:
             continue
         if model == "plain_sharded":
             plain_sharded(gpu)
+            continue
+        if model == "analysis":
+            profile_analysis(min(args.steps, 20), gpu)
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

@@ -1044,3 +1044,67 @@ class TestGlobalCoresOnCard:
             whole.step(p.steps)
             diffs = _group_diff(got, whole.state)
             assert max(diffs.values()) <= 1e-4, diffs
+
+
+@pytest.mark.cuda
+class TestSignalAnalysisOnCard:
+    """The rest of the signal package on the card: against the port on
+    the CPU (normalised 1e-4), products with TF32 off, and MODWT on a
+    batch through fir_band."""
+
+    @staticmethod
+    def _norm(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    def test_iir_adaptive_and_median_match_cpu(self, cuda_device):
+        from njw_tpu_torch.signal import (
+            AdaptiveFilter, IIRFilter, median_filter, sos_apply,
+        )
+
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((3, 5000)).astype(np.float32)
+        d = rng.standard_normal(5000).astype(np.float32)
+        sos = IIRFilter(design="butterworth", order=8, cutoff=0.2,
+                        device="cpu").sos
+        for method in ("parallel", "scan"):
+            got = sos_apply(x[:, :1000] if method == "scan" else x, sos,
+                            method)
+            want = sos_apply(x[:, :1000] if method == "scan" else x, sos,
+                             method, device="cpu")
+            assert self._norm(got, want) <= 1e-4
+        assert self._norm(median_filter(x, 11),
+                          median_filter(x, 11, device="cpu")) == 0.0
+        for dev_y, cpu_y in zip(
+                AdaptiveFilter(num_taps=64, mu=0.01).apply(x[0], d),
+                AdaptiveFilter(num_taps=64, mu=0.01,
+                               device="cpu").apply(x[0], d)):
+            assert self._norm(dev_y, cpu_y) <= 1e-4
+
+    def test_products_ignore_the_tf32_setting(self, cuda_device):
+        from njw_tpu_torch.signal import AdaptiveFilter
+
+        rng = np.random.default_rng(1)
+        x, d = (rng.standard_normal(3000).astype(np.float32)
+                for _ in range(2))
+        af = AdaptiveFilter(num_taps=64, mu=0.01)
+        prev = torch.get_float32_matmul_precision()
+        try:
+            torch.set_float32_matmul_precision("high")
+            tf32 = af.apply(x, d)
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        for a, b in zip(tf32, af.apply(x, d)):
+            assert torch.equal(a, b)
+
+    def test_modwt_batch_launches_fir_band(self, cuda_device):
+        from njw_tpu_torch.signal import MODWT
+
+        x = torch.randn(8, 1 << 16, device=cuda_device)
+        before = fir_band_cuda.launches
+        got = MODWT("db4").decompose(x, level=4)
+        torch.cuda.synchronize()
+        assert fir_band_cuda.launches == before + 8
+        want = MODWT("db4", device="cpu").decompose(x.cpu(), level=4)
+        for a, b in zip(got, want):     # four chained levels: the phase's
+            assert self._norm(a, b) <= 1e-4     # card-vs-CPU band
