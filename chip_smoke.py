@@ -191,17 +191,22 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 fft_1024_x1k, spectrogram_10s, modwt_16x1m), 20 calls
                 after 3 by CUDA events, every launch count set to 0 just
                 before and read just after (modwt_16x1m: fir_band 8 times
-                a call, also read over one call; every other path: no
-                kernel of the port), ms/call, GB/s over the inputs read
-                and the outputs written once, host enqueue, device work
-                (torch.profiler), paced_by and peak memory; the JAX
+                a call, also read over one call, and each of a call's 8
+                launches held against fir_band_plain on its own input,
+                rtol 1e-5, atol 1e-5 or the float32 summation spread;
+                every other path: no kernel of the port), ms/call, GB/s over
+                the inputs read and the outputs written once, host
+                enqueue, the device's time for one call (the call captured
+                in a CUDA graph and replayed, CUDA events; null where it
+                cannot be captured) beside the kernels' sum under
+                torch.profiler, paced_by and peak memory; the JAX
                 tests' invariants at full width: lms_64_50k's parallel
                 engine against the scan engine (2e-4 of max|y|, w 5e-4),
                 DWT("db4") and WPT round trips on the modwt_16x1m input
                 and the STFT's on two of its rows (atol 1e-3), iir_8th_1m's doubling scan against the
                 per-sample scan on its 2^20 samples (rtol / atol 1e-4) and
-                StreamingIIR over 1024-sample chunks of its first 2^17
-                samples against that scan (atol 1e-5), the scans timed;
+                StreamingIIR over 1024-sample chunks of all of them
+                against that scan (atol 1e-5), both timed;
                 and the per-sample engines' cost at 4096 samples (the IIR
                 scan and stream, LMS, NLMS and RLS with 64 taps)
 Phases 6, 13 and 14 also read the device's work over one step (the
@@ -3080,7 +3085,40 @@ RECON_ATOL = 1e-3           # STFT / DWT / WPT round trips: :407, 430, 480
 RLS_HORIZON = 512           # RLS samples held card to CPU (ROADMAP.md §3)
 SEQ_N = 4096                # samples of the sequential engines' timed runs
 SEQ_CALLS = 3               # their timed calls, after one warm-up
-STREAM_SAMPLES = 1 << 17    # iir_8th_1m's samples streamed against the scan
+
+
+def _graph_ms(fn, replays: int = 5) -> tuple:
+    """The device's time for one call of fn(): the call captured once in a
+    CUDA graph, then replayed, timed by CUDA events, so that its kernels
+    run back to back with no host in the way (the gaps between them
+    included). Returns (ms, None), or (None, the reason) where the call
+    cannot be captured. Phase 17 reads the device's work this way: late
+    in the script's process torch.profiler (``_device_ms``) recorded only
+    some kernels of calls that launch few, and a call queued behind a
+    spin overfills the launch queue where it launches ~1000."""
+    import torch
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as err:
+        del graph
+        torch.cuda.synchronize()
+        return None, str(err).splitlines()[0][:200]
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / replays, None
 
 
 def _analysis(name: str):
@@ -3212,7 +3250,9 @@ def _analysis_path(name: str) -> dict:
     """One ANALYSIS_PATHS entry as a user calls it: warm-up calls, then the
     timed calls by CUDA events with every launch count set to 0 just
     before and read just after, the host's enqueue per call, the device's
-    work over one call (torch.profiler), paced_by and peak memory."""
+    time for one call replayed from a CUDA graph (``_graph_ms``) beside the
+    kernels' sum under torch.profiler, paced_by, peak memory, and for a
+    path that reaches fir_band each launch against its plain version."""
     import torch
 
     p = _analysis(name)
@@ -3245,24 +3285,69 @@ def _analysis_path(name: str) -> dict:
     reset_counts()
     call(*xs)
     one_call = counts()["fir_band"]
-    device_ms = _device_ms(lambda: call(*xs)) or None
+    device_ms, graph_error = _graph_ms(lambda: call(*xs))
+    profiler_ms = _device_ms(lambda: call(*xs)) or None
     n_bytes = sum(t.numel() * t.element_size() for t in xs + outs)
     want = {**{k: 0 for k in launched}, "fir_band": p.fir_band * p.calls}
     r = {"ms_per_call": ms, "gbps": n_bytes / (ms * 1e6),
          "host_enqueue_ms_per_call": host_ms, "device_ms_per_call": device_ms,
+         "profiler_kernel_ms_per_call": profiler_ms,
+         "graph_error": graph_error,
          "device_busy_share": device_ms and device_ms / ms,
          "paced_by": paced_by(ms, host_ms, device_ms),
          "peak_mem_bytes": peak, "launches": launched,
          "fir_band_launches_one_call": one_call}
-    ok = finite and launched == want and one_call == p.fir_band
+    vs_plain = _fir_launches_vs_plain(p, xs) if p.fir_band else None
+    ok = (finite and launched == want and one_call == p.fir_band
+          and (vs_plain is None or vs_plain["ok"]))
     emit(phase, ok=ok, source=p.source, shapes=[list(s) for s in p.shapes],
          output_shapes=[list(o.shape) for o in outs], calls=p.calls,
-         warm=p.warm, bytes_per_call=n_bytes, finite=finite, **r)
+         warm=p.warm, bytes_per_call=n_bytes, finite=finite,
+         fir_band_vs_plain=vs_plain, **r)
     if not ok:
-        fail(phase, f"non-finite output or launch counts {launched} "
-             f"(one call: {one_call}), expected {want}")
+        fail(phase, f"non-finite output, launch counts {launched} (one "
+             f"call: {one_call}, expected {want}), or a fir_band launch "
+             "that disagrees with its plain version")
     del xs, out, outs
     return r
+
+
+def _fir_launches_vs_plain(p, xs) -> dict:
+    """A path that reaches fir_band, run once more with each
+    fir_batch_lanes call recorded: every launch's output against
+    fir_band_plain on that launch's own input (_fir_vs_plain: rtol
+    FIR_RTOL, atol the larger of FIR_ATOL and the float32 summation
+    spread). These are the path's shapes: MODWT's periodic joins grow its
+    rows by 7, 14, 28 and 56 samples, so the first two levels' rows are
+    not 16-byte aligned and take the kernel's staging branch, the last
+    two its TMA stream."""
+    import torch
+    from njw_tpu_torch.signal import fir_cuda as fc
+
+    seen = []
+    real = fc.fir_batch_lanes
+
+    def recording(x, taps, **kw):
+        y = real(x, taps, **kw)
+        seen.append((x, taps, kw.get("passes", 3), y))
+        return y
+
+    fc.fir_batch_lanes = recording
+    try:
+        p.call("cuda")(*xs)
+    finally:
+        fc.fir_batch_lanes = real
+    torch.cuda.synchronize()
+    launches, ok = [], len(seen) == p.fir_band
+    for x, taps, passes, y in seen:
+        check, agrees = _fir_vs_plain(y, x, taps, passes)
+        streamed = fc.fir_layout(*x.shape, passes=passes,
+                                 data_ptr=x.data_ptr()).streamed
+        launches.append({"shape": list(x.shape), "taps": len(taps),
+                         "streamed": streamed, "agrees": agrees, **check})
+        ok = ok and agrees
+    del seen
+    return {"ok": ok, "launches": launches}
 
 
 def _timed_once(fn) -> tuple:
@@ -3279,10 +3364,10 @@ def _timed_once(fn) -> tuple:
 def _iir_full_width() -> dict:
     """iir_8th_1m: the doubling scan against the per-sample scan on the
     same 2^20 samples (rtol / atol IIR_TOL), and StreamingIIR over
-    1024-sample chunks of the first STREAM_SAMPLES against the one-shot
-    scan's outputs there (STREAM_ATOL; the same per-sample function, so
-    bit for bit expected). The scans run once and are timed: ~200 us a
-    sample on the card's host, so the stream is cut to a prefix."""
+    1024-sample chunks of all of them against the one-shot scan
+    (STREAM_ATOL; the same per-sample function, so bit for bit expected).
+    The scan and the stream run once each and are timed: a few hundred
+    µs a sample on the card's host, so together they take minutes."""
     import torch
     from njw_tpu_torch.signal import IIRFilter, StreamingIIR, sos_apply
 
@@ -3292,20 +3377,18 @@ def _iir_full_width() -> dict:
     y_scan, scan_s = _timed_once(lambda: sos_apply(x, sos, "scan"))
     si = StreamingIIR(sos)
     y_stream, stream_s = _timed_once(lambda: torch.cat(
-        [si.process(c) for c in x[:STREAM_SAMPLES].split(1024)]))
+        [si.process(c) for c in x.split(1024)]))
     d = (y_par - y_scan).abs()
     par_ok = bool((d <= IIR_TOL + IIR_TOL * y_scan.abs()).all())
-    head = y_scan[:STREAM_SAMPLES]
-    stream_diff = float((y_stream - head).abs().max())
+    stream_diff = float((y_stream - y_scan).abs().max())
     r = {"samples": x.numel(), "parallel_vs_scan_max_abs": float(d.max()),
          "parallel_vs_scan_ok": par_ok, "tol": IIR_TOL,
-         "stream_samples": STREAM_SAMPLES,
          "stream_vs_scan_max_abs": stream_diff,
-         "stream_bit_equal": bool(torch.equal(y_stream, head)),
+         "stream_bit_equal": bool(torch.equal(y_stream, y_scan)),
          "stream_atol": STREAM_ATOL, "scan_seconds": scan_s,
          "scan_us_per_sample": scan_s / x.numel() * 1e6,
          "stream_seconds": stream_s,
-         "stream_us_per_sample": stream_s / STREAM_SAMPLES * 1e6}
+         "stream_us_per_sample": stream_s / x.numel() * 1e6}
     ok = par_ok and stream_diff <= STREAM_ATOL
     emit("analysis_invariant_iir", ok=ok, **r)
     if not ok:
@@ -3373,8 +3456,9 @@ def _reconstruction_full_width() -> dict:
 
 def _sequential_engines() -> dict:
     """The per-sample engines at SEQ_N samples: ms per call by CUDA events
-    over SEQ_CALLS calls, the host's enqueue per call, the device's work
-    over one call (torch.profiler) and paced_by."""
+    over SEQ_CALLS calls, the host's enqueue per call, the device's time
+    for one call replayed from a CUDA graph beside the kernels' sum under
+    torch.profiler, and paced_by."""
     import numpy as np
     import torch
     from njw_tpu_torch.signal import (
@@ -3413,11 +3497,13 @@ def _sequential_engines() -> dict:
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / SEQ_CALLS
-        device_ms = _device_ms(fn) or None
+        device_ms, graph_error = _graph_ms(fn, replays=1)
         out[name] = {"samples": SEQ_N, "ms_per_call": ms,
                      "us_per_sample": ms / SEQ_N * 1e3,
                      "host_enqueue_ms_per_call": host_ms,
                      "device_ms_per_call": device_ms,
+                     "graph_error": graph_error,
+                     "profiler_kernel_ms_per_call": _device_ms(fn) or None,
                      "paced_by": paced_by(ms, host_ms, device_ms)}
         emit(f"analysis_sequential_{name}", ok=True, **out[name])
     return out
@@ -3441,7 +3527,8 @@ def analysis_paths() -> dict:
     emit("analysis_summary", ok=True, seconds=time.perf_counter() - t0,
          ms_per_call={n: res[n]["ms_per_call"] for n in ANALYSIS_PATHS},
          paced_by={n: res[n]["paced_by"] for n in ANALYSIS_PATHS},
-         scan_seconds_2e20=res["iir_invariant"]["scan_seconds"])
+         scan_seconds_2e20=res["iir_invariant"]["scan_seconds"],
+         stream_seconds_2e20=res["iir_invariant"]["stream_seconds"])
     return res
 
 

@@ -30,12 +30,11 @@ nlat = 512 (even nlat), as in the JAX package.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.platform.precision import float32_products
 
 # Hemispheric parity of each runtime table; the quadrature weights and
 # 1/cos^2 factors are even in mu
@@ -82,21 +81,6 @@ def legendre_tables(trunc: int, mu: np.ndarray):
                 h = h + (n + 1) * e_n * P[m, n - 1]
             H[m, n] = h
     return P, H
-
-
-@contextlib.contextmanager
-def float32_products():
-    """Run the enclosed matrix products in full float32 (no TF32), and
-    restore the process's setting after."""
-    prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        yield
-        return
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def _split(z: torch.Tensor) -> torch.Tensor:

@@ -42,7 +42,6 @@ the port: the JAX package has no Pallas kernel for them either.
 """
 from __future__ import annotations
 
-import contextlib
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -50,8 +49,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from njw_tpu_torch.ops.sht import float32_products
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.platform.precision import float32_products
 from njw_tpu_torch.signal.windows import get_window
 
 FRAME = 128          # samples per frame of the banded product
@@ -251,24 +250,10 @@ def _fir_apply_mxu(xb: torch.Tensor, h0: torch.Tensor, h1: torch.Tensor,
     return y[:, start:start + n]
 
 
-@contextlib.contextmanager
-def _ieee_conv(device: torch.device):
-    """cuDNN convolutions in full float32 (PyTorch's default is TF32)."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _fir_apply_conv(xb: torch.Tensor, taps: np.ndarray, mode: str,
                     k: int) -> torch.Tensor:
     w = torch.from_numpy(taps[::-1].copy()).to(xb.device).view(1, 1, k)
-    with _ieee_conv(xb.device):
+    with float32_products():
         out = F.conv1d(xb[:, None, :], w, padding=k - 1)[:, 0, :]
     n = xb.shape[-1]
     start = 0 if mode == "causal" else (k - 1) // 2
@@ -814,7 +799,7 @@ def _lms_wy_parallel(frames: torch.Tensor, d: torch.Tensor, mu: float,
     Three levels: batched products over the chunks, an inclusive scan of
     the chunk maps (``_inclusive_scan_maps``), batched per-sample outputs.
     The same recurrence as the scan engine; only the float summation order
-    differs. Products in full float32 (TF32 off)."""
+    differs. The caller runs it under ``float32_products`` (no TF32)."""
     n, L = frames.shape
     C = chunk
     nb = -(-n // C)
@@ -823,32 +808,31 @@ def _lms_wy_parallel(frames: torch.Tensor, d: torch.Tensor, mu: float,
     X = F.pad(frames, (0, 0, 0, pad)).reshape(nb, C, L)
     dc = F.pad(d, (0, pad)).reshape(nb, C)
     Xt = X.transpose(1, 2)
-    with float32_products():
-        G = X @ Xt                                            # Gram
-        if nlms:
-            den = torch.diagonal(G, dim1=1, dim2=2) + eps
-            mu_t = torch.full_like(den, mu) / den
-        else:
-            mu_t = torch.full((nb, C), mu, dtype=X.dtype, device=X.device)
-        S = torch.tril(G, diagonal=-1)
-        M = -(mu_t[:, :, None] * S)                           # -D S
-        eye_c = torch.eye(C, dtype=X.dtype, device=X.device)
-        P = eye_c + M
-        Mk = M
-        j = 1
-        while (1 << j) < C:
-            Mk = Mk @ Mk
-            P = P @ (eye_c + Mk)
-            j += 1
-        T = P * mu_t[:, None, :]                              # (I+DS)^-1 D
-        A = torch.eye(L, dtype=X.dtype, device=X.device) - Xt @ (T @ X)
-        q = (Xt @ (T @ dc[:, :, None]))[..., 0]
-        _, bp = _inclusive_scan_maps(A, q)
-        # w at each chunk start (w0 = 0): the exclusive prefix offsets
-        w_start = torch.cat([bp.new_zeros((1, L)), bp[:-1]])
-        a = (X @ w_start[:, :, None])[..., 0]
-        r = a - dc
-        y = a - (S @ (T @ r[:, :, None]))[..., 0]
+    G = X @ Xt                                            # Gram
+    if nlms:
+        den = torch.diagonal(G, dim1=1, dim2=2) + eps
+        mu_t = torch.full_like(den, mu) / den
+    else:
+        mu_t = torch.full((nb, C), mu, dtype=X.dtype, device=X.device)
+    S = torch.tril(G, diagonal=-1)
+    M = -(mu_t[:, :, None] * S)                           # -D S
+    eye_c = torch.eye(C, dtype=X.dtype, device=X.device)
+    P = eye_c + M
+    Mk = M
+    j = 1
+    while (1 << j) < C:
+        Mk = Mk @ Mk
+        P = P @ (eye_c + Mk)
+        j += 1
+    T = P * mu_t[:, None, :]                              # (I+DS)^-1 D
+    A = torch.eye(L, dtype=X.dtype, device=X.device) - Xt @ (T @ X)
+    q = (Xt @ (T @ dc[:, :, None]))[..., 0]
+    _, bp = _inclusive_scan_maps(A, q)
+    # w at each chunk start (w0 = 0): the exclusive prefix offsets
+    w_start = torch.cat([bp.new_zeros((1, L)), bp[:-1]])
+    a = (X @ w_start[:, :, None])[..., 0]
+    r = a - dc
+    y = a - (S @ (T @ r[:, :, None]))[..., 0]
     yf = y.reshape(-1)[:n]
     return yf, d - yf, bp[-1]
 

@@ -118,13 +118,12 @@ class AnalysisPath:
     warm: int = 3                         # calls before a timed run
     calls: int = 20                       # timed calls
 
-    def inputs(self, seed: int = 0, device="cuda", shapes=None):
-        """Standard normal float32 inputs made with NumPy from ``seed``
-        (``shapes`` in place of the path's own, for a cut-down run)."""
+    def inputs(self, seed: int = 0, device="cuda"):
+        """Standard normal float32 inputs made with NumPy from ``seed``."""
         rng = np.random.default_rng(seed)
         dev = require_device(device)
         return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-                .to(dev) for s in (shapes or self.shapes)]
+                .to(dev) for s in self.shapes]
 
 
 _MEASURED = "scripts/measure_signal.py"

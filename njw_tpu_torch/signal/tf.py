@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from njw_tpu_torch.ops.sht import float32_products
+from njw_tpu_torch.platform.precision import float32_products
 from njw_tpu_torch.signal.filters import as_signal, fir_apply
 from njw_tpu_torch.signal.spectral import _as_input, _frame, _window, irfft
 

@@ -1097,14 +1097,37 @@ class TestSignalAnalysisOnCard:
         for a, b in zip(tf32, af.apply(x, d)):
             assert torch.equal(a, b)
 
-    def test_modwt_batch_launches_fir_band(self, cuda_device):
+    def test_modwt_batch_launches_fir_band(self, cuda_device, monkeypatch):
+        """MODWT on a batch launches fir_band 8 times, on rows that grow by
+        its periodic joins (by 7 and 14 samples: not 16-byte aligned, the
+        staging branch; by 28 and 56: the TMA stream); each launch agrees
+        with the plain version on its own input at the kernel's band
+        (rtol / atol 1e-5)."""
         from njw_tpu_torch.signal import MODWT
+        from njw_tpu_torch.signal import fir_cuda
 
-        x = torch.randn(8, 1 << 16, device=cuda_device)
+        rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.standard_normal((8, 1 << 16)).astype(
+            np.float32)).to(cuda_device)
+        seen = []
+        real = fir_cuda.fir_batch_lanes
+
+        def recording(xb, taps, **kw):
+            y = real(xb, taps, **kw)
+            seen.append((xb, taps, kw.get("passes", 3), y))
+            return y
+
+        monkeypatch.setattr(fir_cuda, "fir_batch_lanes", recording)
         before = fir_band_cuda.launches
-        got = MODWT("db4").decompose(x, level=4)
+        MODWT("db4").decompose(x, level=4)
         torch.cuda.synchronize()
         assert fir_band_cuda.launches == before + 8
-        want = MODWT("db4", device="cpu").decompose(x.cpu(), level=4)
-        for a, b in zip(got, want):     # four chained levels: the phase's
-            assert self._norm(a, b) <= 1e-4     # card-vs-CPU band
+        assert len(seen) == 8
+        assert {xb.shape[1] - x.shape[1] for xb, *_ in seen} == {7, 14, 28,
+                                                                  56}
+        assert {fir_layout(*xb.shape, data_ptr=xb.data_ptr()).streamed
+                for xb, *_ in seen} == {False, True}
+        for xb, taps, passes, y in seen:
+            torch.testing.assert_close(
+                y, fir_band_plain(xb, taps, passes=passes), rtol=1e-5,
+                atol=1e-5)

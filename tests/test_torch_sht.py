@@ -18,8 +18,9 @@ from njw_tpu.ops import sht as jsht  # noqa: E402
 
 from njw_tpu_torch.ops import sht as tsht  # noqa: E402
 from njw_tpu_torch.ops.sht import (  # noqa: E402
-    TABLES, SphericalHarmonicTransform, float32_products,
+    TABLES, SphericalHarmonicTransform,
 )
+from njw_tpu_torch.platform import float32_products  # noqa: E402
 
 CPU = "cpu"
 CASES = [(32, False), (32, True), (64, False), (64, True)]
@@ -236,6 +237,25 @@ class TestSetup:
             torch.set_float32_matmul_precision(prev)
         assert seen == ["highest"] and inner == "highest"
         assert after == "high"
+
+    def test_float32_products_sets_and_restores_both_settings(self):
+        """The guard turns TF32 off for cuBLAS and cuDNN inside, and puts
+        back what the process had, also when the body raises."""
+        prev = (torch.get_float32_matmul_precision(),
+                torch.backends.cudnn.allow_tf32)
+        try:
+            torch.set_float32_matmul_precision("high")
+            torch.backends.cudnn.allow_tf32 = True
+            with pytest.raises(RuntimeError):
+                with float32_products():
+                    assert torch.get_float32_matmul_precision() == "highest"
+                    assert torch.backends.cudnn.allow_tf32 is False
+                    raise RuntimeError
+            assert torch.get_float32_matmul_precision() == "high"
+            assert torch.backends.cudnn.allow_tf32 is True
+        finally:
+            torch.set_float32_matmul_precision(prev[0])
+            torch.backends.cudnn.allow_tf32 = prev[1]
 
     def test_bf16_tables(self):
         """bf16 storage: the tables hold half the bytes, are upcast at

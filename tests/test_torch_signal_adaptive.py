@@ -7,8 +7,10 @@ the JAX tests hold the parallel engine to (tests/test_signal.py:356-358);
 system identification at the JAX tests' atol 0.05 (:335, :599).
 
 RLS: its float32 recurrence from P = I / 1e-6 is ill-conditioned over
-long runs (ROADMAP.md §3: two float32 evaluations that differ only in
-summation order part by 1e-5 of the scale after 700-1700 samples), so
+long runs (ROADMAP.md §3, ``TestRlsConditioning``: against a float64
+evaluation of the same update the port parts by 1e-5 of the scale after
+512 samples or more on the JAX test's 4-tap system, and within 64 on a
+noisy 16-tap one), so
 the port is held to JAX on y and e over the first 512 samples at 1e-4
 of the scale, and on the final weights of 4000 samples at 1e-4 (the JAX
 band is 0.05 from the true system).
@@ -98,6 +100,60 @@ class TestAgainstJax:
         d = np.convolve(x, [0.5, -0.3, 0.2, 0.1])[:4000].astype(np.float32)
         (_, _, w), (_, _, wj) = _both(x, d, num_taps=4, method="rls")
         np.testing.assert_allclose(w, wj, atol=RLS_REL)
+
+
+def _rls64(x, d, taps: int, lam: float, eps: float):
+    """The same RLS update in float64 NumPy (P from I / eps, no
+    symmetrisation): (y, w)."""
+    xp = np.concatenate([np.zeros(taps - 1), x.astype(np.float64)])
+    w = np.zeros(taps)
+    P = np.eye(taps) / eps
+    y = np.zeros(len(x))
+    for t in range(len(x)):
+        f = xp[t:t + taps][::-1]
+        Pf = P @ f
+        k = Pf / (lam + f @ Pf)
+        y[t] = w @ f
+        w = w + k * (d[t] - y[t])
+        P = (P - np.outer(k, Pf)) / lam
+    return y, w
+
+
+class TestRlsConditioning:
+    """Why RLS is held over its first 512 samples: the port's float32 RLS
+    against a float64 evaluation of the same update (ROADMAP.md §3)."""
+
+    @staticmethod
+    def _parting(x, d, taps):
+        af = tf.AdaptiveFilter(num_taps=taps, method="rls", device=CPU)
+        y, _, w = (a.double().numpy() for a in af.apply(x, d))
+        y64, w64 = _rls64(x, d, taps, af.forgetting, af.eps)
+        rel = np.abs(y - y64) / np.abs(y64).max()
+        return rel, float(np.abs(w - w64).max())
+
+    @pytest.mark.parametrize("seed", [5, 6, 7])
+    def test_4_tap_system_holds_float64_past_512(self, seed):
+        """The JAX test's noise-free 4-tap system: within 1e-5 of the
+        scale over the first 512 samples, final weights within 1e-5."""
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal(4096).astype(np.float32)
+        d = np.convolve(x, [0.5, -0.3, 0.2, 0.1])[:4096].astype(np.float32)
+        rel, w_diff = self._parting(x, d, 4)
+        assert rel[:512].max() <= 1e-5
+        assert w_diff <= 1e-5
+
+    @pytest.mark.parametrize("seed", [5, 6, 7])
+    def test_noisy_16_tap_system_parts_early(self, seed):
+        """16 random taps with noise: parts from float64 by 1e-4 of the
+        scale within the first 64 samples (the reference's float32 update
+        amplifies rounding; JAX's evaluation parts the same way)."""
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal(512).astype(np.float32)
+        h = rng.standard_normal(16).astype(np.float32) * 0.3
+        d = (np.convolve(x, h)[:512]
+             + 0.01 * rng.standard_normal(512)).astype(np.float32)
+        rel, _ = self._parting(x, d, 16)
+        assert (rel[:64] > 1e-4).any()
 
 
 class TestBehaviour:
