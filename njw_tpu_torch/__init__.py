@@ -24,11 +24,14 @@ icosahedron) and the scaling harness of ``bench``; and the whole
 ``signal`` package: FIR filtering with the banded-product tensor-core
 kernels ``ops/csrc/fir_band.cu`` and ``ops/csrc/fir_band_bf16.cu``, IIR
 design and application, median and adaptive filters, spectral and
-time-frequency analysis. All kernels are CUDA C++ written by hand for
+time-frequency analysis; and the ``nbody`` and ``md`` packages: direct,
+Gram-product, particle-mesh and P3M gravity, LJ + Coulomb forces by
+autograd over all pairs or a cell list, Ewald sums, integrators,
+thermostats and both CLIs. All kernels are CUDA C++ written by hand for
 sm_90a, and every Pallas kernel of the JAX package has its counterpart;
-the global cores, nesting, the C-grid and the signal package beyond FIR
-run on PyTorch's own operations (the JAX package runs them on XLA, with
-no Pallas kernel). Entry points run on the CUDA device unless the caller passes
+the global cores, nesting, the C-grid, the signal package beyond FIR,
+N-body and MD run on PyTorch's own operations (the JAX package runs them
+on XLA, with no Pallas kernel). Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 

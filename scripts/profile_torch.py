@@ -4,7 +4,7 @@
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
                                      fir|pe_stage|baro_stage|plain_sharded|
-                                     analysis|all]
+                                     analysis|particles|all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -80,6 +80,14 @@ the card's name and power limit:
     ``njw_tpu_torch.signal.main_paths`` (the rest of the signal package,
     ``chip_smoke.py`` phase 17) called min(``--steps``, 20) times: device
     time by kernel group, busy share and host enqueue per call;
+  * particles ``profile``: one step of each ``NBODY_PATHS`` and
+    ``MD_PATHS`` entry (``njw_tpu_torch.nbody.main_paths``,
+    ``njw_tpu_torch.md.main_paths``; ``chip_smoke.py`` phase 18), and one
+    force evaluation a method of the force-only paths, each after two
+    warm-up calls in a torch.profiler session of its own: device ms by
+    kernel group (matmul, sort and search, gather and scatter, cuFFT,
+    reductions, elementwise), the kernels a step, the slowest kernels,
+    the wall and the host's enqueue;
   * plain_sharded (no path profile) ``plain_sharded``: one step of each
     ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh, and of the SWE and PE
     ones with overlap off too: device ms by kind of PyTorch kernel, the
@@ -334,6 +342,78 @@ def profile_analysis(calls: int, gpu: str) -> None:
             "path": name, "shapes": [list(s) for s in path.shapes],
             **profile_calls(path.call("cuda"), path.inputs(), calls)}),
             flush=True)
+        torch.cuda.empty_cache()
+
+
+def particle_group(name: str) -> str:
+    """The kind of a PyTorch kernel on the particle paths, by its name."""
+    low = name.lower()
+    for kind, keys in (("matmul", ("gemm", "cutlass")),
+                       ("sort_search", ("sort", "radix", "searchsorted")),
+                       ("gather_scatter", ("index", "scatter", "gather"))):
+        if any(k in low for k in keys):
+            return kind
+    return torch_group(name)
+
+
+def _profile_once(fn, gpu: str, **row) -> None:
+    """One call of fn() (a step or a force evaluation) after two warm-up
+    calls, in a profiler session of its own: device ms by kernel group,
+    the kernels it ran, the wall and the host's enqueue."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    groups: dict[str, float] = {}
+    for name, ms in by_name.items():
+        groups[particle_group(name)] = groups.get(particle_group(name),
+                                                  0.0) + ms
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    print(json.dumps({"phase": "profile", "card": gpu, "model": "particles",
+                      **row, "wall_ms": wall_ms,
+                      "device_ms": sum(by_name.values()),
+                      "device_ms_by_group": groups, "kernels": kernels,
+                      "host_enqueue_ms": enqueue_ms,
+                      "top_kernels_ms": top}), flush=True)
+
+
+def profile_particles(gpu: str) -> None:
+    """One step of each NBODY_PATHS and MD_PATHS entry (chip_smoke.py
+    phase 18), and one force evaluation a method of the force paths, each
+    in a profiler session of its own."""
+    from njw_tpu_torch.md.main_paths import MD_PATHS
+    from njw_tpu_torch.nbody.main_paths import NBODY_PATHS
+
+    for name, p in NBODY_PATHS.items():
+        sim = p.simulation()
+        _profile_once(lambda: sim.step(1, synchronize=False), gpu,
+                      path=name, n=p.n, force_method=p.force_method)
+        del sim
+        torch.cuda.empty_cache()
+    for name, p in MD_PATHS.items():
+        if p.steps:
+            sim = p.simulation()
+            _profile_once(lambda: sim.step(1, synchronize=False), gpu,
+                          path=name, atoms=sim.state.n,
+                          cell_list=sim._force_fn.uses_cell_list)
+            del sim
+        else:
+            st, topo, lj = p.make_system()
+            for method, fn in p.force_fns(st, topo, lj).items():
+                _profile_once(lambda: fn(st), gpu, path=name, atoms=st.n,
+                              force_method=method)
+            del st
         torch.cuda.empty_cache()
 
 
@@ -1327,7 +1407,7 @@ def main() -> int:
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
                              "baro_stage", "plain_sharded", "analysis",
-                             "all"])
+                             "particles", "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
@@ -1364,6 +1444,9 @@ def main() -> int:
             continue
         if model == "analysis":
             profile_analysis(min(args.steps, 20), gpu)
+            continue
+        if model == "particles":
+            profile_particles(gpu)
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

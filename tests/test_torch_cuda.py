@@ -1131,3 +1131,107 @@ class TestSignalAnalysisOnCard:
             torch.testing.assert_close(
                 y, fir_band_plain(xb, taps, passes=passes), rtol=1e-5,
                 atol=1e-5)
+
+
+def _checkerboard(mesh: int):
+    """A particle at each cell centre with mass 1 + 0.9 (-1)^(i+j+k), and
+    64 random ones: the mass grid is mostly its Nyquist mode."""
+    i = np.stack(np.meshgrid(*[np.arange(mesh)] * 3, indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+    rng = np.random.default_rng(13)
+    pos = np.concatenate([((i + 0.5) / mesh).astype(np.float32),
+                          rng.random((64, 3)).astype(np.float32)])
+    mass = np.concatenate([(1.0 + 0.9 * (-1.0) ** i.sum(1)).astype(
+        np.float32), (0.5 + rng.random(64)).astype(np.float32)])
+    return pos, mass
+
+
+@pytest.mark.cuda
+class TestParticlesOnCard:
+    """The N-body and MD packages on the card against the CPU: normalised
+    1e-4 (the Gram form at its 2e-3 band against the direct form: cuBLAS
+    sums the products in another order), the cell table exactly."""
+
+    @staticmethod
+    def _norm(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    @pytest.mark.parametrize("method,tol", [("direct", 1e-4),
+                                            ("mxu", 2e-3),
+                                            ("pm", 1e-4), ("p3m", 1e-4)])
+    def test_force_methods_match_cpu(self, cuda_device, method, tol):
+        from njw_tpu_torch.nbody import accelerations, create_random_system
+
+        kw = dict(pm_box=10.0, pm_mesh=32) if method in ("pm", "p3m") \
+            else {}
+        a = {dev: accelerations(create_random_system(3000, seed=1,
+                                                     device=dev),
+                                method=method, **kw)
+             for dev in (cuda_device, "cpu")}
+        assert a[cuda_device].is_cuda
+        assert self._norm(a[cuda_device], a["cpu"]) <= tol
+
+    @pytest.mark.parametrize("mesh", [16, 32])
+    def test_p3m_nyquist_modes_match_cpu(self, cuda_device, mesh):
+        from njw_tpu_torch.nbody.pm import p3m_accelerations
+
+        pos, mass = _checkerboard(mesh)
+        a = {dev: p3m_accelerations(torch.from_numpy(pos).to(dev),
+                                    torch.from_numpy(mass).to(dev),
+                                    mesh=mesh)
+             for dev in (cuda_device, "cpu")}
+        assert self._norm(a[cuda_device], a["cpu"]) <= 1e-4
+
+    @pytest.mark.parametrize("method", ["all_pairs", "cell_list"])
+    def test_md_force_fn_matches_cpu(self, cuda_device, method):
+        from njw_tpu_torch.md import create_water_box, make_force_fn
+
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            st, topo, lj = create_water_box(200, seed=4, device=dev)
+            out[dev] = make_force_fn(topo, lj, 2.5, st.n, method=method,
+                                     box_static=st.box.cpu().numpy(),
+                                     device=dev)(st)
+        (fc, ec), (f, e) = out[cuda_device], out["cpu"]
+        assert self._norm(fc, f) <= 1e-4
+        assert float(ec["potential"]) == pytest.approx(float(e["potential"]),
+                                                       rel=1e-4)
+
+    def test_cell_table_equal_on_card(self, cuda_device):
+        from njw_tpu_torch.md import create_lj_fluid
+        from njw_tpu_torch.md.neighbors import (
+            build_cell_table, cell_grid, neighbor_candidates, pick_capacity,
+        )
+
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            st, _, _ = create_lj_fluid(5000, density=0.5, seed=2, device=dev)
+            box = st.box.cpu().numpy()
+            nc = cell_grid(box, 2.5)
+            table, coords, occ = build_cell_table(
+                st.pos, st.box, nc, pick_capacity(st.n, box, nc))
+            out[dev] = (table, coords, occ,
+                        neighbor_candidates(table, coords, nc))
+        for a, b in zip(out[cuda_device], out["cpu"]):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_particle_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from njw_tpu_torch import md, nbody
+    from njw_tpu_torch.md.ewald import make_ewald_coulomb
+    from njw_tpu_torch.nbody.simulation import NBodySimulation
+
+    calls = [lambda: nbody.create_random_system(8),
+             lambda: nbody.create_solar_system(),
+             lambda: nbody.create_galaxy_model(8),
+             lambda: NBodySimulation.load_state("missing.npz"),
+             lambda: md.create_lj_fluid(8),
+             lambda: md.create_water_box(2),
+             lambda: make_ewald_coulomb(np.ones(3))]
+    st, topo, lj = md.create_lj_fluid(8, device="cpu")
+    calls.append(lambda: md.make_force_fn(topo, lj, 2.5, 8))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
