@@ -239,6 +239,40 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 bonded energy >= 0, P3M against the Ewald sum at 3%);
                 the all-pairs / cell-list crossover at 2000, 5000 and
                 20 000 atoms; both CLIs on the card
+  19 imaging paths  the medical and geospatial packages: every ported
+                function on the card against the port on the CPU on the
+                same seeded small input (64^2 images, a 32^3 volume, 48^2
+                DEMs, 20 000 points; normalised 1e-4; exactly equal:
+                threshold, region_growing, watershed, mrf_segment,
+                flow_direction, both flow accumulations, hydrology, the
+                min and max rasters; masks and labels (viewshed, adaptive,
+                ground and building classes) within a share of 1e-3 of
+                differing cells, chan_vese within the larger of 1e-3 and
+                twice the CPU's own spread under a one-ulp change of its
+                input); every IMAGING_PATHS and GEO_PATHS entry at full
+                width (CT 256^2 x 180 and 512^2 x 360, SIRT 30, cone-beam
+                FDK 128^3 x 90 views, CG-SENSE 256^2 x 8 coils, TV
+                primal-dual, FISTA, radial KB gridding of 102 912
+                samples, the filters at 512^2 and a 64 x 256^2 volume,
+                the segmentations at 512^2, rigid and B-spline
+                registration at 256^2, the suite's 512^2 DEM, the 2048^2
+                DEM through every DEM function, a 10^6-point cloud): each
+                call's ms by CUDA events, its rate, host enqueue, the
+                device's work (a CUDA-graph replay of one call where it
+                captures, else torch.profiler's kernel sum), paced_by,
+                peak memory, every launch count 0; the JAX tests'
+                invariants there (FBP correlation above 0.9, SIRT 30 under
+                SIRT 5, fully sampled CG within 1e-3, CG-SENSE on the
+                noise-free k-space under 0.5 of zero-filled, primal-dual
+                0.7, FISTA 0.8, KB gridding above bilinear and 0.93, the
+                rigid shift within 0.7 px and 0.03 rad, flow push equal
+                to doubling at 2048^2, cost_distance against scipy's
+                Dijkstra at rtol 2e-5 / atol 1e-4 and fill_sinks against
+                the Jacobi fixed point at 5e-3 on the 512^2 DEM); where the
+                JAX package itself misses a bound at a path's settings
+                (CG-SENSE on the noisy k-space, the deformable stage) the
+                value is reported against it as a reference behaviour and
+                the card is held to the port on the CPU
 Phases 6, 13 and 14 also read the device's work over one step (the
 profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
 card line, and as the last line {"ok": true, "device": {...}}.
@@ -4103,6 +4137,659 @@ def particle_paths() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 19
+
+IMAGING_CPU_TOL = 1e-4      # the card against the port on the CPU, normalised
+MASK_SHARE = 1e-3           # masks and labels: share of differing cells
+FBP_CORR = 0.9              # tests/test_medical.py:42-51
+CG_FULL_ATOL = 1e-3         # fully sampled CG against the image: :118-125
+CG_ZF, PD_ZF, CS_ZF = 0.5, 0.7, 0.8   # error over zero-filled: :127-173
+RADIAL_CC = 0.93            # KB gridding's correlation: :192-218
+SHIFT_TOL, ANGLE_TOL = 0.7, 0.03      # :358-372
+DEFORM_RATIO = 0.3          # deformable MSE over its start: :403-425
+COST_RTOL, COST_ATOL = 2e-5, 1e-4     # tests/test_geospatial.py:125-131
+FILL_ATOL = 5e-3            # against the Jacobi fixed point: :133-153
+DEFORM_CPU_REL = 1e-3       # the card's deformable MSE ratio against the CPU's
+IMAGING_BUDGET_S = 150
+# behaviours of the reference at the paths' configurations: the JAX
+# package misses the same bound on the CPU (ROADMAP.md section 3)
+CG_NOISE_FAULT = ("ROADMAP.md section 3: CG-SENSE on the example's noisy "
+                  "k-space at R = 4")
+DEFORM_FAULT = ("ROADMAP.md section 3: register_deformable at the "
+                "example's settings")
+
+
+def _small_imaging_inputs() -> dict:
+    """Seeded NumPy inputs of the card-against-CPU cases: 64^2 images,
+    a 32^3 volume, 48^2 DEMs, 20 000 points."""
+    import numpy as np
+    from njw_tpu_torch.geospatial.datasets import synthetic_point_cloud
+    from njw_tpu_torch.geospatial.main_paths import measure_dem
+    from njw_tpu_torch.medical import main_paths as mp
+
+    rng = np.random.default_rng(19)
+    img = mp.insert_phantom(64)
+    n = 64
+    sens = mp.coil_maps(n, 4)
+    mask = np.zeros((n, n), np.float32)
+    mask[::2] = 1.0
+    mask[n // 2 - 6:n // 2 + 6] = 1.0
+    k1 = np.fft.fftshift(np.fft.fft2(img, norm="ortho")).astype(np.complex64)
+    kc = (mask[None] * np.fft.fftshift(np.fft.fft2(sens * img[None],
+                                                   norm="ortho"),
+                                       axes=(-2, -1))).astype(np.complex64)
+    coords = mp.radial_trajectory(32, 64)
+    dem = measure_dem(48)
+    y, x = np.mgrid[0:64, 0:64].astype(np.float32)
+    smooth = (np.sin(x / 7) * np.cos(y / 9) + np.exp(
+        -((x - 32) ** 2 + (y - 28) ** 2) / 300)).astype(np.float32)
+    return {
+        "img": img, "noisy": img + 0.1 * rng.standard_normal(
+            (n, n)).astype(np.float32),
+        "angles": np.linspace(0, np.pi, 30, endpoint=False).astype(
+            np.float32),
+        "vol": mp.ball_volume(32),
+        "views": np.linspace(0, 2 * np.pi, 12, endpoint=False).astype(
+            np.float32),
+        "k1": k1, "kc": kc, "mask": mask, "sens": sens,
+        "kpf": np.where(np.arange(n)[:, None] < 40, k1, 0).astype(
+            np.complex64),
+        "coords": coords,
+        "samples": (rng.standard_normal(len(coords))
+                    + 1j * rng.standard_normal(len(coords))).astype(
+                        np.complex64),
+        "kernel": rng.standard_normal((4, 5)).astype(np.float32),
+        "stack": rng.standard_normal((2, 3, 16, 16)).astype(np.float32),
+        "elev": mp.two_basins(32)[0], "markers": mp.two_basins(32)[1],
+        "smooth": smooth, "ctrl": rng.normal(0, 1.5, (2, 7, 7)).astype(
+            np.float32),
+        "dem": dem, "cost": np.abs(dem) * 0.01 + 1.0,
+        "points": synthetic_point_cloud(20_000, seed=1),
+    }
+
+
+def _imaging_cases() -> dict:
+    """{name: (kind, run(device) -> list of tensors)}: every ported medical
+    and geospatial function on the same seeded small inputs. kind: "close"
+    (normalised IMAGING_CPU_TOL), "equal" (exactly, NaN where NaN) or
+    "share" (masks and labels: the share of differing cells)."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch import geospatial as geo
+    from njw_tpu_torch import medical as med
+    from njw_tpu_torch.geospatial import point_cloud as pcm
+    from njw_tpu_torch.medical import ct, registration as reg
+
+    s = _small_imaging_inputs()
+
+    def t(dev, *keys):
+        return [torch.from_numpy(np.ascontiguousarray(s[k])).to(dev)
+                for k in keys]
+
+    def one(fn):
+        return lambda dev: [fn(dev)]
+
+    cases = {
+        "radon": ("close", one(lambda dev: med.radon(*t(dev, "img",
+                                                        "angles")))),
+        "sirt_5": ("close", one(lambda dev: med.sirt(
+            med.radon(*t(dev, "img", "angles")), t(dev, "angles")[0], 5))),
+        "cone_project": ("close", one(lambda dev: ct.cone_beam_project(
+            *t(dev, "vol", "views"), sod=64.0, sdd=128.0,
+            det_shape=(32, 32)))),
+        "reconstruct_kspace": ("close", one(
+            lambda dev: med.reconstruct_kspace(*t(dev, "k1")))),
+        "grid_noncartesian": ("close", one(
+            lambda dev: med.grid_noncartesian(*t(dev, "samples", "coords"),
+                                              32))),
+        "pipe_menon_dcf": ("close", one(
+            lambda dev: med.pipe_menon_dcf(*t(dev, "coords"), 32))),
+        "gridding_reconstruct": ("close", one(
+            lambda dev: med.gridding_reconstruct(
+                *t(dev, "samples", "coords"), 32))),
+        "cg_sense_10": ("close", one(lambda dev: med.reconstruct_cg(
+            *t(dev, "kc", "mask", "sens"), num_iterations=10))),
+        "primal_dual_30": ("close", one(
+            lambda dev: med.reconstruct_primal_dual(
+                t(dev, "k1")[0] * t(dev, "mask")[0], t(dev, "mask")[0],
+                num_iterations=30))),
+        "fista_20": ("close", one(
+            lambda dev: med.reconstruct_compressed_sensing(
+                t(dev, "k1")[0] * t(dev, "mask")[0], t(dev, "mask")[0],
+                num_iterations=20))),
+        "partial_fourier": ("close", one(
+            lambda dev: med.reconstruct_partial_fourier(
+                *t(dev, "kpf"), 40 / 64))),
+        "convolve2d": ("close", one(lambda dev: med.convolve2d(
+            *t(dev, "noisy", "kernel")))),
+        "gaussian": ("close", one(lambda dev: med.gaussian_filter(
+            *t(dev, "noisy"), 2.0))),
+        "median_5": ("close", one(lambda dev: med.median_filter(
+            *t(dev, "noisy"), 5))),
+        "bilateral_5": ("close", one(lambda dev: med.bilateral_filter(
+            *t(dev, "noisy"), 5))),
+        "nlm_3_1": ("close", one(lambda dev: med.nlm_filter(
+            *t(dev, "noisy"), 3, 1))),
+        "apply_filter_4d": ("close", lambda dev: [
+            med.apply_filter(*t(dev, "stack"), m)
+            for m in ("gaussian", "median", "bilateral", "nlm")]),
+        "threshold": ("equal", one(lambda dev: med.threshold(
+            *t(dev, "noisy"), 0.5))),
+        "otsu_threshold": ("close", one(lambda dev: torch.tensor(
+            [med.otsu_threshold(*t(dev, "noisy"))]))),
+        "adaptive": ("share", one(lambda dev: med.apply_segmentation(
+            *t(dev, "noisy"), "adaptive"))),
+        "region_growing": ("equal", one(lambda dev: med.region_growing(
+            *t(dev, "img"), (32, 32), 0.5, 64))),
+        "watershed": ("equal", one(lambda dev: med.watershed(
+            *t(dev, "elev", "markers")))),
+        "mrf_segment": ("equal", one(lambda dev: med.mrf_segment(
+            *t(dev, "noisy"), 0.5, 0.3))),
+        "warp_image": ("close", one(lambda dev: med.warp_image(
+            *t(dev, "smooth"), torch.tensor([3.0, -2.0, 0.05, 1.0, 1.0],
+                                            device=dev)))),
+        "mse_metric": ("close", one(lambda dev: med.mse_metric(
+            *t(dev, "smooth", "noisy")).reshape(1))),
+        "mutual_information": ("close", one(
+            lambda dev: med.mutual_information(
+                *t(dev, "smooth", "noisy")).reshape(1))),
+        "register_images_adam": ("close", lambda dev: [
+            torch.from_numpy(np.asarray(v, np.float32)) for v in
+            med.register_images(
+                *t(dev, "smooth"), med.warp_image(
+                    *t(dev, "smooth"), torch.tensor(
+                        [3.0, -2.0, 0.06, 1.0, 1.0], device=dev)),
+                n_iterations=20, pyramid_levels=2, optimizer="adam",
+                learning_rate=0.5)]),
+        "bspline_displacement": ("close", one(
+            lambda dev: reg.bspline_displacement(*t(dev, "ctrl"),
+                                                 (40, 44)))),
+        "warp_deformable": ("close", one(lambda dev: reg.warp_deformable(
+            *t(dev, "smooth", "ctrl")))),
+        "register_deformable": ("close", lambda dev: [
+            torch.from_numpy(np.asarray(v, np.float32)) for v in
+            reg.register_deformable(
+                *t(dev, "smooth"), reg.warp_deformable(
+                    *t(dev, "smooth"), -t(dev, "ctrl")[0]),
+                grid_shape=(4, 4), n_iterations=20, learning_rate=1.0,
+                smooth_weight=0.001)]),
+        "terrain_derivatives": ("close", lambda dev: list(
+            geo.terrain_derivatives(*t(dev, "dem")).values())),
+        "viewshed": ("share", one(lambda dev: geo.viewshed(
+            *t(dev, "dem"), (24, 24)))),
+        "fill_sinks": ("close", one(lambda dev: geo.fill_sinks(
+            *t(dev, "dem")))),
+        "flow_direction": ("equal", one(lambda dev: geo.flow_direction(
+            *t(dev, "dem")))),
+        "flow_push": ("equal", one(lambda dev: geo.flow_accumulation(
+            *t(dev, "dem")))),
+        "flow_doubling": ("equal", one(lambda dev: geo.flow_accumulation(
+            *t(dev, "dem"), method="doubling"))),
+        "cost_distance": ("close", one(lambda dev: geo.cost_distance(
+            *t(dev, "cost"), (24, 24)))),
+        "least_cost_path": ("close", one(lambda dev: _path_cost(
+            s["cost"], geo.least_cost_path(*t(dev, "cost"), (24, 24),
+                                           (2, 45))))),
+        "resample": ("close", lambda dev: [
+            geo.resample(*t(dev, "dem"), 63, 30, m)
+            for m in ("bilinear", "nearest")]),
+        "dem_statistics": ("close", one(lambda dev: torch.tensor(list(
+            geo.dem_statistics(*t(dev, "dem")).values())))),
+        "hydrology": ("equal", lambda dev: list(geo.DEMProcessor(
+            *t(dev, "dem")).hydrology().values())),
+        "rasterize_min_max": ("equal", lambda dev: [
+            geo.rasterize_dem(s["points"], 2.0, st, device=dev)[0]
+            for st in ("min", "max")]),
+        "rasterize_mean": ("close", one(lambda dev: geo.rasterize_dem(
+            s["points"], 2.0, "mean", device=dev)[0])),
+        "classify_ground": ("share", one(lambda dev: torch.from_numpy(
+            geo.classify_ground(s["points"], device=dev).classification))),
+        "compute_normals": ("close", one(lambda dev: torch.from_numpy(
+            geo.compute_normals(s["points"], device=dev)))),
+        "extract_buildings": ("share", one(lambda dev: torch.from_numpy(
+            geo.extract_buildings(pcm.classify_ground(
+                s["points"], device=dev), device=dev).classification))),
+    }
+    for kind in ("ramlak", "shepp_logan", "cosine", "hann"):
+        cases[f"fbp_{kind}"] = ("close", one(
+            lambda dev, kind=kind: med.filtered_backprojection(
+                med.radon(*t(dev, "img", "angles")), t(dev, "angles")[0],
+                filter_kind=kind)))
+    cases["fdk"] = ("close", one(lambda dev: ct.fdk_reconstruct(
+        ct.cone_beam_project(*t(dev, "vol", "views"), sod=64.0, sdd=128.0,
+                             det_shape=(32, 32)),
+        t(dev, "views")[0], sod=64.0, sdd=128.0)))
+    return cases
+
+
+def _path_cost(cost, path):
+    """The D8 cost of a least-cost path (float64): a path may take
+    another cell where two costs tie to the ulp, its cost may not."""
+    import numpy as np
+    import torch
+
+    c = np.asarray(cost, np.float64)
+    total = sum(np.hypot(y1 - y0, x1 - x0) * 0.5 * (c[y0, x0] + c[y1, x1])
+                for (y0, x0), (y1, x1) in zip(path, path[1:]))
+    return torch.tensor([total], dtype=torch.float64)
+
+
+def _same(a, b) -> bool:
+    """Equal values, NaN where the other is NaN."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return bool(torch.equal(na, nb)) and bool(
+            torch.equal(a[~na], b[~nb]))
+    return bool(torch.equal(a, b))
+
+
+def _chan_vese_spread(img) -> dict:
+    """chan_vese at 64^2 (100 iterations) on the card against the CPU,
+    beside the CPU against itself on the image raised by one ulp: the
+    level set's curvature term amplifies rounding ~10x an iteration in
+    the reference too (ROADMAP.md section 3), so the card is held to
+    the larger of MASK_SHARE and twice that spread."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.medical import chan_vese
+
+    bumped = np.nextafter(img, np.float32(np.inf)).astype(np.float32)
+    cpu = chan_vese(torch.from_numpy(img))
+    card = chan_vese(torch.from_numpy(img).cuda()).cpu()
+    spread = float((chan_vese(torch.from_numpy(bumped)) != cpu)
+                   .float().mean())
+    share = float((card != cpu).float().mean())
+    bound = max(MASK_SHARE, 2 * spread)
+    return {"share": share, "cpu_one_ulp_spread": spread, "bound": bound,
+            "ok": share <= bound}
+
+
+def _imaging_cpu_vs_card() -> dict:
+    """Every case of _imaging_cases on the card against the CPU."""
+    import torch
+
+    out, bad = {}, []
+    for name, (kind, run) in _imaging_cases().items():
+        card, cpu = run("cuda"), run("cpu")
+        card = [a.cpu() for a in card]
+        same_shapes = len(card) == len(cpu) and all(
+            a.shape == b.shape for a, b in zip(card, cpu))
+        if kind == "equal":
+            ok = same_shapes and all(_same(a, b) for a, b in zip(card, cpu))
+            out[name] = "equal" if ok else "differs"
+        elif kind == "share":
+            out[name] = max(float((a != b).float().mean())
+                            for a, b in zip(card, cpu)) if same_shapes \
+                else 1.0
+            ok = out[name] <= MASK_SHARE
+        else:
+            out[name] = max(_normalised_diff(
+                torch.nan_to_num(a.double()), torch.nan_to_num(b.double()))
+                for a, b in zip(card, cpu)) if same_shapes else math.inf
+            ok = out[name] <= IMAGING_CPU_TOL
+        if not ok:
+            bad.append(name)
+    cv = _chan_vese_spread(_small_imaging_inputs()["noisy"])
+    if not cv["ok"]:
+        bad.append("chan_vese")
+    emit("imaging_cpu_vs_card", ok=not bad, tol=IMAGING_CPU_TOL,
+         mask_share_tol=MASK_SHARE, results=out, chan_vese=cv, failed=bad)
+    if bad:
+        fail("imaging_cpu_vs_card", f"{bad}: the card and the CPU disagree")
+    return out
+
+
+def _finite(out, nan_ok: bool = False) -> bool:
+    """No inf or NaN in the output (NaN allowed where it is a value of
+    the output, as in an empty raster cell, but some value finite)."""
+    import numpy as np
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        if not out.is_floating_point():
+            return True
+        fin = torch.isfinite(out)
+        if nan_ok:
+            return bool((fin | torch.isnan(out)).all() and fin.any())
+        return bool(fin.all())
+    if isinstance(out, np.ndarray):
+        return out.dtype.kind != "f" or bool(np.isfinite(out).all())
+    if isinstance(out, dict):
+        return all(_finite(v) for v in out.values())
+    if isinstance(out, (list, tuple)):
+        return all(_finite(v) for v in out)
+    if hasattr(out, "xyz"):
+        return bool(np.isfinite(out.xyz).all())
+    return math.isfinite(out) if isinstance(out, float) else True
+
+
+def _imaging_call(c, d) -> tuple:
+    """One Call of a path: a warm-up call, ``c.reps`` calls timed by CUDA
+    events with every launch count set to 0 just before and read just
+    after, the host's enqueue of one call, the device's work for one call
+    (a CUDA-graph replay where the call captures, else the kernels' sum
+    under torch.profiler, with the reason), the rate, paced_by and peak
+    memory. Returns
+    (its numbers, its last output)."""
+    import torch
+
+    out = c.fn(d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(c.reps):
+        out = c.fn(d)
+    end.record()
+    end.synchronize()
+    launched = counts()
+    ms = start.elapsed_time(end) / c.reps
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    c.fn(d)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    device_ms, reason = (_graph_ms(lambda: c.fn(d), replays=3) if c.graph
+                         else (None, "the call reads the host or copies "
+                               "from it mid-call: not captured"))
+    source = "cuda_graph"
+    if device_ms is None:
+        device_ms = _device_ms(lambda: c.fn(d)) or None
+        source = "profiler" if device_ms else None
+        if device_ms is None:
+            reason += ("; torch.profiler recorded no kernel of the call "
+                       "(late in the process it misses calls of few "
+                       "kernels: PERF.md section 7)")
+    r = {"ms_per_call": ms, "rate": c.work / (ms / 1e3), "unit": c.unit,
+         "reps": c.reps, "host_enqueue_ms_per_call": host_ms,
+         "device_ms_per_call": device_ms, "device_source": source,
+         "device_note": reason,
+         "device_busy_share": device_ms and device_ms / ms,
+         "paced_by": paced_by(ms, host_ms, device_ms),
+         "peak_mem_bytes": peak, "launches": launched,
+         "kernel_launches_total": sum(launched.values()),
+         "finite": _finite(out, c.nan_ok)}
+    return r, out
+
+
+def _corr(a, b) -> float:
+    import numpy as np
+
+    a = np.asarray(a.cpu() if hasattr(a, "cpu") else a, np.float64).ravel()
+    b = np.asarray(b.cpu() if hasattr(b, "cpu") else b, np.float64).ravel()
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def _mean_abs(a, b) -> float:
+    return float((a - b).abs().mean())
+
+
+def _zero_filled(k, sens=None):
+    """|A^H y| of centred k-space (the coil sum where sens is given)."""
+    import torch
+
+    img = torch.fft.ifft2(torch.fft.ifftshift(k, dim=(-2, -1)), norm="ortho")
+    if sens is not None:
+        img = (torch.conj(sens) * img).sum(0)
+    return img.abs()
+
+
+def _ct_invariants(name, d, outs) -> dict:
+    from njw_tpu_torch.medical import sirt
+
+    if name == "ct_sirt_256x180":
+        r5 = sirt(d["sino"], d["angles"], n_iterations=5)
+        e5 = float(((r5 - d["img"]) ** 2).mean())
+        e30 = float(((outs["sirt_30"] - d["img"]) ** 2).mean())
+        return {"sirt_mse_5": e5, "sirt_mse_30": e30, "ok": e30 < e5}
+    cc = _corr(outs["fbp"], d["img"])
+    return {"fbp_correlation": cc, "bound": FBP_CORR, "ok": cc > FBP_CORR}
+
+
+def _cone_invariants(name, d, outs) -> dict:
+    cc = _corr(outs["fdk"], d["vol"])
+    return {"fdk_correlation": cc, "gated": False, "ok": True}
+
+
+def _mri_invariants(name, d, outs) -> dict:
+    """CG fully sampled against the image; CG-SENSE, primal-dual and FISTA
+    against zero-filled. CG-SENSE is held on the path's noise-free
+    k-space (the test's data); on the example's noisy k-space its ratio
+    is reported against the same bound (a reference behaviour)."""
+    import torch
+    from njw_tpu_torch.medical import MRIReconstructor, reconstruct_cg
+    from njw_tpu_torch.medical.main_paths import MRI
+
+    img, sens, mask = d["img"], d["sens"], d["mask"]
+    k_img = torch.fft.fftshift(torch.fft.fft2(img.to(torch.complex64),
+                                              norm="ortho"))
+    full = reconstruct_cg(k_img, torch.ones_like(mask), num_iterations=5)
+    full_err = float((full - img).abs().max())
+    k_coils = mask[None] * torch.fft.fftshift(torch.fft.fft2(
+        sens * img[None], norm="ortho"), dim=(-2, -1))
+    clean = MRIReconstructor("cg_sense", 15, MRI["r"], sens).process(
+        k_coils, mask)
+    cg_clean = _mean_abs(clean, img) / _mean_abs(
+        _zero_filled(k_coils, sens), img)
+    cg_noisy = _mean_abs(outs["cg_sense_15"], img) / _mean_abs(
+        _zero_filled(d["ku"], sens), img)
+    zf1 = _mean_abs(_zero_filled(d["k1"]), img)
+    pd = _mean_abs(outs["primal_dual_80"], img) / zf1
+    cs = _mean_abs(outs["fista_40"], img) / zf1
+    return {"cg_fully_sampled_max_abs": full_err, "cg_full_tol": CG_FULL_ATOL,
+            "cg_sense_over_zero_filled": cg_clean,
+            "cg_sense_noisy_over_zero_filled": cg_noisy,
+            "cg_noisy_reference_fault": None if cg_noisy < CG_ZF
+            else CG_NOISE_FAULT,
+            "primal_dual_over_zero_filled": pd,
+            "fista_over_zero_filled": cs,
+            "bounds": [CG_ZF, PD_ZF, CS_ZF],
+            "ok": (full_err <= CG_FULL_ATOL and cg_clean < CG_ZF
+                   and pd < PD_ZF and cs < CS_ZF)}
+
+
+def _radial_invariants(name, d, outs) -> dict:
+    kb, bl = _corr(outs["kb_gridding"], d["img"]), _corr(outs["bilinear"],
+                                                         d["img"])
+    return {"kb_correlation": kb, "bilinear_correlation": bl,
+            "bound": RADIAL_CC, "ok": kb > bl and kb > RADIAL_CC}
+
+
+def _noop_invariants(name, d, outs) -> dict:
+    return {"ok": True}
+
+
+def _registration_invariants(name, d, outs) -> dict:
+    """The rigid stage recovers the inverse shift and angle; the
+    deformable stage's MSE ratio is reported against DEFORM_RATIO (the
+    JAX package misses it at these settings too) and held to the port's
+    on the CPU from the same inputs."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.medical import main_paths as mp
+
+    ty, tx, th = mp.REG["true"][:3]
+    params = outs["rigid_adam_300"][0]
+    shift = float(max(abs(params[0] + ty), abs(params[1] + tx)))
+    angle = float(abs(params[2] + th))
+    ctrl, warped, hist = outs["deformable_150"]
+    fixed = d["fixed"].cpu().numpy()
+
+    def ratio(w, start):
+        return float(np.mean((w - fixed) ** 2) / np.mean((start - fixed) ** 2))
+
+    card = ratio(warped, d["rigid_warped"].cpu().numpy())
+    cpu_in = {k: v.cpu() for k, v in d.items() if isinstance(v, torch.Tensor)}
+    _, w_rigid, _ = mp._rigid(cpu_in)
+    cpu_in["rigid_warped"] = torch.from_numpy(w_rigid)
+    _, w_cpu, _ = mp._deformable(cpu_in)
+    cpu = ratio(w_cpu, w_rigid)
+    rel = abs(card - cpu) / cpu
+    return {"rigid_params": [float(v) for v in params],
+            "shift_err_px": shift, "angle_err_rad": angle,
+            "shift_tol": SHIFT_TOL, "angle_tol": ANGLE_TOL,
+            "deformable_mse_ratio": card, "deformable_bound": DEFORM_RATIO,
+            "deformable_reference_fault": None if card < DEFORM_RATIO
+            else DEFORM_FAULT,
+            "deformable_mse_ratio_cpu": cpu, "card_vs_cpu_rel": rel,
+            "card_vs_cpu_tol": DEFORM_CPU_REL,
+            "ok": shift < SHIFT_TOL and angle < ANGLE_TOL
+            and rel <= DEFORM_CPU_REL}
+
+
+def _d8_dijkstra(cost, source) -> "np.ndarray":
+    """The exact D8 shortest-path distances (edge cost hypot * (c_a +
+    c_b) / 2, float64) by scipy's Dijkstra."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    c = np.asarray(cost, np.float64)
+    h, w = c.shape
+    idx = np.arange(h * w).reshape(h, w)
+    rows, cols, wts = [], [], []
+    for dy, dx in ((-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1),
+                   (0, -1), (-1, -1)):
+        a = (slice(max(0, -dy), h - max(0, dy)),
+             slice(max(0, -dx), w - max(0, dx)))
+        b = (slice(max(0, dy), h + min(0, dy)),
+             slice(max(0, dx), w + min(0, dx)))
+        rows.append(idx[a].ravel())
+        cols.append(idx[b].ravel())
+        wts.append((np.hypot(dy, dx) * 0.5 * (c[a] + c[b])).ravel())
+    g = sp.csr_matrix((np.concatenate(wts), (np.concatenate(rows),
+                                             np.concatenate(cols))),
+                      shape=(h * w, h * w))
+    return dijkstra(g, indices=source[0] * w + source[1]).reshape(h, w)
+
+
+def _jacobi_fill(z, eps: float):
+    """The least fixed point of W = max(z, min(W, min_8nb(W) + eps)) from
+    +1e30 inside the boundary, by Jacobi sweeps on the card in float64
+    until a sweep changes nothing by eps * 1e-4 (checked every 32)."""
+    import torch
+    import torch.nn.functional as F
+
+    z = z.double()
+    h, w = z.shape
+    wv = torch.full_like(z, 1e30)
+    wv[0], wv[-1], wv[:, 0], wv[:, -1] = z[0], z[-1], z[:, 0], z[:, -1]
+    for i in range(1, 1_000_000):
+        p = F.pad(wv[None, None], (1, 1, 1, 1), value=1e30)[0, 0]
+        mn = torch.stack([p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                          for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                          if (dy, dx) != (0, 0)]).amin(0)
+        new = torch.minimum(wv, torch.maximum(z, mn + eps))
+        if i % 32 == 0 and float((new - wv).abs().max()) < eps * 1e-4:
+            return new, i
+        wv = new
+    return wv, i
+
+
+def _geo_suite_invariants(name, d, outs) -> dict:
+    """cost_distance against scipy's Dijkstra and fill_sinks against the
+    Jacobi fixed point, on the suite's 512^2 DEM on the card."""
+    import numpy as np
+    from njw_tpu_torch.geospatial import cost_distance, fill_sinks
+
+    dist = cost_distance(d["cost"], d["src"]).cpu().numpy()
+    ref = _d8_dijkstra(d["cost"].cpu().numpy(), d["src"])
+    excess = float(np.max(np.abs(dist - ref)
+                          - (COST_ATOL + COST_RTOL * np.abs(ref))))
+    jac, sweeps = _jacobi_fill(d["dem"], 1e-3)
+    fill_err = float((fill_sinks(d["dem"]).double() - jac).abs().max())
+    return {"cost_vs_dijkstra_excess": excess, "cost_rtol": COST_RTOL,
+            "cost_atol": COST_ATOL, "fill_vs_jacobi_max_abs": fill_err,
+            "fill_atol": FILL_ATOL, "jacobi_sweeps": sweeps,
+            "ok": excess <= 0 and fill_err <= FILL_ATOL}
+
+
+def _dem_invariants(name, d, outs) -> dict:
+    import torch
+
+    equal = bool(torch.equal(outs["flow_push"], outs["flow_doubling"]))
+    path = outs["least_cost_path"]
+    return {"flow_push_equals_doubling": equal,
+            "least_cost_path_cells": len(path),
+            "path_ends": [list(path[0]), list(path[-1])],
+            "ok": equal and tuple(path[0]) == tuple(d["src"])
+            and tuple(path[-1]) == (0, 0)}
+
+
+_IMAGING_INVARIANTS = {
+    "ct_suite_256": _ct_invariants, "ct_fbp_512x360": _ct_invariants,
+    "ct_sirt_256x180": _ct_invariants, "cone_fdk_128": _cone_invariants,
+    "mri_cg_256x8": _mri_invariants, "mri_radial_256": _radial_invariants,
+    "filters_512": _noop_invariants, "seg_512": _noop_invariants,
+    "registration_256": _registration_invariants,
+    "geo_suite_512": _geo_suite_invariants, "dem_2048": _dem_invariants,
+    "point_cloud_1m": _noop_invariants,
+}
+
+
+def _imaging_path(name: str, p) -> dict:
+    """One IMAGING_PATHS or GEO_PATHS entry at full width: its setup
+    (timed once, with its peak memory), each call (``_imaging_call``),
+    and the JAX tests' invariants there."""
+    import torch
+
+    phase = f"imaging_path_{name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = p.setup(torch.device("cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    calls, outs = {}, {}
+    for cname, c in p.calls.items():
+        calls[cname], outs[cname] = _imaging_call(c, d)
+    inv = _IMAGING_INVARIANTS[name](name, d, outs)
+    ok = inv["ok"] and all(r["finite"] and r["kernel_launches_total"] == 0
+                           for r in calls.values())
+    r = {"source": p.source, "setup_seconds": setup_s,
+         "setup_peak_mem_bytes": setup_peak, "calls": calls,
+         "invariant": inv}
+    emit(phase, ok=ok, **r)
+    if not ok:
+        fail(phase, "non-finite output, a kernel of the port launched, or "
+             "the invariant does not hold")
+    del d, outs
+    return r
+
+
+def imaging_paths() -> dict:
+    """Phase 19: the medical and geospatial packages on cuda:0: every
+    ported function on the card against the port on the CPU, the
+    IMAGING_PATHS and GEO_PATHS at full width with the JAX tests'
+    invariants."""
+    import torch
+    from njw_tpu_torch.geospatial.main_paths import GEO_PATHS
+    from njw_tpu_torch.medical.main_paths import IMAGING_PATHS
+
+    t0 = time.perf_counter()
+    res = {"cpu_vs_card": _imaging_cpu_vs_card()}
+    for name, p in {**IMAGING_PATHS, **GEO_PATHS}.items():
+        res[name] = _imaging_path(name, p)
+    torch.cuda.empty_cache()
+    runs = {n: r["calls"] for n, r in res.items() if n != "cpu_vs_card"}
+    seconds = time.perf_counter() - t0
+    emit("imaging_summary", ok=True, seconds=seconds,
+         budget_seconds=IMAGING_BUDGET_S,
+         within_budget=seconds <= IMAGING_BUDGET_S,
+         ms_per_call={n: {c: v["ms_per_call"] for c, v in cs.items()}
+                      for n, cs in runs.items()},
+         paced_by={n: {c: v["paced_by"] for c, v in cs.items()}
+                   for n, cs in runs.items()})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4140,6 +4827,7 @@ def main() -> int:
     global_paths()
     analysis_paths()
     particle_paths()
+    imaging_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

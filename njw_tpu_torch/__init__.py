@@ -27,11 +27,15 @@ design and application, median and adaptive filters, spectral and
 time-frequency analysis; and the ``nbody`` and ``md`` packages: direct,
 Gram-product, particle-mesh and P3M gravity, LJ + Coulomb forces by
 autograd over all pairs or a cell list, Ewald sums, integrators,
-thermostats and both CLIs. All kernels are CUDA C++ written by hand for
-sm_90a, and every Pallas kernel of the JAX package has its counterpart;
-the global cores, nesting, the C-grid, the signal package beyond FIR,
-N-body and MD run on PyTorch's own operations (the JAX package runs them
-on XLA, with no Pallas kernel). Entry points run on the CUDA device unless the caller passes
+thermostats and both CLIs; and the ``medical`` and ``geospatial``
+packages: CT (Radon, FBP, SIRT, cone-beam FDK), MRI (gridding,
+CG-SENSE, primal-dual, FISTA, homodyne), filters, segmentation,
+registration, DEM sweeps, hydrology, viewsheds and point clouds. All
+kernels are CUDA C++ written by hand for sm_90a, and every Pallas kernel
+of the JAX package has its counterpart; the global cores, nesting, the
+C-grid, the signal package beyond FIR, N-body, MD, medical imaging and
+geospatial analysis run on PyTorch's own operations (the JAX package
+runs them on XLA, with no Pallas kernel). Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 

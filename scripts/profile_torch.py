@@ -4,7 +4,7 @@
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
                                      fir|pe_stage|baro_stage|plain_sharded|
-                                     analysis|particles|all]
+                                     analysis|particles|imaging|all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -88,6 +88,11 @@ the card's name and power limit:
     kernel group (matmul, sort and search, gather and scatter, cuFFT,
     reductions, elementwise), the kernels a step, the slowest kernels,
     the wall and the host's enqueue;
+  * imaging ``profile``: each call of each ``IMAGING_PATHS`` and
+    ``GEO_PATHS`` entry (``njw_tpu_torch.medical.main_paths``,
+    ``njw_tpu_torch.geospatial.main_paths``; ``chip_smoke.py`` phase 19)
+    the same way, its kernels grouped as cuFFT, convolutions, matmuls,
+    sorts and scans, gathers and scatters, reductions and elementwise;
   * plain_sharded (no path profile) ``plain_sharded``: one step of each
     ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh, and of the SWE and PE
     ones with overlap off too: device ms by kind of PyTorch kernel, the
@@ -356,10 +361,12 @@ def particle_group(name: str) -> str:
     return torch_group(name)
 
 
-def _profile_once(fn, gpu: str, **row) -> None:
-    """One call of fn() (a step or a force evaluation) after two warm-up
-    calls, in a profiler session of its own: device ms by kernel group,
-    the kernels it ran, the wall and the host's enqueue."""
+def _profile_once(fn, gpu: str, model: str = "particles",
+                  kind=particle_group, **row) -> None:
+    """One call of fn() (a step, a force evaluation or an imaging call)
+    after two warm-up calls, in a profiler session of its own: device ms
+    by kernel group (``kind`` names a kernel's group), the kernels it
+    ran, the wall and the host's enqueue."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -371,8 +378,7 @@ def _profile_once(fn, gpu: str, **row) -> None:
     by_name = device_ms_by_kernel(prof)
     groups: dict[str, float] = {}
     for name, ms in by_name.items():
-        groups[particle_group(name)] = groups.get(particle_group(name),
-                                                  0.0) + ms
+        groups[kind(name)] = groups.get(kind(name), 0.0) + ms
     kernels = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     t0 = time.perf_counter()
@@ -380,7 +386,7 @@ def _profile_once(fn, gpu: str, **row) -> None:
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    print(json.dumps({"phase": "profile", "card": gpu, "model": "particles",
+    print(json.dumps({"phase": "profile", "card": gpu, "model": model,
                       **row, "wall_ms": wall_ms,
                       "device_ms": sum(by_name.values()),
                       "device_ms_by_group": groups, "kernels": kernels,
@@ -414,6 +420,34 @@ def profile_particles(gpu: str) -> None:
                 _profile_once(lambda: fn(st), gpu, path=name, atoms=st.n,
                               force_method=method)
             del st
+        torch.cuda.empty_cache()
+
+
+def imaging_group(name: str) -> str:
+    """The kind of a PyTorch kernel on the imaging and terrain paths."""
+    low = name.lower()
+    for kind, keys in (("cufft", ("fft",)),
+                       ("conv", ("conv", "cudnn", "implicit_gemm")),
+                       ("matmul", ("gemm", "cutlass")),
+                       ("sort_scan", ("sort", "radix", "scan", "cum")),
+                       ("gather_scatter", ("index", "scatter", "gather"))):
+        if any(k in low for k in keys):
+            return kind
+    return torch_group(name)
+
+
+def profile_imaging(gpu: str) -> None:
+    """Each call of each IMAGING_PATHS and GEO_PATHS entry (chip_smoke.py
+    phase 19), each in a profiler session of its own."""
+    from njw_tpu_torch.geospatial.main_paths import GEO_PATHS
+    from njw_tpu_torch.medical.main_paths import IMAGING_PATHS
+
+    for name, p in {**IMAGING_PATHS, **GEO_PATHS}.items():
+        d = p.setup(torch.device("cuda"))
+        for call, c in p.calls.items():
+            _profile_once(lambda: c.fn(d), gpu, model="imaging",
+                          kind=imaging_group, path=name, call=call)
+        del d
         torch.cuda.empty_cache()
 
 
@@ -1407,7 +1441,7 @@ def main() -> int:
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
                              "baro_stage", "plain_sharded", "analysis",
-                             "particles", "all"])
+                             "particles", "imaging", "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
@@ -1447,6 +1481,9 @@ def main() -> int:
             continue
         if model == "particles":
             profile_particles(gpu)
+            continue
+        if model == "imaging":
+            profile_imaging(gpu)
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

@@ -1235,3 +1235,148 @@ def test_particle_entry_points_refuse_cuda_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.cuda
+class TestImagingOnCard:
+    """The medical and geospatial packages on the card against the CPU:
+    FBP, CG-SENSE and the Kaiser-Bessel grid at normalised 1e-4; flow
+    accumulation and the min and max rasters exactly equal; the gradient
+    of register_deformable's objective at 256^2 at normalised 1e-4, with
+    its backward's time (the control-grid gathers by index_select)."""
+
+    @staticmethod
+    def _norm(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    def test_fbp_matches_cpu(self, cuda_device):
+        from njw_tpu_torch.medical import filtered_backprojection, radon
+        from njw_tpu_torch.medical.main_paths import ct_shepp_logan
+
+        img = torch.from_numpy(ct_shepp_logan(128))
+        ang = torch.linspace(0, np.pi, 91)[:90]
+        out = {dev: filtered_backprojection(
+            radon(img.to(dev), ang.to(dev)), ang.to(dev))
+            for dev in (cuda_device, "cpu")}
+        assert out[cuda_device].is_cuda
+        assert self._norm(out[cuda_device], out["cpu"]) <= 1e-4
+
+    def test_cg_sense_matches_cpu(self, cuda_device):
+        from njw_tpu_torch.medical import reconstruct_cg
+        from njw_tpu_torch.medical.main_paths import coil_maps, insert_phantom
+
+        n = 64
+        img, sens = insert_phantom(n), coil_maps(n, 4)
+        mask = np.zeros((n, n), np.float32)
+        mask[::2] = 1.0
+        mask[n // 2 - 6:n // 2 + 6] = 1.0
+        k = (mask[None] * np.fft.fftshift(np.fft.fft2(
+            sens * img[None], norm="ortho"), axes=(-2, -1))).astype(
+                np.complex64)
+        out = {dev: reconstruct_cg(*(torch.from_numpy(a).to(dev)
+                                     for a in (k, mask, sens)),
+                                   num_iterations=10)
+               for dev in (cuda_device, "cpu")}
+        assert self._norm(out[cuda_device], out["cpu"]) <= 1e-4
+
+    def test_kb_grid_matches_cpu(self, cuda_device):
+        from njw_tpu_torch.medical import mri
+        from njw_tpu_torch.medical.main_paths import radial_trajectory
+
+        coords = radial_trajectory(64, 128)
+        rng = np.random.default_rng(6)
+        s = (rng.standard_normal(len(coords))
+             + 1j * rng.standard_normal(len(coords))).astype(np.complex64)
+        beta = mri._kb_beta(4, 2.0)
+        out = {dev: mri._kb_grid(torch.from_numpy(s).to(dev),
+                                 torch.from_numpy(coords).to(dev),
+                                 torch.ones(len(coords), device=dev), 128, 4,
+                                 beta)
+               for dev in (cuda_device, "cpu")}
+        assert self._norm(out[cuda_device], out["cpu"]) <= 1e-4
+
+    @pytest.mark.parametrize("method", ["push", "doubling"])
+    def test_flow_accumulation_equal_on_card(self, cuda_device, method):
+        from njw_tpu_torch.geospatial import flow_accumulation
+        from njw_tpu_torch.geospatial.main_paths import measure_dem
+
+        z = torch.from_numpy(measure_dem(256))
+        out = {dev: flow_accumulation(z.to(dev), method=method)
+               for dev in (cuda_device, "cpu")}
+        assert torch.equal(out[cuda_device].cpu(), out["cpu"])
+
+    @pytest.mark.parametrize("statistic", ["min", "max"])
+    def test_rasters_equal_on_card(self, cuda_device, statistic):
+        from njw_tpu_torch.geospatial import rasterize_dem
+        from njw_tpu_torch.geospatial.datasets import synthetic_point_cloud
+
+        pc = synthetic_point_cloud(100_000, seed=2)
+        a, b = (rasterize_dem(pc, 2.0, statistic, device=dev)[0]
+                for dev in (cuda_device, "cpu"))
+        a = a.cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)])
+
+    def test_deformable_gradient_matches_cpu(self, cuda_device):
+        import time
+
+        from njw_tpu_torch.medical.main_paths import registration_image
+        from njw_tpu_torch.medical.registration import (
+            _value_and_grad, deformable_loss, warp_deformable,
+        )
+
+        f = registration_image(256)
+        ctrl = np.random.default_rng(0).normal(0, 1.5, (2, 9, 9)).astype(
+            np.float32)
+        grads = {}
+        for dev in (cuda_device, "cpu"):
+            ft = torch.from_numpy(f).to(dev)
+            m = warp_deformable(ft, torch.from_numpy(-ctrl).to(dev))
+            c = torch.from_numpy(0.5 * ctrl).to(dev)
+
+            def loss(c_, ft=ft, m=m):
+                return deformable_loss(ft, m, c_)
+
+            grads[dev] = _value_and_grad(loss, c)[1]
+            if dev == cuda_device:
+                with torch.enable_grad():
+                    p = c.detach().requires_grad_(True)
+                    val = loss(p)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        torch.autograd.grad(val, p, retain_graph=True)
+                    torch.cuda.synchronize()
+                print(f"deformable loss backward at 256^2: "
+                      f"{(time.perf_counter() - t0) * 100:.3f} ms")
+        assert self._norm(grads[cuda_device], grads["cpu"]) <= 1e-4
+
+
+def test_imaging_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from njw_tpu_torch import geospatial as geo
+    from njw_tpu_torch import medical as med
+    from njw_tpu_torch.geospatial.datasets import synthetic_point_cloud
+
+    img = np.zeros((8, 8), np.float32)
+    pc = synthetic_point_cloud(200, seed=0)
+    calls = [lambda: med.radon(img, [0.0]),
+             lambda: med.filtered_backprojection(img, np.zeros(8)),
+             lambda: med.reconstruct_ct(img, np.zeros(8)),
+             lambda: med.reconstruct_kspace(img),
+             lambda: med.MRIReconstructor("fft").process(img),
+             lambda: med.MRIReconstructor().undersampling_mask(8, 8),
+             lambda: med.gaussian_filter(img),
+             lambda: med.apply_filter(img, "median"),
+             lambda: med.apply_segmentation(img, "otsu"),
+             lambda: med.register_images(img, img, n_iterations=1),
+             lambda: med.load_image("missing.npy"),
+             lambda: geo.terrain_derivatives(img),
+             lambda: geo.DEMProcessor(img),
+             lambda: geo.flow_accumulation(img),
+             lambda: geo.rasterize_dem(pc),
+             lambda: geo.classify_ground(pc)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
