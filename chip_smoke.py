@@ -273,6 +273,34 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 (CG-SENSE on the noisy k-space, the deformable stage) the
                 value is reported against it as a reference behaviour and
                 the card is held to the port on the CPU
+  20 finance paths  the geo-financial package: every ported function that
+                computes on a device on the card against the port on the
+                CPU on the same seeded small input (a 48^2 DEM for the
+                factors, 200 assets and a 256^2 DEM for the pipeline, 50
+                assets x 20 000 normals for the Monte-Carlo functions,
+                drawn once and moved, a 4 x 4 option chain; normalised
+                1e-4, the flood factors exactly equal, the region ranking
+                identical); every FINANCE_PATHS entry at full width (the
+                Monte-Carlo VaR of 500 assets at 10^6 and 10^4 samples,
+                the wealth of 100 assets over 10 000 paths x 252 days, a
+                32 x 32 option chain through Black-Scholes, the Greeks and
+                the American tree at 300 steps, a barrier and an Asian
+                option on 100 000 paths x 252 steps, the example's
+                pipeline on a 2048^2 DEM and 10 000 assets): each call's ms
+                by CUDA events, its rate, host enqueue, the device's work
+                (a CUDA-graph replay of one call, or of its device part
+                where the call reads the host, else torch.profiler's
+                kernel sum), paced_by, peak memory, the bytes bound, every
+                launch count 0; the JAX tests' invariants there (the 0.95
+                VaR within 1% of the Gaussian closed form, CVaR >= VaR,
+                the mean wealth within 4 standard errors of (1 + w.mu)^252,
+                put-call parity within 1e-3, delta within 2e-3 of N(d1),
+                the American put at or above the European, the tree at
+                400 steps within 5e-3 and the Monte-Carlo price within 4
+                standard errors + 0.05 of Black-Scholes, barrier and Asian
+                between 0 and the vanilla, risks in [0, 1], the expected
+                loss at most the total value, each scenario VaR monotone
+                in its confidence)
 Phases 6, 13 and 14 also read the device's work over one step (the
 profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
 card line, and as the last line {"ok": true, "device": {...}}.
@@ -4467,14 +4495,18 @@ def _finite(out, nan_ok: bool = False) -> bool:
     return math.isfinite(out) if isinstance(out, float) else True
 
 
-def _imaging_call(c, d) -> tuple:
+def _imaging_call(c, d, profiled=None) -> tuple:
     """One Call of a path: a warm-up call, ``c.reps`` calls timed by CUDA
     events with every launch count set to 0 just before and read just
     after, the host's enqueue of one call, the device's work for one call
     (a CUDA-graph replay where the call captures, else the kernels' sum
     under torch.profiler, with the reason), the rate, paced_by and peak
-    memory. Returns
-    (its numbers, its last output)."""
+    memory. A call that reads the host and names its device part
+    (``Call.device_fn``) has that part's device time read instead;
+    ``profiled``, a reader of the profiler's raw activity records,
+    replaces ``_device_ms`` (and reads 0 for a call with no device
+    activity).
+    Returns (its numbers, its last output)."""
     import torch
 
     out = c.fn(d)
@@ -4495,10 +4527,25 @@ def _imaging_call(c, d) -> tuple:
     c.fn(d)
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    device_ms, reason = (_graph_ms(lambda: c.fn(d), replays=3) if c.graph
-                         else (None, "the call reads the host or copies "
-                               "from it mid-call: not captured"))
-    source = "cuda_graph"
+    if c.device_fn is not None:
+        # the call reads the host: time its device part alone, captured
+        # where it captures, else by CUDA events behind a spin
+        device_ms, reason = _graph_ms(lambda: c.device_fn(d), replays=3)
+        source = "cuda_graph_of_device_part"
+        if device_ms is None:
+            device_ms = _events_ms(lambda: c.device_fn(d), 3)
+            source = "events_after_spin_of_device_part"
+    else:
+        device_ms, reason = (
+            _graph_ms(lambda: c.fn(d), replays=3) if c.graph
+            else (None, "the call reads the host or copies from it "
+                  "mid-call: not captured"))
+        source = "cuda_graph"
+    if device_ms is None and profiled is not None:
+        # the raw activity records: none at all is a call on the host
+        device_ms, source = profiled(lambda: c.fn(d)), "profiler"
+        if not device_ms:
+            reason += "; no device activity: the call is NumPy on the host"
     if device_ms is None:
         device_ms = _device_ms(lambda: c.fn(d)) or None
         source = "profiler" if device_ms else None
@@ -4790,6 +4837,365 @@ def imaging_paths() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 20
+
+FINANCE_CPU_TOL = 1e-4      # the card against the port on the CPU, normalised
+VAR_REL = 0.01              # the 0.95 VaR against the Gaussian closed form
+WEALTH_SE = 4.0             # mean terminal wealth: standard errors allowed
+PARITY_ATOL = 1e-3          # put-call parity: tests/test_financial.py:199-204
+DELTA_ATOL = 2e-3           # delta against N(d1): :206-214
+TREE_REL = 5e-3             # the European tree at 400 steps: :216-218
+MC_SE, MC_ABS = 4.0, 0.05   # the Monte-Carlo price: :227-231
+MC_CHECK_PATHS = 200_000    # as the test
+FINANCE_BUDGET_S = 30
+
+
+def _finance_inputs() -> dict:
+    """Seeded inputs of the card-against-CPU cases: a 48^2 DEM for the
+    factors, a 256^2 DEM and 200 assets for the pipeline, 50 assets x
+    20 000 normals for the Monte-Carlo transforms (drawn once on the
+    CPU: the card and the CPU take the same normals), a 4 x 4 chain."""
+    import numpy as np
+    from njw_tpu_torch.geofinancial import generate_assets, generate_dem
+    from njw_tpu_torch.geofinancial.main_paths import market
+    from njw_tpu_torch.geofinancial.risk_metrics import standard_normals
+
+    mean, cov, w, chol = market(50)
+    k, t = np.meshgrid(np.linspace(80.0, 120.0, 4), np.linspace(0.25, 2.0, 4),
+                       indexing="ij")
+    n = k.size
+    return {"dem48": generate_dem(48, seed=5),
+            "dem256": generate_dem(256, seed=11),
+            "port200": generate_assets(200, extent=256.0, seed=11),
+            "mean": mean, "cov": cov, "w": w, "chol": chol,
+            "z": standard_normals((20_000, 50), 1, "cpu"),
+            "z1": standard_normals((20_000,), 2, "cpu"),
+            "zp": standard_normals((80, 250), 3, "cpu"),
+            "chain": (np.full(n, 100.0), k.ravel(), t.ravel(),
+                      np.full(n, 0.05), np.full(n, 0.2))}
+
+
+def _finance_cases() -> dict:
+    """{name: (kind, run(device) -> list of arrays)}: every function of
+    the geo-financial port that computes on a device. kind "equal" must
+    match exactly, "ranking" in order, "norm" within FINANCE_CPU_TOL."""
+    import numpy as np
+    import njw_tpu_torch.geofinancial as G
+    from njw_tpu_torch.geofinancial import options as O
+    from njw_tpu_torch.geofinancial.main_paths import analysis, risk_model
+    from njw_tpu_torch.geofinancial.portfolio import terminal_wealth
+    from njw_tpu_torch.geofinancial.risk_metrics import portfolio_samples
+
+    x = _finance_inputs()
+    mean, cov, w, chol, chain = (x[k] for k in ("mean", "cov", "w", "chol",
+                                                "chain"))
+    pipe = {}
+
+    def pipeline(dev):
+        if dev not in pipe:
+            model = risk_model(x["dem256"], dev)
+            pipe[dev] = (model, analysis(x["port200"], model, 256.0))
+        return pipe[dev]
+
+    def sets(out):
+        return [np.asarray([v["expected_loss"], v["worst_loss"],
+                            *v["var"].values()])
+                for v in out["scenario_sets"].values()]
+
+    def mc(fn, z, *args, **kw):
+        return lambda dev: [np.atleast_1d(np.asarray(v, np.float64))
+                            for v in _values(fn(*args, normals=z.to(dev),
+                                                **kw))]
+
+    return {
+        "slope_48": ("norm", lambda dev: [G.create_slope_risk_factor(
+            x["dem48"], device=dev).risk_data]),
+        "flood_48": ("equal", lambda dev: [G.create_flood_risk_factor(
+            x["dem48"], device=dev).risk_data]),
+        "pipeline_256_factors": ("equal", lambda dev: [
+            rf.risk_data for rf in pipeline(dev)[0].risk_factors]),
+        "pipeline_256_analysis": ("norm", lambda dev: [
+            pipeline(dev)[1]["risks"],
+            np.asarray([pipeline(dev)[1]["expected_loss"]]),
+            *sets(pipeline(dev)[1])]),
+        "pipeline_256_ranking": ("ranking", lambda dev: [
+            name for name, _ in pipeline(dev)[1]["regions"]]),
+        "portfolio_samples": ("norm", lambda dev: [portfolio_samples(
+            x["z"].to(dev), mean, chol, w)]),
+        "monte_carlo_var": ("norm", mc(G.monte_carlo_var, x["z"], mean=mean,
+                                       cov=cov, weights=w, n_samples=20_000,
+                                       return_cvar=True)),
+        "terminal_wealth": ("norm", lambda dev: [terminal_wealth(
+            x["z"].to(dev), w, mean, chol, 80, 250)]),
+        "monte_carlo_simulation": ("norm", mc(
+            G.monte_carlo_simulation, x["z"], w, mean=mean, cov=cov,
+            n_paths=80, horizon=250)),
+        "gbm_paths": ("norm", lambda dev: [O.gbm_paths(
+            x["zp"].to(dev), 100.0, 1.0, 0.05, 0.2)]),
+        "monte_carlo_price": ("norm", mc(G.monte_carlo_price, x["z1"], 100.0,
+                                         100.0, 1.0, 0.05, 0.2,
+                                         n_paths=20_000)),
+        "barrier_option_price": ("norm", mc(
+            G.barrier_option_price, x["zp"], 100.0, 100.0, 115.0, 1.0, 0.05,
+            0.2, n_paths=80, n_steps=250)),
+        "asian_option_price": ("norm", mc(
+            G.asian_option_price, x["zp"], 100.0, 100.0, 1.0, 0.05, 0.2,
+            n_paths=80, n_steps=250)),
+        "black_scholes": ("norm", lambda dev: [
+            G.black_scholes(*chain, kind, device=dev)
+            for kind in ("call", "put")]),
+        "greeks": ("norm", lambda dev: [
+            v for kind in ("call", "put")
+            for v in G.greeks(*chain, kind, device=dev).values()]),
+        "binomial_tree": ("norm", lambda dev: [
+            G.binomial_tree(*chain, n_steps=300, kind=kind, american=am,
+                            device=dev)
+            for kind in ("call", "put") for am in (False, True)]),
+    }
+
+
+def _values(out):
+    """A result's numbers in order: a tuple, a dict's values, or one."""
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _finance_cpu_vs_card() -> dict:
+    """Every case of _finance_cases on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    out, bad = {}, []
+    for name, (kind, run) in _finance_cases().items():
+        card = [v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for v in run("cuda")]
+        cpu = [v.numpy() if isinstance(v, torch.Tensor) else v
+               for v in run("cpu")]
+        if kind == "ranking":
+            ok = card == cpu
+            out[name] = "identical" if ok else "differs"
+        elif kind == "equal":
+            ok = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+            out[name] = "equal" if ok else "differs"
+        else:
+            out[name] = max(_normalised_diff(
+                torch.as_tensor(np.asarray(a, np.float64)),
+                torch.as_tensor(np.asarray(b, np.float64)))
+                for a, b in zip(card, cpu))
+            ok = out[name] <= FINANCE_CPU_TOL
+        if not ok or len(card) != len(cpu):
+            bad.append(name)
+    emit("finance_cpu_vs_card", ok=not bad, tol=FINANCE_CPU_TOL,
+         results=out, failed=bad, seconds=time.perf_counter() - t0)
+    if bad:
+        fail("finance_cpu_vs_card", f"{bad}: the card and the CPU disagree")
+    return out
+
+
+def _finance_bytes(name: str, cname: str, c) -> float:
+    """Bytes that one call must move: the draw's normals written once and
+    read once (the Monte-Carlo calls), each input read once and each
+    output written once (the chain, the DEM), none (the host's
+    analysis)."""
+    from njw_tpu_torch.geofinancial import main_paths as M
+
+    n_opt = M.option_chain()[0].size
+    if name.startswith("mc_var"):
+        return 2 * 4 * c.work * 500
+    if name.startswith("mc_wealth"):
+        return 2 * 4 * c.work * 100
+    if cname in ("barrier_up_out", "asian"):
+        return 2 * 4 * c.work
+    per_option = {"black_scholes": 5 + 2, "greeks": 5 + 5,
+                  "american_put_tree": 5 + 1}
+    if cname in per_option:
+        return 4 * per_option[cname] * n_opt
+    return 2 * 4 * M.N_DEM ** 2 if cname == "risk_model" else 0.0
+
+
+def _var_invariants(name, d, outs) -> dict:
+    """The 0.95 VaR within VAR_REL of -(w.mu + z_0.05 sqrt(w' S w)), and
+    CVaR >= VaR at both confidences."""
+    import numpy as np
+
+    mu = float(d["weights"] @ d["mean"])
+    sd = float(np.sqrt(d["weights"] @ d["cov"] @ d["weights"]))
+    closed = -(mu - 1.6448536269514722 * sd)
+    var95, cvar95 = outs["var_cvar_95"]
+    var99, cvar99 = outs["var_cvar_99"]
+    rel = abs(var95 / closed - 1)
+    return {"var_95": var95, "var_95_closed_form": closed, "rel": rel,
+            "rel_tol": VAR_REL, "var_99": var99, "cvar_95": cvar95,
+            "cvar_99": cvar99,
+            "ok": (rel <= VAR_REL or name != "mc_var_500x1m")
+            and cvar95 >= var95 and cvar99 >= var99}
+
+
+def _wealth_invariants(name, d, outs) -> dict:
+    """Mean terminal wealth within WEALTH_SE standard errors of
+    (1 + w.mu)^252, its expectation for independent days."""
+    import numpy as np
+    from njw_tpu_torch.geofinancial.main_paths import HORIZON
+
+    sim = outs["simulate"]
+    tw = sim["terminal_wealth"]
+    expect = (1.0 + float(d["weights"] @ d["mean"])) ** HORIZON
+    se = float(tw.std(ddof=1) / np.sqrt(tw.size))
+    return {"mean": sim["mean"], "expected": expect, "stderr": se,
+            "z": (sim["mean"] - expect) / se,
+            "ok": abs(sim["mean"] - expect) <= WEALTH_SE * se}
+
+
+def _chain_invariants(name, d, outs) -> dict:
+    """Put-call parity, delta against N(d1), the American put at or above
+    the European on the chain; the European tree at 400 steps and the
+    Monte-Carlo price at the money against Black-Scholes; the barrier and
+    the Asian between 0 and the vanilla call."""
+    import numpy as np
+    import njw_tpu_torch.geofinancial as G
+    from njw_tpu_torch.geofinancial import main_paths as M
+
+    s, k, t, r, sig = d["args"]
+    call, put = outs["black_scholes"]
+    parity = float(np.abs((call - put) - (s - k * np.exp(-r * t))).max())
+    d1 = (np.log(s / k) + (r + 0.5 * sig ** 2) * t) / (sig * np.sqrt(t))
+    n_d1 = np.array([0.5 * math.erfc(-v / math.sqrt(2.0)) for v in d1])
+    delta = float(np.abs(outs["greeks"]["delta"] - n_d1).max())
+    euro = G.binomial_tree(*d["args"], n_steps=M.TREE_STEPS, kind="put",
+                           device=d["device"])
+    american_excess = float((outs["american_put_tree"] - euro).min())
+    van = G.black_scholes(100.0, 100.0, 1.0, M.RATE, M.VOL,
+                          device=d["device"])
+    tree400 = G.binomial_tree(100.0, 100.0, 1.0, M.RATE, M.VOL, n_steps=400,
+                              device=d["device"])
+    mc = G.monte_carlo_price(100.0, 100.0, 1.0, M.RATE, M.VOL,
+                             n_paths=MC_CHECK_PATHS, device=d["device"])
+    barrier, asian = outs["barrier_up_out"]["price"], outs["asian"]["price"]
+    checks = {"parity_max_abs": parity <= PARITY_ATOL,
+              "delta_vs_n_d1": delta <= DELTA_ATOL,
+              "american_at_or_above_european": american_excess >= 0.0,
+              "tree_400_vs_bs": abs(tree400 / van - 1) <= TREE_REL,
+              "mc_vs_bs": abs(mc["price"] - van)
+              <= MC_SE * mc["stderr"] + MC_ABS,
+              "barrier_in_0_vanilla": 0.0 < barrier < van,
+              "asian_in_0_vanilla": 0.0 < asian < van}
+    return {"parity_max_abs": parity, "delta_max_abs": delta,
+            "american_minus_european_min": american_excess,
+            "bs_atm": van, "tree_400": tree400, "mc": mc,
+            "barrier": outs["barrier_up_out"], "asian": outs["asian"],
+            "checks": checks, "ok": all(checks.values())}
+
+
+def _pipeline_invariants(name, d, outs) -> dict:
+    """Risks in [0, 1], expected loss at most the total value, each set's
+    scenario VaR monotone in its confidence."""
+    a = outs["analysis"]
+    risks = a["risks"]
+    monotone = {n: list(v["var"].values()) == sorted(v["var"].values())
+                for n, v in a["scenario_sets"].items()}
+    checks = {"risks_in_0_1": bool((risks >= 0).all() and (risks <= 1).all()),
+              "expected_loss_at_most_total":
+                  0.0 <= a["expected_loss"] <= a["total_value"],
+              "var_monotone": all(monotone.values())}
+    return {"expected_loss": a["expected_loss"],
+            "total_value": a["total_value"],
+            "var": {n: v["var"] for n, v in a["scenario_sets"].items()},
+            "regions_top3": a["regions"][:3], "checks": checks,
+            "ok": all(checks.values())}
+
+
+_FINANCE_INVARIANTS = {
+    "mc_var_500x1m": _var_invariants, "mc_var_500x10k": _var_invariants,
+    "mc_wealth_100x10k": _wealth_invariants,
+    "options_chain_1024": _chain_invariants,
+    "geofin_pipeline_2048": _pipeline_invariants,
+}
+
+
+def _kernel_sum_ms(fn) -> float:
+    """``_device_ms`` read from the profiler's raw activity records: the
+    summed time of the device's activities in one call of fn(). The same
+    sum, without building the per-event tables of ``key_averages`` (17 s
+    for the 84 000 kernels of geofin_pipeline_2048's risk model on the
+    H100, PERF.md section 6)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+
+
+def _finance_path(name: str, p) -> dict:
+    """One FINANCE_PATHS entry at full width: its setup, each call
+    (``_imaging_call``, with the bytes bound), the JAX tests' invariants."""
+    import torch
+
+    phase = f"finance_path_{name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = p.setup(torch.device("cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    calls, outs = {}, {}
+    for cname, c in p.calls.items():
+        t1 = time.perf_counter()
+        calls[cname], outs[cname] = _imaging_call(c, d, _kernel_sum_ms)
+        calls[cname]["seconds"] = time.perf_counter() - t1
+        n_bytes = _finance_bytes(name, cname, c)
+        calls[cname]["bound_bytes"] = n_bytes
+        calls[cname]["bound_ms"] = (roofline_ms(n_bytes, 0.0)[0]
+                                    if n_bytes else None)
+    t1 = time.perf_counter()
+    inv = _FINANCE_INVARIANTS[name](name, d, outs)
+    ok = inv["ok"] and all(r["finite"] and r["kernel_launches_total"] == 0
+                           for r in calls.values())
+    r = {"source": p.source, "setup_seconds": setup_s, "calls": calls,
+         "invariant": inv, "invariant_seconds": time.perf_counter() - t1,
+         "seconds": time.perf_counter() - t0}
+    emit(phase, ok=ok, **r)
+    if not ok:
+        fail(phase, "non-finite output, a kernel of the port launched, or "
+             "the invariant does not hold")
+    del d, outs
+    return r
+
+
+def finance_paths() -> dict:
+    """Phase 20: the geo-financial package on cuda:0: every ported
+    function that computes on a device on the card against the port on
+    the CPU, every FINANCE_PATHS entry at full width with the JAX tests'
+    invariants."""
+    import torch
+    from njw_tpu_torch.geofinancial.main_paths import FINANCE_PATHS
+
+    t0 = time.perf_counter()
+    res = {"cpu_vs_card": _finance_cpu_vs_card()}
+    for name, p in FINANCE_PATHS.items():
+        res[name] = _finance_path(name, p)
+    torch.cuda.empty_cache()
+    runs = {n: r["calls"] for n, r in res.items() if n != "cpu_vs_card"}
+    seconds = time.perf_counter() - t0
+    emit("finance_summary", ok=True, seconds=seconds,
+         budget_seconds=FINANCE_BUDGET_S,
+         within_budget=seconds <= FINANCE_BUDGET_S,
+         ms_per_call={n: {c: v["ms_per_call"] for c, v in cs.items()}
+                      for n, cs in runs.items()},
+         device_ms_per_call={n: {c: v["device_ms_per_call"]
+                                 for c, v in cs.items()}
+                             for n, cs in runs.items()},
+         paced_by={n: {c: v["paced_by"] for c, v in cs.items()}
+                   for n, cs in runs.items()})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4828,6 +5234,7 @@ def main() -> int:
     analysis_paths()
     particle_paths()
     imaging_paths()
+    finance_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

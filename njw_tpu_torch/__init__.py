@@ -30,11 +30,14 @@ autograd over all pairs or a cell list, Ewald sums, integrators,
 thermostats and both CLIs; and the ``medical`` and ``geospatial``
 packages: CT (Radon, FBP, SIRT, cone-beam FDK), MRI (gridding,
 CG-SENSE, primal-dual, FISTA, homodyne), filters, segmentation,
-registration, DEM sweeps, hydrology, viewsheds and point clouds. All
+registration, DEM sweeps, hydrology, viewsheds and point clouds; and the
+``geofinancial`` package: terrain risk factors, scenario, regional and
+climate analysis, Monte-Carlo VaR and wealth, option prices and Greeks. All
 kernels are CUDA C++ written by hand for sm_90a, and every Pallas kernel
 of the JAX package has its counterpart; the global cores, nesting, the
-C-grid, the signal package beyond FIR, N-body, MD, medical imaging and
-geospatial analysis run on PyTorch's own operations (the JAX package
+C-grid, the signal package beyond FIR, N-body, MD, medical imaging,
+geospatial analysis and the geo-financial package run on PyTorch's own
+operations (the JAX package
 runs them on XLA, with no Pallas kernel). Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """

@@ -51,7 +51,7 @@ NumPy copies of those of the JAX package's tests and examples:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -70,6 +70,9 @@ class Call:
     graph: bool            # no host read or host copy: captures in a graph
     reps: int = 3          # timed calls, after one warm-up
     nan_ok: bool = False   # NaN is a value of the output (empty raster cells)
+    # the call's device work alone, for a call that reads the host
+    # (None: the call itself is captured, or profiled)
+    device_fn: Optional[Callable[[dict], Any]] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,8 @@
     python scripts/profile_torch.py [--model swe|barotropic|primitive|
                                      swe_bf16|swe_multistep|swe_si|pe_si|
                                      fir|pe_stage|baro_stage|plain_sharded|
-                                     analysis|particles|imaging|all]
+                                     analysis|particles|imaging|finance|
+                                     all]
                                     [--steps 50]
 
 Runs each core's main path (``njw_tpu_torch.weather.main_paths``, the
@@ -93,6 +94,11 @@ the card's name and power limit:
     ``njw_tpu_torch.geospatial.main_paths``; ``chip_smoke.py`` phase 19)
     the same way, its kernels grouped as cuFFT, convolutions, matmuls,
     sorts and scans, gathers and scatters, reductions and elementwise;
+  * finance ``profile``: each call of each ``FINANCE_PATHS`` entry
+    (``njw_tpu_torch.geofinancial.main_paths``; ``chip_smoke.py`` phase
+    20) the same way, and the device part of each call that reads the
+    host, with the random draw as a group of its own; and the pipeline's
+    fill_sinks and flow_accumulation alone;
   * plain_sharded (no path profile) ``plain_sharded``: one step of each
     ``PLAIN_SHARDED_PATHS`` entry on a LocalMesh, and of the SWE and PE
     ones with overlap off too: device ms by kind of PyTorch kernel, the
@@ -447,6 +453,46 @@ def profile_imaging(gpu: str) -> None:
         for call, c in p.calls.items():
             _profile_once(lambda: c.fn(d), gpu, model="imaging",
                           kind=imaging_group, path=name, call=call)
+        del d
+        torch.cuda.empty_cache()
+
+
+def finance_group(name: str) -> str:
+    """The kind of a PyTorch kernel on the geo-financial paths: the
+    random draw apart, matrix-vector products with the matmuls."""
+    low = name.lower()
+    if any(k in low for k in ("distribution", "normal", "philox", "randn")):
+        return "rng"
+    if "gemv" in low or "dot_kernel" in low:
+        return "matmul"
+    return imaging_group(name)
+
+
+def profile_finance(gpu: str) -> None:
+    """Each call of each FINANCE_PATHS entry (chip_smoke.py phase 20),
+    each in a profiler session of its own, and the pipeline's flood
+    factor split into its fill_sinks and flow_accumulation."""
+    from njw_tpu_torch.geofinancial.main_paths import FINANCE_PATHS
+    from njw_tpu_torch.geospatial.dem import fill_sinks, flow_accumulation
+
+    for name, p in FINANCE_PATHS.items():
+        d = p.setup(torch.device("cuda"))
+        for call, c in p.calls.items():
+            _profile_once(lambda: c.fn(d), gpu, model="finance",
+                          kind=finance_group, path=name, call=call)
+            if c.device_fn is not None:
+                _profile_once(lambda: c.device_fn(d), gpu, model="finance",
+                              kind=finance_group, path=name,
+                              call=f"{call}:device_part")
+        if "dem" in d:
+            dem = torch.from_numpy(d["dem"]).cuda()
+            filled = fill_sinks(dem, 128)
+            _profile_once(lambda: fill_sinks(dem, 128), gpu,
+                          model="finance", kind=finance_group, path=name,
+                          call="risk_model:fill_sinks")
+            _profile_once(lambda: flow_accumulation(filled, 128), gpu,
+                          model="finance", kind=finance_group, path=name,
+                          call="risk_model:flow_accumulation")
         del d
         torch.cuda.empty_cache()
 
@@ -1441,7 +1487,7 @@ def main() -> int:
     ap.add_argument("--model", default="all",
                     choices=[*MAIN_PATHS, *VARIANT_PATHS, "fir", "pe_stage",
                              "baro_stage", "plain_sharded", "analysis",
-                             "particles", "imaging", "all"])
+                             "particles", "imaging", "finance", "all"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--parent-swe", metavar="FILE",
                     help="an earlier swe_rk4.cu to time beside the current "
@@ -1484,6 +1530,9 @@ def main() -> int:
             continue
         if model == "imaging":
             profile_imaging(gpu)
+            continue
+        if model == "finance":
+            profile_finance(gpu)
             continue
         if model == "fir":
             print(json.dumps(profile_fir(args.steps, gpu)), flush=True)

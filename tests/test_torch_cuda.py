@@ -1380,3 +1380,108 @@ def test_imaging_entry_points_refuse_cuda_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def _normalised(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+
+@pytest.mark.cuda
+class TestFinanceOnCard:
+    """The geo-financial Monte-Carlo transforms and prices on the card
+    against the port on the CPU, on the same normals (drawn once on the
+    CPU and moved: the two devices' generators give different streams)."""
+
+    def _market(self, n):
+        from njw_tpu_torch.geofinancial.main_paths import market
+
+        return market(n)
+
+    def test_transforms_same_normals(self, cuda_device):
+        from njw_tpu_torch.geofinancial import options as O
+        from njw_tpu_torch.geofinancial.portfolio import terminal_wealth
+        from njw_tpu_torch.geofinancial.risk_metrics import (
+            portfolio_samples, standard_normals,
+        )
+
+        mean, _, w, chol = self._market(50)
+        z = standard_normals((20_000, 50), 1, "cpu")
+        for fn in (lambda z: portfolio_samples(z, mean, chol, w),
+                   lambda z: terminal_wealth(z, w, mean, chol, 80, 250)):
+            assert _normalised(fn(z.to(cuda_device)), fn(z)) <= 1e-5
+        zp = standard_normals((400, 252), 2, "cpu")
+        assert _normalised(O.gbm_paths(zp.to(cuda_device), 100.0, 1.0, 0.05,
+                                       0.2),
+                           O.gbm_paths(zp, 100.0, 1.0, 0.05, 0.2)) <= 1e-5
+
+    def test_prices_same_normals(self, cuda_device):
+        import njw_tpu_torch.geofinancial as T
+        from njw_tpu_torch.geofinancial.risk_metrics import standard_normals
+
+        mean, cov, w, _ = self._market(20)
+        z = standard_normals((20_000, 20), 3, "cpu")
+        card = T.monte_carlo_var(mean=mean, cov=cov, weights=w,
+                                 n_samples=20_000, return_cvar=True,
+                                 normals=z.to(cuda_device))
+        cpu = T.monte_carlo_var(mean=mean, cov=cov, weights=w,
+                                n_samples=20_000, return_cvar=True,
+                                normals=z)
+        np.testing.assert_allclose(card, cpu, rtol=1e-5)
+        zp = standard_normals((5000, 100), 4, "cpu")
+        for fn in (T.barrier_option_price, T.asian_option_price):
+            args = ((100.0, 100.0, 120.0) if fn is T.barrier_option_price
+                    else (100.0, 100.0))
+            a = fn(*args, 1.0, 0.05, 0.2, n_paths=5000, n_steps=100,
+                   normals=zp.to(cuda_device))
+            b = fn(*args, 1.0, 0.05, 0.2, n_paths=5000, n_steps=100,
+                   normals=zp)
+            for k in b:
+                assert a[k] == pytest.approx(b[k], rel=1e-5, abs=1e-12)
+
+    def test_float32_products_guard(self, cuda_device):
+        """TF32 forced on before the call: the transforms' products still
+        run in full float32 and match the CPU, and the process's setting
+        is restored after."""
+        from njw_tpu_torch.geofinancial.portfolio import terminal_wealth
+        from njw_tpu_torch.geofinancial.risk_metrics import (
+            portfolio_samples, standard_normals,
+        )
+
+        mean, _, w, chol = self._market(100)
+        z = standard_normals((252 * 400, 100), 5, "cpu")
+        zc = z.to(cuda_device)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")      # TF32 on
+        try:
+            assert torch.backends.cuda.matmul.allow_tf32
+            samples = portfolio_samples(zc, mean, chol, w)
+            wealth = terminal_wealth(zc, w, mean, chol, 400, 252)
+            assert torch.get_float32_matmul_precision() == "high"
+            cholc = torch.as_tensor(chol, dtype=torch.float32,
+                                    device=cuda_device)
+            tf32 = _normalised(zc @ cholc.T, z @ cholc.cpu().T)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        assert _normalised(samples, portfolio_samples(z, mean, chol, w)) \
+            <= 1e-5
+        exact = _normalised(wealth, terminal_wealth(z, w, mean, chol, 400,
+                                                    252))
+        assert exact <= 1e-5
+        # the guard is what holds it: the same product in TF32 parts more
+        assert tf32 > 10 * exact
+
+
+def test_finance_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    import njw_tpu_torch.geofinancial as T
+
+    calls = [lambda: T.monte_carlo_var(mean=[0.0], cov=[[1e-4]],
+                                       n_samples=10),
+             lambda: T.black_scholes(100, 100, 1, 0.05, 0.2),
+             lambda: T.create_flood_risk_factor(np.zeros((8, 8))),
+             lambda: T.TPUOptimizer()]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

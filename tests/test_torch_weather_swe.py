@@ -427,7 +427,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     walked = {f.relative_to(REPO).parts[1] for f in files
               if f.parent.parent.name == "njw_tpu_torch"}
     assert {"nbody", "md", "signal", "weather", "medical",
-            "geospatial"} <= walked
+            "geospatial", "geofinancial"} <= walked
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "njw_tpu")]
     assert bad == []
