@@ -301,6 +301,26 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 between 0 and the vanilla, risks in [0, 1], the expected
                 loss at most the total value, each scenario VaR monotone
                 in its confidence)
+  21 suite      python -m njw_tpu_torch.bench --all --device cuda
+                --cost-config configs/cloud_gpu_h100.yaml --report, in
+                this process, at the suite's defaults (SWE 512^2 through
+                Simulation, N-body 4096, MD 1000, FIR 101 taps on 16 x
+                10^6 samples, FBP 256^2 x 180, DEM 512^2), each result on
+                a line of its own: its keys the JAX package's
+                BenchmarkResult fields, its throughput finite and above 0,
+                the H100's hourly rate attached, K1 launched 6 x the
+                weather repeat's steps and K7 6 x the signal repeat's
+                applications (warm-ups included), nothing else anywhere;
+                the weather workload's state after execute(repeats=1)
+                against the same run on the CPU (normalised 1e-4); one
+                application of the signal workload's filter against K7's
+                plain version (phase 8's tolerances); chunked_device_put
+                and DeviceMemoryManager (to_device, copy, to_host, free)
+                bit for bit on cuda, with torch.cuda.memory_stats;
+                time_jitted on one K1 step; the native host library's SWE
+                RK4 on 256^2 against the port's plain RK4 on the CPU
+                (tests/test_native.py's tolerances), or its load_error();
+                the phase's seconds by part and the script's total
 Phases 6, 13 and 14 also read the device's work over one step (the
 profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
 card line, and as the last line {"ok": true, "device": {...}}.
@@ -338,6 +358,7 @@ FIR_ORACLE_ROWS = 4                   # rows held against np.convolve
 FIR_SPREAD_ROWS = 16                  # rows of the float64 evaluation
 FIR_FRAME_FLOP = 2 * 256 * 128        # one pass of one frame's product
 SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's clock: see _events_ms
+SCRIPT_T0 = time.perf_counter()  # main() sets it again at its start
 
 
 def path(model: str):
@@ -489,29 +510,17 @@ def distinct_bytes(*tensors) -> int:
     return sum(seen.values())
 
 
-def _counted():
-    """{name: (the wrapper that carries the kernel's launch count, the
-    count's attribute)}."""
-    from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
-    from njw_tpu_torch.signal import fir_cuda
-
-    return {"swe_rk4": (stencil.swe_rk4_step_cuda, "launches"),
-            "swe_rk4_bf16": (stencil.swe_rk4_step_cuda, "bf16_launches"),
-            "swe_rk4_multi": (stencil.swe_rk4_multistep_cuda, "launches"),
-            "baro_stage": (baro_stencil.baro_stage_cuda, "launches"),
-            "pe_stage": (pe_stencil.pe_stage_cuda, "launches"),
-            "pe_rk4": (pe_stencil.pe_rk4_step_cuda, "launches"),
-            "fir_band": (fir_cuda.fir_band_cuda, "launches"),
-            "fir_band_bf16": (fir_cuda.fir_band_bf16_cuda, "launches")}
-
-
 def reset_counts() -> None:
-    for wrapper, attr in _counted().values():
+    from njw_tpu_torch.ops import launch_counters
+
+    for wrapper, attr in launch_counters().values():
         setattr(wrapper, attr, 0)
 
 
 def counts() -> dict:
-    return {name: getattr(w, attr) for name, (w, attr) in _counted().items()}
+    from njw_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def host_us_per_launch(launch) -> float:
@@ -5196,6 +5205,232 @@ def finance_paths() -> dict:
     return res
 
 
+SUITE_BUDGET_S = 40
+SUITE_CPU_TOL = 1e-4        # the weather workload on the card against the CPU
+NATIVE_RTOL = 1e-4          # native SWE against RK4: tests/test_native.py:29-30
+NATIVE_ATOL = {"h": 1e-5, "u": 1e-4, "v": 1e-4}
+# njw_tpu/bench/suite.py:25-41, the fields proto/dashboard.proto's
+# BenchmarkResult carries (njw_tpu/dashboard/schema.py:57-74)
+JAX_RESULT_FIELDS = ("workload", "device", "execution_time_s", "throughput",
+                     "throughput_unit", "memory_bytes", "additional_metrics",
+                     "cost_metrics", "timestamp")
+SUITE_KERNELS = {"weather": ("swe_rk4", "steps_per_repeat"),
+                 "signal": ("fir_band", "applications_per_repeat")}
+SUITE_REPEATS = 6           # run(): warm 1 and 2, timed 1 and 2
+
+
+def _suite_run(out_dir: str) -> tuple:
+    """``python -m njw_tpu_torch.bench --all`` in this process at the
+    suite's defaults on cuda, with the H100's cost model and the report:
+    (the result rows, the launch counts of the run)."""
+    import os
+
+    from njw_tpu_torch.bench.__main__ import main as bench_main
+
+    cost = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "cloud_gpu_h100.yaml")
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_main(["--all", "--device", "cuda", "--cost-config", cost,
+                         "--output-dir", out_dir, "--report"])
+    launched = counts()
+    if rc != 0:
+        fail("suite", f"python -m njw_tpu_torch.bench --all returned {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")], launched
+
+
+def _suite_checks(rows: list, launched: dict) -> dict:
+    """Each row's keys, throughput and launches: K1 on the weather
+    workload and K7 on the signal workload, SUITE_REPEATS x a repeat's
+    work each (warm-ups included), nothing else anywhere."""
+    from njw_tpu_torch.bench import BenchmarkResult
+
+    fields = tuple(f.name for f in dataclasses.fields(BenchmarkResult))
+    want_total = dict.fromkeys(launched, 0)
+    checks = {}
+    for r in rows:
+        kernel, unit_key = SUITE_KERNELS.get(r["workload"], (None, None))
+        want = dict.fromkeys(launched, 0)
+        if kernel:
+            want[kernel] = SUITE_REPEATS * r["additional_metrics"][unit_key]
+            want_total[kernel] += want[kernel]
+        checks[r["workload"]] = {
+            "keys": tuple(r) == JAX_RESULT_FIELDS == fields,
+            "throughput": math.isfinite(r["throughput"])
+            and r["throughput"] > 0,
+            "launches": r["additional_metrics"]["kernel_launches"] == want,
+            "cost": r["cost_metrics"].get("hourly_rate") == 6.98}
+    names = [r["workload"] for r in rows]
+    checks["run"] = {"six_workloads": names == [
+        "weather", "nbody", "molecular_dynamics", "signal", "medical",
+        "geospatial"], "launches": launched == want_total}
+    return checks
+
+
+def _suite_weather_vs_cpu() -> dict:
+    """The weather workload's state after execute(repeats=1) on the card
+    against the same run on the CPU (normalised by field)."""
+    from njw_tpu_torch.bench import WeatherBenchmark
+
+    states = {}
+    for dev in ("cuda", "cpu"):
+        b = WeatherBenchmark(device=dev)
+        sim = b.setup()
+        b.execute(sim, 1)
+        states[dev] = sim.state
+    diff = {n: _normalised_diff(t.cpu(), getattr(states["cpu"], n))
+            for n, t in states["cuda"].items()}
+    return {"steps": b.num_steps * b.INNER, "normalised_diff": diff,
+            "tol": SUITE_CPU_TOL,
+            "ok": all(d <= SUITE_CPU_TOL for d in diff.values())}
+
+
+def _suite_signal_vs_plain() -> dict:
+    """One application of the signal workload's filter (a K7 launch)
+    against the kernel's plain version on the same input (phase 8's
+    tolerances)."""
+    import torch
+    from njw_tpu_torch.bench import SignalBenchmark
+
+    b = SignalBenchmark(device="cuda")
+    x, filt = b.setup()
+    y = filt.apply(x)
+    torch.cuda.synchronize()
+    check, agrees = _fir_vs_plain(y, x, filt.taps, 3)
+    del x, y
+    return {**check, "ok": agrees}
+
+
+def _suite_transfers() -> dict:
+    """chunked_device_put and DeviceMemoryManager (to_device, copy,
+    to_host, free) on cuda, bit for bit, and the device's memory stats."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch.interop import DeviceMemoryManager, chunked_device_put
+
+    x = np.random.default_rng(21).standard_normal((4096, 1024),
+                                                  dtype=np.float32)
+    t = chunked_device_put(x, chunk_bytes=1 << 20, device="cuda")
+    put_ok = t.is_cuda and np.array_equal(t.cpu().numpy(), x)
+    with DeviceMemoryManager("cuda") as mgr:
+        mgr.to_device("x", x).wait()
+        mgr.copy("x", "y").wait()
+        back = mgr.to_host("y").wait()
+        tracked = mgr.allocated_bytes
+        mgr.free("x")
+        stats = mgr.memory_stats()
+        freed = stats["tracked_buffers"] == 1 and \
+            stats["tracked_bytes"] == x.nbytes
+    mgr_ok = np.array_equal(back, x) and tracked == 2 * x.nbytes and freed
+    del t
+    torch.cuda.empty_cache()
+    keep = ("allocated_bytes.all.current", "allocated_bytes.all.peak",
+            "reserved_bytes.all.current", "num_alloc_retries",
+            "tracked_buffers", "tracked_bytes")
+    return {"chunked_device_put": put_ok, "device_memory_manager": mgr_ok,
+            "bytes": x.nbytes, "memory_stats": {k: stats.get(k) for k in keep},
+            "ok": put_ok and mgr_ok}
+
+
+def _suite_time_jitted() -> dict:
+    """utils.profiling.time_jitted on one K1 step at the suite's 512^2."""
+    import torch
+    from njw_tpu_torch.ops import launch_counts
+    from njw_tpu_torch.ops.stencil import swe_rk4_step
+    from njw_tpu_torch.utils.profiling import time_jitted
+    from njw_tpu_torch.weather import GridSpec
+
+    grid = GridSpec(nx=512, ny=512)
+    f = [torch.full((512, 512), v, device="cuda") for v in (0.1, 0.2, 10.0)]
+    before = launch_counts()["swe_rk4"]
+    t = time_jitted(swe_rk4_step, *f, grid=grid, dt=0.005, coriolis_f=1e-4,
+                    repeats=20)
+    k1 = launch_counts()["swe_rk4"] - before
+    return {**t, "k1_launches": k1, "ok": t["best_s"] > 0 and k1 == 21}
+
+
+def _suite_native() -> dict:
+    """The native host library's SWE RK4 on 256^2 against the port's
+    plain RK4 on the CPU, or why it did not load."""
+    import numpy as np
+    import torch
+    from njw_tpu_torch import native
+    from njw_tpu_torch.ops.stencil import swe_rk4_step_plain
+    from njw_tpu_torch.weather import GridSpec
+
+    if not native.available():
+        print(f"native library: {native.load_error()}", flush=True)
+        return {"available": False, "load_error": native.load_error(),
+                "ok": True}
+    rng = np.random.default_rng(0)
+    n = 256
+    u = rng.normal(0, 0.5, (n, n)).astype(np.float32)
+    v = rng.normal(0, 0.5, (n, n)).astype(np.float32)
+    h = (10 + rng.normal(0, 0.1, (n, n))).astype(np.float32)
+    out = native.swe_rk4_run(u, v, h, dt=0.01, n_steps=20, coriolis_f=1e-4)
+    ref = tuple(torch.from_numpy(a) for a in (u, v, h))
+    for _ in range(20):
+        ref = swe_rk4_step_plain(*ref, grid=GridSpec(nx=n, ny=n), dt=0.01,
+                                 coriolis_f=1e-4)
+    err, ok = {}, True
+    for name, a, b in zip("uvh", out, ref):
+        b = b.numpy()
+        err[name] = float(np.abs(a - b).max())
+        ok &= bool(np.allclose(a, b, rtol=NATIVE_RTOL,
+                               atol=NATIVE_ATOL[name]))
+    return {"available": True, "max_abs_err": err, "rtol": NATIVE_RTOL,
+            "atol": NATIVE_ATOL, "omp_threads": native.load().omp_thread_count(),
+            "ok": ok}
+
+
+def suite_paths() -> dict:
+    """Phase 21: the benchmark suite (``python -m njw_tpu_torch.bench
+    --all``) at its defaults on cuda, each result checked; the weather
+    workload against the CPU, the signal workload's K7 against its plain
+    version; the interop transfers, time_jitted and the native oracle."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="njw_suite_")
+    try:
+        rows, launched = _suite_run(out_dir)
+        report = sorted(os.listdir(out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in rows:
+        emit("suite_result", **r)
+    checks = _suite_checks(rows, launched)
+    part_seconds = {"suite_run": time.perf_counter() - t0}
+    parts = {}
+    for name, part in (("weather_vs_cpu", _suite_weather_vs_cpu),
+                       ("signal_vs_plain", _suite_signal_vs_plain),
+                       ("transfers", _suite_transfers),
+                       ("time_jitted", _suite_time_jitted),
+                       ("native", _suite_native)):
+        t1 = time.perf_counter()
+        parts[name] = part()
+        part_seconds[name] = time.perf_counter() - t1
+    seconds = time.perf_counter() - t0
+    ok = all(all(c.values()) for c in checks.values()) and all(
+        p["ok"] for p in parts.values())
+    emit("suite", ok=ok, seconds=seconds, budget_seconds=SUITE_BUDGET_S,
+         within_budget=seconds <= SUITE_BUDGET_S, part_seconds=part_seconds,
+         script_seconds=time.perf_counter() - SCRIPT_T0, launches=launched,
+         report_files=report, checks=checks, **parts,
+         throughput={r["workload"]: [r["throughput"], r["throughput_unit"]]
+                     for r in rows},
+         execution_time_s={r["workload"]: r["execution_time_s"]
+                           for r in rows})
+    if not ok:
+        fail("suite", "a check of the benchmark suite failed (see checks "
+             "and each part's ok)")
+    return {"rows": rows, "launches": launched, **parts}
+
+
 def main() -> int:
     import torch
 
@@ -5205,6 +5440,8 @@ def main() -> int:
         return 1
     import njw_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    global SCRIPT_T0
+    SCRIPT_T0 = time.perf_counter()
     card = toolchain()
     build()
     k1 = kernels_vs_plain()
@@ -5235,6 +5472,7 @@ def main() -> int:
     particle_paths()
     imaging_paths()
     finance_paths()
+    suite_paths()
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

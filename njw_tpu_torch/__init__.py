@@ -32,7 +32,12 @@ packages: CT (Radon, FBP, SIRT, cone-beam FDK), MRI (gridding,
 CG-SENSE, primal-dual, FISTA, homodyne), filters, segmentation,
 registration, DEM sweeps, hydrology, viewsheds and point clouds; and the
 ``geofinancial`` package: terrain risk factors, scenario, regional and
-climate analysis, Monte-Carlo VaR and wealth, option prices and Greeks. All
+climate analysis, Monte-Carlo VaR and wealth, option prices and Greeks;
+and the framework shell: ``utils`` (pytree dataclasses, configs,
+profiling, checkpoints, sharded ones on ``torch.distributed.checkpoint``),
+``platform`` (devices, meshes), ``bench`` (the benchmark suite, cost
+models, reports, CLI), ``native`` (the ctypes loader of the C++ host
+library) and ``interop`` (shared memory, device buffers, transfers). All
 kernels are CUDA C++ written by hand for sm_90a, and every Pallas kernel
 of the JAX package has its counterpart; the global cores, nesting, the
 C-grid, the signal package beyond FIR, N-body, MD, medical imaging,

@@ -13,18 +13,18 @@ matched: the two agree in distribution).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 
 KB = 1.0  # reduced units
 
 
-@dataclasses.dataclass
+@pytree_dataclass
 class LJParams:
     """Per-type LJ parameters; pairs mix by Lorentz-Berthelot."""
 
@@ -32,7 +32,7 @@ class LJParams:
     sigma: torch.Tensor    # (T,)
 
 
-@dataclasses.dataclass
+@pytree_dataclass
 class Topology:
     """Static bonded topology: index tensors (int64) and parameters."""
 
@@ -48,7 +48,7 @@ class Topology:
     dihedral_phase: Optional[torch.Tensor] = None  # (D,)
 
 
-@dataclasses.dataclass
+@pytree_dataclass
 class MDState:
     pos: torch.Tensor      # (N, 3)
     vel: torch.Tensor      # (N, 3)
@@ -60,9 +60,6 @@ class MDState:
     @property
     def n(self) -> int:
         return self.pos.shape[0]
-
-    def replace(self, **fields) -> "MDState":
-        return dataclasses.replace(self, **fields)
 
 
 def kinetic_energy(s: MDState) -> torch.Tensor:

@@ -13,15 +13,15 @@ package does and equals it bit for bit.
 """
 from __future__ import annotations
 
-import dataclasses
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 
 
-@dataclasses.dataclass
+@pytree_dataclass
 class NBodySystem:
     pos: torch.Tensor    # (N, 3)
     vel: torch.Tensor    # (N, 3)

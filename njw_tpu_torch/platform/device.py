@@ -1,15 +1,23 @@
-"""The platform layer: device detection and roofline constants.
+"""The platform layer: device detection, roofline constants, meshes.
 
-Counterpart of ``njw_tpu/platform/device.py`` (``DeviceCaps``, ``detect``,
-``get_device_info``). What the CUDA runtime reports (name, SM count,
-opt-in shared memory per block, L2 size, memory size) comes from
-``torch.cuda.get_device_properties``; what it does not report (memory
-bandwidth, fp32 and bf16 tensor-core peaks) comes from a small spec table
-keyed by the device name.
+Counterpart of ``njw_tpu/platform/device.py``. What the CUDA runtime
+reports (name, compute capability, SM count, opt-in shared memory per
+block, L2 size, memory size) comes from ``torch.cuda.get_device_properties``;
+what it does not report (memory bandwidth, fp32 and bf16 tensor-core
+peaks) comes from a small spec table keyed by the device name.
+
+The JAX module's TPU names: ``is_tpu_available`` and ``DeviceCaps.is_tpu``
+answer False on every device of the port; ``hbm_bandwidth_gbps`` gives
+the card's memory rate; ``default_mesh`` factors the devices (or ranks)
+as the JAX one does. ``tpu_generation`` and ``stencil_block_shape`` raise
+``NotImplementedError``: a GPU has no TPU generation (``detect().name``
+and ``.generation``, the compute capability, describe it), and the
+port's kernels size their tiles by their own rules, not by a VMEM budget.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -36,6 +44,7 @@ class DeviceCaps:
     platform: str                 # 'cuda' | 'cpu'
     name: str
     num_devices: int
+    generation: str = "cpu"       # compute capability, 'sm_90' on an H100
     sm_count: int = 0
     smem_per_block_optin: int = 0  # bytes of dynamic shared memory a block may opt into
     l2_bytes: int = 0
@@ -47,6 +56,11 @@ class DeviceCaps:
     @property
     def is_cuda(self) -> bool:
         return self.platform == "cuda"
+
+    @property
+    def is_tpu(self) -> bool:
+        """False: the port runs on CUDA devices and the CPU."""
+        return False
 
 
 def spec_for(name: str) -> tuple[Optional[float], Optional[float],
@@ -69,6 +83,7 @@ def detect(device: str | torch.device = "cuda") -> DeviceCaps:
         return DeviceCaps(
             platform="cuda", name=props.name,
             num_devices=torch.cuda.device_count(),
+            generation=f"sm_{props.major}{props.minor}",
             sm_count=props.multi_processor_count,
             smem_per_block_optin=getattr(props, "shared_memory_per_block_optin", 0),
             l2_bytes=getattr(props, "L2_cache_size", 0),
@@ -98,3 +113,67 @@ def require_device(device: str | torch.device) -> torch.device:
 def get_device_info(device: str | torch.device = "cuda") -> dict:
     """Counterpart of ``njw_tpu.platform.get_device_info``."""
     return dataclasses.asdict(detect(device))
+
+
+def hbm_bandwidth_gbps(device: str | torch.device = "cuda") -> Optional[float]:
+    """The device's memory rate in GB/s (None where the spec table has no
+    figure: the CPU, or a card not in it)."""
+    return detect(device).hbm_bandwidth_gbps
+
+
+def is_tpu_available() -> bool:
+    """False: the port has no TPU path (``torch.cuda.is_available`` says
+    whether its device is there)."""
+    return False
+
+
+def tpu_generation() -> str:
+    """No counterpart: raises NotImplementedError."""
+    raise NotImplementedError(
+        "tpu_generation: the port runs on CUDA devices, which have no TPU "
+        "generation; detect().name and detect().generation (the compute "
+        "capability) describe the card")
+
+
+def stencil_block_shape(ny: int, nx: int, n_fields: int = 3,
+                        dtype_bytes: int = 4, caps=None):
+    """No counterpart: raises NotImplementedError."""
+    raise NotImplementedError(
+        "stencil_block_shape picks a Pallas VMEM block on a TPU; the port's "
+        "CUDA kernels size their tiles by their own rules "
+        "(ops.stencil.swe_layout, ops.pe_stencil.stage_tile_rows, "
+        "ops.baro_stencil.baro_strip, signal.fir_cuda.fir_layout)")
+
+
+def mesh_shape(n: int) -> tuple[int, int]:
+    """n devices factored as near square as possible, the larger factor
+    first (8 -> (4, 2)): the JAX ``default_mesh`` rule."""
+    a = int(math.sqrt(n))
+    while n % a:
+        a -= 1
+    return (n // a, a)
+
+
+def default_mesh(shape: Optional[tuple[int, int]] = None, *,
+                 device: str | torch.device = "cuda"):
+    """A (py, px) mesh of shards for spatial domain decomposition.
+
+    With a ``torch.distributed`` process group up, a ``ProcessMesh`` over
+    its ranks (one shard a rank, on ``device``); otherwise a ``LocalMesh``
+    holding every shard on ``device``. Without ``shape``, the ranks (or
+    the CUDA devices; 1 on the CPU) are factored as near square as
+    possible (``mesh_shape``). The port's meshes cut rows over 'y' and
+    columns over 'x' (``parallel.mesh``)."""
+    import torch.distributed as dist
+
+    from njw_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
+
+    dev = require_device(device)
+    distributed = dist.is_available() and dist.is_initialized()
+    if shape is None:
+        shape = mesh_shape(dist.get_world_size() if distributed
+                           else torch.cuda.device_count()
+                           if dev.type == "cuda" else 1)
+    if distributed:
+        return ProcessMesh(*shape, device=dev)
+    return LocalMesh(*shape, device=dev)

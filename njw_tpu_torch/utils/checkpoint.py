@@ -17,8 +17,16 @@ and imaginary parts, the JAX package's packed form of those states.
 Loading matches the template on ``n_leaves`` and each leaf's shape; the
 description is informational, as JAX's ``treedef`` string is.
 
-The orbax pair of the JAX module (multi-host sharded checkpoints) has no
-counterpart yet (ROADMAP).
+The orbax pair of the JAX module (``save_checkpoint_orbax`` /
+``load_checkpoint_orbax``: sharded states, each process writing the
+shards it holds, with no gather) runs on ``torch.distributed.checkpoint``
+(DCP). Orbax is not a dependency of the port, so its file format is the
+port's own, not orbax's: a directory holding DCP's ``.metadata`` and one
+``__<rank>_0.distcp`` file a writing rank, each shard's leaves under the
+keys ``shard_<iy>_<ix>/leaf_<i>`` (complex leaves as their real view,
+``(..., 2)``), and ``njw_meta.json`` (step, time, extras, the mesh
+shape), written by rank 0. A checkpoint of either package does not load
+in the other.
 """
 from __future__ import annotations
 
@@ -56,15 +64,18 @@ def _describe(obj) -> str:
     return "(" + ", ".join(_describe(o) for o in obj) + ")"
 
 
-def _unflatten(like, it):
+def _unflatten(like, it, convert):
+    """``like``'s structure with each tensor replaced by ``convert(next
+    leaf, tensor)``."""
     if like is None:
         return None
     if isinstance(like, torch.Tensor):
-        return _to_tensor(next(it), like)
+        return convert(next(it), like)
     if dataclasses.is_dataclass(like):
-        return type(like)(**{f.name: _unflatten(getattr(like, f.name), it)
-                             for f in dataclasses.fields(like)})
-    return type(like)(_unflatten(o, it) for o in like)
+        return type(like)(**{
+            f.name: _unflatten(getattr(like, f.name), it, convert)
+            for f in dataclasses.fields(like)})
+    return type(like)(_unflatten(o, it, convert) for o in like)
 
 
 def _to_array(t: torch.Tensor) -> np.ndarray:
@@ -127,7 +138,80 @@ def load_checkpoint(path: str, like: Any = None):
     if n != len(leaves):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, template "
                          f"has {n}")
-    return _unflatten(like, iter(leaves)), meta
+    return _unflatten(like, iter(leaves), _to_tensor), meta
+
+
+def _local_shards(state, mesh) -> list:
+    """[(coord, shard state)] of the shards this process holds: the whole
+    state at (0, 0) without a mesh, else one a coordinate of ``mesh``."""
+    if mesh is None:
+        return [((0, 0), state)]
+    shards = list(state)
+    mesh._check_shards(shards)
+    return list(zip(mesh.coords, shards))
+
+
+def _dcp_args(mesh) -> dict:
+    """DCP's process group: a ``ProcessMesh``'s (its ranks write
+    together); none, and no collective, for a ``LocalMesh`` or a whole
+    state."""
+    if hasattr(mesh, "rank"):
+        return {"process_group": mesh.group}
+    return {"no_dist": True}
+
+
+def _storage_view(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def save_checkpoint_orbax(path: str, state: Any, *, step: int = 0,
+                          time: float = 0.0, extra: Optional[dict] = None,
+                          mesh=None) -> str:
+    """Write a state with ``torch.distributed.checkpoint``: each process
+    writes the shards it holds (no gather). ``state`` is the list of this
+    process's shard states when ``mesh`` (a ``LocalMesh`` or
+    ``ProcessMesh``) is given, else a whole state. On a ``ProcessMesh``
+    every rank of its group calls this. Returns the directory."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    arrays = {}
+    for (iy, ix), shard in _local_shards(state, mesh):
+        for i, t in enumerate(_leaves(shard)):
+            arrays[f"shard_{iy}_{ix}/leaf_{i}"] = _storage_view(
+                t.detach().contiguous())
+    args = _dcp_args(mesh)
+    dcp.save(arrays, checkpoint_id=path, **args)
+    group = args.get("process_group")
+    if "no_dist" in args or dist.get_rank(group) == 0:
+        with open(os.path.join(path, "njw_meta.json"), "w") as fh:
+            json.dump({"step": int(step), "time": float(time),
+                       "extra": extra or {},
+                       "mesh": list(mesh.shape) if mesh else None}, fh)
+    if "no_dist" not in args:
+        dist.barrier(group)
+    return path
+
+
+def load_checkpoint_orbax(path: str, like: Any, *, mesh=None):
+    """Read a checkpoint of ``save_checkpoint_orbax`` into the structure,
+    devices and dtypes of ``like`` (this process's shard list when
+    ``mesh`` is given, each rank reading only its own shards). Returns
+    (state, meta)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    arrays, filled = {}, []
+    for (iy, ix), shard in _local_shards(like, mesh):
+        leaves = [torch.empty_like(t) for t in _leaves(shard)]
+        for i, t in enumerate(leaves):
+            arrays[f"shard_{iy}_{ix}/leaf_{i}"] = _storage_view(t)
+        filled.append(_unflatten(shard, iter(leaves), lambda t, _: t))
+    dcp.load(arrays, checkpoint_id=path, **_dcp_args(mesh))
+    with open(os.path.join(path, "njw_meta.json")) as fh:
+        meta = json.load(fh)
+    return (filled if mesh is not None else filled[0]), meta
 
 
 def save_simulation(path: str, sim) -> str:

@@ -12,17 +12,17 @@ the 5-point Laplacian's (``ops/spectral.py``). The state is zeta alone,
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import ClassVar
 
 import torch
 
 from njw_tpu_torch.ops.spectral import poisson_solve
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.dynamics import d_dx, d_dy, diagnostics, laplacian
 from njw_tpu_torch.weather.grid import FieldState, GridSpec, PhysicsParams
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class BarotropicState(FieldState):
     FIELDS: ClassVar[tuple[str, ...]] = ("zeta",)
 

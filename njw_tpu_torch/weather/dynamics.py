@@ -75,6 +75,22 @@ def pad_and_shift(bc: str, ny: int, nx: int, halo: int = 1):
     return pad, shift, crop
 
 
+def make_shift_fn(bc: str):
+    """shift(f, dxi, dyi) -> f offset by (dxi, dyi) grid cells under
+    ``bc`` (roll or edge clamp on whole-domain fields; the clamped rules
+    take offsets of one cell)."""
+
+    def shift(f: Tensor, dxi: int = 0, dyi: int = 0) -> Tensor:
+        out = f
+        if dxi:
+            out = _shift(out, dxi, _X, bc)
+        if dyi:
+            out = _shift(out, dyi, _Y, bc)
+        return out
+
+    return shift
+
+
 def d_dx(f: Tensor, dx: float, bc: str) -> Tensor:
     """Central difference along x."""
     return (_shift(f, 1, _X, bc) - _shift(f, -1, _X, bc)) * (0.5 / dx)

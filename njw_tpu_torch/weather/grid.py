@@ -7,30 +7,37 @@ package) on one device.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import ClassVar, Iterator, Optional
 
 import numpy as np
 import torch
 
+from njw_tpu_torch.utils.pytree import pytree_dataclass, static_field
+
 STATE_FIELDS = ("u", "v", "h", "p", "T", "q", "ps")
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class GridSpec:
     """Static grid geometry: sizes, spacings, boundary condition, grid type."""
 
-    nx: int = 256
-    ny: int = 256
-    levels: int = 1
-    dx: float = 1.0
-    dy: float = 1.0
-    bc: str = "periodic"         # periodic | clamped | outflow | reflective
-    grid_type: str = "cartesian"  # cartesian (A-grid) | staggered (C-grid)
+    nx: int = static_field(default=256)
+    ny: int = static_field(default=256)
+    levels: int = static_field(default=1)
+    dx: float = static_field(default=1.0)
+    dy: float = static_field(default=1.0)
+    # periodic | clamped | outflow | reflective
+    bc: str = static_field(default="periodic")
+    # cartesian (A-grid) | staggered (C-grid)
+    grid_type: str = static_field(default="cartesian")
 
     @property
     def shape(self) -> tuple[int, int]:
         return (self.ny, self.nx)
+
+    @property
+    def shape3(self) -> tuple[int, int, int]:
+        return (self.levels, self.ny, self.nx)
 
     def coords(self, device, dtype=torch.float32):
         """(y, x) index coordinate tensors of shape (ny, 1) and (1, nx)."""
@@ -52,7 +59,7 @@ class GridSpec:
             raise ValueError("grid must be at least 3x3 for central differences")
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class PhysicsParams:
     """Physical constants of the dynamical core (Python floats)."""
 
@@ -62,9 +69,6 @@ class PhysicsParams:
     viscosity: float = 0.0
     diffusivity: float = 0.0
     mean_depth: float = 10.0  # semi-implicit linearisation depth
-
-    def replace(self, **updates) -> "PhysicsParams":
-        return dataclasses.replace(self, **updates)
 
 
 class FieldState:
@@ -96,7 +100,7 @@ class FieldState:
         return {name: val.detach().cpu().numpy() for name, val in self.items()}
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class WeatherState(FieldState):
     """Prognostic state: velocity (u, v) and height h, plus the optional
     pressure p, temperature T, humidity q and surface pressure ps (``None``
@@ -125,5 +129,6 @@ class WeatherState(FieldState):
             s = s.replace(p=const(1013.25), T=const(288.15), q=const(0.0))
         return s
 
-    def replace(self, **updates) -> "WeatherState":
-        return dataclasses.replace(self, **updates)
+    def astype(self, dtype) -> "WeatherState":
+        """Every field that is set, converted to ``dtype``."""
+        return self.map(lambda t: t.to(dtype))

@@ -31,6 +31,7 @@ from typing import Callable, ClassVar
 import numpy as np
 import torch
 
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.grid import FieldState
 
 EARTH_RADIUS = 6.37122e6
@@ -140,7 +141,7 @@ def _shift_slabs(p):
 # Least-squares tangent-plane operators
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class IcosaOperators:
     """The per-cell geometry. ``radius`` is a 0-d float32 tensor, as the
     JAX package's (its arithmetic with Python floats stays float32)."""
@@ -272,7 +273,7 @@ def laplacian(f, ops: IcosaOperators, pad: Callable = pad_halo):
 # Shallow water in Cartesian vector form
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class IcosaSWEState(FieldState):
     FIELDS: ClassVar[tuple[str, ...]] = ("V", "h")
 

@@ -19,12 +19,12 @@ through the fine substeps and across the coarse steps.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import ClassVar, Iterator
 
 import numpy as np
 import torch
 
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.dynamics import (
     make_tendency_fn, swe_tendencies_from_shifts,
 )
@@ -36,7 +36,7 @@ from njw_tpu_torch.weather.integrators import Stepper, make_stepper
 _SWE = ("u", "v", "h")
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class NestedState(FieldState):
     """The coarse grid's state and the fine patch's (u, v, h each)."""
 

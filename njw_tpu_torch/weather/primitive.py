@@ -23,12 +23,12 @@ in interface form with sigdot = 0 at sigma = 0, 1. Shapes: u, v, T, q are
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, ClassVar, Optional
 
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.dynamics import pad_and_shift
 from njw_tpu_torch.weather.grid import FieldState, GridSpec, PhysicsParams
 
@@ -39,7 +39,7 @@ KAPPA = R_DRY / CP_DRY
 PE_ICS = ("baroclinic", "default", "uniform", "resting")
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class PEState(FieldState):
     FIELDS: ClassVar[tuple[str, ...]] = ("u", "v", "T", "q", "ps")
 

@@ -24,13 +24,13 @@ across its shards first, the counterpart of the JAX package's psum.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import ClassVar
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.ops.sht import SphericalHarmonicTransform
+from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.grid import FieldState
 from njw_tpu_torch.weather.integrators import Stepper
 
@@ -38,14 +38,14 @@ EARTH_RADIUS = 6.371e6       # m
 EARTH_OMEGA = 7.292e-5       # rad/s
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class SphericalBarotropicState(FieldState):
     FIELDS: ClassVar[tuple[str, ...]] = ("zeta",)
 
     zeta: torch.Tensor  # packed spectral relative vorticity (T+1, T+2)
 
 
-@dataclasses.dataclass(frozen=True)
+@pytree_dataclass
 class SphericalSWEState(FieldState):
     FIELDS: ClassVar[tuple[str, ...]] = ("zeta", "div", "phi")
 

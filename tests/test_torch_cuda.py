@@ -1485,3 +1485,79 @@ def test_finance_entry_points_refuse_cuda_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.cuda
+class TestShellOnCard:
+    """The interop transfers and a small suite run on the card."""
+
+    def test_transfers_round_trip(self, cuda_device):
+        from njw_tpu_torch.interop import (
+            DeviceMemoryManager, chunked_device_put,
+        )
+
+        x = np.random.default_rng(16).standard_normal((1000, 333),
+                                                      dtype=np.float32)
+        t = chunked_device_put(x, chunk_bytes=40_000, device=cuda_device)
+        assert t.is_cuda
+        np.testing.assert_array_equal(t.cpu().numpy(), x)
+        with DeviceMemoryManager(cuda_device) as mgr:
+            h = mgr.to_device("x", x)
+            h.wait()
+            assert h.ready and mgr.get("x").is_cuda
+            mgr.copy("x", "y").wait()
+            np.testing.assert_array_equal(mgr.to_host("y").wait(), x)
+            assert mgr.allocated_bytes == 2 * x.nbytes
+            mgr.free("x")
+            with pytest.raises(KeyError):
+                mgr.get("x")
+            stats = mgr.memory_stats()
+            assert stats["tracked_buffers"] == 1
+            assert stats["allocated_bytes.all.current"] >= x.nbytes
+
+    def test_suite_weather_signal_launch_counts(self, cuda_device, tmp_path):
+        """--workloads weather signal: K1 once a step and K7 once an
+        application, over the run's 6 repeats (warm-ups included)."""
+        import contextlib
+        import io
+        import json
+
+        from njw_tpu_torch.bench.__main__ import main
+        from njw_tpu_torch.ops import launch_counts
+
+        params = {"weather": {"grid_size": 128, "num_steps": 10},
+                  "signal": {"num_samples": 65536, "batch": 8}}
+        before = launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--workloads", "weather", "signal", "--params",
+                       json.dumps(params), "--output-dir", str(tmp_path)])
+        assert rc == 0
+        after = launch_counts()
+        weather, signal = [json.loads(ln) for ln in
+                           buf.getvalue().splitlines()]
+        k1 = 6 * weather["additional_metrics"]["steps_per_repeat"]
+        k7 = 6 * signal["additional_metrics"]["applications_per_repeat"]
+        delta = {k: after[k] - before[k] for k in after}
+        assert delta == {**dict.fromkeys(delta, 0), "swe_rk4": k1,
+                         "fir_band": k7}
+        assert weather["additional_metrics"]["kernel_launches"]["swe_rk4"] \
+            == k1
+        assert signal["additional_metrics"]["kernel_launches"]["fir_band"] \
+            == k7
+        assert weather["device"].startswith("cuda:")
+        assert weather["throughput"] > 0 and signal["throughput"] > 0
+
+
+def test_shell_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from njw_tpu_torch.bench import BenchmarkSuite, WeatherBenchmark
+    from njw_tpu_torch.interop import DeviceMemoryManager, chunked_device_put
+    from njw_tpu_torch.platform import default_mesh
+
+    calls = [BenchmarkSuite, WeatherBenchmark, DeviceMemoryManager,
+             default_mesh, lambda: chunked_device_put(np.zeros(4))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

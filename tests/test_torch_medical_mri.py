@@ -12,6 +12,17 @@ evaluations parts by ~10x every few iterations (1.3e-4 after 15), and a
 single-coil undersampled solve converges in one step, after which CG
 divides rounding by rounding (both packages return noise there). The
 JAX file's own MRI tests run again on the port.
+
+The homodyne (partial-Fourier) reconstruction returns |Re(img e^{-i theta})|
+with theta the angle of a low-pass phase image. Where that image sits at
+the float32 rounding floor, theta is rounding noise, and different FFT
+code paths on different CPUs move it (a real phantom with no phase:
+|phase_img| 1.8e-5 of its maximum at the worst pixel, 1.3e-5 apart in
+the output there). ``_homodyne_close`` holds REL where the reference's
+phase is defined (|phase_img| above ``PHASE_DEFINED`` float32 eps of its
+maximum, in float64 NumPy from the same input) and, elsewhere, bounds the
+difference by |img|, the most an ill-defined angle can move it (or by
+REL's floor, where |img| is below it).
 """
 import numpy as np
 import pytest
@@ -29,6 +40,7 @@ from njw_tpu_torch.medical import mri as tmri  # noqa: E402
 
 CPU = "cpu"
 REL = 1e-5
+PHASE_DEFINED = 1000  # float32 eps of max|phase_img|
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,6 +63,41 @@ def _kspace(n=64):
     img = mp.insert_phantom(n)
     return img, np.fft.fftshift(np.fft.fft2(img, norm="ortho")).astype(
         np.complex64)
+
+
+def _homodyne_images(kspace, fraction):
+    """The homodyne reconstruction's phase image and weighted image
+    (``reconstruct_partial_fourier``'s formulas) in float64 NumPy."""
+    y = np.asarray(kspace).astype(np.complex128)
+    ny = y.shape[-2]
+    n_acq = int(round(fraction * ny))
+    center = ny // 2
+    k0 = n_acq - 1 - center
+    ky = np.arange(ny, dtype=np.float64)[:, None] - center
+    lp = (np.abs(ky) <= k0) * (0.54 + 0.46 * np.cos(np.pi * ky / max(k0, 1)))
+    w = np.clip(1.0 - ky / max(k0, 1), 0.0, 2.0)
+    w = np.where(ky + center >= n_acq, 0.0, w)
+
+    def ifft_c(k):
+        return np.fft.ifft2(np.fft.ifftshift(k, axes=(-2, -1)), norm="ortho")
+
+    return ifft_c(y * lp), ifft_c(y * w)
+
+
+def _homodyne_close(kspace, fraction, jax_out, port_out) -> None:
+    """REL where the reference's phase estimate is defined; elsewhere the
+    difference within |img| (or REL's floor)."""
+    a = np.asarray(jax_out).astype(np.float64)
+    b = port_out.detach().cpu().numpy().astype(np.float64)
+    assert a.shape == b.shape
+    phase_img, img = _homodyne_images(kspace, fraction)
+    mag = np.abs(phase_img)
+    defined = mag > PHASE_DEFINED * np.finfo(np.float32).eps * mag.max()
+    scale = max(np.abs(a).max(), 1e-30)
+    d = np.abs(a - b)
+    assert d[defined].max() / scale <= REL
+    assert (d[~defined] <= np.maximum(np.abs(img[~defined]),
+                                      REL * scale)).all()
 
 
 def _mask(n=64, r=2, center=6):
@@ -191,9 +238,9 @@ class TestAgainstJax:
                                                            * xx)),
                                         norm="ortho")).astype(np.complex64)
         k[40:] = 0
-        assert _rel(jm.reconstruct_partial_fourier(k, 40 / 64),
-                    tm.reconstruct_partial_fourier(k, 40 / 64,
-                                                   device=CPU)) <= REL
+        _homodyne_close(k, 40 / 64, jm.reconstruct_partial_fourier(k, 40 / 64),
+                        tm.reconstruct_partial_fourier(k, 40 / 64,
+                                                       device=CPU))
 
     @pytest.mark.parametrize("method,kw", [
         ("fft", {}), ("cg_sense", {"lam": 0.0}),
@@ -210,7 +257,25 @@ class TestAgainstJax:
         j = jm.MRIReconstructor(method, 6, 2, sens if coil else None)
         t = tm.MRIReconstructor(method, 6, 2, sens if coil else None,
                                 device=CPU)
+        if method == "partial_fourier":
+            _homodyne_close(k1, kw["fraction"], j.process(*args, **kw),
+                            t.process(*args, **kw))
+            return
         assert _rel(j.process(*args, **kw), t.process(*args, **kw)) <= REL
+
+    def test_reconstructor_partial_fourier_smooth_phase(self):
+        """On an input with a smooth phase the estimate is defined over
+        the whole image: REL everywhere."""
+        n = 64
+        img = mp.insert_phantom(n)
+        yy, xx = np.mgrid[0:n, 0:n] / (n - 1)
+        k = np.fft.fftshift(np.fft.fft2(img * np.exp(1j * (0.6 * yy + 0.4
+                                                           * xx)),
+                                        norm="ortho")).astype(np.complex64)
+        kw = {"fraction": 48 / 64}
+        j = jm.MRIReconstructor("partial_fourier", 6, 2)
+        t = tm.MRIReconstructor("partial_fourier", 6, 2, device=CPU)
+        assert _rel(j.process(k, **kw), t.process(k, **kw)) <= REL
 
     @pytest.mark.parametrize("r,n", [(1, 32), (2, 64), (4, 48), (3, 50)])
     def test_undersampling_mask_bit_equal(self, r, n):
