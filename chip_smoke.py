@@ -321,6 +321,25 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 RK4 on 256^2 against the port's plain RK4 on the CPU
                 (tests/test_native.py's tolerances), or its load_error();
                 the phase's seconds by part and the script's total
+  22 examples   the eleven examples of njw_tpu_torch.examples at their
+                defaults on cuda in this process (the financial one at 10
+                assets: its frontier is host NumPy), and
+                geofinancial_example --dem-size 2048 --assets 10000, each
+                on an example_result line with its seconds and launches:
+                K1 exactly 500 in the shallow-water run and 0 elsewhere,
+                its h at 50 steps against the CPU's (normalised 1e-4); the
+                JAX tests' invariants on what each prints (energy drifts,
+                a thermostat's band, TC2 drifts, FBP's correlation, the
+                Monte-Carlo VaR against the Gaussian closed form, option
+                prices and bounds, VaR monotone in confidence, the chirp's
+                ridge); the dashboard on 127.0.0.1, port 0, on cuda with
+                phase 21's rows and --demo-geofin's views: every endpoint,
+                the four pages, a 404 and an SSE event after a publish,
+                each with its ms, /api/cluster naming the card (cuda,
+                sm_90), the risk grid within 1e-4 of the CPU's; the views:
+                hillshade on the card's DEM against the CPU (1e-6), both
+                reports' tables equal to the CPU's, and a view drawing
+                with matplotlib or raising its named ImportError without it
 Phases 6, 13 and 14 also read the device's work over one step (the
 profiler) into paced_by. Then the kernel table ({"kernels": [...]}), the
 card line, and as the last line {"ok": true, "device": {...}}.
@@ -5431,6 +5450,542 @@ def suite_paths() -> dict:
     return {"rows": rows, "launches": launched, **parts}
 
 
+# ------------------------------------------------------------ phase 22
+
+EXAMPLES_BUDGET_S = 60
+SWE_EXAMPLE_STEPS = 500     # the example's default run: one K1 launch a step
+SWE_EXAMPLE_CPU_STEPS = 50  # its final h on the card against the CPU's
+EXAMPLE_CPU_TOL = 1e-4      # normalised, the card against the port on the CPU
+NBODY_E0_REL = 1e-5         # the galaxy's initial energy, card against CPU
+# The galaxy's leapfrog energy drift over the example's 200 steps: the
+# two-body bound of tests/test_nbody.py:89-99 (1e-4) does not hold for this
+# disk even on the CPU (1.25e-4 there, the port); 10x that CPU figure.
+NBODY_DRIFT = 1.25e-3
+MD_DRIFT = 0.05             # NVE energy drift: tests/test_md.py:110-118
+MD_T_BAND = (0.7, 2.0)      # a thermostat's temperature: :121-127
+ICO_TC2 = 2e-3              # icosahedral TC2 drift: test_weather_icosa.py:163
+SPEC_TC2 = 1e-5             # spectral TC2 drift: test_weather_spherical.py:207
+BS_CALL = 10.450583572185565  # Black-Scholes, S = K = 100, T 1, r 0.05, s 0.2
+BS_DELTA = 0.6368306511756191  # N(d1) of the same call
+OPTION_ATOL = 1e-3          # the float32 closed form against float64
+CHIRP = (20.0, 60.0)        # the wavelet example's f(t) = 20 + 60 t Hz
+RISK_GRID_TOL = 1e-4        # the dashboard's risk grid, card against CPU
+HILLSHADE_ATOL = 1e-6       # tests/test_torch_viz.py's, card against CPU
+VIZ_DEM = 256               # the views' DEM (their CPU half is the cost)
+# njw_tpu_torch.examples: (module, arguments beside --device cuda) at the
+# defaults of each; the financial example's efficient frontier is a host
+# NumPy solver (~60 s at its 50 assets on a CPU core), so it runs at 10
+EXAMPLE_RUNS = (
+    ("shallow_water_example", ()),
+    ("nbody_example", ()),
+    ("lj_fluid_example", ()),
+    ("ct_reconstruction_example", ("--json",)),
+    ("mri_reconstruction_example", ()),
+    ("image_registration_example", ("--json",)),
+    ("wavelet_transform_example", ()),
+    ("viewshed_analysis", ("--json",)),
+    ("global_cores_example", ()),
+    ("financial_modeling_example", ("--json", "--assets", "10")),
+    ("geofinancial_example", ("--json",)),
+    ("geofinancial_example", ("--json", "--dem-size", "2048",
+                              "--assets", "10000")),   # geofin_pipeline_2048
+)
+NO_OUTPUT_DIR = {"wavelet_transform_example", "global_cores_example",
+                 "financial_modeling_example"}
+
+
+def _run_example(name: str, args, out_dir=None, device="cuda") -> tuple:
+    """``njw_tpu_torch.examples.<name>.main`` in this process: (its
+    standard output, wall seconds, the launch counts of the run)."""
+    import importlib
+
+    mod = importlib.import_module(f"njw_tpu_torch.examples.{name}")
+    argv = list(args) + ["--device", device]
+    if out_dir is not None and name not in NO_OUTPUT_DIR:
+        argv += ["--output-dir", out_dir]
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    if rc != 0:
+        fail("examples", f"{name} {' '.join(argv)} returned {rc}")
+    return buf.getvalue(), seconds, launched
+
+
+def _printed_json(text: str) -> list:
+    """The JSON documents an example printed (one a line, or the whole
+    output when it is one indented document)."""
+    try:
+        return [json.loads(text)]
+    except json.JSONDecodeError:
+        return [json.loads(ln) for ln in text.splitlines()
+                if ln.startswith("{") and ln.rstrip().endswith("}")
+                and not ln.startswith("{'")]
+
+
+def _fin(x) -> bool:
+    return x is not None and math.isfinite(x)
+
+
+def _swe_example_checks(text, launched) -> dict:
+    """K1 once a step; the final h of the example's run at 50 steps on the
+    card against the same run on the CPU (the plain path)."""
+    import ast
+
+    from njw_tpu_torch.examples import shallow_water_example as ex
+
+    metrics = ast.literal_eval(text.strip().splitlines()[-1])
+    h = {}
+    for dev in ("cuda", "cpu"):
+        sim = ex.simulate(ex.parse_args(["--steps",
+                                         str(SWE_EXAMPLE_CPU_STEPS),
+                                         "--device", dev]))
+        h[dev] = sim.state.h.cpu()
+    diff = _normalised_diff(h["cuda"], h["cpu"])
+    return {"num_steps": metrics["num_steps"] == SWE_EXAMPLE_STEPS,
+            "k1_once_a_step": launched["swe_rk4"] == SWE_EXAMPLE_STEPS,
+            "finite": bool(h["cuda"].isfinite().all()),
+            "h_vs_cpu": diff <= EXAMPLE_CPU_TOL}, {
+                "h_vs_cpu_normalised": diff, "tol": EXAMPLE_CPU_TOL,
+                "mcups": metrics["mcups"]}
+
+
+def _nbody_example_checks(text, launched):
+    """The galaxy's initial energy against the same system's on the CPU;
+    its energy drift finite and within NBODY_DRIFT."""
+    from njw_tpu_torch.nbody import create_galaxy_model
+    from njw_tpu_torch.nbody.system import system_diagnostics
+
+    (r,) = _printed_json(text)
+    e0 = float(system_diagnostics(create_galaxy_model(
+        r["n"], device="cpu"))["total_energy"])
+    rel = abs(r["energy_initial"] / e0 - 1)
+    return {"n": r["n"] == 10_000,
+            "energy_initial_vs_cpu": rel <= NBODY_E0_REL,
+            "energy_drift": _fin(r["energy_drift"])
+            and r["energy_drift"] < NBODY_DRIFT}, {
+                "energy_drift": r["energy_drift"], "tol": NBODY_DRIFT,
+                "energy_initial_rel_vs_cpu": rel,
+                "ms_per_step": r["ms_per_step"]}
+
+
+def _lj_example_checks(text, launched):
+    (r,) = _printed_json(text)
+    lo, hi = MD_T_BAND
+    return {"nve_drift": _fin(r["nve_energy_drift"])
+            and r["nve_energy_drift"] < MD_DRIFT,
+            "thermostat": lo < r["T_after_equil"] < hi,
+            "production_T": _fin(r["T_production_mean"])}, {
+                "nve_energy_drift": r["nve_energy_drift"],
+                "T_after_equil": r["T_after_equil"],
+                "ms_per_step": r["ms_per_step"]}
+
+
+def _ct_example_checks(text, launched):
+    """Every PSNR finite; the example's phantom through radon and FBP on
+    the card correlates with it by FBP_CORR (phase 19's check) and gives
+    the FBP PSNR the example printed at noise 0."""
+    import numpy as np
+    from njw_tpu_torch.examples import ct_reconstruction_example as ex
+    from njw_tpu_torch.medical import filtered_backprojection, radon
+
+    (r,) = _printed_json(text)
+    img = ex.shepp_logan_like(256)
+    angles = np.linspace(0, np.pi, 180, endpoint=False)
+    fbp = filtered_backprojection(radon(img, angles, device="cuda"),
+                                  angles).cpu().numpy()
+    corr = _corr(fbp, img)
+    (row,) = r["rows"]
+    return {"psnr_finite": _fin(row["fbp_psnr_db"])
+            and _fin(row["sirt_psnr_db"]),
+            "fbp_corr": corr >= FBP_CORR,
+            "printed_psnr": round(ex.psnr(fbp, img), 2)
+            == row["fbp_psnr_db"]}, {"fbp_corr": corr, "row": row}
+
+
+def _mri_example_checks(text, launched):
+    """Each acceleration samples between 1/R and 1/R + the centre's 8%;
+    CG-SENSE improves on zero-filling at R = 2; every PSNR finite."""
+    rows = _printed_json(text)
+    sampled = all(1.0 / r["acceleration"] <= r["sampled_fraction"]
+                  <= 1.0 / r["acceleration"] + 0.08 + 1e-3 for r in rows)
+    return {"accelerations": [r["acceleration"] for r in rows] == [2, 4],
+            "sampled_fraction": sampled,
+            "cg_beats_zero_filled_r2": rows[0]["psnr_cg_sense"]
+            > rows[0]["psnr_zero_filled"],
+            "finite": all(_fin(v) for r in rows for v in r.values())}, {
+                "rows": rows}
+
+
+def _registration_example_checks(text, launched):
+    """The rigid stage lowers its loss and the RMSE against the fixed
+    image (the deformable stage at the example's bump is a reference
+    behaviour: ROADMAP.md section 3)."""
+    (r,) = _printed_json(text)
+    rg = r["rigid"]
+    return {"rigid_loss_falls": rg["loss_last"] < rg["loss_first"],
+            "rigid_rmse_falls": rg["rmse_after"] < rg["rmse_before"],
+            "deformable_finite": _fin(r["deformable"]["rmse_after"])}, {
+                "rigid": rg, "deformable": r["deformable"]}
+
+
+def _wavelet_example_checks(text, launched):
+    """The chirp's ridge at the first and last spectrogram frames within
+    two bins of f(t) = 20 + 60 t; the printed lines equal the CPU's."""
+    import re
+
+    cpu, _, _ = _run_example("wavelet_transform_example", (), device="cpu")
+    lo, hi = (float(v) for v in re.search(
+        r"chirp ridge: (\S+) Hz -> (\S+) Hz", text).groups())
+    fs, nperseg = 1000.0, 256
+    hop = nperseg // 2
+    n_frames = (4096 - nperseg) // hop + 1
+    t0 = (nperseg / 2) / fs
+    t1 = (nperseg / 2 + (n_frames - 1) * hop) / fs
+    f0, f1 = (CHIRP[0] + CHIRP[1] * t for t in (t0, t1))
+    tol = 2 * fs / nperseg
+    return {"ridge_start": abs(lo - f0) <= tol,
+            "ridge_end": abs(hi - f1) <= tol,
+            "scalogram_shape": "scalogram shape: (32, 4096)" in text,
+            "same_as_cpu": text == cpu}, {"ridge_hz": [lo, hi],
+                                          "chirp_hz": [f0, f1]}
+
+
+def _viewshed_example_checks(text, launched):
+    import os
+
+    (r,) = _printed_json(text)
+    fr = [v["visible_fraction"] for v in r["viewsheds"]]
+    n = r["size"]
+    return {"fractions": all(0.0 <= f <= 1.0 for f in fr),
+            "union": max(fr) <= r["union_visible_fraction"] <= 1.0,
+            "upstream": 1 <= r["max_upstream_cells"] <= n * n,
+            "slope": 0.0 <= r["mean_slope_deg"] <= 90.0,
+            "report": os.path.exists(r["report"])}, {
+                "union_visible_fraction": r["union_visible_fraction"],
+                "max_upstream_cells": r["max_upstream_cells"],
+                "timings": r["timings"]}
+
+
+def _global_example_checks(text, launched):
+    (r,) = _printed_json(text)
+    sp, ico = r["spectral"], r["icosahedral"]
+    return {"spectral_tc2": sp["rel_l2_h_drift"] < SPEC_TC2,
+            "icosahedral_tc2": ico["rel_l2_h_drift"] < ICO_TC2}, {
+                "spectral": sp, "icosahedral": ico}
+
+
+def _financial_example_checks(text, launched):
+    """The Monte-Carlo VaR against the Gaussian closed form (VAR_REL,
+    phase 20's check); the option prices against their closed forms and
+    bounds; the simulated wealth's quantiles ordered."""
+    (r,) = _printed_json(text)
+    rm, op = r["risk_metrics"], r["options"]
+    mc = r["optimization"]["mc_simulation"]
+    var_rel = abs(rm["var_monte_carlo_95"] / rm["var_parametric_95"] - 1)
+    geo = r["geo_portfolio"]
+    return {"mc_var_vs_gaussian": var_rel <= VAR_REL,
+            "var_positive": all(rm[k] > 0 for k in (
+                "var_historical_95", "var_parametric_95", "cvar_95")),
+            "bs_call": abs(op["bs_call"] - BS_CALL) <= OPTION_ATOL,
+            "delta": abs(op["delta"] - BS_DELTA) <= DELTA_ATOL,
+            "exotics_under_vanilla": 0.0 <= op["barrier_up_out"]
+            <= op["bs_call"] and 0.0 <= op["asian_call"] <= op["bs_call"],
+            "american_put_over_intrinsic":
+                op["binomial_american_put"] >= 10.0,
+            "wealth": mc["q05"] <= mc["mean"] and 0 <= mc["prob_loss"] <= 1,
+            "geo": geo["n_assets_held"] >= 1
+            and 0 <= geo["mean_geo_risk_all"] <= 1}, {
+                "mc_var_over_gaussian_minus_1": var_rel, "options": op}
+
+
+def _geofin_example_checks(text, launched):
+    """Expected loss at most the total value, each scenario set's VaR
+    monotone in its confidence (phase 20's checks), the report's tables."""
+    import os
+
+    (r,) = _printed_json(text)
+    monotone = all(list(s["var"].values()) == sorted(s["var"].values())
+                   for s in r["scenario_sets"].values())
+    with open(r["report"]) as fh:
+        page = fh.read()
+    return {"expected_loss": 0.0 <= r["expected_loss"] <= r["total_value"],
+            "var_monotone": monotone,
+            "worst_over_expected": all(
+                s["worst_loss"] >= s["expected_loss"]
+                for s in r["scenario_sets"].values()),
+            "report": os.path.exists(r["report"])
+            and "expected loss" in page}, {
+                "assets": r["assets"], "expected_loss": r["expected_loss"],
+                "total_value": r["total_value"]}
+
+
+_EXAMPLE_CHECKS = {
+    "shallow_water_example": _swe_example_checks,
+    "nbody_example": _nbody_example_checks,
+    "lj_fluid_example": _lj_example_checks,
+    "ct_reconstruction_example": _ct_example_checks,
+    "mri_reconstruction_example": _mri_example_checks,
+    "image_registration_example": _registration_example_checks,
+    "wavelet_transform_example": _wavelet_example_checks,
+    "viewshed_analysis": _viewshed_example_checks,
+    "global_cores_example": _global_example_checks,
+    "financial_modeling_example": _financial_example_checks,
+    "geofinancial_example": _geofin_example_checks,
+}
+
+
+def _examples(out_root: str) -> dict:
+    """Each example at its defaults on cuda, in this process; its checks;
+    every launch count 0 but K1's 500 in the shallow-water run."""
+    import os
+
+    results = {}
+    for i, (name, args) in enumerate(EXAMPLE_RUNS):
+        out_dir = os.path.join(out_root, f"{i:02d}_{name}")
+        text, seconds, launched = _run_example(name, args, out_dir)
+        want = dict.fromkeys(launched, 0)
+        if name == "shallow_water_example":
+            want["swe_rk4"] = SWE_EXAMPLE_STEPS
+        checks, numbers = _EXAMPLE_CHECKS[name](text, launched)
+        checks = {k: bool(v) for k, v in checks.items()}
+        checks["launches"] = launched == want
+        key = name if name not in results else f"{name}_2048"
+        emit("example_result", example=key, args=list(args),
+             ok=all(checks.values()), seconds=seconds,
+             k1_launches=launched["swe_rk4"],
+             k7_launches=launched["fir_band"], launches=launched,
+             checks=checks, **numbers,
+             not_drawn=[ln for ln in text.splitlines()
+                        if "plots not drawn" in ln])
+        if not all(checks.values()):
+            fail("examples", f"{key}: a check failed: {checks}")
+        results[key] = {"seconds": seconds, "launches": launched}
+    return results
+
+
+def _get_ms(url: str) -> tuple:
+    """(status, body, ms) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _sse_event(server) -> tuple:
+    """One Server-Sent Event read after a publish: (event, ms)."""
+    import threading
+    import urllib.request
+
+    got = {}
+
+    def read():
+        with urllib.request.urlopen(server.url + "/api/stream",
+                                    timeout=30) as resp:
+            while True:
+                line = resp.readline()
+                if not line:
+                    return
+                if line.startswith(b"data:"):
+                    got["event"] = json.loads(line[5:].decode())
+                    got["t"] = time.perf_counter()
+                    return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    server.publish({"type": "chip_smoke", "phase": 22})
+    t.join(timeout=30)
+    if "event" not in got:
+        fail("dashboard", "no Server-Sent Event after a publish")
+    return got["event"], (got["t"] - t0) * 1e3
+
+
+def _dashboard(rows: list, out_root: str) -> dict:
+    """The dashboard on 127.0.0.1, port 0, on cuda: phase 21's rows and
+    the --demo-geofin views; every endpoint once, with its ms."""
+    import os
+
+    import numpy as np
+    from njw_tpu_torch.dashboard import DashboardServer
+    from njw_tpu_torch.dashboard.server import demo_geofin
+
+    path = os.path.join(out_root, "results.json")
+    with open(path, "w") as fh:
+        json.dump(rows, fh)
+    geofin, _ = demo_geofin("cuda")
+    cpu_geofin, _ = demo_geofin("cpu")
+    server = DashboardServer(path, port=0, geofin=geofin,
+                             device="cuda").start()
+    try:
+        ms, bodies = {}, {}
+        for route in ("/api/results", "/api/workloads", "/api/cluster",
+                      "/api/history", "/api/schema", "/api/geofin/portfolio",
+                      "/api/geofin/riskmap", "/api/geofin/scenarios", "/",
+                      "/cluster", "/perf", "/geofin", "/nope"):
+            status, body, ms[route] = _get_ms(server.url + route)
+            bodies[route] = (status, body)
+        event, ms["/api/stream"] = _sse_event(server)
+    finally:
+        server.stop()
+    ok_status = {r: s == (404 if r == "/nope" else 200)
+                 for r, (s, _) in bodies.items()}
+    js = {r: json.loads(b) for r, (s, b) in bodies.items()
+          if r.startswith("/api/") and s == 200}
+    cluster = js["/api/cluster"]
+    grid, _ = geofin.risk_grid(128, 128)
+    cpu_grid, _ = cpu_geofin.risk_grid(128, 128)
+    raw_diff = float(np.abs(grid - cpu_grid).max())
+    served = np.asarray(js["/api/geofin/riskmap"]["grid"])
+    served_diff = float(np.abs(served - cpu_grid).max())
+    checks = {
+        "status": all(ok_status.values()),
+        "results": [r["workload"] for r in js["/api/results"]]
+        == [r["workload"] for r in rows]
+        and all(set(JAX_RESULT_FIELDS) <= set(r)
+                for r in js["/api/results"]),
+        "workloads": js["/api/workloads"]
+        == sorted({r["workload"] for r in rows}),
+        "cluster_card": cluster["platform"] == "cuda"
+        and cluster["generation"] == "sm_90"
+        and cluster["total_runs"] == len(rows),
+        "history": len(js["/api/history"]) == len({r["workload"]
+                                                   for r in rows}),
+        "schema": "BenchmarkResultRow" in js["/api/schema"],
+        "portfolio": js["/api/geofin/portfolio"]
+        == json.loads(json.dumps(cpu_geofin.portfolio_view())),
+        "scenarios": js["/api/geofin/scenarios"]
+        == json.loads(json.dumps(cpu_geofin.scenario_view())),
+        "risk_grid_vs_cpu": raw_diff <= RISK_GRID_TOL,
+        "served_grid_vs_cpu": served_diff <= RISK_GRID_TOL + 5e-5,
+        "pages": all(b"<html" in bodies[p][1].lower()
+                     for p in ("/", "/cluster", "/perf", "/geofin")),
+        "sse": event == {"type": "chip_smoke", "phase": 22},
+    }
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit("dashboard", ok=all(checks.values()), ms=ms, checks=checks,
+         cluster={k: cluster[k] for k in (
+             "platform", "generation", "num_devices", "hbm_gb",
+             "hbm_bandwidth_gbps", "peak_bf16_tflops", "total_runs")},
+         risk_grid_max_abs_vs_cpu=raw_diff,
+         served_grid_max_abs_vs_cpu=served_diff, tol=RISK_GRID_TOL)
+    if not all(checks.values()):
+        fail("dashboard", f"a dashboard check failed: {checks}")
+    return {"ms": ms}
+
+
+def _viz(out_root: str) -> dict:
+    """hillshade on the card's DEM against the CPU; both reports' tables
+    built on the card equal to the CPU's; a view draws with matplotlib and
+    raises its named ImportError without it."""
+    import os
+
+    import numpy as np
+    import torch
+    from njw_tpu_torch.geofinancial import geo_risk, scenarios, testdata
+    from njw_tpu_torch.geospatial.dem import DEMProcessor
+    from njw_tpu_torch.viz import show_image
+    from njw_tpu_torch.viz._common import have_matplotlib
+    from njw_tpu_torch.viz.geofinancial import generate_geofin_report
+    from njw_tpu_torch.viz.geospatial import (
+        generate_geospatial_report, hillshade,
+    )
+
+    n = VIZ_DEM
+    dem = testdata.generate_dem(n, seed=3)
+    card = torch.from_numpy(dem).cuda()
+    shade = np.abs(hillshade(card) - hillshade(dem)).max()
+    pages = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.from_numpy(dem).to(dev)
+        proc = DEMProcessor(d, device=dev)
+        vis = proc.viewshed((n // 2, n // 2),
+                            observer_height=10.0).cpu().numpy()
+        flow = proc.hydrology()["flow_accumulation"].cpu().numpy()
+        metrics = {"visible_fraction": float(vis.mean()),
+                   "max_upstream_cells": float(flow.max()),
+                   "cells": float(dem.size)}
+        geo = generate_geospatial_report(
+            os.path.join(out_root, f"geo_{dev}"), d, visible=vis,
+            observer_xy=(n // 2, n // 2), flow_acc=flow, metrics=metrics)
+        model = geo_risk.GeospatialRiskModel([
+            geo_risk.create_flood_risk_factor(d),
+            geo_risk.create_elevation_risk_factor(d, weight=0.5)])
+        port = testdata.generate_assets(200, extent=float(n), seed=3)
+        fin = generate_geofin_report(
+            os.path.join(out_root, f"fin_{dev}"), port, model,
+            scenarios=scenarios.create_climate_scenarios())
+        pages[dev] = [open(p).read() for p in (geo, fin)]
+    draws = have_matplotlib()
+    if draws:
+        png = os.path.join(out_root, "view.png")
+        show_image(card[:64, :64], path=png)
+        plotted = os.path.getsize(png) > 0
+        named = True
+    else:
+        plotted = True
+        try:
+            show_image(card[:64, :64])
+            named = False
+        except ImportError as e:
+            named = "matplotlib" in str(e)
+    checks = {"hillshade_vs_cpu": shade <= HILLSHADE_ATOL,
+              "geospatial_report": pages["cuda"][0] == pages["cpu"][0]
+              and "<table" in pages["cuda"][0],
+              "geofin_report": pages["cuda"][1] == pages["cpu"][1]
+              and "expected loss" in pages["cuda"][1],
+              "view_draws": plotted, "named_import_error": named}
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit("viz", ok=all(checks.values()), checks=checks,
+         hillshade_max_abs_vs_cpu=float(shade), tol=HILLSHADE_ATOL,
+         matplotlib=draws)
+    if not all(checks.values()):
+        fail("viz", f"a viz check failed: {checks}")
+    return checks
+
+
+def examples_paths(rows: list) -> dict:
+    """Phase 22: the examples (njw_tpu_torch.examples) at their defaults on
+    cuda, the dashboard on phase 21's rows and the demo's geo-financial
+    views, and the views (njw_tpu_torch.viz)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_root = tempfile.mkdtemp(prefix="njw_examples_")
+    part_seconds = {}
+    try:
+        parts = {}
+        for name, part in (("examples", lambda: _examples(out_root)),
+                           ("dashboard", lambda: _dashboard(rows, out_root)),
+                           ("viz", lambda: _viz(out_root))):
+            t1 = time.perf_counter()
+            parts[name] = part()
+            part_seconds[name] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    emit("examples", ok=True, seconds=seconds,
+         budget_seconds=EXAMPLES_BUDGET_S,
+         within_budget=seconds <= EXAMPLES_BUDGET_S,
+         part_seconds=part_seconds,
+         example_seconds={n: r["seconds"]
+                          for n, r in parts["examples"].items()},
+         endpoint_ms=parts["dashboard"]["ms"],
+         script_seconds=time.perf_counter() - SCRIPT_T0)
+    return parts
+
+
 def main() -> int:
     import torch
 
@@ -5472,7 +6027,8 @@ def main() -> int:
     particle_paths()
     imaging_paths()
     finance_paths()
-    suite_paths()
+    suite = suite_paths()
+    examples_paths(suite["rows"])
 
     def fir_built(b):
         """The built FIR kernel of the main path's instantiation."""

@@ -37,7 +37,12 @@ and the framework shell: ``utils`` (pytree dataclasses, configs,
 profiling, checkpoints, sharded ones on ``torch.distributed.checkpoint``),
 ``platform`` (devices, meshes), ``bench`` (the benchmark suite, cost
 models, reports, CLI), ``native`` (the ctypes loader of the C++ host
-library) and ``interop`` (shared memory, device buffers, transfers). All
+library) and ``interop`` (shared memory, device buffers, transfers); and
+``viz`` (the views and HTML reports, matplotlib imported only to draw),
+``dashboard`` (the stdlib HTTP dashboard with its geo-financial views)
+and ``examples`` (one module per script of ``examples/``). With these,
+every module of the JAX package has its counterpart here; the Pallas FIR
+kernels of ``signal/fir_pallas.py`` are served by ``signal/fir_cuda.py``. All
 kernels are CUDA C++ written by hand for sm_90a, and every Pallas kernel
 of the JAX package has its counterpart; the global cores, nesting, the
 C-grid, the signal package beyond FIR, N-body, MD, medical imaging,

@@ -111,8 +111,22 @@ def require_device(device: str | torch.device) -> torch.device:
 
 
 def get_device_info(device: str | torch.device = "cuda") -> dict:
-    """Counterpart of ``njw_tpu.platform.get_device_info``."""
-    return dataclasses.asdict(detect(device))
+    """Counterpart of ``njw_tpu.platform.get_device_info``: every key of
+    the JAX function, with this device's values, beside the port's own
+    (the fields of ``DeviceCaps``).
+
+    ``hbm_gb`` is the device memory in GB of 2**30 bytes (the unit of the
+    JAX table's per-chip figures and of the card's nameplate; 0.0 on the
+    CPU, as in JAX) and ``peak_bf16_tflops`` the dense bf16 tensor-core
+    peak. ``vmem_bytes`` and ``ici_bandwidth_gbps`` are None: a GPU has
+    no VMEM (a TPU core's vector memory; shared memory is
+    ``smem_per_block_optin``) and no ICI (the TPU inter-chip links).
+    """
+    caps = detect(device)
+    return {**dataclasses.asdict(caps),
+            "hbm_gb": caps.total_memory_bytes / 2 ** 30,
+            "peak_bf16_tflops": caps.peak_bf16_tensor_tflops,
+            "vmem_bytes": None, "ici_bandwidth_gbps": None}
 
 
 def hbm_bandwidth_gbps(device: str | torch.device = "cuda") -> Optional[float]:

@@ -349,6 +349,13 @@ class TestPlatform:
         assert isinstance(tplat.is_tpu_available(), bool)
         assert tplat.is_tpu_available() is jdev.is_tpu_available() is False
 
+    def test_device_info_has_the_jax_keys(self):
+        info = tplat.get_device_info(CPU)
+        assert set(jdev.get_device_info()) <= set(info)
+        assert info["platform"] == "cpu" and info["hbm_gb"] == 0.0
+        assert info["vmem_bytes"] is None and info["ici_bandwidth_gbps"] is None
+        assert info["peak_bf16_tflops"] == info["peak_bf16_tensor_tflops"]
+
     def test_tpu_names(self):
         caps = tplat.detect(CPU)
         assert caps.is_tpu is False and caps.generation == "cpu"

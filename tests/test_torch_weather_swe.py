@@ -428,7 +428,24 @@ def test_port_imports_no_jax_and_no_reference_package():
               if f.parent.parent.name == "njw_tpu_torch"}
     assert {"nbody", "md", "signal", "weather", "medical",
             "geospatial", "geofinancial", "bench", "utils", "platform",
-            "interop", "native"} <= walked
+            "interop", "native", "viz", "dashboard", "examples"} <= walked
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "njw_tpu")]
     assert bad == []
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Name by name: each module of njw_tpu has one in njw_tpu_torch,
+    except the Pallas FIR kernels (served by signal/fir_cuda.py), and each
+    script of examples/ has a module in njw_tpu_torch/examples."""
+    def names(pkg):
+        return {str(f.relative_to(REPO / pkg)) for f in
+                (REPO / pkg).rglob("*.py")}
+
+    missing = names("njw_tpu") - names("njw_tpu_torch")
+    assert missing == {"signal/fir_pallas.py"}
+    assert (REPO / "njw_tpu_torch" / "signal" / "fir_cuda.py").exists()
+    scripts = {f.name for f in (REPO / "examples").glob("*.py")}
+    assert len(scripts) == 11
+    assert scripts <= {f.name for f in
+                       (REPO / "njw_tpu_torch" / "examples").glob("*.py")}
