@@ -1,0 +1,8 @@
+"""kernel.k5_roofline_pct: K5 (ops/csrc/pe_stage.cu), its launches' least time
+(``perfbench/cost/k5.py``, at the data sheet's 3.35 TB/s) over their
+device time in the trace, in percent."""
+from perfbench.metrics._roofline import share
+
+
+def read(record):
+    return share(record, "k5")
