@@ -17,6 +17,7 @@ from typing import ClassVar
 import torch
 
 from njw_tpu_torch.ops.spectral import poisson_solve
+from njw_tpu_torch.utils import profiling
 from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.dynamics import d_dx, d_dy, diagnostics, laplacian
 from njw_tpu_torch.weather.grid import FieldState, GridSpec, PhysicsParams
@@ -103,10 +104,11 @@ def make_barotropic_sim(sim_cls, config, initial_condition: str, *, device,
             "modes (shallow_water, primitive); the barotropic vorticity "
             "equation has none, and its CFL limit is already advective. "
             "Use rk4/rk2/adams_bashforth.")
-    gen = torch.Generator().manual_seed(config.random_seed)
-    full0 = make_initial_state(initial_condition, grid, device=device,
-                               generator=gen, **ic_params)
-    state0 = BarotropicState(zeta=diagnostics(full0, grid)["vorticity"])
+    with profiling.span("sim.build.state"):
+        gen = torch.Generator().manual_seed(config.random_seed)
+        full0 = make_initial_state(initial_condition, grid, device=device,
+                                   generator=gen, **ic_params)
+        state0 = BarotropicState(zeta=diagnostics(full0, grid)["vorticity"])
 
     factory = kernel_stepper_factory(
         config, device,

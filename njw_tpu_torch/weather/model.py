@@ -24,6 +24,14 @@ Backend selection (``SimConfig.backend``), the same for every model:
 ``integration_method='semi_implicit'`` (SWE and PE, ``si_order`` 1 or 2)
 takes the spectral semi-implicit steppers of ``semi_implicit.py``, which
 run no kernel of this package; backend kernel refuses it.
+
+While a ``torch.profiler`` session records, the forecast path keeps spans
+(``utils/profiling.py``): ``sim.build`` (``from_config``) holding
+``sim.build.state`` (the initial state on the device), ``sim.run``
+(counters ``steps``, ``snapshots``), ``sim.step`` (``steps``; its self
+time is the wait at the synchronise) holding ``sim.step.enqueue``, and
+``sim.output`` holding ``sim.output.copy`` (``bytes``), each with its
+simulation's ``span_id``.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.utils import profiling
 from njw_tpu_torch.weather.dynamics import diagnostics, make_tendency_fn
 from njw_tpu_torch.weather.grid import (
     FieldState, GridSpec, PhysicsParams, WeatherState,
@@ -138,6 +147,16 @@ def _prognostic_only(state: WeatherState, model: str) -> WeatherState:
     return state
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array of its own. ``.cpu()`` copies a device
+    tensor but returns a host tensor as it is, which may be a stepper's
+    buffer that later steps overwrite: that one is copied here."""
+    host = t.detach().cpu()
+    if host.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+        host = host.clone()
+    return host.numpy()
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -175,6 +194,7 @@ class Simulation:
             shape = next(state0.items())[1].shape
             points = int(shape[-1] * shape[-2])
         self.metrics = PerformanceMetrics(grid_points=points)
+        self.span_id = profiling.new_sim_id()
         self.output_fn = output_fn
         self.snapshots: list[dict[str, Any]] = []
 
@@ -189,6 +209,15 @@ class Simulation:
     @classmethod
     def from_config(cls, config: SimConfig, initial_condition: str = "uniform",
                     **ic_params) -> "Simulation":
+        sim_id = profiling.new_sim_id()
+        with profiling.span("sim.build", sim_id):
+            sim = cls._build(config, initial_condition, **ic_params)
+        sim.span_id = sim_id
+        return sim
+
+    @classmethod
+    def _build(cls, config: SimConfig, initial_condition: str,
+               **ic_params) -> "Simulation":
         device = require_device(config.device)
         if config.backend not in BACKENDS:
             raise ValueError(f"unknown backend {config.backend!r}; "
@@ -223,10 +252,11 @@ class Simulation:
         params = config.physics()
         # raises NotImplementedError for the grids not yet ported
         tendency = make_tendency_fn(model, grid, params)
-        gen = torch.Generator().manual_seed(config.random_seed)
-        full0 = make_initial_state(initial_condition, grid, device=device,
-                                   generator=gen, **ic_params)
-        state0 = _prognostic_only(full0, model)
+        with profiling.span("sim.build.state"):
+            gen = torch.Generator().manual_seed(config.random_seed)
+            full0 = make_initial_state(initial_condition, grid, device=device,
+                                       generator=gen, **ic_params)
+            state0 = _prognostic_only(full0, model)
 
         def output_fn(s):
             out = {"u": s.u, "v": s.v, "h": s.h}
@@ -252,20 +282,27 @@ class Simulation:
         """Advance n steps on the device, then synchronise. With
         ``synchronize=False`` it returns once the steps are enqueued, and
         the metrics time the host's part alone."""
+        traced = profiling.recording()
         t0 = time.perf_counter()
         carry, state, step, dt = self._carry, self.state, self.stepper.step, \
             self._dt_f32
         for _ in range(n):
             carry, state = step(carry, state, dt)
         self._carry, self.state = carry, state
+        enqueued = time.perf_counter() if traced else 0.0
         if synchronize:
             _sync(self.device)
-        elapsed = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        elapsed = (t1 - t0) * 1e3
         self.metrics.compute_time_ms += elapsed
         self.metrics.total_time_ms += elapsed
         self.metrics.num_steps += n
         self.step_count += n
         self.time += n * self.dt
+        if traced:
+            i = profiling.record("sim.step", t0, t1, self.span_id, steps=n)
+            profiling.record("sim.step.enqueue", t0, enqueued, parent=i,
+                             steps=n)
         return self.state
 
     def run(self, n_steps: Optional[int] = None, output_interval: int = 0,
@@ -273,16 +310,20 @@ class Simulation:
         """Run n_steps, snapshotting every output_interval steps."""
         if n_steps is None:
             n_steps = getattr(self, "config", SimConfig()).max_steps
-        remaining = n_steps
-        chunk = output_interval if output_interval > 0 else n_steps
-        while remaining > 0:
-            n = min(chunk, remaining)
-            self.step(n)
-            remaining -= n
-            if output_interval > 0:
-                self._store_output()
-            if callback is not None:
-                callback(self)
+        with profiling.span("sim.run", self.span_id) as span:
+            remaining, stored = n_steps, 0
+            chunk = output_interval if output_interval > 0 else n_steps
+            while remaining > 0:
+                n = min(chunk, remaining)
+                self.step(n)
+                remaining -= n
+                if output_interval > 0:
+                    self._store_output()
+                    stored += 1
+                if callback is not None:
+                    callback(self)
+            if span is not None:
+                span.counters.update(steps=n_steps, snapshots=stored)
         return self.state
 
     def run_until(self, t_end: float, output_interval: int = 0,
@@ -292,15 +333,22 @@ class Simulation:
         return self.run(n, output_interval=output_interval, callback=callback)
 
     def _store_output(self) -> None:
+        traced = profiling.recording()
         t0 = time.perf_counter()
         fields = (self.output_fn(self.state) if self.output_fn is not None
                   else dict(self.state.items()))
-        snap: dict[str, Any] = {k: v.detach().cpu().numpy()
+        copy0 = time.perf_counter() if traced else 0.0
+        snap: dict[str, Any] = {k: _to_host(v)
                                 for k, v in fields.items() if v is not None}
+        t1 = time.perf_counter()
+        if traced:
+            i = profiling.record("sim.output", t0, t1, self.span_id)
+            profiling.record("sim.output.copy", copy0, t1, parent=i,
+                             bytes=sum(a.nbytes for a in snap.values()))
         snap["step"] = self.step_count
         snap["time"] = self.time
         self.snapshots.append(snap)
-        elapsed = (time.perf_counter() - t0) * 1e3
+        elapsed = (t1 - t0) * 1e3
         self.metrics.io_time_ms += elapsed
         self.metrics.total_time_ms += elapsed
 

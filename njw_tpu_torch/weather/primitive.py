@@ -28,6 +28,7 @@ from typing import Callable, ClassVar, Optional
 import torch
 
 from njw_tpu_torch.platform.device import require_device
+from njw_tpu_torch.utils import profiling
 from njw_tpu_torch.utils.pytree import pytree_dataclass
 from njw_tpu_torch.weather.dynamics import pad_and_shift
 from njw_tpu_torch.weather.grid import FieldState, GridSpec, PhysicsParams
@@ -235,7 +236,8 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
     if initial_condition == "resting":
         for name in ("u_jet", "lapse", "deltaT_y"):
             ic_params.setdefault(name, 0.0)
-    state0 = pe_initial_state(grid, device=device, **ic_params)
+    with profiling.span("sim.build.state"):
+        state0 = pe_initial_state(grid, device=device, **ic_params)
 
     factory = kernel_stepper_factory(
         config, device,

@@ -1561,3 +1561,47 @@ def test_shell_entry_points_refuse_cuda_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["shallow_water", "primitive"])
+def test_forecast_spans_on_the_card_share_the_profilers_clock(cuda_device,
+                                                              model):
+    """The port's spans, kept while the profiler records, lie on the
+    clock of its events: inside the test's own range, and around the
+    kernels each step waits for. The port adds no profiler event."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from njw_tpu_torch.utils import profiling
+
+    extra = dict(num_levels=8, dx=1e5, dy=1e5, dt=240.0) \
+        if model == "primitive" else {}
+    cfg = SimConfig(model=model, grid_width=512, grid_height=512,
+                    coriolis_f=1e-4, device="cuda", **extra)
+    ic = "baroclinic" if model == "primitive" else "vortex"
+    Simulation.from_config(cfg, ic).run(10, output_interval=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test.window"):
+            sim = Simulation.from_config(cfg, ic)
+            sim.run(20, output_interval=10)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    (win,) = [e for e in events if e.name() == "test.window"
+              and e.device_type() != cuda]
+    start, end = win.start_ns(), win.start_ns() + win.duration_ns()
+    spans = [s for s in profiling.spans() if s.sim == sim.span_id]
+    assert len(spans) == 3 + 4 * 2
+    for s in spans:
+        assert start <= s.start <= s.end <= end, s.name
+    assert not [e.name() for e in events if e.name().startswith("sim.")]
+    steps = [(s.start, s.end) for s in spans if s.name == "sim.step"]
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in events if e.device_type() == cuda
+               and ("pe_stage_kernel" in e.name()
+                    or "swe_rk4_kernel" in e.name())]
+    assert len(kernels) >= 20
+    # each step synchronises: its kernels end inside it (to 20 us)
+    assert all(any(a - 20_000 <= k0 and k1 <= b + 20_000
+                   for a, b in steps) for k0, k1 in kernels)

@@ -320,6 +320,34 @@ class TestProfiling:
         data = json.loads((tmp_path / "tr" / "trace.json").read_text())
         assert "traceEvents" in data
 
+    def test_trace_writes_the_ports_spans(self, tmp_path):
+        """The forecast path's spans go into trace.json on a track of
+        their own, on the clock of the profiler's events."""
+        cfg = tmodel.SimConfig(grid_width=16, grid_height=16,
+                               backend="kernel", device="cpu")
+        with trace(str(tmp_path / "tr")):
+            with torch.profiler.record_function("outer"):
+                sim = tmodel.Simulation.from_config(cfg, "vortex")
+                sim.run(4, output_interval=2)
+        events = json.loads(
+            (tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+        (outer,) = [e for e in events if e.get("name") == "outer"
+                    and e.get("cat") == "user_annotation"]
+        ours = [e for e in events if e.get("cat") == "njw_tpu_torch"]
+        assert sorted(e["name"] for e in ours) == sorted(
+            ["sim.build", "sim.build.state", "sim.run"]
+            + ["sim.step", "sim.step.enqueue", "sim.output",
+               "sim.output.copy"] * 2)
+        track = {(e["pid"], e["tid"]) for e in ours}
+        assert len(track) == 1
+        assert not [e for e in events if e.get("ph") == "X"
+                    and (e["pid"], e["tid"]) in track
+                    and e.get("cat") != "njw_tpu_torch"]
+        for e in ours:
+            assert e["args"]["sim"] == sim.span_id
+            assert outer["ts"] - 1e-3 <= e["ts"]
+            assert e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] + 1e-3
+
 
 # --------------------------------------------------------------------------
 # platform (tests/test_infra_misc.py:152-157 on the port; default_mesh)
