@@ -48,7 +48,7 @@ class Span:
     (kineto's event times, on ``time.time_ns``'s base), ``parent`` the
     index in ``spans()`` of the span it lies in, ``sim`` the identifier of
     its simulation, ``counters`` its counts (``steps``, ``snapshots``,
-    ``bytes``)."""
+    ``bytes``, ``pinned_bytes``, ``host_allocs``)."""
 
     name: str
     start: int

@@ -30,8 +30,17 @@ While a ``torch.profiler`` session records, the forecast path keeps spans
 ``sim.build.state`` (the initial state on the device), ``sim.run``
 (counters ``steps``, ``snapshots``), ``sim.step`` (``steps``; its self
 time is the wait at the synchronise) holding ``sim.step.enqueue``, and
-``sim.output`` holding ``sim.output.copy`` (``bytes``), each with its
-simulation's ``span_id``.
+``sim.output`` holding ``sim.output.copy`` (``bytes``; ``pinned_bytes``,
+those copied through pinned host memory; on CUDA ``host_allocs``, the
+pinned blocks the copy had to make anew), each with its simulation's
+``span_id``.
+
+Snapshots: ``_store_output`` copies the output function's CUDA fields
+into pinned host tensors, asynchronously with one wait, and host fields
+as ``.cpu()`` does; each snapshot's arrays are its own. A simulation's
+first kept snapshot keeps its pinned tensors; a snapshot stored while the
+simulation holds others is staged through them into pageable memory, so
+a run that keeps many snapshots pins no more than two snapshots' worth.
 """
 from __future__ import annotations
 
@@ -155,6 +164,46 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     if host.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
         host = host.clone()
     return host.numpy()
+
+
+def _fields_to_host(fields: dict, keep_pinned: bool) -> tuple[dict, int]:
+    """The fields as host arrays of their own, and the bytes that went
+    through pinned memory. Each CUDA field is copied asynchronously, on
+    its device's current stream, into a pinned host tensor of PyTorch's
+    caching host allocator (a block that a released snapshot or staging
+    copy gave back, else a new one), with one wait for the last copy.
+    With ``keep_pinned`` its array is a view that keeps the tensor, so a
+    block returns to the cache only once every holder has let go of it;
+    else the tensor is copied into pageable memory and returns to the
+    cache at once. A field whose pinned allocation fails, and every host
+    tensor, goes through ``_to_host``."""
+    out: dict[str, Any] = {}
+    pinned, streams = 0, {}
+    for k, v in fields.items():
+        if v.device.type == "cuda":
+            try:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            except RuntimeError:   # no pinned memory left: the pageable copy
+                pass
+            else:
+                out[k] = host.copy_(v.detach(), non_blocking=True)
+                pinned += host.nbytes
+                streams[v.device] = torch.cuda.current_stream(v.device)
+                continue
+        out[k] = _to_host(v)
+    for stream in streams.values():
+        stream.synchronize()
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor):
+            if not keep_pinned:
+                v = torch.empty(v.shape, dtype=v.dtype).copy_(v)
+            out[k] = v.numpy()
+    return out, pinned
+
+
+def _host_allocs() -> int:
+    """The pinned blocks the caching host allocator has made so far."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def _sync(device: torch.device) -> None:
@@ -337,14 +386,21 @@ class Simulation:
         t0 = time.perf_counter()
         fields = (self.output_fn(self.state) if self.output_fn is not None
                   else dict(self.state.items()))
+        fields = {k: v for k, v in fields.items() if v is not None}
+        cuda = traced and any(v.device.type == "cuda"
+                              for v in fields.values())
+        allocs0 = _host_allocs() if cuda else 0
         copy0 = time.perf_counter() if traced else 0.0
-        snap: dict[str, Any] = {k: _to_host(v)
-                                for k, v in fields.items() if v is not None}
+        snap, pinned = _fields_to_host(fields, keep_pinned=not self.snapshots)
         t1 = time.perf_counter()
         if traced:
+            counters = dict(bytes=sum(a.nbytes for a in snap.values()),
+                            pinned_bytes=pinned)
+            if cuda:
+                counters["host_allocs"] = _host_allocs() - allocs0
             i = profiling.record("sim.output", t0, t1, self.span_id)
             profiling.record("sim.output.copy", copy0, t1, parent=i,
-                             bytes=sum(a.nbytes for a in snap.values()))
+                             **counters)
         snap["step"] = self.step_count
         snap["time"] = self.time
         self.snapshots.append(snap)

@@ -1605,3 +1605,151 @@ def test_forecast_spans_on_the_card_share_the_profilers_clock(cuda_device,
     # each step synchronises: its kernels end inside it (to 20 us)
     assert all(any(a - 20_000 <= k0 and k1 <= b + 20_000
                    for a, b in steps) for k0, k1 in kernels)
+
+
+
+# small kernel simulations whose snapshots go through pinned host memory
+_SNAPSHOT_SIMS = {
+    "swe": (dict(model="shallow_water", grid_width=96, grid_height=64,
+                 coriolis_f=1e-4), "vortex", "strength", 0.8),
+    "pe": (dict(model="primitive", grid_width=64, grid_height=48,
+                num_levels=4, dx=1e5, dy=1e5, dt=240.0, coriolis_f=1e-4),
+           "baroclinic", "u_jet", 5.0),
+}
+
+
+def _snapshot_sim(name: str, scale: float = 1.0) -> Simulation:
+    cfg, ic, key, value = _SNAPSHOT_SIMS[name]
+    return Simulation.from_config(
+        SimConfig(device="cuda", backend="kernel", **cfg), ic,
+        **{key: value * scale})
+
+
+def _arrays(snap: dict) -> dict:
+    return {k: v for k, v in snap.items() if isinstance(v, np.ndarray)}
+
+
+def _traced_run(name: str, steps: int, interval: int, scale: float = 1.0):
+    """A small kernel simulation run under a profiler session, and its
+    ``sim.output.copy`` spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from njw_tpu_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        sim = _snapshot_sim(name, scale)
+        sim.run(steps, output_interval=interval)
+    return sim, [s for s in profiling.spans()
+                 if s.sim == sim.span_id and s.name == "sim.output.copy"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SNAPSHOT_SIMS))
+class TestSnapshotsOnCard:
+    """``Simulation._store_output`` on CUDA fields: one pinned host tensor a
+    field from PyTorch's caching host allocator, filled asynchronously
+    with one wait; in a simulation's first kept snapshot its array is a
+    view that keeps the tensor, in a later one a pageable copy."""
+
+    def test_snapshots_equal_the_device_tensors(self, cuda_device, name):
+        sim = _snapshot_sim(name)
+        fn = sim.output_fn
+        given = []
+        sim.output_fn = lambda s: given.append(fn(s)) or given[-1]
+        checked = []
+
+        def check(s):
+            snap = s.snapshots[-1]
+            want = {k: v.cpu().numpy() for k, v in given[-1].items()
+                    if v is not None}
+            assert set(snap) == set(want) | {"step", "time"}
+            assert snap["step"] == s.step_count and snap["time"] == s.time
+            for k, w in want.items():
+                got = snap[k]
+                assert got.dtype == w.dtype and got.shape == w.shape, k
+                assert got.tobytes() == w.tobytes(), k
+            checked.append(snap["step"])
+
+        sim.run(12, output_interval=3, callback=check)
+        assert checked == [3, 6, 9, 12]
+        assert not np.array_equal(sim.snapshots[0]["u"],
+                                  sim.snapshots[-1]["u"])
+
+    def test_snapshots_are_their_own(self, cuda_device, name):
+        sims = [_snapshot_sim(name), _snapshot_sim(name, 1.2)]
+        for sim in sims:
+            sim.run(8, output_interval=2)
+        arrays = [a for sim in sims for snap in sim.snapshots
+                  for a in _arrays(snap).values()]
+        assert len(arrays) == 2 * 4 * len(_arrays(sims[0].snapshots[0]))
+        for i, a in enumerate(arrays):
+            for b in arrays[i + 1:]:
+                assert not np.shares_memory(a, b)
+
+    def test_a_held_snapshot_outlives_the_pools_reuse(self, cuda_device,
+                                                      name):
+        import gc
+
+        first = _snapshot_sim(name)
+        first.run(6, output_interval=2)
+        held = first.snapshots
+        want = [{k: v.copy() for k, v in _arrays(s).items()} for s in held]
+        del first
+        other = _snapshot_sim(name, 1.2)
+        other.run(6, output_interval=2)
+        del other   # its snapshots go back to the allocator's cache
+        gc.collect()
+        torch.cuda.synchronize()
+        again, spans = _traced_run(name, 6, 2, scale=0.9)
+        assert len(spans) == 3
+        # the pool was warm: every block was one a snapshot or a staging
+        # copy gave back
+        assert [s.counters["host_allocs"] for s in spans] == [0, 0, 0]
+        for snap, w in zip(held, want):
+            for k, v in w.items():
+                assert snap[k].tobytes() == v.tobytes(), k
+        for snap in again.snapshots:
+            for k, v in _arrays(snap).items():
+                assert not any(np.shares_memory(v, h[k]) for h in held), k
+
+    def test_a_run_keeping_many_snapshots_pins_two(self, cuda_device, name):
+        sim = _snapshot_sim(name)
+        sim.run(1, output_interval=1)   # loads the kernel
+        sim.snapshots.clear()
+        allocs0 = torch.cuda.host_memory_stats()["num_host_alloc"]
+        sim.run(12, output_interval=1)
+        fields = len(_arrays(sim.snapshots[0]))
+        grown = torch.cuda.host_memory_stats()["num_host_alloc"] - allocs0
+        assert grown <= 2 * fields
+        pinned = [[torch.from_numpy(a).is_pinned()
+                   for a in _arrays(snap).values()] for snap in sim.snapshots]
+        assert pinned == [[True] * fields] + [[False] * fields] * 11
+
+    def test_copy_span_counts_pinned_bytes(self, cuda_device, name):
+        sim, spans = _traced_run(name, 6, 3)
+        assert len(spans) == len(sim.snapshots) == 2
+        for span, snap in zip(spans, sim.snapshots):
+            nbytes = sum(v.nbytes for v in _arrays(snap).values())
+            assert span.counters["bytes"] == nbytes > 0
+            assert span.counters["pinned_bytes"] == nbytes
+
+    def test_refused_pinned_memory_falls_back_to_the_pageable_copy(
+            self, cuda_device, name, monkeypatch):
+        empty = torch.empty
+
+        def refuse(*args, pin_memory=False, **kwargs):
+            if pin_memory:
+                raise RuntimeError("no pinned memory")
+            return empty(*args, **kwargs)
+
+        pinned, (p,) = _traced_run(name, 4, 4)
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty", refuse)
+            pageable, (q,) = _traced_run(name, 4, 4)
+        assert p.counters["bytes"] == q.counters["bytes"] > 0
+        assert p.counters["pinned_bytes"] == p.counters["bytes"]
+        assert q.counters["pinned_bytes"] == 0
+        (a,), (b,) = pinned.snapshots, pageable.snapshots
+        assert set(a) == set(b)
+        for k, v in _arrays(a).items():
+            assert v.dtype == b[k].dtype and v.tobytes() == b[k].tobytes()

@@ -196,3 +196,18 @@ def test_snapshots_on_the_cpu_are_their_own(name):
         if isinstance(v, np.ndarray):
             np.testing.assert_array_equal(snaps[1][k], v)
             assert not np.array_equal(snaps[1][k], snaps[3][k])
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_output_copy_on_the_cpu_counts_no_pinned_bytes(name):
+    """A CPU state's snapshot takes no pinned memory: the copy's span
+    counts its bytes as before and none of them pinned."""
+    sim, _ = _profiled(lambda: _forecast(name))
+    copies = [s for s in profiling.spans()
+              if s.sim == sim.span_id and s.name == "sim.output.copy"]
+    assert len(copies) == len(sim.snapshots) == 2
+    for copy, snap in zip(copies, sim.snapshots):
+        assert copy.counters == {
+            "bytes": sum(v.nbytes for v in snap.values()
+                         if isinstance(v, np.ndarray)),
+            "pinned_bytes": 0}
