@@ -9,6 +9,7 @@ missing ``nvcc`` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -119,13 +120,21 @@ def bind(name: str, argtypes: list) -> tuple:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    Processes that load one library at once (the ranks of a mesh) build
+    it once: the first takes a lock file beside it and builds, the others
+    wait on the lock and find the library built."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            job = _start(name)
-            if job is not None:
-                _finish(name, job)
-            lib = ctypes.CDLL(str(library_path(name)))
+            target = library_path(name)
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(target.with_suffix(".lock"), "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    job = _start(name)
+                    if job is not None:
+                        _finish(name, job)
+            lib = ctypes.CDLL(str(target))
             _loaded[name] = lib
     return lib

@@ -789,6 +789,15 @@ def pe_stage_padded(cur_p: PEState, bases, *, halo: tuple, c_dt: float,
     return _stage_runner(_device_kind(cur_p.ps, "pe_stage_padded"))(*args)
 
 
+def pe_stage_padded_launcher(cur_p: PEState, bases, **kw) -> Callable:
+    """``pe_stage_padded(cur_p, bases, **kw)`` with its checks and
+    constants done once: a callable that runs the stage on these very
+    tensors (a stepper's own buffers, refilled between calls)."""
+    args = _stage_padded_args(cur_p, bases, **kw)
+    run = _stage_runner(_device_kind(cur_p.ps, "pe_stage_padded"))
+    return lambda: run(*args)
+
+
 def pe_stage_padded_plain(cur_p: PEState, bases, **kw) -> PEState:
     """``pe_stage_padded``'s plain version, on any device."""
     return _plain_stage(*_stage_padded_args(cur_p, bases, **kw))

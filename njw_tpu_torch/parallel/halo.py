@@ -44,6 +44,7 @@ conditions (ly % 8, lx % 128) do not apply: the kernels mask ragged tiles.
 from __future__ import annotations
 
 import numbers
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -57,7 +58,9 @@ from njw_tpu_torch.weather.dynamics import (
     coriolis_field, scalar_bc, swe_tendencies_from_shifts,
 )
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
-from njw_tpu_torch.weather.integrators import INTEGRATORS, make_stepper
+from njw_tpu_torch.utils import profiling
+from njw_tpu_torch.weather.integrators import INTEGRATORS, Stepper, \
+    make_stepper
 from njw_tpu_torch.weather.primitive import PEState, pe_tendencies_from_shifts
 
 SWE_FIELDS = ("u", "v", "h")
@@ -170,6 +173,7 @@ class _Bands:
             rows = [tuple(t[..., hy:hy + ly, :] for t in b) for b in blocks]
             self.axes.append(("x",) + self._views(rows, -1, hx, lx))
         self.axes.append(("y",) + self._views(blocks, -2, hy, ly))
+        self._mesh, self._fills = None, []
 
     @staticmethod
     def _views(blocks, dim: int, h: int, n: int) -> tuple:
@@ -181,13 +185,29 @@ class _Bands:
         return strips(n), strips(h), strips(0), strips(n + h)
 
     def refresh(self, mesh) -> None:
-        for axis, last, first, band_lo, band_hi in self.axes:
-            for sends, bands, shift in ((last, band_lo, +1),
-                                        (first, band_hi, -1)):
-                got = mesh.ring_shift(sends, axis, shift)
-                for dst, src in zip(bands, got):
-                    for d, s in zip(dst, src):
-                        d.copy_(s)
+        """Fill every band from its neighbour, one ``mesh.pair_exchange``
+        an axis (made at the first refresh on ``mesh``) and one
+        ``_foreach_copy_`` of what arrives into the bands. While a
+        profiler records, the refresh is a ``sim.step.exchange`` span
+        (from the first exchange to the last band's copy enqueued)
+        counting the mesh's own ``exchanges`` and ``exchange_bytes`` over
+        it."""
+        t0 = time.perf_counter()
+        n0, b0 = mesh.exchanges, mesh.exchange_bytes
+        if self._mesh is not mesh:
+            self._fills = [
+                (mesh.pair_exchange(last, first, axis),
+                 [d for bands in (band_lo, band_hi) for dst in bands
+                  for d in dst])
+                for axis, last, first, band_lo, band_hi in self.axes]
+            self._mesh = mesh
+        for exchange, bands in self._fills:
+            torch._foreach_copy_(bands, [s for got in exchange()
+                                         for src in got for s in src])
+        if profiling.recording():
+            profiling.record("sim.step.exchange", t0, time.perf_counter(),
+                             exchanges=mesh.exchanges - n0,
+                             exchange_bytes=mesh.exchange_bytes - b0)
 
 
 # ------------------------------------------------------------ the steppers
@@ -240,9 +260,12 @@ def _check_shards(name: str, mesh, shards: Sequence, cls, fields: tuple,
 
 class ShardedStepper:
     """``step(shards) -> shards`` over ``n_steps`` steps (see the module
-    docstring). ``name``: the form."""
+    docstring). ``name``: the form. Each form loads shards into its
+    blocks (``_load``) and steps the blocks (``_steps``, which returns
+    the interior views of the new state)."""
 
     name = ""
+    stages = 4
 
     def __init__(self, mesh, n_steps: int, inner: tuple, halo: tuple,
                  cls, filler: float):
@@ -251,6 +274,7 @@ class ShardedStepper:
         self.cls, self.filler = cls, filler
         self.fields = SWE_FIELDS if cls is WeatherState else PEState.FIELDS
         self._blocks = None
+        self._last = None     # the views ``advance`` returned last
 
     # padded states of every local shard, the halo filled with ``filler``
     # (ones for PE: a stale ps cell must never reach a log as 0)
@@ -273,11 +297,28 @@ class ShardedStepper:
         _check_shards(self.name, self.mesh, shards, self.cls, self.fields,
                       self.inner)
 
-    def __call__(self, shards: Sequence) -> list:
+    def _enter(self, shards: Sequence) -> None:
         self._check(shards)
         if self._blocks is None:
             self._blocks = self._make(shards)
-        return self._run(shards)
+        self._load(shards)
+
+    def __call__(self, shards: Sequence) -> list:
+        self._enter(shards)
+        self._last = None
+        return [_copy(st) for st in self._steps()]
+
+    def advance(self, shards: Sequence) -> list:
+        """``n_steps`` steps like a call, returning the stepper's own
+        interior views in place of new states: they are overwritten by the
+        step after next. Shards that are the views it returned last are
+        stepped in place, with no copy into the blocks."""
+        last = self._last
+        if last is None or len(shards) != len(last) or any(
+                a is not b for a, b in zip(shards, last)):
+            self._enter(shards)
+        self._last = self._steps()
+        return self._last
 
     def exchange(self) -> None:
         """One halo exchange of the blocks a step starts from (what each
@@ -310,19 +351,22 @@ class _CarryStepper(ShardedStepper):
         b = self._blocks
         return b["bands"][b["turn"]]
 
-    def _run(self, shards):
+    def _load(self, shards):
         b = self._blocks
-        t = b["turn"]
-        for dst, s in zip(b["inner"][t], shards):
+        for dst, s in zip(b["inner"][b["turn"]], shards):
             for d, x in zip(_fields(dst), _fields(s)):
                 d.copy_(x)
+
+    def _steps(self):
+        b = self._blocks
+        t = b["turn"]
         for _ in range(self.n_steps):
             b["bands"][t].refresh(self.mesh)
             for src, out in zip(b["pads"][t], b["inner"][1 - t]):
                 self._launch(src, out)
             t = 1 - t
         b["turn"] = t
-        return [_copy(st) for st in b["inner"][t]]
+        return b["inner"][t]
 
 
 class _ConcatStepper(ShardedStepper):
@@ -337,23 +381,29 @@ class _ConcatStepper(ShardedStepper):
                                 self.inner),
                 "inner": [self._interior(p) for p in pads],
                 "states": [[s.map(torch.empty_like) for s in shards]
-                           for _ in range(2)]}
+                           for _ in range(2)],
+                "cur": None, "turn": 0}
 
     def _bands_of_input(self):
         return self._blocks["bands"]
 
-    def _run(self, shards):
+    def _load(self, shards):
+        self._blocks["cur"] = list(shards)
+
+    def _steps(self):
         b = self._blocks
-        cur = shards
-        for i in range(self.n_steps):
+        cur = b["cur"]
+        for _ in range(self.n_steps):
             for dst, s in zip(b["inner"], cur):
                 for d, x in zip(_fields(dst), _fields(s)):
                     d.copy_(x)
             b["bands"].refresh(self.mesh)
-            cur = b["states"][i % 2]
+            cur = b["states"][b["turn"]]
+            b["turn"] = 1 - b["turn"]
             for src, out in zip(b["pads"], cur):
                 self._launch(src, out)
-        return [_copy(st) for st in cur]
+        b["cur"] = cur
+        return cur
 
 
 # --------------------------------------------------------------------- SWE
@@ -463,7 +513,7 @@ class _PEStages(ShardedStepper):
                 "bands": [_Bands([_fields(p) for p in ps], self.halo,
                                  self.inner) for ps in pads],
                 "inner": [[self._interior(p) for p in ps] for ps in pads],
-                "order": (0, 1, 2, 3)}
+                "order": (0, 1, 2, 3), "launches": {}}
 
     def _bands_of_input(self):
         b = self._blocks
@@ -473,18 +523,27 @@ class _PEStages(ShardedStepper):
                c_dt: float) -> None:
         b = self._blocks
         b["bands"][k_in].refresh(self.mesh)
-        for j, cur in enumerate(b["pads"][k_in]):
-            pe_stencil.pe_stage_padded(
-                cur, tuple(b["inner"][g][j] for g in bases), halo=self.halo,
-                c_dt=c_dt, base_coeffs=coeffs, out=b["inner"][k_out][j],
-                **self.kw)
+        key = (k_in, bases, coeffs, k_out, c_dt)
+        launches = b["launches"].get(key)
+        if launches is None:   # the stage's checks, once per buffer order
+            launches = b["launches"][key] = [
+                pe_stencil.pe_stage_padded_launcher(
+                    cur, tuple(b["inner"][g][j] for g in bases),
+                    halo=self.halo, c_dt=c_dt, base_coeffs=coeffs,
+                    out=b["inner"][k_out][j], **self.kw)
+                for j, cur in enumerate(b["pads"][k_in])]
+        for launch in launches:
+            launch()
 
-    def _run(self, shards):
+    def _load(self, shards):
         b = self._blocks
-        s0, s1, s2, s3 = b["order"]
-        for dst, s in zip(b["inner"][s0], shards):
+        for dst, s in zip(b["inner"][b["order"][0]], shards):
             for d, x in zip(_fields(dst), _fields(s)):
                 d.copy_(x)
+
+    def _steps(self):
+        b = self._blocks
+        s0, s1, s2, s3 = b["order"]
         one = (1.0,)
         for _ in range(self.n_steps):
             self._stage(s0, (s0,), one, s1, self.c[0])
@@ -493,7 +552,7 @@ class _PEStages(ShardedStepper):
             self._stage(s3, (s0, s1, s2, s3), self.combine, s1, self.c[3])
             s0, s1, s2, s3 = s1, s2, s3, s0
         b["order"] = (s0, s1, s2, s3)
-        return [_copy(st) for st in b["inner"][s0]]
+        return b["inner"][s0]
 
 
 class _PEStages1d(_PEStages):
@@ -590,6 +649,10 @@ class _Shards(list):
         return _Shards(s.map(fn, *(o[i] for o in others))
                        for i, s in enumerate(self))
 
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
 
 class PlainShardedStepper:
     """``step(shards) -> shards`` over ``n_steps`` steps of an integrator
@@ -627,6 +690,24 @@ class PlainShardedStepper:
 
     def exchange(self, shards: Sequence) -> None:
         self._exchange(shards)
+
+    advance = __call__
+
+
+def simulation_stepper(sharded, shards: Sequence) -> tuple:
+    """(state, ``Stepper``) of a sharded stepper of one step, for
+    ``weather.model.Simulation``: the state is the one shard of
+    ``shards`` where there is one (a ``ProcessMesh`` rank's), else the
+    list of them; each step is one ``sharded.advance``. dt is the
+    stepper's own."""
+    single = len(shards) == 1
+
+    def step(carry, state, _dt):
+        out = sharded.advance([state] if single else list(state))
+        return carry, (out[0] if single else _Shards(out))
+
+    state = shards[0] if single else _Shards(shards)
+    return state, Stepper(lambda s: None, step, sharded.name, sharded.stages)
 
 
 def _stitch(top, left, interior, right, bot):

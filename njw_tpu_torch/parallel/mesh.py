@@ -25,6 +25,11 @@ The exchanges:
   the payloads, so that work which needs no halo runs while the sends are
   in flight (on ``LocalMesh`` the handle is complete at once);
   ``ring_shift`` is start, then wait.
+* ``ring_pair(to_next, to_prev, axis)``: ``ring_shift`` by +1 and by -1
+  as one exchange (on ``ProcessMesh`` one ``all_to_all_single`` of packed
+  float32 payloads). ``pair_exchange`` makes it a callable over payloads
+  that stay the same tensors, whose buffers ``ProcessMesh`` makes once:
+  the kernel steppers' halo refresh calls one an axis.
 * ``all_to_all(blocks, axis, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=False)`` along 'y', 'x' or the combined ('y', 'x') axis (row-major
   index iy * px + ix).
@@ -36,7 +41,7 @@ the port's own counts of its exchanges, which a caller may set to 0.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Callable, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -134,6 +139,23 @@ class _Mesh:
         back along ``axis`` (src i -> dst i + shift, as ``_ring_shift``):
         ``ring_shift_start``, then wait."""
         return self.ring_shift_start(payloads, axis, shift).wait()
+
+    def ring_pair(self, to_next: Sequence[Payload], to_prev: Sequence[Payload],
+                  axis: str) -> tuple[list, list]:
+        """(``ring_shift(to_next, axis, +1)``, ``ring_shift(to_prev, axis,
+        -1)``): for each local shard, what its previous and its next shard
+        along ``axis`` send it."""
+        return (self.ring_shift(to_next, axis, +1),
+                self.ring_shift(to_prev, axis, -1))
+
+    def pair_exchange(self, to_next: Sequence[Payload],
+                      to_prev: Sequence[Payload], axis: str) -> Callable:
+        """``ring_pair(to_next, to_prev, axis)`` of payloads that are the
+        same tensors at every call (views that the caller refills), as a
+        callable: each call sends what they hold then and returns what
+        arrives, which is valid until the next call. Here each call is
+        ``ring_pair``; ``ProcessMesh`` makes its buffers once."""
+        return lambda: self.ring_pair(to_next, to_prev, axis)
 
     def _count(self, tensors) -> None:
         self.exchanges += 1
@@ -349,6 +371,26 @@ class ProcessMesh(_Mesh):
         self._count(sends)
         return _Posted(dist.batch_isend_irecv(ops), sends, recvs)
 
+    def ring_pair(self, to_next: Sequence[Payload], to_prev: Sequence[Payload],
+                  axis: str) -> tuple[list, list]:
+        """``_Mesh.ring_pair`` as one ``all_to_all_single`` over the group:
+        each payload's float32 tensors are packed into one buffer a
+        destination (its ``to_next`` part first), and nothing is sent to
+        or received from the other ranks. One call and one collective in
+        place of two ``batch_isend_irecv`` of a P2P operation a tensor,
+        whose host cost paced the sharded steppers on the card."""
+        return self.pair_exchange(to_next, to_prev, axis)()
+
+    def pair_exchange(self, to_next: Sequence[Payload],
+                      to_prev: Sequence[Payload], axis: str) -> Callable:
+        """``_Mesh.pair_exchange`` with its buffers made once
+        (``_PairExchange``): a call packs the payloads with one
+        ``_foreach_copy_``, makes the one ``all_to_all_single`` of
+        ``ring_pair`` and returns views of its receive buffer."""
+        if self.axis_size(axis) == 1:
+            return lambda: (list(to_next), list(to_prev))
+        return _PairExchange(self, to_next, to_prev, axis)
+
     def _axis_group(self, axis: Axis):
         """(process group, this mesh's global ranks of the members of this
         rank's ring along ``axis`` in index order). This rank's ring's group
@@ -417,3 +459,66 @@ class ProcessMesh(_Mesh):
                 g[name] = p
         return self._assemble([type(mine)(**g) for g in gathered])
 
+
+
+def _views(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
+    """Consecutive views of the 1-D ``flat``, shaped as each of ``like``."""
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+class _PairExchange:
+    """``ProcessMesh.ring_pair`` of payloads that stay the same tensors:
+    the send and receive buffers, and their views shaped as the payloads,
+    are made once. A call packs the payloads into the send buffer with one
+    ``_foreach_copy_``, makes the ``all_to_all_single`` and returns views
+    of the receive buffer, which the next call overwrites. The collective
+    is synchronous on the current stream, so the next pack and the
+    caller's reads of the views are ordered after it."""
+
+    def __init__(self, mesh: ProcessMesh, to_next: Sequence[Payload],
+                 to_prev: Sequence[Payload], axis: str):
+        (nxt,), (prv,) = to_next, to_prev
+        if any(t.dtype != torch.float32 for t in (*nxt, *prv)):
+            raise ValueError("ring_pair: float32 payloads only")
+        me = mesh.coords[0]
+        size = dist.get_world_size(mesh.group)
+
+        def rank(coord):   # the group rank of a shard
+            return coord[0] * mesh.px + coord[1]
+
+        dst_next = rank(mesh.shifted(me, axis, +1))
+        dst_prev = rank(mesh.shifted(me, axis, -1))
+        parts: list[list] = [[] for _ in range(size)]
+        parts[dst_next] += nxt
+        parts[dst_prev] += prv
+        self.sources = [t for p in parts for t in p]
+        self.counts = [sum(t.numel() for t in p) for p in parts]
+        device = self.sources[0].device
+        self.send = torch.empty(sum(self.counts), dtype=torch.float32,
+                                device=device)
+        self.targets = _views(self.send, self.sources)
+        # a shard's previous shard sends it its to_next, the next its
+        # to_prev, each shaped as this shard's own
+        n_next = sum(t.numel() for t in nxt)
+        self.recv_counts = [0] * size
+        self.recv_counts[dst_prev] += n_next
+        self.recv_counts[dst_next] += sum(t.numel() for t in prv)
+        self.recv = torch.empty(sum(self.recv_counts), dtype=torch.float32,
+                                device=device)
+        starts = [sum(self.recv_counts[:r]) for r in range(size)]
+        # a ring of two: one chunk holds both, the to_next part first
+        at_next = starts[dst_next] + (n_next if dst_next == dst_prev else 0)
+        self.got = ([tuple(_views(self.recv[starts[dst_prev]:], nxt))],
+                    [tuple(_views(self.recv[at_next:], prv))])
+        self.mesh, self.payload = mesh, [*nxt, *prv]
+
+    def __call__(self) -> tuple[list, list]:
+        torch._foreach_copy_(self.targets, self.sources)
+        self.mesh._count(self.payload)
+        dist.all_to_all_single(self.recv, self.send, self.recv_counts,
+                               self.counts, group=self.mesh.group)
+        return self.got

@@ -33,7 +33,8 @@ from torch.utils import _pytree
 #
 # The port records spans on its forecast path (``weather/model.py``:
 # ``sim.build``, ``sim.build.state``, ``sim.run``, ``sim.step``,
-# ``sim.step.enqueue``, ``sim.output``, ``sim.output.copy``) only while a
+# ``sim.step.enqueue``, ``sim.output``, ``sim.output.copy``; on a mesh
+# ``sim.step.exchange``, ``parallel/halo.py``) only while a
 # ``torch.profiler`` session records: off, a span site costs one check of
 # the profiler's flag. They are kept here, not as profiler events: the
 # profiler projects a ``record_function`` range onto the device's
@@ -48,7 +49,8 @@ class Span:
     (kineto's event times, on ``time.time_ns``'s base), ``parent`` the
     index in ``spans()`` of the span it lies in, ``sim`` the identifier of
     its simulation, ``counters`` its counts (``steps``, ``snapshots``,
-    ``bytes``, ``pinned_bytes``, ``host_allocs``)."""
+    ``bytes``, ``pinned_bytes``, ``host_allocs``, ``rank``, ``exchanges``,
+    ``exchange_bytes``)."""
 
     name: str
     start: int
@@ -151,6 +153,55 @@ def span(name: str, sim: Optional[int] = None):
     (``with span(...) as s``: ``s`` is the ``Span``, whose counters the
     block may fill, or None when nothing records)."""
     return _Open(name, sim) if recording() else _OFF
+
+
+class _Begun:
+    """A span opened at a clock read the caller took; the spans kept until
+    it closes lie in it. ``close(t1)`` ends it at another read, and the
+    end of its ``with`` block at the latest."""
+
+    def __init__(self, name: str, t0: float, sim: Optional[int],
+                 counters: dict):
+        self.session = _session
+        self.index = _add(name, _ns(t0), None, sim, None, counters)
+        _session.open.append(self.index)
+
+    def close(self, t1: Optional[float] = None) -> None:
+        if self.index is None:
+            return
+        s = self.session
+        end = time.perf_counter_ns() if t1 is None else round(t1 * 1e9)
+        s.spans[self.index].end = end + s.offset_ns
+        s.open.remove(self.index)
+        self.index = None
+
+    def __enter__(self) -> "_Begun":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _NotBegun:
+    def close(self, t1: Optional[float] = None) -> None:
+        pass
+
+    def __enter__(self) -> "_NotBegun":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NOT_BEGUN = _NotBegun()
+
+
+def begin(name: str, t0: float, sim: Optional[int] = None, **counters):
+    """A span from ``t0`` (a ``time.perf_counter()`` read) while a profiler
+    session records, for a ``with`` block that calls ``close(t1)`` on it
+    at its end's clock read; spans kept meanwhile lie in it. Nothing is
+    kept when nothing records."""
+    return _Begun(name, t0, sim, counters) if recording() else _NOT_BEGUN
 
 
 def _export_spans(path: str) -> None:

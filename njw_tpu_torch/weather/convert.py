@@ -10,8 +10,9 @@ namespace, ...), so this module imports nothing of JAX.
 
 A sharded state crosses the same way: the JAX package's sharded result
 read as the global arrays (``np.asarray`` of each field) becomes the
-shards a port mesh holds (``shards_from_numpy``), and the port's shards
-become the global arrays again (``shards_to_numpy``).
+shards a port mesh holds (``shards_from_numpy``), and the port's shards,
+or the snapshots of a ``Simulation`` on a mesh, become the global arrays
+again (``shards_to_numpy``).
 """
 from __future__ import annotations
 
@@ -94,9 +95,29 @@ def shards_from_numpy(src, mesh) -> list:
     return mesh.shard_state(state)
 
 
-def shards_to_numpy(shards, mesh) -> dict[str, np.ndarray]:
-    """The global arrays of a sharded state (``mesh.gather_state``)."""
-    return mesh.gather_state(shards).to_numpy()
+def shards_to_numpy(shards, mesh=None) -> dict[str, np.ndarray]:
+    """The global arrays of a sharded state (``mesh.gather_state``). With
+    no ``mesh``: the global arrays of snapshots that each hold a part of
+    the domain and its ``block`` = (y0, y1, x0, x1), as a ``Simulation``
+    on a mesh stores them (one from each process of the mesh); the parts
+    must cover the domain once."""
+    if mesh is not None:
+        return mesh.gather_state(shards).to_numpy()
+    ny = max(p["block"][1] for p in shards)
+    nx = max(p["block"][3] for p in shards)
+    if sum((y1 - y0) * (x1 - x0) for y0, y1, x0, x1 in
+           (p["block"] for p in shards)) != ny * nx:
+        raise ValueError(f"blocks {[p['block'] for p in shards]} do not "
+                         f"tile the {ny}x{nx} domain once")
+    out: dict[str, np.ndarray] = {}
+    for p in shards:
+        y0, y1, x0, x1 = p["block"]
+        for name, a in p.items():
+            if isinstance(a, np.ndarray):
+                if name not in out:
+                    out[name] = np.zeros(a.shape[:-2] + (ny, nx), a.dtype)
+                out[name][..., y0:y1, x0:x1] = a
+    return out
 
 
 def _fields_of(cls, obj: Any) -> dict[str, Any]:

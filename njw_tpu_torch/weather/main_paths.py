@@ -39,11 +39,15 @@ full width, each a main path's configuration on a mesh:
   pe5_*       BASELINE config 5 (BASELINE.json: primitive equations
               2048^2 x 40, 2-D domain decomposition): the primitive main
               path at 2048^2 x 40 levels, on K4 (fused) on (2, 2) (the
-              default: local2d), on (2, 2) with carry=True (K6) and on
-              (4, 1) (carry), and on the K5 stage path on (4, 1) and
-              (2, 2); 10 steps (config 5 names no step count; the JAX
-              package's mesh sweep, njw_tpu/bench/scaling.py:136, checks
-              one step per mesh)
+              fused constructor's default form, local2d), on (2, 2) with
+              carry=True (K6) and on (4, 1) (carry), and on the K5 stage
+              path on (4, 1) and (2, 2); 10 steps (config 5 names no step
+              count; the JAX package's mesh sweep,
+              njw_tpu/bench/scaling.py:136, checks one step per mesh).
+              Config 5 also runs through ``Simulation.from_config(...,
+              mesh=)``: backend auto takes the K5 stage path there
+              (local2d on (2, 2), local on (py, 1)), and K4's fused form
+              only with ``pe_whole_step``
 
 ``PLAIN_SHARDED_PATHS`` are the plain sharded steppers (no kernel of the
 port launches: the launch count is 0) at full width:

@@ -35,6 +35,13 @@ those copied through pinned host memory; on CUDA ``host_allocs``, the
 pinned blocks the copy had to make anew), each with its simulation's
 ``span_id``.
 
+On a mesh (``from_config(..., mesh=)``, the cartesian primitive core) a
+simulation holds this process's part of the domain, and each snapshot
+also holds ``block`` = (y0, y1, x0, x1), where that part lies
+(``weather/convert.py`` ``shards_to_numpy`` assembles the parts); while a
+profiler records, each halo refresh of a step is a ``sim.step.exchange``
+span in ``sim.step.enqueue`` and ``sim.build`` counts the ``rank``.
+
 Snapshots: ``_store_output`` copies the output function's CUDA fields
 into pinned host tensors, asynchronously with one wait, and host fields
 as ``.cpu()`` does; each snapshot's arrays are its own. A simulation's
@@ -90,6 +97,9 @@ class SimConfig:
     diffusivity: float = 0.0
 
     backend: str = "auto"
+    # primitive on the kernel backend: the whole-step kernel K4 in place
+    # of the four stage launches of K5 (one card and mesh alike)
+    pe_whole_step: bool = False
     max_steps: int = 1000
     output_interval: int = 10
     random_seed: int = 0
@@ -246,6 +256,9 @@ class Simulation:
         self.span_id = profiling.new_sim_id()
         self.output_fn = output_fn
         self.snapshots: list[dict[str, Any]] = []
+        # (y0, y1, x0, x1): the part of the domain this simulation holds,
+        # stored with each snapshot; None: the whole domain on one device
+        self.block: Optional[tuple] = None
 
         if stepper_factory is not None:
             self.stepper = stepper_factory(tendency_fn)
@@ -257,21 +270,34 @@ class Simulation:
 
     @classmethod
     def from_config(cls, config: SimConfig, initial_condition: str = "uniform",
-                    **ic_params) -> "Simulation":
+                    mesh=None, **ic_params) -> "Simulation":
+        """The simulation of ``config`` from ``initial_condition``. With a
+        ``mesh`` of ``njw_tpu_torch.parallel`` (the cartesian primitive
+        core only), this process's part of the domain: its state is the
+        shard the mesh gives it (on a ``LocalMesh``, the list of its
+        shards), built alone, and the sharded stepper the backend rule
+        picks advances it (``weather/primitive.py``)."""
         sim_id = profiling.new_sim_id()
-        with profiling.span("sim.build", sim_id):
-            sim = cls._build(config, initial_condition, **ic_params)
+        with profiling.span("sim.build", sim_id) as span:
+            sim = cls._build(config, initial_condition, mesh, **ic_params)
+            if span is not None and mesh is not None:
+                span.counters["rank"] = getattr(mesh, "rank", 0)
         sim.span_id = sim_id
         return sim
 
     @classmethod
-    def _build(cls, config: SimConfig, initial_condition: str,
+    def _build(cls, config: SimConfig, initial_condition: str, mesh,
                **ic_params) -> "Simulation":
         device = require_device(config.device)
         if config.backend not in BACKENDS:
             raise ValueError(f"unknown backend {config.backend!r}; "
                              f"available: {list(BACKENDS)}")
         model = config.model
+        if mesh is not None and (model != "primitive"
+                                 or config.grid_type != "cartesian"):
+            raise ValueError("a mesh runs the cartesian primitive-equation "
+                             f"core only, not {model!r} on "
+                             f"{config.grid_type!r}")
         if config.grid_type in GLOBAL_GRIDS:
             if config.backend == "kernel":
                 raise ValueError("backend='kernel' requires the cartesian "
@@ -295,7 +321,7 @@ class Simulation:
             from njw_tpu_torch.weather.primitive import make_primitive_sim
 
             return make_primitive_sim(cls, config, initial_condition,
-                                      device=device, **ic_params)
+                                      device=device, mesh=mesh, **ic_params)
 
         grid = config.grid_spec()
         params = config.physics()
@@ -331,27 +357,26 @@ class Simulation:
         """Advance n steps on the device, then synchronise. With
         ``synchronize=False`` it returns once the steps are enqueued, and
         the metrics time the host's part alone."""
-        traced = profiling.recording()
         t0 = time.perf_counter()
-        carry, state, step, dt = self._carry, self.state, self.stepper.step, \
-            self._dt_f32
-        for _ in range(n):
-            carry, state = step(carry, state, dt)
-        self._carry, self.state = carry, state
-        enqueued = time.perf_counter() if traced else 0.0
-        if synchronize:
-            _sync(self.device)
-        t1 = time.perf_counter()
+        with profiling.begin("sim.step", t0, self.span_id, steps=n) as \
+                whole, profiling.begin("sim.step.enqueue", t0,
+                                       steps=n) as enqueue:
+            carry, state, step, dt = self._carry, self.state, \
+                self.stepper.step, self._dt_f32
+            for _ in range(n):
+                carry, state = step(carry, state, dt)
+            self._carry, self.state = carry, state
+            enqueue.close(time.perf_counter())
+            if synchronize:
+                _sync(self.device)
+            t1 = time.perf_counter()
+            whole.close(t1)
         elapsed = (t1 - t0) * 1e3
         self.metrics.compute_time_ms += elapsed
         self.metrics.total_time_ms += elapsed
         self.metrics.num_steps += n
         self.step_count += n
         self.time += n * self.dt
-        if traced:
-            i = profiling.record("sim.step", t0, t1, self.span_id, steps=n)
-            profiling.record("sim.step.enqueue", t0, enqueued, parent=i,
-                             steps=n)
         return self.state
 
     def run(self, n_steps: Optional[int] = None, output_interval: int = 0,
@@ -403,6 +428,8 @@ class Simulation:
                              **counters)
         snap["step"] = self.step_count
         snap["time"] = self.time
+        if self.block is not None:
+            snap["block"] = self.block
         self.snapshots.append(snap)
         elapsed = (t1 - t0) * 1e3
         self.metrics.io_time_ms += elapsed

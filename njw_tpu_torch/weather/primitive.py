@@ -173,19 +173,25 @@ def pe_initial_state(grid: GridSpec, *, device="cuda", T0: float = 288.15,
                      ps0: float = 1013.25, u_jet: float = 10.0,
                      lapse: float = 50.0, deltaT_y: float = 20.0,
                      perturb: float = 0.0, seed: int = 0,
-                     phi_s=None) -> PEState:
+                     phi_s=None, block: Optional[tuple] = None) -> PEState:
     """Baroclinic-jet state: a zonal jet at mid-latitude, stronger aloft,
     with a thermally consistent meridional T gradient, T rising by
     ``lapse`` K down the column, and an optional random ps perturbation.
     The perturbation draws from a ``torch.Generator`` seeded with
     ``seed``; it cannot reproduce JAX's threefry bits. The state is made
-    on ``device``: CUDA unless the caller asks for the CPU."""
+    on ``device``: CUDA unless the caller asks for the CPU.
+
+    ``block`` = (y0, y1, x0, x1): only rows y0..y1 and columns x0..x1
+    (ends excluded) of the domain, made alone and equal to that slice of
+    the whole state bit for bit (the perturbation is the whole domain's
+    host draw, sliced); ``phi_s`` is then the block's."""
     device = require_device(device)
     L, ny, nx = grid.levels, grid.ny, grid.nx
+    y0, y1, x0, x1 = (0, ny, 0, nx) if block is None else block
     sig, _ = sigma_levels(L, device)
-    y = torch.arange(ny, dtype=torch.float32, device=device)[:, None] \
+    y = torch.arange(y0, y1, dtype=torch.float32, device=device)[:, None] \
         / max(ny - 1, 1)
-    yx = y.expand(ny, nx)
+    yx = y.expand(y1 - y0, x1 - x0)
 
     jet_profile = torch.exp(-((yx - 0.5) ** 2) / 0.02)
     height_factor = (1.0 - sig)[:, None, None]
@@ -195,23 +201,26 @@ def pe_initial_state(grid: GridSpec, *, device="cuda", T0: float = 288.15,
          + lapse * (sig[:, None, None] - 0.5))
     q = 0.01 * (1.0 - yx)[None] * sig[:, None, None]
 
-    ps = torch.full((ny, nx), ps0, dtype=torch.float32, device=device)
+    ps = torch.full((y1 - y0, x1 - x0), ps0, dtype=torch.float32,
+                    device=device)
     if phi_s is not None:
         # hydrostatic surface-pressure reduction over terrain
         ps = ps * torch.exp(-phi_s / (R_DRY * T0))
     if perturb:
         gen = torch.Generator().manual_seed(seed)
         noise = torch.randn((ny, nx), generator=gen, dtype=torch.float32)
-        ps = ps + perturb * noise.to(device)
+        ps = ps + perturb * noise[y0:y1, x0:x1].contiguous().to(device)
     return PEState(u=u.contiguous(), v=v, T=T.contiguous(),
                    q=q.contiguous(), ps=ps)
 
 
 def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
-                       *, device, orography=None, **ic_params):
+                       *, device, orography=None, mesh=None, **ic_params):
     """A ``Simulation`` whose state is a ``PEState``. ``initial_condition``
     is 'baroclinic' (alias 'default', 'uniform') or 'resting';
-    ``orography``: optional (ny, nx) surface geopotential (terrain)."""
+    ``orography``: optional (ny, nx) surface geopotential (terrain);
+    ``mesh``: this process's part of the domain on a mesh of
+    ``njw_tpu_torch.parallel`` (``_make_mesh_sim``)."""
     from njw_tpu_torch.ops.pe_stencil import (
         make_pe_kernel_rk4_stepper, pe_kernel_supported,
     )
@@ -225,28 +234,33 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
         raise ValueError("the primitive-equation core needs at least 2 "
                          f"sigma levels, got {grid.levels}")
     params = config.physics()
-    phi_s = None if orography is None else torch.as_tensor(
-        orography, dtype=torch.float32).to(device).contiguous()
     ic_params = dict(ic_params)
-    if phi_s is not None:
-        ic_params.setdefault("phi_s", phi_s)
     if initial_condition not in PE_ICS:
         raise ValueError(f"unknown PE initial condition {initial_condition!r} "
                          "(use 'baroclinic' or 'resting')")
     if initial_condition == "resting":
         for name in ("u_jet", "lapse", "deltaT_y"):
             ic_params.setdefault(name, 0.0)
+    supported = (pe_kernel_supported(grid, params)
+                 and config.integration_method == "rk4")
+    requirement = ("primitive + rk4 + periodic BC + L >= 2 + numeric f, "
+                   "beta = 0, viscosity = 0")
+    if mesh is not None:
+        return _make_mesh_sim(sim_cls, config, grid, params, mesh, device,
+                              orography, supported, requirement, ic_params)
+    phi_s = None if orography is None else torch.as_tensor(
+        orography, dtype=torch.float32).to(device).contiguous()
+    if phi_s is not None:
+        ic_params.setdefault("phi_s", phi_s)
     with profiling.span("sim.build.state"):
         state0 = pe_initial_state(grid, device=device, **ic_params)
 
     factory = kernel_stepper_factory(
-        config, device,
-        pe_kernel_supported(grid, params)
-        and config.integration_method == "rk4",
+        config, device, supported,
         lambda: make_pe_kernel_rk4_stepper(grid, params, config.dt,
-                                           phi_s=phi_s),
-        "primitive + rk4 + periodic BC + L >= 2 + numeric f, beta = 0, "
-        "viscosity = 0")
+                                           phi_s=phi_s,
+                                           whole_step=config.pe_whole_step),
+        requirement)
     if config.integration_method == "semi_implicit":
         # after the kernel factory, which refuses backend='kernel' for SI
         from njw_tpu_torch.weather.semi_implicit import semi_implicit_pe
@@ -262,4 +276,56 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
                   dt=config.dt, method=config.integration_method, grid=grid,
                   stepper_factory=factory, output_fn=output_fn)
     sim.config = config
+    return sim
+
+
+def _make_mesh_sim(sim_cls, config, grid, params, mesh, device, orography,
+                   supported: bool, requirement: str, ic_params: dict):
+    """The ``Simulation`` of this process's part of the domain on ``mesh``
+    (``LocalMesh`` or ``ProcessMesh``). Each local shard's initial state is
+    built alone (``pe_initial_state(block=)``), on the mesh's device. The
+    stepper follows the one-card rule (``kernel_stepper_factory``): the
+    sharded stage path K5 (``sharded_pe_step_kernel``; the whole-step
+    kernel K4 with ``pe_whole_step``), else the plain sharded stepper
+    (``sharded_pe_step``, any BC and explicit integrator). The state is
+    the one shard a ``ProcessMesh`` gives a rank, else the list of the
+    shards; a snapshot is this process's part, with its ``block``."""
+    from njw_tpu_torch.parallel import halo
+    from njw_tpu_torch.weather.model import kernel_stepper_factory
+
+    if orography is not None:
+        raise ValueError("a mesh takes no orography: the sharded steppers "
+                         "run a flat lower boundary")
+    if config.integration_method == "semi_implicit":
+        raise ValueError("semi_implicit has no sharded stepper")
+    if mesh.device.type != device.type:
+        raise ValueError(f"the configuration's device {device} and the "
+                         f"mesh's {mesh.device} differ")
+    ly, lx = mesh.block_shape(grid.ny, grid.nx)
+    blocks = [(iy * ly, (iy + 1) * ly, ix * lx, (ix + 1) * lx)
+              for iy, ix in mesh.coords]
+    with profiling.span("sim.build.state"):
+        shards = [pe_initial_state(grid, device=mesh.device, block=b,
+                                   **ic_params) for b in blocks]
+
+    fused = config.pe_whole_step
+    kernel = kernel_stepper_factory(
+        config, mesh.device, supported,
+        lambda: (halo.sharded_pe_step_kernel_fused if fused else
+                 halo.sharded_pe_step_kernel)(grid, params, mesh,
+                                              dt=config.dt),
+        requirement)
+    sharded = (kernel(None) if kernel is not None else halo.sharded_pe_step(
+        grid, params, mesh, dt=config.dt, method=config.integration_method))
+    state0, stepper = halo.simulation_stepper(sharded, shards)
+    single = len(shards) == 1
+
+    def output_fn(s):
+        return dict((s if single else mesh.gather_state(list(s))).items())
+
+    sim = sim_cls(state0, None, dt=config.dt,
+                  method=config.integration_method, grid=grid,
+                  stepper_factory=lambda _t: stepper, output_fn=output_fn)
+    sim.config = config
+    sim.block = blocks[0] if single else (0, grid.ny, 0, grid.nx)
     return sim

@@ -1753,3 +1753,104 @@ class TestSnapshotsOnCard:
         assert set(a) == set(b)
         for k, v in _arrays(a).items():
             assert v.dtype == b[k].dtype and v.tobytes() == b[k].tobytes()
+
+
+# -------------------------------------- the primitive core on a mesh
+
+_MESH_PE = dict(model="primitive", grid_width=256, grid_height=192,
+                num_levels=8, dx=1e5, dy=1e5, dt=240.0, coriolis_f=1e-4)
+_MESH_IC = dict(u_jet=5.0, perturb=0.5, seed=23)
+
+
+def _mesh_forecast(mesh=None, steps=10, device="cuda", **cfg):
+    sim = Simulation.from_config(
+        SimConfig(**{**_MESH_PE, **cfg}, device=device), "baroclinic",
+        mesh=mesh, **_MESH_IC)
+    sim.run(steps, output_interval=steps)
+    return sim
+
+
+def _same_fields(got: dict, want: dict) -> None:
+    for name in PEState.FIELDS:
+        assert got[name].tobytes() == want[name].tobytes(), name
+
+
+@pytest.mark.cuda
+class TestMeshOnCard:
+    """``Simulation.from_config(..., mesh=)`` on the card: the sharded
+    kernels on padded blocks give the whole-domain run's bits."""
+
+    @pytest.mark.parametrize("whole_step,name", [
+        (False, "pe_stage_local2d"), (True, "pe_rk4_local2d")])
+    def test_local_mesh_equals_the_whole_domain(self, cuda_device,
+                                                whole_step, name):
+        from njw_tpu_torch.parallel import LocalMesh
+
+        sim = _mesh_forecast(LocalMesh(2, 2), pe_whole_step=whole_step)
+        assert sim.stepper.name == name
+        _same_fields(sim.snapshots[-1],
+                     _mesh_forecast(pe_whole_step=whole_step).snapshots[-1])
+
+    def test_process_mesh_over_nccl_equals_the_whole_domain(self,
+                                                            cuda_device,
+                                                            tmp_path):
+        """Four ranks, one card each, over NCCL (auto takes K5's local2d
+        form); each builds its block alone, allocating under half the
+        whole state on its card; the parts equal the whole-domain K5 run
+        bit for bit."""
+        import os
+        import subprocess
+        import sys
+        from pathlib import Path
+
+        from njw_tpu_torch.weather.convert import shards_to_numpy
+
+        if torch.cuda.device_count() < 4:
+            pytest.skip("needs four CUDA cards")
+        worker = (
+            "import datetime, sys, numpy as np, torch\n"
+            "import torch.distributed as dist\n"
+            "from njw_tpu_torch.parallel import ProcessMesh\n"
+            "from njw_tpu_torch.weather import SimConfig, Simulation\n"
+            "r, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]\n"
+            "torch.cuda.set_device(r)\n"
+            "dist.init_process_group('nccl', init_method='file://' + store,"
+            " rank=r, world_size=4, device_id=torch.device('cuda', r),"
+            " timeout=datetime.timedelta(seconds=120))\n"
+            f"cfg = SimConfig(**{_MESH_PE!r}, device='cuda')\n"
+            "sim = Simulation.from_config(cfg, 'baroclinic',"
+            f" mesh=ProcessMesh(2, 2), **{_MESH_IC!r})\n"
+            "built = torch.cuda.max_memory_allocated()\n"
+            "sim.run(10, output_interval=10)\n"
+            "snap = sim.snapshots[-1]\n"
+            "np.savez(out + str(r), block=np.array(snap['block']),"
+            " built=built, name=sim.stepper.name,"
+            " **{k: snap[k] for k in ('u', 'v', 'T', 'q', 'ps')})\n"
+            "dist.destroy_process_group()\n")
+        repo = Path(__file__).resolve().parents[1]
+        env = dict(os.environ, NCCL_SOCKET_IFNAME="lo",
+                   PYTHONPATH=str(repo))
+        out = str(tmp_path / "rank")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", worker, str(r), str(tmp_path / "store"),
+             out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(4)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+        parts = []
+        whole_state = (4 * 8 + 1) * 256 * 192 * 4
+        for r in range(4):
+            got = dict(np.load(f"{out}{r}.npz"))
+            assert str(got.pop("name")) == "pe_stage_local2d"
+            assert int(got.pop("built")) < whole_state / 2
+            got["block"] = tuple(int(b) for b in got["block"])
+            parts.append(got)
+        _same_fields(shards_to_numpy(parts), _mesh_forecast().snapshots[-1])

@@ -211,3 +211,51 @@ def test_output_copy_on_the_cpu_counts_no_pinned_bytes(name):
             "bytes": sum(v.nbytes for v in snap.values()
                          if isinstance(v, np.ndarray)),
             "pinned_bytes": 0}
+
+
+def _mesh_sim():
+    from njw_tpu_torch.parallel import LocalMesh
+
+    cfg, ic, params = MODELS["pe"]
+    mesh = LocalMesh(2, 2, device="cpu")
+    sim = Simulation.from_config(
+        SimConfig(grid_width=24, grid_height=24, backend="kernel",
+                  device="cpu", **cfg), ic, mesh=mesh, **params)
+    mesh.exchanges = mesh.exchange_bytes = 0
+    return sim, mesh
+
+
+def test_exchange_spans_count_the_mesh_bytes():
+    """On a mesh each halo refresh of a step is a ``sim.step.exchange``
+    span inside ``sim.step.enqueue``; their ``exchange_bytes`` sum to the
+    mesh's own count, and the build counts its rank."""
+    def run():
+        sim, mesh = _mesh_sim()
+        mesh.exchanges = mesh.exchange_bytes = 0
+        sim.run(3, output_interval=3)
+        return sim, mesh
+
+    (sim, mesh), _ = _profiled(run)
+    every = profiling.spans()
+    mine = [s for s in every if s.sim == sim.span_id]
+    ex = [s for s in mine if s.name == "sim.step.exchange"]
+    # four stages a step, one refresh each
+    assert len(ex) == 4 * 3
+    assert all(every[s.parent].name == "sim.step.enqueue" for s in ex)
+    assert sum(s.counters["exchange_bytes"] for s in ex) == \
+        mesh.exchange_bytes > 0
+    assert sum(s.counters["exchanges"] for s in ex) == mesh.exchanges
+    (build,) = [s for s in every if s.name == "sim.build"
+                and s.sim == sim.span_id]
+    assert build.counters == {"rank": 0}
+    assert len([s for s in mine if s.name == "sim.build.state"]) == 1
+
+
+def test_exchange_spans_only_while_a_session_records(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span was kept with no profiler recording")
+
+    sim, mesh = _mesh_sim()
+    monkeypatch.setattr(profiling, "_add", refuse)
+    sim.run(2, output_interval=2)
+    assert mesh.exchange_bytes > 0 and len(sim.snapshots) == 1
