@@ -42,35 +42,57 @@
 // Design against that bound. Each block owns a TX x TY output tile and
 // its (TX + 8N) x (TY + 8N) region: 4N halo points per side, one per
 // chained stage, recomputed instead of exchanged (the valid part of the
-// region shrinks by one point per side per stage). What limits such a
-// kernel on this card is the issue of instructions, shared-memory accesses
-// among them, not the bytes (PERF.md: the stages alone take three
-// quarters of its time), so the work is laid out to keep values in
-// registers and the code free of branches:
-//   * Each thread owns one column of the region and a run of R rows of it
-//     for all 4N stages. Its s, its RK4 accumulator and its points' current
-//     stage state live in registers; walking down its run, the rows above
-//     and below a point come from registers. Only the x-neighbours, the two
-//     rows just outside the run and a stage's new state pass through shared
-//     memory: 9 + 6/R shared accesses per point and stage.
+// region shrinks by one point per side per stage). What bounds such a
+// kernel on this card is not the bytes but the issue of the stages'
+// instructions and the latency of their shared-memory accesses: with one
+// column a thread and every stage state passed through shared memory (9 +
+// 6/R shared accesses per point and stage, R rows a thread, 16 warps an
+// SM), the stages took three quarters of the time (PERF.md). So a stage's
+// state stays in registers, and only what crosses a warp goes through
+// shared memory:
+//   * A warp owns a band of R rows of the region, its whole width, and
+//     each lane C = PX / 32 adjacent columns of the band. A thread keeps
+//     its R x C points' s, RK4 accumulator and current stage state in
+//     registers for all 4N stages. The neighbours inside its columns and
+//     rows are registers; the x-neighbours in the lanes beside it are warp
+//     shuffles (two a row and field); only the rows just outside the band
+//     cross warps, through shared memory as C-float words. Per point and
+//     stage that is 6/C shuffles and 12/(R C) shared accesses (3 and 1.5
+//     at C = 2, R = 4), and nothing else of a stage state is stored. The
+//     shuffles read registers, so the next rows' neighbours are in flight
+//     while a row computes.
 //   * Every stage computes every point of the region, branch-free: the
 //     points outside its valid part hold values no output depends on.
 //     Skipping them cost more in branches and divergence than it saved.
-//   * Shared memory holds four (u, v, h) region buffers: two for s (this
-//     tile's and the next one's, loading) and two stage states in turn, so
-//     a stage needs one barrier (it writes the buffer the stage before it
-//     did not read).
+//     A lane at the region's side takes its own value for the missing
+//     neighbour, a band at its top or bottom another band row: both only
+//     feed points outside the valid part.
+//   * Shared memory holds two (u, v, h) region buffers, this tile's s and
+//     the next one's (loading), and the bands' first and last rows, twice
+//     (by stage parity), so a stage needs one barrier: a band writes the
+//     next stage's edges into the copy the stage before it did not read.
 //   * The grid is persistent: each block walks tiles blockIdx.x,
 //     blockIdx.x + gridDim.x, ... and, as it starts a tile, starts copying
 //     the next tile's region in with cp.async, in flight while all 4N
 //     stages of this one run. An interior tile comes in as 16-byte copies
 //     of whole rows; only a tile whose columns wrap (or reach past the
 //     halo) takes 4-byte copies with a wrapped index. Index wrapping is a
-//     compare-and-add, never a runtime %.
-//   * The layout (TX, TY, R, blocks per SM) is one per form: Step1 for K1
-//     in every form (float32, bf16, padded), Step2 for K2 (below, mirrored
-//     by njw_tpu_torch.ops.stencil.swe_layout), the fastest the H100 timed
-//     at 2048^2 (PERF.md).
+//     compare-and-add, never a runtime %. The step's result goes out as
+//     C-float words where the output view is aligned for them.
+//   * The layout (TX, TY, R, C, blocks per SM) is one per form: Step1 for
+//     K1 in every form (float32, bf16, padded), Step2 for K2 (below,
+//     mirrored by njw_tpu_torch.ops.stencil.swe_layout), the fastest the
+//     H100 timed at 2048^2 (PERF.md).
+// What bounds this design (scripts/profile_torch.py swe_parts, PERF.md):
+// at 2048^2 the stages alone take about 34 us (about 39 issued
+// instructions per point and stage, 30 of them the float32 arithmetic
+// every point keeps bit for bit), the region loads alone about 32 us, and
+// the two overlap for about one stage a tile, so a launch takes about
+// 64 us, against 68 for one column a thread. Tried and slower or no
+// faster (PERF.md): three region buffers, the copy engine's bulk and 2-D
+// tensor copies, a loading warp of its own, loads spread over the stages,
+// barriers on an mbarrier, 56 x 24 tiles two blocks an SM, 56 x 40,
+// 56 x 60, 56 x 64 and 120 x 24 tiles.
 // The combine is the TPU kernel's accumulator form, which keeps only
 // {s, current stage, accumulator} live:
 //   s1 = s + dt/2 T(s);   acc = s1 - s
@@ -101,6 +123,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -108,12 +131,12 @@ constexpr int HALO = 4;                // one point per chained stencil stage
 constexpr int SMEM_MAX = 232448;       // the most a block may opt in to
 constexpr int MAX_DEVICES = 64;
 
-// A block layout: output tile TX x TY, R rows of the region per thread,
-// at least MINB blocks resident per SM (the register cap of
-// __launch_bounds__).
-template <int TX_, int TY_, int R_, int MINB_>
+// A block layout: output tile TX x TY, R rows of the region per warp's
+// band, C columns per lane, at least MINB blocks resident per SM (the
+// register cap of __launch_bounds__).
+template <int TX_, int TY_, int R_, int C_, int MINB_>
 struct Layout {
-    static constexpr int TX = TX_, TY = TY_, R = R_, MINB = MINB_;
+    static constexpr int TX = TX_, TY = TY_, R = R_, C = C_, MINB = MINB_;
 };
 
 // Region geometry of N fused steps in layout Lay.
@@ -122,13 +145,19 @@ struct Geo {
     static constexpr int H = HALO * N;
     static constexpr int PX = Lay::TX + 2 * H;   // region width: its pitch
     static constexpr int PY = Lay::TY + 2 * H;
-    static constexpr int R = Lay::R;
-    static constexpr int NT = PX * (PY / R);   // one thread per column run
+    static constexpr int R = Lay::R, C = Lay::C;
+    static constexpr int NW = PY / R;            // warps: one a band
+    static constexpr int NT = 32 * NW;
     static constexpr int PLANE = PX * PY;
-    static constexpr int BUF = 3 * PLANE;        // one (u, v, h) state
-    static constexpr int SMEM_BYTES = 4 * BUF * static_cast<int>(sizeof(float));
-    static_assert(PX % 32 == 0, "a warp's lanes share a run: PX % 32 == 0");
-    static_assert(PY % R == 0, "whole runs");
+    static constexpr int BUF = 3 * PLANE;        // one (u, v, h) region
+    static constexpr int EDGE = 3 * NW * PX;     // one row a band, u, v, h
+    // two regions; first and last band rows, for two stage parities
+    static constexpr int SMEM_BYTES =
+        (2 * BUF + 4 * EDGE) * static_cast<int>(sizeof(float));
+    static_assert(PX == 32 * C, "a warp's lanes span the region's width");
+    static_assert(C == 1 || C == 2 || C == 4, "a lane's columns: one word");
+    static_assert(H % C == 0, "a lane's columns are all in the tile or none");
+    static_assert(PY % R == 0, "whole bands");
     static_assert(NT <= 1024, "threads per block");
     static_assert(Lay::TX % 4 == 0, "16-byte rows");
     static_assert(SMEM_BYTES <= SMEM_MAX, "shared memory");
@@ -227,26 +256,70 @@ __device__ __forceinline__ void tendency(const Pt& u, const Pt& v,
     }
 }
 
-// The values a thread keeps for the R points of its run: s, the RK4
-// accumulator and the current stage state, each (u, v, h).
-template <int R>
+// The values a thread keeps for the R x C points of its band and columns:
+// s, the RK4 accumulator and the current stage state, each (u, v, h).
+template <int R, int C>
 struct Own {
-    float su[R], sv[R], sh[R];
-    float au[R], av[R], ah[R];
-    float cu[R], cv[R], ch[R];
+    float su[R][C], sv[R][C], sh[R][C];
+    float au[R][C], av[R][C], ah[R][C];
+    float cu[R][C], cv[R][C], ch[R][C];
 };
 
-// The 5-point values of one field at row i of a run: the centre and the
-// rows above and below from the run's registers (south, the row below's
-// value before this stage overwrote it; north_edge, the row past the run's
-// end, from shared memory), the x-neighbours (columns ce, cw) from the
-// stage's input row `row` in shared memory.
-template <int R>
-__device__ __forceinline__ Pt point(const float (&x)[R], int i, float south,
-                                    float north_edge, const float* row,
-                                    int ce, int cw) {
-    return Pt{x[i], row[ce], row[cw], i + 1 < R ? x[i + 1] : north_edge,
-              south};
+// One row of a lane's C columns of u, v and h: the band's neighbour rows.
+template <int C>
+struct Edge {
+    float u[C], v[C], h[C];
+};
+
+// C floats from (to) p, one shared or global word (p aligned to C floats).
+template <int C>
+__device__ __forceinline__ void ldw(float (&x)[C], const float* p) {
+    if constexpr (C == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        x[0] = t.x;
+        x[1] = t.y;
+        x[2] = t.z;
+        x[3] = t.w;
+    } else if constexpr (C == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(p);
+        x[0] = t.x;
+        x[1] = t.y;
+    } else {
+        x[0] = *p;
+    }
+}
+
+template <int C>
+__device__ __forceinline__ void stw(float* p, const float (&x)[C]) {
+    if constexpr (C == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    } else if constexpr (C == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+    } else {
+        *p = x[0];
+    }
+}
+
+// Row (i, columns 0 .. C - 1) of (u, v, h) planes `p` (pitch PX, PL floats
+// apart), one word a field.
+template <int C, int PL>
+__device__ __forceinline__ void ld_edge(Edge<C>& e, const float* p) {
+    ldw<C>(e.u, p);
+    ldw<C>(e.v, p + PL);
+    ldw<C>(e.h, p + 2 * PL);
+}
+
+// The 5-point values of one field at point (i, j) of a thread's block x
+// (the stage's input state): the centre and the neighbours inside the
+// block from its registers, the rows past its first and last (s, n) from
+// the bands beside it, the columns past its first and last (w, e) from
+// the lanes beside it.
+template <int R, int C>
+__device__ __forceinline__ Pt point(const float (&x)[R][C], int i, int j,
+                                    const float (&s)[C], const float (&n)[C],
+                                    float w, float e) {
+    return Pt{x[i][j], j + 1 < C ? x[i][j + 1] : e, j > 0 ? x[i][j - 1] : w,
+              i + 1 < R ? x[i + 1][j] : n[j], i > 0 ? x[i - 1][j] : s[j]};
 }
 
 // Stage S's new value at one point from its s, accumulator and tendency
@@ -272,90 +345,133 @@ __device__ __forceinline__ float combine(float s, float& acc, float d,
     }
 }
 
-// RK4 stage S (0 <= S < 4N) of the thread's run: rows r0 .. r0 + R - 1 of
-// column c of the region, reading the stage's input state `in` (shared,
-// three planes) and writing its new state to `outb`; the last stage of the
+// RK4 stage S (0 <= S < 4N) of the thread's block: rows r0 = w R ..
+// r0 + R - 1 (warp w's band) and columns c0 .. c0 + C - 1 of the region,
+// from the stage's input state in m.c* and the rows just outside the band
+// (sth, nth). Its new state replaces m.c* and its band's first and last
+// rows go to `edge` (the next stage's sth and nth); the last stage of the
 // last step stores to the output view instead, the last stage of an
-// earlier step also makes the result the next step's s. Every point of the
-// run is computed, branch-free: only those in the valid region [S + 1,
-// P - S - 1) in each axis hold values an output depends on, and neighbour
-// indices are clamped to the region, so the others never read outside the
-// buffers.
+// earlier step also makes the result the next step's s. Every point is
+// computed, branch-free: only those in the valid region [S + 1,
+// P - S - 1) in each axis hold values an output depends on.
 template <int N, bool kBf16, class Lay, int S>
-__device__ __forceinline__ void stage(Own<Lay::R>& m, const float* in,
-                                      float* outb, int c, int r0,
-                                      const Consts& k, const OutView& o,
-                                      int gy0, int gx0, int ny, int nx) {
+__device__ __forceinline__ void stage(Own<Lay::R, Lay::C>& m,
+                                      const Edge<Lay::C>& sth,
+                                      const Edge<Lay::C>& nth, float* edge,
+                                      int w, int c0, const Consts& k,
+                                      const OutView& o, int gy0, int gx0,
+                                      int ny, int nx, bool vec_out) {
     using G = Geo<N, Lay>;
-    constexpr int R = G::R, PX = G::PX, PY = G::PY, PL = G::PLANE;
-    constexpr int H = G::H;
+    constexpr int R = G::R, C = G::C, PX = G::PX, PY = G::PY, H = G::H;
     constexpr int Q = S % 4;
     constexpr bool kLast = S == 4 * N - 1;
-    const int ce = c < PX - 1 ? c + 1 : c, cw = c > 0 ? c - 1 : c;
-    // the rows just outside the run (rows r0 - 1 and r0 + R)
-    const int jb = (r0 > 0 ? r0 - 1 : r0) * PX + c;
-    const int jt = (r0 + R < PY ? r0 + R : PY - 1) * PX + c;
-    float bu = in[jb], bv = in[PL + jb], bh = in[2 * PL + jb];
-    const float tu = in[jt], tv = in[PL + jt], th = in[2 * PL + jt];
+    constexpr unsigned kAll = 0xffffffffu;
+    float nu[R][C], nv[R][C], nh[R][C];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-        const int r = r0 + i;
-        const float* row = in + r * PX;
-        const Pt U = point(m.cu, i, bu, tu, row, ce, cw);
-        const Pt V = point(m.cv, i, bv, tv, row + PL, ce, cw);
-        const Pt W = point(m.ch, i, bh, th, row + 2 * PL, ce, cw);
-        bu = U.c;                       // this row, as the next one's south
-        bv = V.c;
-        bh = W.c;
-        float du, dv, dh;
-        tendency<kBf16>(U, V, W, k, du, dv, dh);
-        const float nu = combine<Q>(m.su[i], m.au[i], du, k);
-        const float nv = combine<Q>(m.sv[i], m.av[i], dv, k);
-        const float nh = combine<Q>(m.sh[i], m.ah[i], dh, k);
-        if constexpr (kLast) {          // the output tile: [H, P - H)
-            const int gy = gy0 + r, gx = gx0 + c;
-            const bool in_tile = r >= H && r < PY - H && c >= H
-                                 && c < PX - H;
-            if (in_tile && gy < ny && gx < nx) {
-                const size_t g = static_cast<size_t>(o.oy + gy) * o.pitch
-                                 + (o.ox + gx);
-                o.u[g] = nu;
-                o.v[g] = nv;
-                o.h[g] = nh;
-            }
-        } else {
-            if constexpr (Q == 3) {     // the next step's s
-                m.su[i] = nu;
-                m.sv[i] = nv;
-                m.sh[i] = nh;
-            }
-            m.cu[i] = nu;
-            m.cv[i] = nv;
-            m.ch[i] = nh;
-            const int j = r * PX + c;
-            outb[j] = nu;
-            outb[PL + j] = nv;
-            outb[2 * PL + j] = nh;
+        // the columns just outside the lane's: the neighbour lanes' last
+        // and first (a lane at the region's side takes its own)
+        const float wu = __shfl_up_sync(kAll, m.cu[i][C - 1], 1);
+        const float eu = __shfl_down_sync(kAll, m.cu[i][0], 1);
+        const float wv = __shfl_up_sync(kAll, m.cv[i][C - 1], 1);
+        const float ev = __shfl_down_sync(kAll, m.cv[i][0], 1);
+        const float wh = __shfl_up_sync(kAll, m.ch[i][C - 1], 1);
+        const float eh = __shfl_down_sync(kAll, m.ch[i][0], 1);
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            const Pt U = point(m.cu, i, j, sth.u, nth.u, wu, eu);
+            const Pt V = point(m.cv, i, j, sth.v, nth.v, wv, ev);
+            const Pt W = point(m.ch, i, j, sth.h, nth.h, wh, eh);
+            float du, dv, dh;
+            tendency<kBf16>(U, V, W, k, du, dv, dh);
+            nu[i][j] = combine<Q>(m.su[i][j], m.au[i][j], du, k);
+            nv[i][j] = combine<Q>(m.sv[i][j], m.av[i][j], dv, k);
+            nh[i][j] = combine<Q>(m.sh[i][j], m.ah[i][j], dh, k);
         }
+    }
+    if constexpr (kLast) {              // the output tile: [H, P - H)
+        const int gx = gx0 + c0;
+        const bool cols_in = c0 >= H && c0 < PX - H;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const int r = w * R + i, gy = gy0 + r;
+            if (!(cols_in && r >= H && r < PY - H && gy < ny)) continue;
+            const size_t g = static_cast<size_t>(o.oy + gy) * o.pitch
+                             + (o.ox + gx);
+            if (vec_out && gx + C <= nx) {
+                stw<C>(o.u + g, nu[i]);
+                stw<C>(o.v + g, nv[i]);
+                stw<C>(o.h + g, nh[i]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < C; ++j) {
+                    if (gx + j < nx) {
+                        o.u[g + j] = nu[i][j];
+                        o.v[g + j] = nv[i][j];
+                        o.h[g + j] = nh[i][j];
+                    }
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+            for (int j = 0; j < C; ++j) {
+                if constexpr (Q == 3) {     // the next step's s
+                    m.su[i][j] = nu[i][j];
+                    m.sv[i][j] = nv[i][j];
+                    m.sh[i][j] = nh[i][j];
+                }
+                m.cu[i][j] = nu[i][j];
+                m.cv[i][j] = nv[i][j];
+                m.ch[i][j] = nh[i][j];
+            }
+        }
+        // the band's first row (the band above's nth), its last (the band
+        // below's sth)
+        constexpr int RW = G::NW * PX;      // one field's rows of a kind
+        float* const top = edge + w * PX + c0;
+        float* const bot = top + G::EDGE;
+        stw<C>(top, nu[0]);
+        stw<C>(top + RW, nv[0]);
+        stw<C>(top + 2 * RW, nh[0]);
+        stw<C>(bot, nu[R - 1]);
+        stw<C>(bot + RW, nv[R - 1]);
+        stw<C>(bot + 2 * RW, nh[R - 1]);
     }
 }
 
-// Stages S .. 4N - 1, or up to k.stages. Stage S >= 1 reads the buffer
-// stage S - 1 wrote (a at odd S, b at even S) and writes the other one.
+// Stages S .. 4N - 1, or up to k.stages. Stage S writes its band edges
+// into copy (S + 1) % 2 of `edges`, which stage S + 1 reads after the
+// barrier: a copy is written again only after a barrier that every band
+// passes once it has read it.
 template <int N, bool kBf16, class Lay, int S>
-__device__ __forceinline__ void stages_from(Own<Lay::R>& m, float* a,
-                                            float* b, int c, int r0,
-                                            const Consts& k, const OutView& o,
-                                            int gy0, int gx0, int ny,
-                                            int nx) {
+__device__ __forceinline__ void stages_from(Own<Lay::R, Lay::C>& m,
+                                            Edge<Lay::C>& sth,
+                                            Edge<Lay::C>& nth, float* edges,
+                                            int w, int c0, const Consts& k,
+                                            const OutView& o, int gy0,
+                                            int gx0, int ny, int nx,
+                                            bool vec_out) {
     if constexpr (S < 4 * N) {
+        using G = Geo<N, Lay>;
         if (S >= k.stages) return;
-        constexpr bool kOdd = S % 2 == 1;
-        stage<N, kBf16, Lay, S>(m, kOdd ? a : b, kOdd ? b : a, c, r0, k, o,
-                                gy0, gx0, ny, nx);
-        if constexpr (S < 4 * N - 1) __syncthreads();
-        stages_from<N, kBf16, Lay, S + 1>(m, a, b, c, r0, k, o, gy0, gx0,
-                                          ny, nx);
+        float* const e = edges + ((S + 1) % 2) * 2 * G::EDGE;
+        stage<N, kBf16, Lay, S>(m, sth, nth, e, w, c0, k, o, gy0, gx0, ny,
+                                nx, vec_out);
+        if constexpr (S < 4 * N - 1) {
+            __syncthreads();
+            constexpr int RW = G::NW * G::PX;
+            // the band below's last row, the band above's first (a band at
+            // the region's edge takes one of its own)
+            const int ws = w > 0 ? w - 1 : w;
+            const int wn = w + 1 < G::NW ? w + 1 : w;
+            ld_edge<Lay::C, RW>(sth, e + G::EDGE + ws * G::PX + c0);
+            ld_edge<Lay::C, RW>(nth, e + wn * G::PX + c0);
+            stages_from<N, kBf16, Lay, S + 1>(m, sth, nth, edges, w, c0, k,
+                                              o, gy0, gx0, ny, nx, vec_out);
+        }
     }
 }
 
@@ -428,17 +544,18 @@ __device__ __forceinline__ void load_region(float* dst, const View& in,
 template <int N, bool kBf16, bool kHaloY, bool kHaloX, class Lay>
 __global__ void __launch_bounds__(Geo<N, Lay>::NT, Lay::MINB)
 swe_rk4_kernel(View in, OutView out, int ny, int nx, int tiles_x,
-               int ntiles, int vec, Consts k) {
+               int ntiles, int vec, int vec_out, Consts k) {
     using G = Geo<N, Lay>;
-    constexpr int R = G::R, PX = G::PX, PL = G::PLANE;
+    constexpr int R = G::R, C = G::C, PX = G::PX, PY = G::PY;
+    constexpr int PL = G::PLANE;
     extern __shared__ __align__(16) float smem[];
     float* lbuf = smem;                    // the loaded region of s
     float* nbuf = smem + G::BUF;           // the next tile's, loading
-    float* const abuf = smem + 2 * G::BUF; // stage states, in turn
-    float* const bbuf = smem + 3 * G::BUF;
+    float* const edges = smem + 2 * G::BUF;
 
-    const int c = threadIdx.x % PX;
-    const int r0 = threadIdx.x / PX * R;
+    const int w = threadIdx.x / 32;        // the band of rows w R ..
+    const int c0 = threadIdx.x % 32 * C;   // the lane's first column
+    const int r0 = w * R;
     int t = blockIdx.x;
     if (t < ntiles) {
         load_region<N, kHaloY, kHaloX, Lay>(lbuf, in, t, tiles_x, ny, nx,
@@ -453,29 +570,31 @@ swe_rk4_kernel(View in, OutView out, int ny, int nx, int tiles_x,
             load_region<N, kHaloY, kHaloX, Lay>(nbuf, in, next, tiles_x, ny,
                                                 nx, vec);
         }
-        if (k.stages == 0) {
-            if (fetch) {
-                float* const tmp = lbuf;
-                lbuf = nbuf;
-                nbuf = tmp;
-            }
-            continue;
-        }
-        const int by = t / tiles_x, bx = t - by * tiles_x;
-        const int gy0 = by * Lay::TY - G::H, gx0 = bx * Lay::TX - G::H;
-        Own<R> m;
+        if (k.stages > 0) {
+            const int by = t / tiles_x, bx = t - by * tiles_x;
+            const int gy0 = by * Lay::TY - G::H, gx0 = bx * Lay::TX - G::H;
+            Own<R, C> m;
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const int j = (r0 + i) * PX + c;
-            m.su[i] = m.cu[i] = lbuf[j];
-            m.sv[i] = m.cv[i] = lbuf[PL + j];
-            m.sh[i] = m.ch[i] = lbuf[2 * PL + j];
+            for (int i = 0; i < R; ++i) {
+                const float* row = lbuf + (r0 + i) * PX + c0;
+                ldw<C>(m.su[i], row);
+                ldw<C>(m.sv[i], row + PL);
+                ldw<C>(m.sh[i], row + 2 * PL);
+#pragma unroll
+                for (int j = 0; j < C; ++j) {
+                    m.cu[i][j] = m.su[i][j];
+                    m.cv[i][j] = m.sv[i][j];
+                    m.ch[i][j] = m.sh[i][j];
+                }
+            }
+            // stage 0's rows outside the band: s, clamped to the region
+            Edge<C> sth, nth;
+            ld_edge<C, PL>(sth, lbuf + (r0 > 0 ? r0 - 1 : r0) * PX + c0);
+            ld_edge<C, PL>(nth, lbuf + (r0 + R < PY ? r0 + R : PY - 1) * PX
+                                    + c0);
+            stages_from<N, kBf16, Lay, 0>(m, sth, nth, edges, w, c0, k, out,
+                                          gy0, gx0, ny, nx, vec_out != 0);
         }
-        stage<N, kBf16, Lay, 0>(m, lbuf, abuf, c, r0, k, out, gy0, gx0, ny,
-                                nx);
-        __syncthreads();                // s1 is in
-        stages_from<N, kBf16, Lay, 1>(m, abuf, bbuf, c, r0, k, out, gy0,
-                                      gx0, ny, nx);
         if (fetch) {                    // the next tile's region is s
             float* const tmp = lbuf;
             lbuf = nbuf;
@@ -489,8 +608,8 @@ swe_rk4_kernel(View in, OutView out, int ny, int nx, int tiles_x,
 
 // The layout of each form (njw_tpu_torch.ops.stencil.swe_layout mirrors
 // them): K1 in every form, and K2.
-using Step1 = Layout<56, 56, 8, 1>;
-using Step2 = Layout<48, 48, 8, 1>;
+using Step1 = Layout<56, 56, 4, 2, 1>;
+using Step2 = Layout<48, 48, 4, 2, 1>;
 
 // Persistent blocks of one instantiation on the current device: resident
 // blocks per SM x SMs, found once per device (the shared-memory opt-in is
@@ -530,8 +649,11 @@ int launch(const View& in, const OutView& out, int ny, int nx,
     };
     const int vec = (addr(in.u) | addr(in.v) | addr(in.h)) % 16 == 0
                     && in.pitch % 4 == 0 && in.ox % 4 == 0;
+    const int vec_out = (addr(out.u) | addr(out.v) | addr(out.h))
+                                % (4 * Lay::C) == 0
+                        && out.pitch % Lay::C == 0 && out.ox % Lay::C == 0;
     kernel<<<ntiles < blocks ? ntiles : blocks, G::NT, G::SMEM_BYTES,
-             stream>>>(in, out, ny, nx, tiles_x, ntiles, vec, k);
+             stream>>>(in, out, ny, nx, tiles_x, ntiles, vec, vec_out, k);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,7 +723,68 @@ struct AttributeQuery {
     }
 };
 
+// All of a launch but its six field pointers and its stream.
+struct Prepared {
+    View in;
+    OutView out;
+    int ny, nx, n_steps, bf16, halo_y, halo_x;
+    Consts k;
+};
+
+int launch_prepared(Prepared q, const float* u, const float* v,
+                    const float* h, float* uo, float* vo, float* ho,
+                    void* stream) {
+    q.in.u = u;
+    q.in.v = v;
+    q.in.h = h;
+    q.out.u = uo;
+    q.out.v = vo;
+    q.out.h = ho;
+    return with_form(q.n_steps, q.bf16, q.halo_y, q.halo_x,
+                     Launcher{q.in, q.out, q.ny, q.nx, q.k,
+                              static_cast<cudaStream_t>(stream)});
+}
+
 }  // namespace
+
+// Bytes of a prepared launch: the buffer swe_rk4_prepare fills.
+extern "C" int swe_rk4_prepared_bytes() {
+    return static_cast<int>(sizeof(Prepared));
+}
+
+// Check the arguments of a swe_rk4_launch call but its field pointers and
+// stream (below), and keep them in `dst` (swe_rk4_prepared_bytes() bytes,
+// any alignment) for swe_rk4_launch_prepared. Returns 0, or
+// cudaErrorInvalidValue for arguments swe_rk4_launch refuses.
+extern "C" int swe_rk4_prepare(
+    void* dst, long long in_pitch, int in_oy, int in_ox,
+    long long out_pitch, int out_oy, int out_ox, int ny, int nx,
+    int halo_y, int halo_x, float cx, float cy, float g, float f,
+    float half, float dt, float sixth, float third, float ix2, float iy2,
+    int visc, int n_steps, int bf16, float bcx, float bcy, int stages) {
+    if (ny < 1 || nx < 1 || stages < 0 || stages > 4 * n_steps) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Prepared q{
+        View{nullptr, nullptr, nullptr, in_pitch, in_oy, in_ox},
+        OutView{nullptr, nullptr, nullptr, out_pitch, out_oy, out_ox},
+        ny, nx, n_steps, bf16, halo_y, halo_x,
+        Consts{cx, cy, g, f, half, dt, sixth, third, ix2, iy2, bcx, bcy,
+               visc, stages}};
+    std::memcpy(dst, &q, sizeof q);
+    return 0;
+}
+
+// Launch a prepared call (swe_rk4_prepare) on fields u, v, h into uo, vo,
+// ho on `stream`. Returns the CUDA error code of the launch.
+extern "C" int swe_rk4_launch_prepared(const void* prepared, const float* u,
+                                       const float* v, const float* h,
+                                       float* uo, float* vo, float* ho,
+                                       void* stream) {
+    Prepared q;
+    std::memcpy(&q, prepared, sizeof q);
+    return launch_prepared(q, u, v, h, uo, vo, ho, stream);
+}
 
 // Launch n_steps (1 or 2) fused RK4 steps of the (ny, nx) interior on
 // `stream`. u, v, h: the input block's base pointers (row pitch in_pitch,
@@ -623,16 +806,13 @@ extern "C" int swe_rk4_launch(
     float half, float dt, float sixth, float third, float ix2, float iy2,
     int visc, int n_steps, int bf16, float bcx, float bcy, int stages,
     void* stream) {
-    if (ny < 1 || nx < 1 || stages < 0 || stages > 4 * n_steps) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const View in{u, v, h, in_pitch, in_oy, in_ox};
-    const OutView out{uo, vo, ho, out_pitch, out_oy, out_ox};
-    const Consts k{cx, cy, g, f, half, dt, sixth, third, ix2, iy2, bcx, bcy,
-                   visc, stages};
-    return with_form(n_steps, bf16, halo_y, halo_x,
-                     Launcher{in, out, ny, nx, k,
-                              static_cast<cudaStream_t>(stream)});
+    Prepared q;
+    const int err = swe_rk4_prepare(
+        &q, in_pitch, in_oy, in_ox, out_pitch, out_oy, out_ox, ny, nx,
+        halo_y, halo_x, cx, cy, g, f, half, dt, sixth, third, ix2, iy2, visc,
+        n_steps, bf16, bcx, bcy, stages);
+    if (err != 0) return err;
+    return launch_prepared(q, u, v, h, uo, vo, ho, stream);
 }
 
 // The attributes of a form's built instantiation on the current device

@@ -22,13 +22,15 @@ bf16 one. ``swe_rk4_multistep`` is K2's counterpart.
 
 Launch counters: ``swe_rk4_step_cuda.launches`` (K1, float32, every form),
 ``swe_rk4_step_cuda.bf16_launches`` (K1-bf16) and
-``swe_rk4_multistep_cuda.launches`` (K2).
+``swe_rk4_multistep_cuda.launches`` (K2); of the steppers' launches,
+bound once a stepper (``BoundLaunch``), ``swe_rk4_step_cuda.bound_launches``
+counts the launches and ``swe_rk4_step_cuda.operand_checks`` the checks.
 
-Block layouts: ``SweLayout`` (output tile, rows of the region per thread,
-blocks per SM). ``swe_layout`` is the rule: the one layout the source
-builds for each form; ``SweLayout.smem_bytes`` and ``.threads`` mirror
-the source, and ``swe_kernel_attributes`` reads the built kernel's (the
-card tests hold the two equal).
+Block layouts: ``SweLayout`` (output tile, rows of the region per warp,
+columns per lane, blocks per SM). ``swe_layout`` is the rule: the one
+layout the source builds for each form; ``SweLayout.smem_bytes`` and
+``.threads`` mirror the source, and ``swe_kernel_attributes`` reads the
+built kernel's (the card tests hold the two equal).
 
 The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
 ``_carry``, ``_local2d``) have their counterparts here too:
@@ -61,13 +63,14 @@ VARIANTS = ("slices", "base", "folded", "bf16", "bf16s")
 
 class SweLayout(NamedTuple):
     """A block layout of csrc/swe_rk4.cu: a ``tx`` x ``ty`` output tile,
-    ``rows`` rows of the tile's region per thread (each thread keeps a run
-    of one column), and the ``blocks`` per SM its register cap is set for
-    (``__launch_bounds__``)."""
+    ``rows`` rows of the tile's region per warp (a band of the region's
+    whole width), ``cols`` adjacent columns of the band per lane, and the
+    ``blocks`` per SM its register cap is set for (``__launch_bounds__``)."""
 
     tx: int
     ty: int
     rows: int
+    cols: int
     blocks: int
 
     def region(self, n_steps: int) -> tuple[int, int]:
@@ -77,19 +80,20 @@ class SweLayout(NamedTuple):
 
     def threads(self, n_steps: int) -> int:
         py, px = self.region(n_steps)
-        return px * (py // self.rows)
+        return px // self.cols * (py // self.rows)
 
     def smem_bytes(self, n_steps: int) -> int:
-        """Four (u, v, h) float32 region buffers: s of this tile and of the
-        next, and two stage states."""
+        """Two (u, v, h) float32 region buffers, s of this tile and of the
+        next, and each band's first and last rows for two stage
+        parities."""
         py, px = self.region(n_steps)
-        return 4 * 3 * 4 * py * px
+        return 4 * 3 * (2 * py * px + 4 * (py // self.rows) * px)
 
 
 # The layout csrc/swe_rk4.cu builds for each form, by steps per launch
 # (its Step1: K1 float32, bf16 and padded; its Step2: K2), the fastest the
 # H100 timed at 2048^2 (scripts/profile_torch.py, PERF.md).
-_RULE = {1: SweLayout(56, 56, 8, 1), 2: SweLayout(48, 48, 8, 1)}
+_RULE = {1: SweLayout(56, 56, 4, 2, 1), 2: SweLayout(48, 48, 4, 2, 1)}
 
 
 @functools.lru_cache(maxsize=8)
@@ -97,17 +101,19 @@ def swe_layout(n_steps: int = 1, bf16: bool = False) -> SweLayout:
     """The rule: the layout of the form with ``n_steps`` per launch (the
     bf16 tendency takes the float32 one). Refuses, with ValueError, a
     layout that does not tile its region (a tile width that is not a
-    multiple of 4, a region width that is not whole warps, a region height
-    that is not whole runs) or does not fit a block (threads, shared
-    memory): the source's static_asserts, checked before anything is
-    built."""
+    multiple of 4, a region width that is not one warp's lanes of 1, 2 or
+    4 columns, a region height that is not whole bands) or does not fit a
+    block (threads, shared memory): the source's static_asserts, checked
+    before anything is built."""
     if n_steps not in _RULE:
         raise ValueError(f"n_steps must be 1 or 2, got {n_steps}")
     lay = _RULE[n_steps]
     py, px = lay.region(n_steps)
-    if lay.tx % 4 or px % 32 or py % lay.rows:
+    if lay.tx % 4 or lay.cols not in (1, 2, 4) or px != 32 * lay.cols \
+            or py % lay.rows:
         raise ValueError(f"swe_rk4: {lay} does not tile its {py}x{px} "
-                         "region (tx % 4, columns % 32, rows % run)")
+                         "region (tx % 4, columns = 32 lanes x cols, rows % "
+                         "band)")
     if lay.threads(n_steps) > MAX_THREADS:
         raise ValueError(f"swe_rk4: {lay} needs {lay.threads(n_steps)} "
                          f"threads, more than the {MAX_THREADS} a block may "
@@ -265,13 +271,17 @@ def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity,
                       _is_bf16(variant))
     if n_fused is not None:
-        if n_fused not in (1, 2):
-            raise ValueError(f"n_fused must be 1 or 2, got {n_fused} (the "
-                             "JAX kernel's 8-row slab halo bound)")
-        k["fused"] = n_fused
+        k["fused"] = _fused(n_fused)
     if out is None:
         out = tuple(torch.empty_like(t) for t in ins)
     return run(ins, out, (0, 0), k)
+
+
+def _fused(n_fused: int) -> int:
+    if n_fused not in (1, 2):
+        raise ValueError(f"n_fused must be 1 or 2, got {n_fused} (the JAX "
+                         "kernel's 8-row slab halo bound)")
+    return n_fused
 
 
 def _runner(kind: str):
@@ -326,6 +336,112 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
 
 swe_rk4_step_cuda.launches = 0
 swe_rk4_step_cuda.bf16_launches = 0
+swe_rk4_step_cuda.bound_launches = 0
+swe_rk4_step_cuda.operand_checks = 0
+
+_PREPARE_ARGTYPES = ([_P] + [_L, _I, _I] * 2 + [_I] * 4 + [_F] * 10
+                     + [_I] * 3 + [_F] * 2 + [_I])
+
+
+def _current_stream(index: int) -> int:
+    """The raw current stream of CUDA device ``index``, read as PyTorch's
+    own launches read it: ``torch.cuda.current_stream`` makes a Stream
+    object, about 4 us a call on the H100's host against 0.2."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class BoundLaunch:
+    """The kernel's whole-domain launch bound once for a stepper (K1,
+    K1-bf16 or K2, by the folded constants ``k``): the layout is checked
+    and the C entry prepared with everything but the six field pointers
+    and the stream when it is made. A call reads the six pointers and the
+    current stream, makes one ctypes call, checks its error code and
+    counts it (``swe_rk4_step_cuda.bound_launches``, and the form's own
+    counter as ``_launch`` does); it enters the tensors' device only when
+    it is not the current one.
+
+    ``_check`` runs once per distinct operand set, keyed by the six data
+    pointers with their shapes, strides and dtypes, so a state put in
+    from outside is checked again and refused as ``swe_rk4_step`` refuses
+    it; ``swe_rk4_step_cuda.operand_checks`` counts these checks. At most
+    ``MAX_OPERAND_SETS`` sets are kept (a stepper's two ping-pong buffers
+    make two).
+
+    ``entry`` and ``stream`` stand in for the C entry and the current
+    stream (tests, on CPU tensors): ``entry(u, v, h, u_out, v_out, h_out,
+    stream)`` takes data pointers and returns an error code; ``stream(i)``
+    gives the stream of device index i (None for a CPU tensor)."""
+
+    MAX_OPERAND_SETS = 8
+
+    def __init__(self, grid: GridSpec, k: dict, entry=None, stream=None):
+        self.grid = grid
+        n_steps = k.get("fused", 1)
+        swe_layout(n_steps, bool(k.get("bf16")))   # refuses a bad layout
+        self._checked: dict[tuple, Optional[int]] = {}
+        self._stream = stream or _current_stream
+        self._entry = entry or self._prepare(grid, k, n_steps)
+        self._counter = (swe_rk4_multistep_cuda, "launches") if "fused" in k \
+            else (swe_rk4_step_cuda, "bf16_launches" if k.get("bf16")
+                  else "launches")
+
+    def _prepare(self, grid: GridSpec, k: dict, n_steps: int):
+        lib = _build.load("swe_rk4")
+        size = lib.swe_rk4_prepared_bytes
+        size.argtypes, size.restype = [], ctypes.c_int
+        self._prepared = ctypes.create_string_buffer(size())
+        prepare = lib.swe_rk4_prepare
+        prepare.argtypes, prepare.restype = _PREPARE_ARGTYPES, ctypes.c_int
+        ny, nx = grid.shape
+        err = prepare(self._prepared, nx, 0, 0, nx, 0, 0, ny, nx, 0, 0,
+                      k["cx"], k["cy"], k["g"], k["f"], k["half"], k["dt"],
+                      k["sixth"], k["third"], k["ix2"], k["iy2"],
+                      int(k["nu"] != 0.0), n_steps, int(k.get("bf16", 0)),
+                      k.get("bcx", 0.0), k.get("bcy", 0.0), 4 * n_steps)
+        if err != 0:
+            self._raise(err)
+        launch = lib.swe_rk4_launch_prepared
+        launch.argtypes, launch.restype = [_P] * 8, ctypes.c_int
+        return functools.partial(launch, ctypes.addressof(self._prepared))
+
+    @staticmethod
+    def _raise(err: int):
+        msg = _build.bind("swe_rk4", _ARGTYPES)[1](err).decode()
+        raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
+
+    def _checked_device(self, key: tuple, u, v, h, out) -> Optional[int]:
+        """Check a new operand set as ``swe_rk4_step`` does; remember it
+        with its device index."""
+        _check(u, v, h, self.grid, out)
+        swe_rk4_step_cuda.operand_checks += 1
+        if len(self._checked) >= self.MAX_OPERAND_SETS:
+            self._checked.clear()
+        dev = self._checked[key] = u.device.index if u.is_cuda else None
+        return dev
+
+    def __call__(self, u, v, h, out: Fields) -> Fields:
+        uo, vo, ho = out
+        ptrs = (u.data_ptr(), v.data_ptr(), h.data_ptr(), uo.data_ptr(),
+                vo.data_ptr(), ho.data_ptr())
+        key = (ptrs, u.shape, v.shape, h.shape, uo.shape, vo.shape,
+               ho.shape, u.stride(), v.stride(), h.stride(), uo.stride(),
+               vo.stride(), ho.stride(), u.dtype, v.dtype, h.dtype,
+               uo.dtype, vo.dtype, ho.dtype)
+        try:
+            dev = self._checked[key]
+        except KeyError:
+            dev = self._checked_device(key, u, v, h, out)
+        if dev is None or dev == torch._C._cuda_getDevice():
+            err = self._entry(*ptrs, self._stream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = self._entry(*ptrs, self._stream(dev))
+        if err != 0:
+            self._raise(err)
+        swe_rk4_step_cuda.bound_launches += 1
+        counter, name = self._counter
+        setattr(counter, name, getattr(counter, name) + 1)
+        return out
 
 
 def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
@@ -639,22 +755,45 @@ def _ping_pong_stepper(advance, name: str, stages: int) -> Stepper:
                             h=torch.empty_like(s.h))
 
     def step(spare, s, _dt_ignored):
-        u, v, h = advance(s.u, s.v, s.h, out=(spare.u, spare.v, spare.h))
-        return s, WeatherState(u=u, v=v, h=h)
+        advance(s.u, s.v, s.h, out=(spare.u, spare.v, spare.h))
+        return s, spare     # the carry's buffers now hold the new state
 
     return Stepper(init, step, name, stages)
 
 
+def _kernel_advance(grid: GridSpec, k: dict, plain):
+    """``advance(u, v, h, out=...)`` of a kernel stepper: CUDA operands
+    through a ``BoundLaunch`` made at the first CUDA step, others through
+    ``plain`` (the public wrapper: the plain version, checked every
+    call)."""
+    bound = None
+
+    def advance(u, v, h, out):
+        nonlocal bound
+        if not u.is_cuda:
+            return plain(u, v, h, out=out)
+        if bound is None:
+            bound = BoundLaunch(grid, k)
+        return bound(u, v, h, out)
+
+    return advance
+
+
 def make_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
                             dt: float, variant: str = "slices") -> Stepper:
-    """Stepper around ``swe_rk4_step`` for ``Simulation`` (the counterpart
-    of ``make_pallas_rk4_stepper(variant=...)``); ``rk4_kernel_bf16`` for
-    the bf16 variants. Two buffers ping-pong (``_ping_pong_stepper``)."""
-    name = "rk4_kernel_bf16" if _is_bf16(variant) else "rk4_kernel"
+    """Stepper around the kernel for ``Simulation`` (the counterpart of
+    ``make_pallas_rk4_stepper(variant=...)``); ``rk4_kernel_bf16`` for the
+    bf16 variants. Two buffers ping-pong (``_ping_pong_stepper``). Its
+    constants are folded once; on CUDA its launch is bound once
+    (``BoundLaunch``), on the CPU each step is ``swe_rk4_step``."""
+    bf16 = _is_bf16(variant)
+    name = "rk4_kernel_bf16" if bf16 else "rk4_kernel"
     kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
               coriolis_f=float(params.coriolis_f),
-              viscosity=float(params.viscosity), variant=variant)
-    return _ping_pong_stepper(functools.partial(swe_rk4_step, **kw), name, 4)
+              viscosity=float(params.viscosity))
+    k = rk4_constants(bf16=bf16, **kw)
+    plain = functools.partial(swe_rk4_step, variant=variant, **kw)
+    return _ping_pong_stepper(_kernel_advance(grid, k, plain), name, 4)
 
 
 def make_kernel_multistep_stepper(grid: GridSpec, params: PhysicsParams,
@@ -666,6 +805,8 @@ def make_kernel_multistep_stepper(grid: GridSpec, params: PhysicsParams,
     if float(params.viscosity) != 0.0:
         raise ValueError("swe_rk4_multistep has no viscosity term")
     kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
-              coriolis_f=float(params.coriolis_f), n_fused=n_fused)
-    return _ping_pong_stepper(functools.partial(swe_rk4_multistep, **kw),
+              coriolis_f=float(params.coriolis_f))
+    k = dict(rk4_constants(viscosity=0.0, **kw), fused=_fused(n_fused))
+    plain = functools.partial(swe_rk4_multistep, n_fused=n_fused, **kw)
+    return _ping_pong_stepper(_kernel_advance(grid, k, plain),
                               f"rk4_kernel_x{n_fused}", 4 * n_fused)

@@ -29,11 +29,15 @@ the card's name and power limit:
     copy of u, v, h (the same 24 B/point) beside them, and the built
     kernel's registers, spill bytes, shared bytes, threads, blocks per SM
     and layout; ``--parent-swe FILE`` adds ``swe_parent``: an earlier
-    swe_rk4.cu (a C entry with no stage count) built with the same nvcc
-    flags into a temporary directory and timed beside the current kernel
-    for K1, K1-bf16 and K2 at each size of the sweep, in turns (parent,
-    new, new, parent), with whether the two give equal outputs bit for
-    bit. Kernel-alone times (``sweep``, ``swe_parts``, ``swe_parent``)
+    swe_rk4.cu built with the same nvcc flags into a temporary directory
+    and timed beside the current kernel for K1, K1-bf16 and K2 at each
+    size of the sweep, in turns (parent, new, new, parent), with the parts
+    of K1 and K2 of both (where the earlier entry takes a stage count), a
+    copy of the same bytes, each build's registers, warps an SM and shared
+    bytes, and whether the two give equal outputs bit for bit; and
+    ``swe_parent_padded``: the padded forms the same way at the main
+    path's shard shapes. Kernel-alone times (``sweep``, ``swe_parts``,
+    ``swe_parent``)
     let the device spin first while the host queues the launches, so that
     a kernel faster than its wrapper's host cost is still timed on the
     device;
@@ -553,16 +557,9 @@ def _swe_constants(grid, n_steps: int, bf16: bool = False) -> dict:
 def _ping_pong_ms(launch, fields, reps: int = 200) -> float:
     """ms per launch(src, dst), two buffer sets in turn as the steppers
     use them."""
-    bufs = [tuple(t.clone() for t in fields),
-            tuple(torch.empty_like(t) for t in fields)]
-    turn = [0]
-
-    def call():
-        launch(bufs[turn[0]], bufs[1 - turn[0]])
-        turn[0] ^= 1
-
-    events_ms(call, 10)
-    return device_ms(call, reps)
+    a = tuple(t.clone() for t in fields)
+    b = tuple(torch.empty_like(t) for t in fields)
+    return _rotating_ms(launch, [(a, b), (b, a)], reps)
 
 
 def swe_kernel_extras(gpu: str) -> None:
@@ -595,72 +592,202 @@ def swe_kernel_extras(gpu: str) -> None:
         }), flush=True)
 
 
-def swe_parent(path: str, gpu: str) -> None:
-    """An earlier swe_rk4.cu beside the current one, in one process:
-    built with the same flags outside the repository, timed in turns for
-    K1, K1-bf16 and K2 at each size of the sweep, outputs compared bit for
-    bit."""
-    from njw_tpu_torch.ops import stencil as st
+# the padded forms at the shard shapes of the main path's 2048^2 on
+# LocalMesh (4, 1) (local, carry) and (2, 2) (local2d): (form, interior
+# rows, columns, halo (rows, columns))
+SWE_PADDED = (("local", 512, 2048, (4, 0)), ("carry", 512, 2048, (4, 0)),
+              ("local2d", 1024, 1024, (4, 4)))
+SWE_FORMS = (("swe_rk4", 1, False), ("swe_rk4_bf16", 1, True),
+             ("swe_rk4_multi", 2, False))
 
+
+def _swe_entry(lib, source: str):
+    """call(ins, out, k, interior, halo, out_oy) of a built swe_rk4.cu's C
+    entry: ``ins`` the (padded) input blocks, ``out`` the output arrays
+    whose interior rows start at row ``out_oy``. An entry without the stage
+    count (before PR 7's probe) runs whole steps only."""
+    sig = re.search(r'extern "C" int swe_rk4_launch\((.*?)\)', source, re.S)
+    staged = "stages" in sig.group(1)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    argtypes = ([P] * 3 + [L, I, I] + [P] * 3 + [L, I, I] + [I] * 4
-                + [F] * 10 + [I] * 3 + [F] * 2 + [P])
+    fn = lib.swe_rk4_launch
+    fn.argtypes = ([P] * 3 + [L, I, I] + [P] * 3 + [L, I, I] + [I] * 4
+                   + [F] * 10 + [I] * 3 + [F] * 2 + [I] * staged + [P])
+    fn.restype = ctypes.c_int
+
+    def call(ins, out, k, interior, halo=(0, 0), out_oy=0):
+        (ny, nx), (hy, hx) = interior, halo
+        n = k.get("fused", 1)
+        stages = [k.get("stages", 4 * n)] if staged else []
+        err = fn(*(t.data_ptr() for t in ins), ins[0].stride(0), hy, hx,
+                 *(t.data_ptr() for t in out), out[0].stride(0), out_oy, 0,
+                 ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"], k["g"],
+                 k["f"], k["half"], k["dt"], k["sixth"], k["third"],
+                 k["ix2"], k["iy2"], int(k["nu"] != 0.0), n,
+                 int(k.get("bf16", 0)), k.get("bcx", 0.0), k.get("bcy", 0.0),
+                 *stages, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"swe_rk4 launch failed ({err})")
+    return call, staged
+
+
+def _swe_built(lib, n_steps: int, bf16: bool, padded=(0, 0)) -> dict:
+    """Registers, spill bytes, shared bytes, threads and warps an SM of a
+    built swe_rk4.cu's instantiation for a form."""
+    fn = lib.swe_rk4_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 6)()
+    if fn(n_steps, int(bf16), int(padded[0]), int(padded[1]), vals):
+        raise RuntimeError("swe_rk4_attributes failed")
+    regs, local, smem, threads, per_sm, _ = vals
+    return {"registers": regs, "local_bytes": local, "smem_bytes": smem,
+            "threads": threads, "blocks_per_sm": per_sm,
+            "warps_per_sm": threads // 32 * per_sm}
+
+
+def _rotating_ms(launch, sets: list, reps: int = 200) -> float:
+    """ms per launch(*set), cycling through ``sets`` (together larger than
+    the 50 MB L2), the device spinning while the host queues."""
+    turn = [0]
+
+    def call():
+        launch(*sets[turn[0]])
+        turn[0] = (turn[0] + 1) % len(sets)
+
+    events_ms(call, 10)
+    return device_ms(call, reps)
+
+
+def swe_parent(path: str, gpu: str) -> None:
+    """An earlier swe_rk4.cu beside the current one, in one process:
+    built with the same flags outside the repository, timed in turns
+    (parent, new, new, parent) for K1, K1-bf16 and K2 at each size of the
+    sweep and for the padded forms at the main path's shard shapes, with
+    the parts of K1 and K2 (the loads alone, the first 1 .. 4N stages, the
+    last with the stores) and a copy of the same bytes, each build's
+    registers, warps an SM and shared bytes, and the outputs compared bit
+    for bit."""
+    from njw_tpu_torch.ops import _build
+
+    text = Path(path).read_text()
     lib, log = _variant_lib(Path(path).parent, Path(path).stem, "parent")
     regs = [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
-    fn = lib.swe_rk4_launch
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    old, staged = _swe_entry(lib, text)
+    new, _ = _swe_entry(_build.load("swe_rk4"),
+                        (_build.CSRC / "swe_rk4.cu").read_text())
+    libs = {"parent": lib, "new": _build.load("swe_rk4")}
+    calls = {"parent": old, "new": new}
 
-    def parent(ins, out, k):
-        ny, nx = out[0].shape
-        err = fn(*(t.data_ptr() for t in ins), ins[0].stride(0), 0, 0,
-                 *(t.data_ptr() for t in out), out[0].stride(0), 0, 0, ny,
-                 nx, 0, 0, k["cx"], k["cy"], k["g"], k["f"], k["half"],
-                 k["dt"], k["sixth"], k["third"], k["ix2"], k["iy2"], 0,
-                 k.get("fused", 1), int(k.get("bf16", 0)), k.get("bcx", 0.0),
-                 k.get("bcy", 0.0), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent launch failed ({err})")
+    def compare(args_of, make_out):
+        """Both builds on one input; equal bits and the largest gap."""
+        outs = {}
+        for who, call in calls.items():
+            out = make_out()
+            call(*args_of(out))
+            outs[who] = out
+        torch.cuda.synchronize()
+        return {"equal_bit_for_bit": all(torch.equal(x, y) for x, y in
+                                         zip(outs["parent"], outs["new"])),
+                "max_abs_diff": max(float((x - y).abs().max()) for x, y in
+                                    zip(outs["parent"], outs["new"]))}
 
     for n in SWEEP_GRIDS:
         grid = GridSpec(nx=n, ny=n)
         fields = _swe_fields(n)
         rows = {}
-        for name, n_steps, bf16 in (("swe_rk4", 1, False),
-                                    ("swe_rk4_bf16", 1, True),
-                                    ("swe_rk4_multi", 2, False)):
+        for name, n_steps, bf16 in SWE_FORMS:
             k = _swe_constants(grid, n_steps, bf16)
-
-            def new(src, dst, k=k):
-                st._launch(src, dst, (0, 0), k)
-
-            def old(src, dst, k=k):
-                parent(src, dst, k)
-
+            runs = {who: (lambda src, dst, call=call, k=k:
+                          call(src, dst, k, (n, n)))
+                    for who, call in calls.items()}
             times = {"parent": [], "new": []}
             for who in ("parent", "new", "new", "parent"):
-                times[who].append(_ping_pong_ms(
-                    new if who == "new" else old, fields))
-            a = tuple(torch.empty_like(t) for t in fields)
-            b = tuple(torch.empty_like(t) for t in fields)
-            old(fields, a)
-            new(fields, b)
-            torch.cuda.synchronize()
-            rows[name] = {
-                "parent_ms": times["parent"], "new_ms": times["new"],
-                "parent_ms_mean": sum(times["parent"]) / 2,
-                "new_ms_mean": sum(times["new"]) / 2,
-                "equal_bit_for_bit": all(torch.equal(x, y)
-                                         for x, y in zip(a, b)),
-                "max_abs_diff": max(float((x - y).abs().max())
-                                    for x, y in zip(a, b)),
-                "new_layout": st.swe_kernel_attributes(n_steps, bf16=bf16)}
-            del a, b
+                times[who].append(_ping_pong_ms(runs[who], fields))
+            row = {"parent_ms": times["parent"], "new_ms": times["new"],
+                   "parent_ms_mean": sum(times["parent"]) / 2,
+                   "new_ms_mean": sum(times["new"]) / 2,
+                   **compare(lambda out, k=k: (fields, out, k, (n, n)),
+                             lambda: tuple(torch.empty_like(t)
+                                           for t in fields)),
+                   "built": {who: _swe_built(lib_, n_steps, bf16)
+                             for who, lib_ in libs.items()}}
+            if not bf16:     # the parts: loads alone, then 1 .. 4N stages
+                row["ms_by_stages"] = {
+                    who: {s: _ping_pong_ms(
+                        lambda src, dst, call=calls[who], s=s, k=k:
+                        call(src, dst, dict(k, stages=s), (n, n)), fields)
+                        for s in range(4 * n_steps + 1)}
+                    for who in calls if who == "new" or staged}
+            rows[name] = row
+        copy_ms = _ping_pong_ms(
+            lambda src, dst: [d.copy_(x) for x, d in zip(src, dst)], fields)
         print(json.dumps({"phase": "swe_parent", "card": gpu, "grid": n,
                           "parent_source": path, "parent_ptxas": regs,
-                          "rows": rows}), flush=True)
+                          "copy_ms": copy_ms, "rows": rows}), flush=True)
         del fields
+    swe_parent_padded(calls, libs, gpu, path)
+
+
+def swe_parent_padded(calls: dict, libs: dict, gpu: str, path: str) -> None:
+    """The padded forms (halo-read blocks, one step of their interior) at
+    the main path's shard shapes, parent and new in turns, on eight
+    rotating sets of blocks, with the outputs compared bit for bit."""
+    from njw_tpu_torch.ops.stencil import HALO
+
+    grid_f = _swe_fields(SWE_GRID)
+    for form, ly, lx, (hy, hx) in SWE_PADDED:
+        k = _swe_constants(GridSpec(nx=lx, ny=ly), 1)
+        cols = lx + 2 * hx
+
+        def block(i, t):
+            b = torch.full((ly + 2 * hy, cols), float("nan"), device="cuda")
+            src = torch.roll(t, shifts=(i * 97, i * 31), dims=(0, 1))
+            rows = torch.arange(-HALO, ly + HALO,
+                                device="cuda") % SWE_GRID
+            part = src.index_select(0, rows)
+            if hx:
+                part = part.index_select(1, torch.arange(
+                    -HALO, lx + HALO, device="cuda") % SWE_GRID)
+                b[hy - HALO:hy + ly + HALO,
+                  hx - HALO:hx + lx + HALO] = part
+            else:
+                b[hy - HALO:hy + ly + HALO] = part[:, :lx]
+            return b
+
+        def out_of(i=0):
+            shape = (ly + 2 * hy, lx) if form == "carry" else (ly, lx)
+            return tuple(torch.empty(shape, device="cuda") for _ in range(3))
+
+        sets = [(tuple(block(i, t) for t in grid_f), out_of())
+                for i in range(8)]
+        oy = hy if form == "carry" else 0
+        runs = {who: (lambda ins, out, call=call:
+                      call(ins, out, k, (ly, lx), (hy, hx), oy))
+                for who, call in calls.items()}
+        times = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            times[who].append(_rotating_ms(runs[who], sets))
+        outs = {}
+        for who, call in calls.items():
+            out = out_of()
+            call(sets[0][0], out, k, (ly, lx), (hy, hx), oy)
+            outs[who] = tuple(o[oy:oy + ly] for o in out)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "phase": "swe_parent_padded", "card": gpu, "form": form,
+            "interior": [ly, lx], "halo": [hy, hx], "parent_source": path,
+            "parent_ms": times["parent"], "new_ms": times["new"],
+            "parent_ms_mean": sum(times["parent"]) / 2,
+            "new_ms_mean": sum(times["new"]) / 2,
+            "equal_bit_for_bit": all(torch.equal(x, y) for x, y in
+                                     zip(outs["parent"], outs["new"])),
+            "finite": all(bool(torch.isfinite(x).all())
+                          for x in outs["new"]),
+            "built": {who: _swe_built(lib, 1, False, (1, int(hx > 0)))
+                      for who, lib in libs.items()}}), flush=True)
+        del sets
 
 
 def _k4_layouts(levels: int) -> list:

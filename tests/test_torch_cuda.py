@@ -31,6 +31,7 @@ from njw_tpu_torch.signal.fir_cuda import (  # noqa: E402
 from njw_tpu_torch.weather import (  # noqa: E402
     GridSpec, PhysicsParams, SimConfig, Simulation,
 )
+from njw_tpu_torch.weather.grid import WeatherState  # noqa: E402
 from njw_tpu_torch.weather.primitive import PEState  # noqa: E402
 
 
@@ -106,6 +107,73 @@ class TestKernelOnCard:
         ref.step(12)
         torch.testing.assert_close(ker.state.h, ref.state.h, rtol=1e-3,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+class TestBoundStepperOnCard:
+    """The kernel stepper's launch, bound once (``stencil.BoundLaunch``):
+    the same bits as the public wrapper's launches, one launch a step, at
+    most two operand checks a simulation, and a state put in from outside
+    checked again."""
+
+    @staticmethod
+    def _sim(n=2048):
+        cfg = SimConfig(grid_width=n, grid_height=n, dt=0.001,
+                        coriolis_f=1e-4, device="cuda", backend="kernel")
+        sim = Simulation.from_config(cfg, "vortex", strength=1.0)
+        s0 = WeatherState(u=sim.state.u.clone(), v=sim.state.v.clone(),
+                          h=sim.state.h.clone())
+        return sim, s0, cfg
+
+    @staticmethod
+    def _counts():
+        return (swe_rk4_step_cuda.bound_launches,
+                swe_rk4_step_cuda.operand_checks, swe_rk4_step_cuda.launches)
+
+    def test_200_steps_equal_200_wrapper_launches(self, cuda_device):
+        sim, s0, cfg = self._sim()
+        assert sim.stepper.name == "rk4_kernel"
+        before = self._counts()
+        sim.step(200)
+        after = self._counts()
+        assert after[0] - before[0] == 200          # every step bound
+        assert after[2] - before[2] == 200          # and counted as K1
+        assert after[1] - before[1] <= 2            # the ping-pong pair
+        grid = GridSpec(nx=cfg.grid_width, ny=cfg.grid_height)
+        state = (s0.u, s0.v, s0.h)
+        for _ in range(200):
+            state = swe_rk4_step_cuda(*state, grid=grid, dt=cfg.dt,
+                                      coriolis_f=cfg.coriolis_f)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   zip((sim.state.u, sim.state.v, sim.state.h), state))
+
+    def test_a_state_put_in_from_outside_is_checked_again(self,
+                                                          cuda_device):
+        sim, s0, cfg = self._sim(n=256)
+        sim.step(4)
+        before = self._counts()
+        sim.step(4)                              # the same two buffers
+        assert self._counts()[1] == before[1]
+        sim.state = WeatherState(u=s0.u.clone(), v=s0.v.clone(),
+                                 h=s0.h.clone())
+        sim.step(4)
+        assert self._counts()[1] - before[1] in (1, 2)
+        assert torch.isfinite(sim.state.h).all()
+
+    def test_a_float64_state_raises_as_the_wrapper_does(self, cuda_device):
+        sim, s0, cfg = self._sim(n=128)
+        sim.step(2)
+        bad = WeatherState(u=s0.u.double(), v=s0.v.clone(), h=s0.h.clone())
+        grid = GridSpec(nx=128, ny=128)
+        with pytest.raises(TypeError) as want:
+            swe_rk4_step(bad.u, bad.v, bad.h, grid=grid, dt=cfg.dt,
+                         out=tuple(torch.empty_like(s0.u) for _ in range(3)))
+        sim.state = bad
+        before = self._counts()
+        with pytest.raises(TypeError, match=str(want.value)):
+            sim.step(1)
+        assert self._counts()[0] == before[0]
 
 
 @pytest.mark.cuda

@@ -145,6 +145,144 @@ class TestWrapper:
         assert k["iy2"] == float(np.float32(0.02 / 49.0))
 
 
+class TestBoundLaunch:
+    """A stepper's bound launch (``stencil.BoundLaunch``) with a stub entry
+    on CPU tensors: its operand checks, its counters and its errors."""
+
+    @staticmethod
+    def _bound(grid, calls=None, err=0):
+        k = rk4_constants(grid, 0.01, 9.81, 1e-4, 0.0)
+
+        def entry(*args):
+            if calls is not None:
+                calls.append(args)
+            return err
+
+        return stencil.BoundLaunch(grid, k, entry=entry, stream=lambda i: 0)
+
+    @staticmethod
+    def _counts():
+        return (swe_rk4_step_cuda.bound_launches,
+                swe_rk4_step_cuda.operand_checks, swe_rk4_step_cuda.launches)
+
+    def test_counters_exist_and_start_at_zero(self):
+        import subprocess
+        import sys
+        code = ("from njw_tpu_torch.ops.stencil import swe_rk4_step_cuda as s;"
+                "print(s.bound_launches, s.operand_checks, s.launches)")
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True).stdout.split()
+        assert out == ["0", "0", "0"]
+
+    def test_checks_once_per_operand_set_over_100_steps(self):
+        grid = GridSpec(nx=16, ny=12)
+        a = _torch(_fields(12, 16))
+        b = tuple(torch.empty_like(t) for t in a)
+        calls = []
+        bound = self._bound(grid, calls)
+        before = self._counts()
+        src, dst = a, b
+        for _ in range(100):
+            assert bound(*src, dst) is dst
+            src, dst = dst, src
+        # two operand sets: (a -> b) and (b -> a); every step launched once
+        assert self._counts() == (before[0] + 100, before[1] + 2,
+                                  before[2] + 100)
+        assert len(calls) == 100
+        ptrs = lambda x, y: tuple(t.data_ptr() for t in x + y)  # noqa: E731
+        assert calls[0] == (*ptrs(a, b), 0) and calls[1] == (*ptrs(b, a), 0)
+        assert set(calls) == {calls[0], calls[1]}
+
+    @pytest.mark.parametrize("change", ["data_ptr", "shape", "dtype",
+                                        "stride"])
+    def test_checks_again_when_an_operand_changes(self, monkeypatch, change):
+        grid = GridSpec(nx=12, ny=12)
+        u, v, h = _torch(_fields(12, 12))
+        out = tuple(torch.empty_like(t) for t in (u, v, h))
+        seen = []
+        real = stencil._check
+        monkeypatch.setattr(stencil, "_check",
+                            lambda *a: (seen.append(a), real(*a)))
+        bound = self._bound(grid)
+        bound(u, v, h, out)
+        bound(u, v, h, out)
+        assert len(seen) == 1
+        if change == "data_ptr":          # new buffers, checked and taken
+            u = u.clone()
+            bound(u, v, h, out)
+        else:
+            u0, u = u, {"shape": lambda t: t.view(6, 24),
+                        "dtype": lambda t: t.view(torch.int32),
+                        "stride": lambda t: t.t()}[change](u)
+            assert u.data_ptr() == u0.data_ptr()   # only `change` differs
+            with pytest.raises((TypeError, ValueError)):
+                bound(u, v, h, out)
+        assert len(seen) == 2
+
+    @pytest.mark.parametrize("bad", ["dtype", "alias", "out_shared",
+                                     "contiguous"])
+    def test_raises_the_checks_errors(self, bad):
+        """A state put in from outside is refused as swe_rk4_step refuses
+        it, with the same error."""
+        grid = GridSpec(nx=8, ny=8)
+        u, v, h = _torch(_fields(8, 8))
+        out = tuple(torch.empty_like(t) for t in (u, v, h))
+        if bad == "dtype":
+            u = u.double()
+        elif bad == "alias":
+            out = (u, out[1], out[2])
+        elif bad == "out_shared":
+            out = (out[0], out[0], out[2])
+        elif bad == "contiguous":
+            u = torch.zeros(8, 8).t()
+        with pytest.raises((TypeError, ValueError)) as want:
+            swe_rk4_step(u, v, h, grid=grid, dt=0.01, coriolis_f=1e-4,
+                         out=out)
+        before = self._counts()
+        with pytest.raises(want.type, match=str(want.value)):
+            self._bound(grid)(u, v, h, out)
+        assert self._counts()[0] == before[0]   # nothing launched
+
+    def test_raises_on_a_launch_error(self, monkeypatch):
+        monkeypatch.setattr(_build, "bind",
+                            lambda *a: (None, lambda e: b"invalid argument"))
+        grid = GridSpec(nx=8, ny=8)
+        f = _torch(_fields(8, 8))
+        bound = self._bound(grid, err=1)
+        before = self._counts()
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            bound(*f, tuple(torch.empty_like(t) for t in f))
+        assert self._counts()[0] == before[0]
+
+    def test_keeps_a_bounded_number_of_operand_sets(self):
+        grid = GridSpec(nx=8, ny=8)
+        f = _torch(_fields(8, 8))
+        bound = self._bound(grid)
+        for _ in range(3 * bound.MAX_OPERAND_SETS):
+            bound(*f, tuple(torch.empty_like(t) for t in f))
+        assert len(bound._checked) <= bound.MAX_OPERAND_SETS
+
+    @pytest.mark.parametrize("k_extra,counter", [
+        ({}, "launches"), ({"bf16": True}, "bf16_launches"),
+        ({"fused": 2}, "multistep")])
+    def test_counts_each_form_on_its_counter(self, k_extra, counter):
+        grid = GridSpec(nx=8, ny=8)
+        k = dict(rk4_constants(grid, 0.01, 9.81, 0.0, 0.0,
+                               bf16=bool(k_extra.get("bf16"))), **k_extra)
+        bound = stencil.BoundLaunch(grid, k, entry=lambda *a: 0,
+                                    stream=lambda i: 0)
+
+        def count():
+            if counter == "multistep":
+                return stencil.swe_rk4_multistep_cuda.launches
+            return getattr(swe_rk4_step_cuda, counter)
+
+        before = count()
+        f = _torch(_fields(8, 8))
+        bound(*f, tuple(torch.empty_like(t) for t in f))
+        assert count() == before + 1
+
+
 class TestEligibility:
     @pytest.mark.parametrize("grid_kw,params_kw,model,method,ok", [
         ({}, {}, "shallow_water", "rk4", True),
@@ -191,16 +329,18 @@ class TestBuild:
         assert "24 B/point" in src
         assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
         assert "cudaGetLastError" in src
-        # the design the note states: column runs in registers, the
-        # region streamed in with cp.async on a persistent grid, one layout
-        # a form, mirrored by the wrapper's rule
-        for word in ("registers", "9 + 6/R", "cp.async.cg", "persistent",
+        # the design the note states: a band of rows a warp and columns a
+        # lane in registers, x-neighbours by shuffles, only band edges
+        # through shared memory, the region streamed in with cp.async on a
+        # persistent grid, one layout a form, mirrored by the wrapper's rule
+        for word in ("registers", "6/C shuffles and 12/(R C) shared",
+                     "__shfl_up_sync", "cp.async.cg", "persistent",
                      "stencil.swe_layout"):
             assert word in src, word
         for name, n_steps in (("Step1", 1), ("Step2", 2)):
             lay = swe_layout(n_steps)
             assert (f"using {name} = Layout<{lay.tx}, {lay.ty}, {lay.rows}, "
-                    f"{lay.blocks}>;") in src
+                    f"{lay.cols}, {lay.blocks}>;") in src
         assert src.count("using Step") == 2   # no layout but the rule's
 
 
@@ -215,9 +355,9 @@ class TestLayoutRule:
         swe_layout.cache_clear()
 
     @pytest.mark.parametrize("n_steps,bf16,want,region,threads,smem", [
-        (1, False, (56, 56, 8, 1), (64, 64), 512, 196608),
-        (1, True, (56, 56, 8, 1), (64, 64), 512, 196608),
-        (2, False, (48, 48, 8, 1), (64, 64), 512, 196608),
+        (1, False, (56, 56, 4, 2, 1), (64, 64), 512, 147456),
+        (1, True, (56, 56, 4, 2, 1), (64, 64), 512, 147456),
+        (2, False, (48, 48, 4, 2, 1), (64, 64), 512, 147456),
     ])
     def test_rule_tile_threads_and_shared_bytes(self, n_steps, bf16, want,
                                                 region, threads, smem):
@@ -225,16 +365,17 @@ class TestLayoutRule:
         assert lay == SweLayout(*want)
         assert lay.region(n_steps) == region
         assert lay.threads(n_steps) == threads
-        # four (u, v, h) float32 region buffers: s now, s next, two states
-        assert lay.smem_bytes(n_steps) == smem == 4 * 3 * 4 * region[0] * \
-            region[1]
+        # two (u, v, h) float32 region buffers, s now and s next, and the
+        # first and last rows of each of the 16 bands for two parities
+        assert lay.smem_bytes(n_steps) == smem == 4 * 3 * (
+            2 * region[0] * region[1] + 4 * 16 * region[1])
 
     @pytest.mark.parametrize("n_steps,bf16", [(1, False), (1, True),
                                               (2, False)])
     def test_rule_fits_a_block(self, n_steps, bf16):
         lay = swe_layout(n_steps, bf16)
         py, px = lay.region(n_steps)
-        assert px % 32 == 0 and py % lay.rows == 0 and lay.tx % 4 == 0
+        assert px == 32 * lay.cols and py % lay.rows == 0 and lay.tx % 4 == 0
         assert lay.threads(n_steps) <= MAX_THREADS
         assert lay.threads(n_steps) % 32 == 0
         assert lay.smem_bytes(n_steps) <= SMEM_PER_BLOCK
@@ -249,12 +390,12 @@ class TestLayoutRule:
             swe_layout(n_steps)
 
     @pytest.mark.parametrize("n_steps,layout,match", [
-        (1, (120, 120, 32, 1), "shared memory"),
-        (1, (248, 24, 1, 1), "threads"),
-        (1, (54, 24, 4, 1), "does not tile"),
-        (1, (56, 24, 5, 1), "does not tile"),
-        (2, (56, 56, 8, 1), "does not tile"),    # a 72-column region
-        (2, (112, 48, 8, 1), "shared memory"),
+        (1, (120, 120, 32, 4, 1), "shared memory"),
+        (1, (56, 120, 2, 2, 1), "threads"),
+        (1, (54, 24, 4, 2, 1), "does not tile"),
+        (1, (56, 24, 5, 2, 1), "does not tile"),
+        (2, (56, 56, 8, 2, 1), "does not tile"),    # a 72-column region
+        (2, (112, 48, 8, 4, 1), "shared memory"),
     ])
     def test_launch_refuses_a_layout_that_does_not_fit(
             self, monkeypatch, n_steps, layout, match):
