@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``) and their plain PyTorch versions.
 
-Each kernel's wrapper adds one to its launch counter where it launches
-the kernel, and nowhere else; ``launch_counters`` names them all.
+Each launch of a kernel (``_bound.Launch``) adds one to its wrapper's
+launch counter, and nothing else does; ``launch_counters`` names them
+all.
 """
 
 

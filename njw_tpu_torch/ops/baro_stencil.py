@@ -11,20 +11,24 @@ solve between stages stays with ``torch.fft`` (``ops/spectral.py``).
 
 ``baro_stage`` dispatches once, in ``_runner``: the kernel's launch for
 CUDA tensors, its plain PyTorch version (the same arithmetic) for CPU
-tensors, and nothing else; the stepper uses the same runner. Nothing
-catches a build or launch failure and falls back.
+tensors, and nothing else; the stepper uses the same runner, and checks
+only a state it did not hand out (the rule of ``ops/_bound.py``; it owns
+no buffers, so it binds no launch). Nothing catches a build or launch
+failure and falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import numbers
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.ops import _build
+from njw_tpu_torch.ops._bound import BoundSteps, Launch, device_kind, \
+    require_cuda
 from njw_tpu_torch.ops.spectral import poisson_solve
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
 from njw_tpu_torch.weather.integrators import Stepper
@@ -129,9 +133,7 @@ def baro_stage_cuda(psi, zeta, base, *, grid: GridSpec, c_dt: float,
     """Launch the CUDA kernel on the current stream. Refuses tensors that
     are not on a CUDA device. ``baro_stage_cuda.launches`` counts the
     launches."""
-    if zeta.device.type != "cuda":  # _check puts the others beside zeta
-        raise ValueError(f"baro_stage_cuda: zeta is on {zeta.device}; "
-                         "the kernel takes CUDA tensors only")
+    require_cuda("baro_stage_cuda", [("zeta", zeta)])  # _check: the rest
     return _call(_launch, psi, zeta, base, grid, c_dt, beta, nu, out)
 
 
@@ -155,11 +157,7 @@ def _runner(zeta: torch.Tensor) -> Callable:
     """The one dispatch point: the launch for CUDA tensors, the plain
     version for CPU tensors. Both take tensors already checked
     (``_check``) and constants already folded."""
-    if zeta.device.type == "cuda":
-        return _launch
-    if zeta.device.type == "cpu":
-        return _plain
-    raise ValueError(f"baro_stage: unsupported device {zeta.device}")
+    return _launch if device_kind(zeta, "baro_stage") == "cuda" else _plain
 
 
 def _launch(psi, zeta, base, out, grid: GridSpec, k: BaroConsts,
@@ -168,15 +166,10 @@ def _launch(psi, zeta, base, out, grid: GridSpec, k: BaroConsts,
     (``baro_strip``), or an index of ``BARO_STRIPS`` (the card tests and
     the profiler)."""
     launch, err_string = _build.bind("baro_stage", _ARGTYPES)
-    with torch.cuda.device(zeta.device):
-        err = launch(psi.data_ptr(), zeta.data_ptr(), base.data_ptr(),
-                     out.data_ptr(), grid.ny, grid.nx, *k, strip,
-                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"baro_stage kernel launch failed: "
-                           f"{err_string(err).decode()} ({err})")
-    baro_stage_cuda.launches += 1
-    return out
+    entry = partial(launch, psi.data_ptr(), zeta.data_ptr(), base.data_ptr(),
+                    out.data_ptr(), grid.ny, grid.nx, *k, strip)
+    return Launch("baro_stage", entry, zeta.device.index, err_string,
+                  (baro_stage_cuda, "launches"), out, ())()
 
 
 baro_stage_cuda.launches = 0
@@ -235,10 +228,9 @@ def make_baro_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
     consts = {c_dt: baro_constants(grid, c_dt, beta, nu)
               for c_dt in (0.5 * dt, dt, dt / 6.0)}
 
-    def step(carry, s, _dt_ignored):
+    def advance(run, given):
+        carry, s = given
         z = s.zeta
-        _check(z, z, z, grid, None)
-        run = _runner(z)
 
         def stage(cur, base, c_dt):
             # cur is the checked state or a stage output, psi and the
@@ -254,4 +246,12 @@ def make_baro_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
         acc = (z1 - z).add_(z2, alpha=2.0).add_(z3).mul_(1.0 / 3.0)
         return carry, BarotropicState(zeta=stage(z3, acc, dt / 6.0))
 
-    return Stepper(lambda s: (), step, "baro_rk4_kernel", 4)
+    def adopt(given):
+        z = given[1].zeta
+        _check(z, z, z, grid, None)
+        return (partial(advance, _runner(z)),)
+
+    steps = BoundSteps()
+    return Stepper(lambda s: (),
+                   lambda carry, s, _dt: steps((carry, s), adopt),
+                   "baro_rk4_kernel", 4)

@@ -752,10 +752,19 @@ extern "C" int swe_rk4_prepared_bytes() {
     return static_cast<int>(sizeof(Prepared));
 }
 
-// Check the arguments of a swe_rk4_launch call but its field pointers and
-// stream (below), and keep them in `dst` (swe_rk4_prepared_bytes() bytes,
-// any alignment) for swe_rk4_launch_prepared. Returns 0, or
-// cudaErrorInvalidValue for arguments swe_rk4_launch refuses.
+// Check the arguments of a launch of n_steps (1 or 2) fused RK4 steps of
+// the (ny, nx) interior, all but its field pointers and its stream, and
+// keep them in `dst` (swe_rk4_prepared_bytes() bytes, any alignment) for
+// swe_rk4_launch_prepared. The input block has row pitch in_pitch and its
+// interior at (in_oy, in_ox); the output's is (out_pitch, (out_oy,
+// out_ox)). halo_y, halo_x: 1 where the block holds HALO rows (columns) of
+// neighbour data around the interior, 0 where that axis wraps; a halo in
+// x needs one in y. bf16: 1 for the bf16 tendency (bcx, bcy its bf16
+// constants). The bf16 tendency and n_steps = 2 take the whole periodic
+// domain only (halo_y = halo_x = 0), and not together. stages: 4 n_steps
+// (the step); fewer run only the first stages and write nothing, 0 only
+// the region loads (scripts/profile_torch.py times the parts so). Returns
+// 0, or cudaErrorInvalidValue for arguments it refuses.
 extern "C" int swe_rk4_prepare(
     void* dst, long long in_pitch, int in_oy, int in_ox,
     long long out_pitch, int out_oy, int out_ox, int ny, int nx,
@@ -775,43 +784,16 @@ extern "C" int swe_rk4_prepare(
     return 0;
 }
 
-// Launch a prepared call (swe_rk4_prepare) on fields u, v, h into uo, vo,
-// ho on `stream`. Returns the CUDA error code of the launch.
+// Launch a prepared call (swe_rk4_prepare) on fields u, v, h (the input
+// block's base pointers) into uo, vo, ho (the output's) on `stream`.
+// Outputs must not alias inputs. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int swe_rk4_launch_prepared(const void* prepared, const float* u,
                                        const float* v, const float* h,
                                        float* uo, float* vo, float* ho,
                                        void* stream) {
     Prepared q;
     std::memcpy(&q, prepared, sizeof q);
-    return launch_prepared(q, u, v, h, uo, vo, ho, stream);
-}
-
-// Launch n_steps (1 or 2) fused RK4 steps of the (ny, nx) interior on
-// `stream`. u, v, h: the input block's base pointers (row pitch in_pitch,
-// interior origin (in_oy, in_ox)); uo, vo, ho: the output's (out_pitch,
-// (out_oy, out_ox)). halo_y, halo_x: 1 where the block holds HALO rows
-// (columns) of neighbour data around the interior, 0 where that axis
-// wraps; a halo in x needs one in y. bf16: 1 for the bf16 tendency
-// (bcx, bcy its bf16 constants). The bf16 tendency and n_steps = 2 take
-// the whole periodic domain only (halo_y = halo_x = 0), and not together.
-// stages: 4 n_steps (the step); fewer run only the first stages and write
-// nothing, 0 only the region loads (scripts/profile_torch.py times the
-// parts so). Outputs must not alias inputs. Returns the CUDA error code of
-// the launch (0 on success).
-extern "C" int swe_rk4_launch(
-    const float* u, const float* v, const float* h, long long in_pitch,
-    int in_oy, int in_ox, float* uo, float* vo, float* ho,
-    long long out_pitch, int out_oy, int out_ox, int ny, int nx,
-    int halo_y, int halo_x, float cx, float cy, float g, float f,
-    float half, float dt, float sixth, float third, float ix2, float iy2,
-    int visc, int n_steps, int bf16, float bcx, float bcy, int stages,
-    void* stream) {
-    Prepared q;
-    const int err = swe_rk4_prepare(
-        &q, in_pitch, in_oy, in_ox, out_pitch, out_oy, out_ox, ny, nx,
-        halo_y, halo_x, cx, cy, g, f, half, dt, sixth, third, ix2, iy2, visc,
-        n_steps, bf16, bcx, bcy, stages);
-    if (err != 0) return err;
     return launch_prepared(q, u, v, h, uo, vo, ho, stream);
 }
 

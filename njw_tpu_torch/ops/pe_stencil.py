@@ -17,15 +17,17 @@ whole-step kernel keeps a tile's stage states and RK4 accumulator in
 shared memory, the levels split over a cluster of up to eight blocks
 (``rk4_layout``: tile 8 up to L = 168, smaller tiles past it); it fits
 while a one-column tile over eight blocks does (``pe_rk4_kernel_fits``,
-L <= 688). The RK4 stepper's auto choice is the four stage launches: the
-H100 timed the whole-step kernel slower at every L timed (PERF.md);
-``whole_step=True`` takes it.
+L <= 688). The RK4 stepper takes the four stage launches: the H100 timed
+the whole-step kernel slower at every L timed (PERF.md); ``whole_step=True``
+takes it.
 
 Each public wrapper (``pe_stage``, ``pe_rk4_step``) dispatches once, in
-``_stage_runner`` / ``_rk4_runner``: the kernel's launch for CUDA tensors,
-its plain PyTorch version (the kernel's arithmetic) for CPU tensors, and
-nothing else. The steppers use the same runners. Nothing catches a build
-or launch failure and falls back.
+``_stage_bound`` / ``_rk4_bound``: the kernel's launch, bound (``Launch``),
+for CUDA tensors, its plain PyTorch version (the kernel's arithmetic) for
+CPU tensors, and nothing else. The steppers bind through the same
+dispatch, once per arrangement of their buffers (the rule of
+``ops/_bound.py``). Nothing catches a build or launch failure and falls
+back.
 
 The sharded launchers of the two TPU kernels run the same kernels on a
 halo-padded block (one launch each, with a plain version on the padded
@@ -41,13 +43,15 @@ from __future__ import annotations
 import ctypes
 import math
 import numbers
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.ops import _build
+from njw_tpu_torch.ops._bound import BoundSteps, Launch, device_kind, \
+    require_cuda, step
 from njw_tpu_torch.ops.stencil import SMEM_PER_BLOCK, frame
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams
 from njw_tpu_torch.weather.integrators import Stepper
@@ -175,24 +179,6 @@ def _refuse(name: str, t: torch.Tensor, want: tuple, dev,
     raise ValueError(f"{name}: {what} is on {t.device}, cur on {dev}")
 
 
-def _device_kind(t: torch.Tensor, name: str) -> str:
-    kind = t.device.type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return kind
-
-
-def _require_cuda(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cuda":  # _check puts the others beside it
-        raise ValueError(f"{name}: the kernel takes CUDA tensors only")
-
-
-def _raise_on(err: int, err_string, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{err_string(err).decode()} ({err})")
-
-
 # ---------------------------------------------------------------- one stage
 
 def pe_stage(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
@@ -203,10 +189,9 @@ def pe_stage(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
 
     ``bases``: a PEState or a sequence of 1 to 4. CUDA tensors go to the
     kernel, CPU tensors to the plain version."""
-    bases = _as_bases(bases)
-    run = _stage_runner(_device_kind(cur.ps, "pe_stage"))
-    return _stage_call(run, cur, bases, grid, c_dt, coriolis_f, base_coeffs,
-                       phi_s, out)
+    return _stage_bound(device_kind(cur.ps, "pe_stage"), _stage_args(
+        cur, _as_bases(bases), grid, c_dt, coriolis_f, base_coeffs, phi_s,
+        out))()
 
 
 def pe_stage_cuda(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
@@ -217,9 +202,9 @@ def pe_stage_cuda(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
     """Launch the CUDA kernel on the current stream. Refuses tensors that
     are not on a CUDA device. ``pe_stage_cuda.launches`` counts the
     launches."""
-    _require_cuda(cur.ps, "pe_stage_cuda")
-    return _stage_call(_launch_stage, cur, _as_bases(bases), grid, c_dt,
-                       coriolis_f, base_coeffs, phi_s, out)
+    require_cuda("pe_stage_cuda", [("ps", cur.ps)])  # _check: the rest too
+    return _launch_stage(*_stage_args(cur, _as_bases(bases), grid, c_dt,
+                                      coriolis_f, base_coeffs, phi_s, out))
 
 
 def pe_stage_plain(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
@@ -229,25 +214,29 @@ def pe_stage_plain(cur: PEState, bases, *, grid: GridSpec, c_dt: float,
                    out: Optional[PEState] = None) -> PEState:
     """The kernel's function in plain PyTorch (periodic rolls), on any
     device, with the kernel's operation order and float32 constants."""
-    return _stage_call(_plain_stage, cur, _as_bases(bases), grid, c_dt,
-                       coriolis_f, base_coeffs, phi_s, out)
+    return _plain_stage(*_stage_args(cur, _as_bases(bases), grid, c_dt,
+                                     coriolis_f, base_coeffs, phi_s, out))
 
 
-def _stage_call(run, cur, bases, grid, c_dt, coriolis_f, base_coeffs,
-                phi_s, out) -> PEState:
+def _stage_args(cur, bases, grid, c_dt, coriolis_f, base_coeffs, phi_s,
+                out) -> tuple:
+    """Check a whole-domain stage call and fold its constants; return the
+    arguments of ``_launch_stage`` and ``_plain_stage``."""
     _check(cur, bases, grid, base_coeffs, phi_s, out)
     if out is None:
         out = cur.map(torch.empty_like)
-    return run(cur, bases, tuple(_f32(c) for c in base_coeffs), out, phi_s,
-               grid, column_constants(grid, float(coriolis_f)), _f32(c_dt),
-               level_constants(grid.levels, str(cur.ps.device)))
+    return (cur, bases, tuple(_f32(c) for c in base_coeffs), out, phi_s,
+            grid, column_constants(grid, float(coriolis_f)), _f32(c_dt),
+            level_constants(grid.levels, str(cur.ps.device)))
 
 
-def _stage_runner(kind: str) -> Callable:
-    """The one dispatch point of the stage: the launch for "cuda", the
-    plain version for "cpu". Both take states already checked (``_check``)
-    and constants already folded."""
-    return _launch_stage if kind == "cuda" else _plain_stage
+def _stage_bound(kind: str, args: tuple) -> Callable[[], PEState]:
+    """The one dispatch point of the stage, every form: for "cuda" the
+    launch bound once (``_bind_stage``), for "cpu" the plain version's
+    call. ``args``: checked (``_check``) and folded."""
+    if kind == "cuda":
+        return _bind_stage(*args)
+    return partial(_plain_stage, *args)
 
 
 def _pitches(st: PEState) -> tuple[int, int]:
@@ -259,16 +248,16 @@ def _ptrs(st: PEState) -> list:
     return [t.data_ptr() for t in (st.u, st.v, st.T, st.q, st.ps)]
 
 
-def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
-                  phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
-                  levc: torch.Tensor, halo: tuple = NO_HALO,
-                  tile_rows: int = 0) -> PEState:
-    """Launch on the current stream. ``cur``: the input block, whose
-    interior starts at ``halo`` = (hy, hx) (0: that axis wraps); the bases
-    and ``out``: interior-shaped views of one layout; ``grid``: the
-    interior's. ``tile_rows``: 0 for the rule's tile (``stage_tile_rows``),
-    or another height of ``STAGE_TILE_ROWS`` whose block fits (the card
-    tests and the profiler)."""
+def _bind_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
+                phi_s, grid: GridSpec, k: ColumnConsts, c_dt: float,
+                levc: torch.Tensor, halo: tuple = NO_HALO,
+                tile_rows: int = 0) -> Launch:
+    """The launch, bound once (counted on ``pe_stage_cuda.launches``).
+    ``cur``: the input block, whose interior starts at ``halo`` = (hy, hx)
+    (0: that axis wraps); the bases and ``out``: interior-shaped views of
+    one layout; ``grid``: the interior's. ``tile_rows``: 0 for the rule's
+    tile (``stage_tile_rows``), or another height of ``STAGE_TILE_ROWS``
+    whose block fits (the card tests and the profiler)."""
     rows = stage_tile_rows(grid.levels) if tile_rows == 0 else tile_rows
     if rows not in STAGE_TILE_ROWS or \
             stage_smem_bytes(rows, grid.levels) > SMEM_PER_BLOCK:
@@ -278,19 +267,20 @@ def _launch_stage(cur: PEState, bases: tuple, coeffs: tuple, out: PEState,
     base_ptrs += [None] * (5 * MAX_BASES - len(base_ptrs))
     hy, hx = halo
     launch, err_string = _build.bind("pe_stage", _STAGE_ARGTYPES)
-    with torch.cuda.device(cur.ps.device):
-        err = launch(
-            *_ptrs(cur), phi_s.data_ptr() if phi_s is not None else None,
-            *_pitches(cur), hy, hx,
-            *base_ptrs, len(bases), *coeffs,
-            *(0.0,) * (MAX_BASES - len(coeffs)),
-            *_ptrs(out), *_pitches(out),
-            levc.data_ptr(), grid.levels, grid.ny, grid.nx, int(hy > 0),
-            int(hx > 0), *k, c_dt, rows,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, err_string, "pe_stage")
-    pe_stage_cuda.launches += 1
-    return out
+    entry = partial(
+        launch, *_ptrs(cur), phi_s.data_ptr() if phi_s is not None else None,
+        *_pitches(cur), hy, hx, *base_ptrs, len(bases), *coeffs,
+        *(0.0,) * (MAX_BASES - len(coeffs)), *_ptrs(out), *_pitches(out),
+        levc.data_ptr(), grid.levels, grid.ny, grid.nx, int(hy > 0),
+        int(hx > 0), *k, c_dt, rows)
+    return Launch("pe_stage", entry, cur.ps.device.index, err_string,
+                  (pe_stage_cuda, "launches"), out,
+                  (cur, bases, out, phi_s, levc))
+
+
+def _launch_stage(*args, **kw) -> PEState:
+    """Launch on the current stream and count it (``_bind_stage``)."""
+    return _bind_stage(*args, **kw)()
 
 
 pe_stage_cuda.launches = 0
@@ -547,8 +537,8 @@ def pe_rk4_step(s: PEState, *, grid: GridSpec, dt: float,
                 out: Optional[PEState] = None) -> PEState:
     """One RK4 step in one pass (the combine of the TPU ``_rk4_chain``).
     CUDA tensors go to the kernel, CPU tensors to the plain version."""
-    run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
-    return _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out)
+    return _rk4_bound(device_kind(s.ps, "pe_rk4_step"),
+                      _rk4_args(s, grid, dt, coriolis_f, phi_s, out))()
 
 
 def pe_rk4_step_cuda(s: PEState, *, grid: GridSpec, dt: float,
@@ -560,9 +550,9 @@ def pe_rk4_step_cuda(s: PEState, *, grid: GridSpec, dt: float,
     that are not on a CUDA device. ``pe_rk4_step_cuda.launches`` counts the
     launches. ``layout``: the kernel's ``Rk4Layout`` (``rk4_layout`` when
     None; the card tests and the profiler name others)."""
-    _require_cuda(s.ps, "pe_rk4_step_cuda")
-    return _rk4_call(_launch_rk4, s, grid, dt, coriolis_f, phi_s, out,
-                     _rk4_layout_arg(grid.levels, layout, "pe_rk4_step"))
+    require_cuda("pe_rk4_step_cuda", [("ps", s.ps)])  # _check: the rest too
+    return _launch_rk4(*_rk4_args(s, grid, dt, coriolis_f, phi_s, out,
+                                  layout))
 
 
 def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
@@ -571,7 +561,7 @@ def pe_rk4_step_plain(s: PEState, *, grid: GridSpec, dt: float,
                       out: Optional[PEState] = None) -> PEState:
     """The kernel's function in plain PyTorch, on any device: four plain
     tendencies chained with the kernel's accumulator."""
-    return _rk4_call(_plain_rk4, s, grid, dt, coriolis_f, phi_s, out)
+    return _plain_rk4(*_rk4_args(s, grid, dt, coriolis_f, phi_s, out))
 
 
 @lru_cache(maxsize=64)
@@ -586,8 +576,9 @@ def rk4_occupancy(levels: int, layout: Rk4Layout, index: int) -> tuple:
     with torch.cuda.device(index):
         err = fn(levels, layout.ncta, layout.tile, ctypes.byref(blocks),
                  ctypes.byref(clusters))
-    _raise_on(err, _build.bind("pe_rk4", _RK4_ARGTYPES)[1],
-              "pe_rk4 occupancy")
+    if err != 0:
+        msg = _build.bind("pe_rk4", _RK4_ARGTYPES)[1](err).decode()
+        raise RuntimeError(f"pe_rk4 occupancy: {msg} ({err})")
     return blocks.value, clusters.value
 
 
@@ -599,49 +590,56 @@ def rk4_smem_bytes_built(levels: int, tile: int, ncta: int) -> int:
     return int(fn(levels, ncta, tile))
 
 
-def _rk4_call(run, s, grid, dt, coriolis_f, phi_s, out,
-              layout: Optional[Rk4Layout] = None) -> PEState:
+def _rk4_args(s, grid, dt, coriolis_f, phi_s, out,
+              layout: Optional[Rk4Layout] = None) -> tuple:
+    """Check a whole-domain step and fold its constants; return the
+    arguments of ``_launch_rk4`` and ``_plain_rk4``."""
     _check(s, (s,), grid, (1.0,), phi_s, out, "pe_rk4_step")
-    if run is _launch_rk4 and layout is None:
-        layout = _rk4_layout_arg(grid.levels, None, "pe_rk4_step")
     if out is None:
         out = s.map(torch.empty_like)
-    return run(s, out, phi_s, grid, column_constants(grid, float(coriolis_f)),
-               rk4_constants(float(dt)),
-               level_constants(grid.levels, str(s.ps.device)), layout)
+    return (s, out, phi_s, grid, column_constants(grid, float(coriolis_f)),
+            rk4_constants(float(dt)),
+            level_constants(grid.levels, str(s.ps.device)), layout)
 
 
-def _rk4_runner(kind: str) -> Callable:
-    """The one dispatch point of the whole step: the launch for "cuda",
-    the plain version for "cpu"."""
-    return _launch_rk4 if kind == "cuda" else _plain_rk4
+def _rk4_bound(kind: str, args: tuple) -> Callable[[], PEState]:
+    """The one dispatch point of the whole step, every form: for "cuda"
+    the launch bound once (``_bind_rk4``), for "cpu" the plain version's
+    call."""
+    if kind == "cuda":
+        return _bind_rk4(*args)
+    return partial(_plain_rk4, *args)
 
 
-def _launch_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
-                k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
-                layout: Rk4Layout, halo: tuple = NO_HALO, stages: int = 4
-                ) -> PEState:
-    """Launch on the current stream, one cluster per output tile. ``s``:
-    the input block, whose interior starts at ``halo`` = (hy, hx) (0: that
-    axis wraps); ``out``: interior-shaped views; ``grid``: the interior's;
-    ``layout``: a checked ``Rk4Layout``. ``stages`` < 4 runs only the
-    first stages and writes nothing (``scripts/profile_torch.py`` times the
-    kernel's parts so)."""
+def _bind_rk4(s: PEState, out: PEState, phi_s, grid: GridSpec,
+              k: ColumnConsts, r: Rk4Consts, levc: torch.Tensor,
+              layout: Optional[Rk4Layout], halo: tuple = NO_HALO,
+              stages: int = 4) -> Launch:
+    """The launch, one cluster per output tile, bound once (counted on
+    ``pe_rk4_step_cuda.launches``). ``s``: the input block, whose interior
+    starts at ``halo`` = (hy, hx) (0: that axis wraps); ``out``:
+    interior-shaped views; ``grid``: the interior's; ``layout``: an
+    ``Rk4Layout`` (the rule's when None; ``_rk4_layout_arg``). ``stages``
+    < 4 runs only the first stages and writes nothing
+    (``scripts/profile_torch.py`` times the kernel's parts so)."""
+    layout = _rk4_layout_arg(grid.levels, layout, "pe_rk4_step")
     hy, hx = halo
     if s.ps.stride(0) * s.ps.shape[0] >= 2 ** 31:
         raise ValueError("pe_rk4: a plane of the block must hold fewer "
                          "than 2**31 elements")
     launch, err_string = _build.bind("pe_rk4", _RK4_ARGTYPES)
-    with torch.cuda.device(s.ps.device):
-        err = launch(
-            *_ptrs(s), phi_s.data_ptr() if phi_s is not None else None,
-            *_pitches(s), hy, hx, *_ptrs(out), *_pitches(out),
-            levc.data_ptr(), *layout, grid.levels, grid.ny, grid.nx,
-            int(hy > 0), int(hx > 0), *k, *r, stages,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, err_string, "pe_rk4")
-    pe_rk4_step_cuda.launches += 1
-    return out
+    entry = partial(
+        launch, *_ptrs(s), phi_s.data_ptr() if phi_s is not None else None,
+        *_pitches(s), hy, hx, *_ptrs(out), *_pitches(out), levc.data_ptr(),
+        *layout, grid.levels, grid.ny, grid.nx, int(hy > 0), int(hx > 0),
+        *k, *r, stages)
+    return Launch("pe_rk4", entry, s.ps.device.index, err_string,
+                  (pe_rk4_step_cuda, "launches"), out, (s, out, phi_s, levc))
+
+
+def _launch_rk4(*args, **kw) -> PEState:
+    """Launch on the current stream and count it (``_bind_rk4``)."""
+    return _bind_rk4(*args, **kw)()
 
 
 pe_rk4_step_cuda.launches = 0
@@ -783,19 +781,17 @@ def pe_stage_padded(cur_p: PEState, bases, *, halo: tuple, c_dt: float,
     the interiors of padded states of one shape; a new ``out`` takes the
     bases' layout); ``out`` may alias a base. CUDA tensors go to the
     kernel, CPU tensors to the plain version."""
-    args = _stage_padded_args(cur_p, bases, halo=halo, c_dt=c_dt, dx=dx,
-                              dy=dy, coriolis_f=coriolis_f,
-                              base_coeffs=base_coeffs, out=out)
-    return _stage_runner(_device_kind(cur_p.ps, "pe_stage_padded"))(*args)
+    return bind_stage_padded(cur_p, bases, halo=halo, c_dt=c_dt, dx=dx,
+                             dy=dy, coriolis_f=coriolis_f,
+                             base_coeffs=base_coeffs, out=out)()
 
 
-def pe_stage_padded_launcher(cur_p: PEState, bases, **kw) -> Callable:
-    """``pe_stage_padded(cur_p, bases, **kw)`` with its checks and
-    constants done once: a callable that runs the stage on these very
-    tensors (a stepper's own buffers, refilled between calls)."""
-    args = _stage_padded_args(cur_p, bases, **kw)
-    run = _stage_runner(_device_kind(cur_p.ps, "pe_stage_padded"))
-    return lambda: run(*args)
+def bind_stage_padded(cur_p: PEState, bases, **kw) -> Callable[[], PEState]:
+    """``pe_stage_padded(cur_p, bases, **kw)`` checked and bound once
+    (``_stage_bound``), for a stepper that repeats it on its own
+    buffers."""
+    return _stage_bound(device_kind(cur_p.ps, "pe_stage_padded"),
+                        _stage_padded_args(cur_p, bases, **kw))
 
 
 def pe_stage_padded_plain(cur_p: PEState, bases, **kw) -> PEState:
@@ -850,9 +846,15 @@ def pe_rk4_padded(s_p: PEState, *, halo: tuple, dt: float, dx: float = 1.0,
     interior-shaped views with contiguous rows), at the layout
     ``rk4_layout`` gives. CUDA tensors go to the kernel, CPU tensors to the
     plain version."""
-    args = _rk4_padded_args(s_p, halo=halo, dt=dt, dx=dx, dy=dy,
-                            coriolis_f=coriolis_f, out=out)
-    return _rk4_runner(_device_kind(s_p.ps, "pe_rk4_padded"))(*args)
+    return bind_rk4_padded(s_p, halo=halo, dt=dt, dx=dx, dy=dy,
+                           coriolis_f=coriolis_f, out=out)()
+
+
+def bind_rk4_padded(s_p: PEState, **kw) -> Callable[[], PEState]:
+    """``pe_rk4_padded(s_p, **kw)`` checked and bound once
+    (``_rk4_bound``), for a stepper that repeats it on its own buffers."""
+    return _rk4_bound(device_kind(s_p.ps, "pe_rk4_padded"),
+                      _rk4_padded_args(s_p, **kw))
 
 
 def pe_rk4_padded_plain(s_p: PEState, **kw) -> PEState:
@@ -943,11 +945,11 @@ def pe_kernel_supported(grid: GridSpec, params: PhysicsParams) -> bool:
 def make_pe_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
                                dt: float,
                                phi_s: Optional[torch.Tensor] = None,
-                               whole_step: Optional[bool] = None) -> Stepper:
-    """RK4 on the kernels. ``whole_step`` None or False: four stage
-    launches, the faster path on the H100 at every L timed (8-87; the TPU
-    stepper takes its whole-step kernel where it fits VMEM); True: the
-    whole-step kernel (``pe_rk4_kernel_fits``).
+                               whole_step: bool = False) -> Stepper:
+    """RK4 on the kernels, under the rule of ``ops/_bound.py``. Four stage
+    launches a step, the faster path on the H100 at every L timed (8-87;
+    the TPU stepper takes its whole-step kernel where it fits VMEM);
+    ``whole_step=True``: the whole-step kernel (``pe_rk4_kernel_fits``).
 
     Both are in place by design and allocate nothing per step: a state
     returned by one step is overwritten by the step after next; callers
@@ -959,25 +961,26 @@ def make_pe_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
 
 def _whole_step_stepper(grid, params, dt, phi_s) -> Stepper:
     """One whole-step launch per step into a spare state; the incoming
-    state becomes the next spare. The carry holds the spare."""
+    state becomes the next spare. The carry holds the spare; the stepper
+    binds two launches, one each way."""
     k = column_constants(grid, float(params.coriolis_f))
     r = rk4_constants(float(dt))
-    layout = rk4_layout(grid.levels)
 
-    def init(s):
-        if _device_kind(s.ps, "pe_rk4_step") == "cuda":
-            _rk4_layout_arg(grid.levels, None, "pe_rk4_step")
-        return (s.map(torch.empty_like),)
+    def bind(s, out):
+        _check(s, (s,), grid, (1.0,), phi_s, out, "pe_rk4_step")
+        return _rk4_bound(device_kind(s.ps, "pe_rk4_step"), (
+            s, out, phi_s, grid, k, r,
+            level_constants(grid.levels, str(s.ps.device)), None))
 
-    def step(carry, s, _dt_ignored):
-        (spare,) = carry
-        _check(s, (s,), grid, (1.0,), phi_s, None, "pe_rk4_step")
-        run = _rk4_runner(_device_kind(s.ps, "pe_rk4_step"))
-        new = run(s, spare, phi_s, grid, k, r,
-                  level_constants(grid.levels, str(s.ps.device)), layout)
-        return (s,), new
+    def adopt(given):
+        (spare,), s = given
+        return (step((bind(s, spare),), ((s,), spare)),
+                step((bind(spare, s),), given))
 
-    return Stepper(init, step, "pe_rk4_kernel_fused", 4)
+    steps = BoundSteps()
+    return Stepper(lambda s: (s.map(torch.empty_like),),
+                   lambda carry, s, _dt: steps((carry, s), adopt),
+                   "pe_rk4_kernel_fused", 4)
 
 
 def _stage_stepper(grid, params, dt, phi_s) -> Stepper:
@@ -989,7 +992,9 @@ def _stage_stepper(grid, params, dt, phi_s) -> Stepper:
 
     The carry holds three spare states for s1, s2 and s3; the last stage
     writes s' over s1 (a base, which the kernel reads at each point before
-    it writes there), and the incoming state becomes a spare."""
+    it writes there), and the incoming state becomes a spare. The buffers'
+    arrangement comes back every two steps, so the stepper binds 2 x 4
+    launches."""
     k = column_constants(grid, float(params.coriolis_f))
     dt = float(dt)
     third = 1.0 / 3.0
@@ -997,20 +1002,23 @@ def _stage_stepper(grid, params, dt, phi_s) -> Stepper:
     combine = tuple(_f32(c) for c in (-third, third, 2.0 * third, third))
     half, full, sixth = _f32(0.5 * dt), _f32(dt), _f32(dt / 6.0)
 
-    def init(s):
-        return tuple(s.map(torch.empty_like) for _ in range(3))
+    def bind(cur, bases, coeffs, out, c_dt):
+        _check(cur, bases, grid, coeffs, phi_s, out)
+        return _stage_bound(device_kind(cur.ps, "pe_stage"), (
+            cur, bases, coeffs, out, phi_s, grid, k, c_dt,
+            level_constants(grid.levels, str(cur.ps.device))))
 
-    def step(carry, s, _dt_ignored):
-        a, b, c = carry
-        # s is checked here; the spares were made from a checked state
-        _check(s, (s,), grid, one, phi_s, None)
-        run = _stage_runner(_device_kind(s.ps, "pe_stage"))
-        levc = level_constants(grid.levels, str(s.ps.device))
-        s1 = run(s, (s,), one, a, phi_s, grid, k, half, levc)
-        s2 = run(s1, (s,), one, b, phi_s, grid, k, half, levc)
-        s3 = run(s2, (s,), one, c, phi_s, grid, k, full, levc)
-        new = run(s3, (s, s1, s2, s3), combine, a, phi_s, grid, k, sixth,
-                  levc)
-        return (s, b, c), new
+    def launches(s, a, b, c):
+        return (bind(s, (s,), one, a, half), bind(a, (s,), one, b, half),
+                bind(b, (s,), one, c, full),
+                bind(c, (s, a, b, c), combine, a, sixth))
 
-    return Stepper(init, step, "pe_rk4_kernel", 4)
+    def adopt(given):
+        (a, b, c), s = given
+        return (step(launches(s, a, b, c), ((s, b, c), a)),
+                step(launches(a, s, b, c), given))
+
+    steps = BoundSteps()
+    return Stepper(lambda s: tuple(s.map(torch.empty_like) for _ in range(3)),
+                   lambda carry, s, _dt: steps((carry, s), adopt),
+                   "pe_rk4_kernel", 4)

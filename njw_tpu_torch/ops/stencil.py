@@ -22,9 +22,9 @@ bf16 one. ``swe_rk4_multistep`` is K2's counterpart.
 
 Launch counters: ``swe_rk4_step_cuda.launches`` (K1, float32, every form),
 ``swe_rk4_step_cuda.bf16_launches`` (K1-bf16) and
-``swe_rk4_multistep_cuda.launches`` (K2); of the steppers' launches,
-bound once a stepper (``BoundLaunch``), ``swe_rk4_step_cuda.bound_launches``
-counts the launches and ``swe_rk4_step_cuda.operand_checks`` the checks.
+``swe_rk4_multistep_cuda.launches`` (K2). Every launch goes through the
+library's prepared entry (``_bind_launch``); the steppers bind theirs once
+per arrangement of their buffers (the rule of ``ops/_bound.py``).
 
 Block layouts: ``SweLayout`` (output tile, rows of the region per warp,
 columns per lane, blocks per SM). ``swe_layout`` is the rule: the one
@@ -37,23 +37,26 @@ The sharded launchers of the same TPU kernel (``swe_rk4_step_pallas_local``,
 ``swe_rk4_step_local``, ``swe_rk4_step_carry`` and ``swe_rk4_step_local2d``,
 thin wrappers over one padded launch (``swe_rk4_step_padded``) of the same
 kernel, with a plain version on the padded block. As in the JAX package,
-they take no variant. All forms dispatch in one place (``_runner``).
+they take no variant. All forms dispatch in one place (``_bind``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import numbers
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from njw_tpu_torch.ops import _build
+from njw_tpu_torch.ops._bound import BoundSteps, Launch, device_kind, \
+    require_cuda, step
 from njw_tpu_torch.weather.grid import GridSpec, PhysicsParams, WeatherState
 from njw_tpu_torch.weather.integrators import Stepper
 
 Fields = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+_NAMES = ("u", "v", "h", "u_out", "v_out", "h_out")
 HALO = 4  # rows (columns) of halo the kernel reads: one per chained stage
 SMEM_PER_BLOCK = 227 * 1024  # the most shared memory a block may have (sm_90)
 MAX_THREADS = 1024           # threads a block may have
@@ -207,13 +210,6 @@ def _check(u, v, h, grid: GridSpec, out: Optional[Fields]) -> None:
             raise ValueError(f"swe_rk4_step: {n} must be contiguous")
 
 
-def _device_kind(t: torch.Tensor, name: str) -> str:
-    kind = t.device.type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return kind
-
-
 def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
                  coriolis_f: float = 0.0, viscosity: float = 0.0,
                  variant: str = "slices",
@@ -224,17 +220,9 @@ def swe_rk4_step(u, v, h, *, grid: GridSpec, dt: float, gravity: float = 9.81,
     ``variant``: one of ``VARIANTS`` (see the module docstring).
     ``out``: three preallocated result buffers (not aliasing the inputs).
     """
-    run = _runner(_device_kind(u, "swe_rk4_step"))
-    return _call(run, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 viscosity, variant)
-
-
-def _refuse_host(name: str, ins: Fields, out: Optional[Fields]) -> None:
-    for n, t in zip(("u", "v", "h", "u_out", "v_out", "h_out"),
-                    ins + tuple(out or ())):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: {n} is on {t.device}; the kernel "
-                             "takes CUDA tensors only")
+    return _bind(device_kind(u, "swe_rk4_step"),
+                 _args((u, v, h), out, grid, dt, gravity, coriolis_f,
+                       viscosity, variant))()
 
 
 def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
@@ -245,9 +233,10 @@ def swe_rk4_step_cuda(u, v, h, *, grid: GridSpec, dt: float,
     is not on a CUDA device. ``swe_rk4_step_cuda.launches`` counts the
     float32 launches of every form (whole-domain and padded),
     ``swe_rk4_step_cuda.bf16_launches`` those of the bf16 variant."""
-    _refuse_host("swe_rk4_step_cuda", (u, v, h), out)
-    return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 viscosity, variant)
+    require_cuda("swe_rk4_step_cuda",
+                 zip(_NAMES, (u, v, h) + tuple(out or ())))
+    return _launch(*_args((u, v, h), out, grid, dt, gravity, coriolis_f,
+                          viscosity, variant))
 
 
 def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
@@ -258,14 +247,15 @@ def swe_rk4_step_plain(u, v, h, *, grid: GridSpec, dt: float,
     form (state-form RK4, periodic rolls), on any device; the bf16
     variant in torch bf16 operations, each rounded, in the kernel's
     order."""
-    return _call(_plain, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 viscosity, variant)
+    return _plain(*_args((u, v, h), out, grid, dt, gravity, coriolis_f,
+                         viscosity, variant))
 
 
-def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
-          variant: str = "slices", n_fused: Optional[int] = None) -> Fields:
-    """Check a whole-domain call, fold its constants and hand it to
-    ``run``. ``n_fused`` (the multistep entry points only) is stored in the
+def _args(ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
+          variant: str = "slices", n_fused: Optional[int] = None) -> tuple:
+    """Check a whole-domain call and fold its constants; return its (ins,
+    out, halo, constants), the arguments of ``_launch`` and ``_plain``.
+    ``n_fused`` (the multistep entry points only) is stored in the
     constants as ``fused``: K2's launch and its counter."""
     _check(*ins, grid, out)
     k = rk4_constants(grid, dt, gravity, coriolis_f, viscosity,
@@ -274,7 +264,7 @@ def _call(run, ins: Fields, out, grid, dt, gravity, coriolis_f, viscosity,
         k["fused"] = _fused(n_fused)
     if out is None:
         out = tuple(torch.empty_like(t) for t in ins)
-    return run(ins, out, (0, 0), k)
+    return ins, out, (0, 0), k
 
 
 def _fused(n_fused: int) -> int:
@@ -284,24 +274,36 @@ def _fused(n_fused: int) -> int:
     return n_fused
 
 
-def _runner(kind: str):
+def _bind(kind: str, args: tuple) -> Callable[[], Fields]:
     """The one dispatch point of every form, whole-domain, multistep and
-    padded: the launch for "cuda", the plain version for "cpu". Both take
-    operands already checked and constants already folded."""
-    return _launch if kind == "cuda" else _plain
+    padded: for "cuda" the kernel's launch bound once (``_bind_launch``),
+    for "cpu" the plain version's call. ``args``: (ins, out, halo,
+    constants), checked and folded."""
+    if kind == "cuda":
+        return _bind_launch(*args)
+    return functools.partial(_plain, *args)
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = ([_P] * 3 + [_L, _I, _I] + [_P] * 3 + [_L, _I, _I] + [_I] * 4
-             + [_F] * 10 + [_I] * 3 + [_F] * 2 + [_I, _P])
+_PREPARE_ARGTYPES = ([_P] + [_L, _I, _I] * 2 + [_I] * 4 + [_F] * 10
+                     + [_I] * 3 + [_F] * 2 + [_I])
 
 
-def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
-    """Launch on the current stream and count it: K2 (``k["fused"]``
-    steps) on ``swe_rk4_multistep_cuda.launches``, K1-bf16 on
-    ``swe_rk4_step_cuda.bf16_launches``, K1 on ``.launches``. ``ins``:
-    (u, v, h) views of the input block (its first element, its row pitch),
+def _error_string(lib) -> Callable[[int], bytes]:
+    fn = lib.swe_rk4_error_string
+    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+    return fn
+
+
+def _bind_launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Launch:
+    """The launch of ``ins`` into ``out`` bound once through the library's
+    prepared entry (``swe_rk4_prepare`` checks and keeps all but the six
+    field pointers and the stream, ``swe_rk4_launch_prepared`` takes
+    them): K2 (``k["fused"]`` steps) counted on
+    ``swe_rk4_multistep_cuda.launches``, K1-bf16 on
+    ``swe_rk4_step_cuda.bf16_launches``, K1 on ``.launches``. ``ins``: (u,
+    v, h) views of the input block (its first element, its row pitch),
     whose interior starts at ``halo`` = (hy, hx); an axis whose halo is 0
     wraps. ``out``: views of the interior-shaped result. The block layout
     is the rule's (``swe_layout``). ``k["stages"]`` < 4 steps runs only
@@ -311,137 +313,38 @@ def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
     ny, nx = out[0].shape
     n_steps = k.get("fused", 1)
     swe_layout(n_steps, bool(k.get("bf16")))   # refuses one that does not fit
-    launch, err_string = _build.bind("swe_rk4", _ARGTYPES)
-    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-    with torch.cuda.device(ins[0].device):
-        err = launch(
-            *(t.data_ptr() for t in ins), ins[0].stride(0), hy, hx,
-            *(t.data_ptr() for t in out), out[0].stride(0), 0, 0,
-            ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"], k["g"],
-            k["f"], k["half"], k["dt"], k["sixth"], k["third"], k["ix2"],
-            k["iy2"], int(k["nu"] != 0.0), n_steps,
-            int(k.get("bf16", 0)), k.get("bcx", 0.0), k.get("bcy", 0.0),
-            k.get("stages", 4 * n_steps), stream)
+    lib = _build.load("swe_rk4")
+    size = lib.swe_rk4_prepared_bytes
+    size.argtypes, size.restype = [], ctypes.c_int
+    prepared = ctypes.create_string_buffer(size())
+    prepare = lib.swe_rk4_prepare
+    prepare.argtypes, prepare.restype = _PREPARE_ARGTYPES, ctypes.c_int
+    err = prepare(prepared, ins[0].stride(0), hy, hx, out[0].stride(0), 0,
+                  0, ny, nx, int(hy > 0), int(hx > 0), k["cx"], k["cy"],
+                  k["g"], k["f"], k["half"], k["dt"], k["sixth"],
+                  k["third"], k["ix2"], k["iy2"], int(k["nu"] != 0.0),
+                  n_steps, int(k.get("bf16", 0)), k.get("bcx", 0.0),
+                  k.get("bcy", 0.0), k.get("stages", 4 * n_steps))
     if err != 0:
-        msg = err_string(err).decode()
+        msg = _error_string(lib)(err).decode()
         raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
-    if "fused" in k:
-        swe_rk4_multistep_cuda.launches += 1
-    elif k.get("bf16"):
-        swe_rk4_step_cuda.bf16_launches += 1
-    else:
-        swe_rk4_step_cuda.launches += 1
-    return out
+    launch = lib.swe_rk4_launch_prepared
+    launch.argtypes, launch.restype = [_P] * 8, ctypes.c_int
+    entry = functools.partial(launch, ctypes.addressof(prepared),
+                              *(t.data_ptr() for t in (*ins, *out)))
+    counter = (swe_rk4_multistep_cuda, "launches") if "fused" in k else \
+        (swe_rk4_step_cuda, "bf16_launches" if k.get("bf16") else "launches")
+    return Launch("swe_rk4", entry, ins[0].device.index, _error_string(lib),
+                  counter, out, (prepared, *ins, *out))
+
+
+def _launch(ins: Fields, out: Fields, halo: tuple, k: dict) -> Fields:
+    """Launch on the current stream and count it (``_bind_launch``)."""
+    return _bind_launch(ins, out, halo, k)()
 
 
 swe_rk4_step_cuda.launches = 0
 swe_rk4_step_cuda.bf16_launches = 0
-swe_rk4_step_cuda.bound_launches = 0
-swe_rk4_step_cuda.operand_checks = 0
-
-_PREPARE_ARGTYPES = ([_P] + [_L, _I, _I] * 2 + [_I] * 4 + [_F] * 10
-                     + [_I] * 3 + [_F] * 2 + [_I])
-
-
-def _current_stream(index: int) -> int:
-    """The raw current stream of CUDA device ``index``, read as PyTorch's
-    own launches read it: ``torch.cuda.current_stream`` makes a Stream
-    object, about 4 us a call on the H100's host against 0.2."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-class BoundLaunch:
-    """The kernel's whole-domain launch bound once for a stepper (K1,
-    K1-bf16 or K2, by the folded constants ``k``): the layout is checked
-    and the C entry prepared with everything but the six field pointers
-    and the stream when it is made. A call reads the six pointers and the
-    current stream, makes one ctypes call, checks its error code and
-    counts it (``swe_rk4_step_cuda.bound_launches``, and the form's own
-    counter as ``_launch`` does); it enters the tensors' device only when
-    it is not the current one.
-
-    ``_check`` runs once per distinct operand set, keyed by the six data
-    pointers with their shapes, strides and dtypes, so a state put in
-    from outside is checked again and refused as ``swe_rk4_step`` refuses
-    it; ``swe_rk4_step_cuda.operand_checks`` counts these checks. At most
-    ``MAX_OPERAND_SETS`` sets are kept (a stepper's two ping-pong buffers
-    make two).
-
-    ``entry`` and ``stream`` stand in for the C entry and the current
-    stream (tests, on CPU tensors): ``entry(u, v, h, u_out, v_out, h_out,
-    stream)`` takes data pointers and returns an error code; ``stream(i)``
-    gives the stream of device index i (None for a CPU tensor)."""
-
-    MAX_OPERAND_SETS = 8
-
-    def __init__(self, grid: GridSpec, k: dict, entry=None, stream=None):
-        self.grid = grid
-        n_steps = k.get("fused", 1)
-        swe_layout(n_steps, bool(k.get("bf16")))   # refuses a bad layout
-        self._checked: dict[tuple, Optional[int]] = {}
-        self._stream = stream or _current_stream
-        self._entry = entry or self._prepare(grid, k, n_steps)
-        self._counter = (swe_rk4_multistep_cuda, "launches") if "fused" in k \
-            else (swe_rk4_step_cuda, "bf16_launches" if k.get("bf16")
-                  else "launches")
-
-    def _prepare(self, grid: GridSpec, k: dict, n_steps: int):
-        lib = _build.load("swe_rk4")
-        size = lib.swe_rk4_prepared_bytes
-        size.argtypes, size.restype = [], ctypes.c_int
-        self._prepared = ctypes.create_string_buffer(size())
-        prepare = lib.swe_rk4_prepare
-        prepare.argtypes, prepare.restype = _PREPARE_ARGTYPES, ctypes.c_int
-        ny, nx = grid.shape
-        err = prepare(self._prepared, nx, 0, 0, nx, 0, 0, ny, nx, 0, 0,
-                      k["cx"], k["cy"], k["g"], k["f"], k["half"], k["dt"],
-                      k["sixth"], k["third"], k["ix2"], k["iy2"],
-                      int(k["nu"] != 0.0), n_steps, int(k.get("bf16", 0)),
-                      k.get("bcx", 0.0), k.get("bcy", 0.0), 4 * n_steps)
-        if err != 0:
-            self._raise(err)
-        launch = lib.swe_rk4_launch_prepared
-        launch.argtypes, launch.restype = [_P] * 8, ctypes.c_int
-        return functools.partial(launch, ctypes.addressof(self._prepared))
-
-    @staticmethod
-    def _raise(err: int):
-        msg = _build.bind("swe_rk4", _ARGTYPES)[1](err).decode()
-        raise RuntimeError(f"swe_rk4 kernel launch failed: {msg} ({err})")
-
-    def _checked_device(self, key: tuple, u, v, h, out) -> Optional[int]:
-        """Check a new operand set as ``swe_rk4_step`` does; remember it
-        with its device index."""
-        _check(u, v, h, self.grid, out)
-        swe_rk4_step_cuda.operand_checks += 1
-        if len(self._checked) >= self.MAX_OPERAND_SETS:
-            self._checked.clear()
-        dev = self._checked[key] = u.device.index if u.is_cuda else None
-        return dev
-
-    def __call__(self, u, v, h, out: Fields) -> Fields:
-        uo, vo, ho = out
-        ptrs = (u.data_ptr(), v.data_ptr(), h.data_ptr(), uo.data_ptr(),
-                vo.data_ptr(), ho.data_ptr())
-        key = (ptrs, u.shape, v.shape, h.shape, uo.shape, vo.shape,
-               ho.shape, u.stride(), v.stride(), h.stride(), uo.stride(),
-               vo.stride(), ho.stride(), u.dtype, v.dtype, h.dtype,
-               uo.dtype, vo.dtype, ho.dtype)
-        try:
-            dev = self._checked[key]
-        except KeyError:
-            dev = self._checked_device(key, u, v, h, out)
-        if dev is None or dev == torch._C._cuda_getDevice():
-            err = self._entry(*ptrs, self._stream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = self._entry(*ptrs, self._stream(dev))
-        if err != 0:
-            self._raise(err)
-        swe_rk4_step_cuda.bound_launches += 1
-        counter, name = self._counter
-        setattr(counter, name, getattr(counter, name) + 1)
-        return out
 
 
 def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
@@ -459,7 +362,7 @@ def swe_kernel_attributes(n_steps: int = 1, bf16: bool = False,
     with torch.cuda.device(index):
         err = fn(n_steps, int(bf16), int(padded[0]), int(padded[1]), vals)
     if err != 0:
-        msg = _build.bind("swe_rk4", _ARGTYPES)[1](err).decode()
+        msg = _error_string(_build.load("swe_rk4"))(err).decode()
         raise RuntimeError(f"swe_rk4 attributes: {msg} ({err})")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
                      "blocks_per_sm", "static_smem_bytes"), vals),
@@ -611,9 +514,9 @@ def swe_rk4_multistep(u, v, h, *, grid: GridSpec, dt: float,
     ``swe_rk4_multistep_pallas``; no tile-multiple conditions: the kernel
     masks ragged tiles). CUDA tensors go to the kernel, CPU tensors to the
     plain version."""
-    run = _runner(_device_kind(u, "swe_rk4_multistep"))
-    return _call(run, (u, v, h), out, grid, dt, gravity, coriolis_f, 0.0,
-                 n_fused=n_fused)
+    return _bind(device_kind(u, "swe_rk4_multistep"),
+                 _args((u, v, h), out, grid, dt, gravity, coriolis_f, 0.0,
+                       n_fused=n_fused))()
 
 
 def swe_rk4_multistep_cuda(u, v, h, *, grid: GridSpec, dt: float,
@@ -622,9 +525,10 @@ def swe_rk4_multistep_cuda(u, v, h, *, grid: GridSpec, dt: float,
                            out: Optional[Fields] = None) -> Fields:
     """Launch the multistep kernel (K2) on the current stream; CUDA tensors
     only. ``swe_rk4_multistep_cuda.launches`` counts its launches."""
-    _refuse_host("swe_rk4_multistep_cuda", (u, v, h), out)
-    return _call(_launch, (u, v, h), out, grid, dt, gravity, coriolis_f,
-                 0.0, n_fused=n_fused)
+    require_cuda("swe_rk4_multistep_cuda",
+                 zip(_NAMES, (u, v, h) + tuple(out or ())))
+    return _launch(*_args((u, v, h), out, grid, dt, gravity, coriolis_f,
+                          0.0, n_fused=n_fused))
 
 
 swe_rk4_multistep_cuda.launches = 0
@@ -636,8 +540,8 @@ def swe_rk4_multistep_plain(u, v, h, *, grid: GridSpec, dt: float,
                             out: Optional[Fields] = None) -> Fields:
     """The multistep kernel's function in plain PyTorch: ``n_fused``
     applications of the one-step plain version, on any device."""
-    return _call(_plain, (u, v, h), out, grid, dt, gravity, coriolis_f, 0.0,
-                 n_fused=n_fused)
+    return _plain(*_args((u, v, h), out, grid, dt, gravity, coriolis_f,
+                         0.0, n_fused=n_fused))
 
 
 # ------------------------------------------------------- the padded forms
@@ -657,10 +561,16 @@ def swe_rk4_step_padded(u_p, v_p, h_p, *, halo: tuple, dt: float,
     (ly, lx) step, in ``out`` when given (any views of that shape with
     contiguous rows, such as the interior of the next padded block). CUDA
     tensors go to the kernel, CPU tensors to the plain version."""
-    args = _padded_args(u_p, v_p, h_p, halo=halo, dt=dt, dx=dx, dy=dy,
-                        gravity=gravity, coriolis_f=coriolis_f,
-                        viscosity=viscosity, out=out)
-    return _runner(_device_kind(u_p, "swe_rk4_step_padded"))(*args)
+    return bind_padded(u_p, v_p, h_p, halo=halo, dt=dt, dx=dx, dy=dy,
+                       gravity=gravity, coriolis_f=coriolis_f,
+                       viscosity=viscosity, out=out)()
+
+
+def bind_padded(u_p, v_p, h_p, **kw) -> Callable[[], Fields]:
+    """``swe_rk4_step_padded(u_p, v_p, h_p, **kw)`` checked and bound
+    once (``_bind``), for a stepper that repeats it on its own buffers."""
+    return _bind(device_kind(u_p, "swe_rk4_step_padded"),
+                 _padded_args(u_p, v_p, h_p, **kw))
 
 
 def swe_rk4_step_padded_plain(u_p, v_p, h_p, **kw) -> Fields:
@@ -743,57 +653,47 @@ def kernel_supported(grid: GridSpec, params: PhysicsParams, model: str,
     )
 
 
-def _ping_pong_stepper(advance, name: str, stages: int) -> Stepper:
-    """A Stepper whose step is ``advance(u, v, h, out=...)``, in place by
-    design: the carry is a second state buffer, and each step writes the
-    new state into it and hands the old state back as the next carry. Two
-    buffers ping-pong and a step allocates nothing, so a state returned by
-    one step is overwritten by the step after next; callers that keep a
-    state copy it (``Simulation._store_output`` does)."""
+def _ping_pong_stepper(grid: GridSpec, k: dict, name: str,
+                       stages: int) -> Stepper:
+    """The Stepper of the kernel whose constants are ``k``, under the rule
+    of ``ops/_bound.py``: the carry is a second state buffer, and each step
+    writes the new state into it and hands the old state back as the next
+    carry. Two buffers ping-pong and a step allocates nothing, so a state
+    returned by one step is overwritten by the step after next; callers
+    that keep a state copy it (``Simulation._store_output`` does). A state
+    it did not hand out is checked as ``swe_rk4_step`` checks it, and the
+    stepper binds two launches, one each way between its buffers."""
     def init(s):
         return WeatherState(u=torch.empty_like(s.u), v=torch.empty_like(s.v),
                             h=torch.empty_like(s.h))
 
-    def step(spare, s, _dt_ignored):
-        advance(s.u, s.v, s.h, out=(spare.u, spare.v, spare.h))
-        return s, spare     # the carry's buffers now hold the new state
+    def bind(src: WeatherState, dst: WeatherState):
+        ins, out = (src.u, src.v, src.h), (dst.u, dst.v, dst.h)
+        _check(*ins, grid, out)
+        return _bind(device_kind(src.u, "swe_rk4_step"), (ins, out, (0, 0),
+                                                          k))
 
-    return Stepper(init, step, name, stages)
+    def adopt(given):
+        spare, s = given    # the carry's buffers take the new state
+        return (step((bind(s, spare),), (s, spare)),
+                step((bind(spare, s),), given))
 
-
-def _kernel_advance(grid: GridSpec, k: dict, plain):
-    """``advance(u, v, h, out=...)`` of a kernel stepper: CUDA operands
-    through a ``BoundLaunch`` made at the first CUDA step, others through
-    ``plain`` (the public wrapper: the plain version, checked every
-    call)."""
-    bound = None
-
-    def advance(u, v, h, out):
-        nonlocal bound
-        if not u.is_cuda:
-            return plain(u, v, h, out=out)
-        if bound is None:
-            bound = BoundLaunch(grid, k)
-        return bound(u, v, h, out)
-
-    return advance
+    steps = BoundSteps()
+    return Stepper(init, lambda spare, s, _dt: steps((spare, s), adopt),
+                   name, stages)
 
 
 def make_kernel_rk4_stepper(grid: GridSpec, params: PhysicsParams,
                             dt: float, variant: str = "slices") -> Stepper:
     """Stepper around the kernel for ``Simulation`` (the counterpart of
     ``make_pallas_rk4_stepper(variant=...)``); ``rk4_kernel_bf16`` for the
-    bf16 variants. Two buffers ping-pong (``_ping_pong_stepper``). Its
-    constants are folded once; on CUDA its launch is bound once
-    (``BoundLaunch``), on the CPU each step is ``swe_rk4_step``."""
+    bf16 variants. Two buffers ping-pong (``_ping_pong_stepper``); its
+    constants are folded once."""
     bf16 = _is_bf16(variant)
-    name = "rk4_kernel_bf16" if bf16 else "rk4_kernel"
-    kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
-              coriolis_f=float(params.coriolis_f),
-              viscosity=float(params.viscosity))
-    k = rk4_constants(bf16=bf16, **kw)
-    plain = functools.partial(swe_rk4_step, variant=variant, **kw)
-    return _ping_pong_stepper(_kernel_advance(grid, k, plain), name, 4)
+    k = rk4_constants(grid, float(dt), float(params.gravity),
+                      float(params.coriolis_f), float(params.viscosity), bf16)
+    return _ping_pong_stepper(grid, k,
+                              "rk4_kernel_bf16" if bf16 else "rk4_kernel", 4)
 
 
 def make_kernel_multistep_stepper(grid: GridSpec, params: PhysicsParams,
@@ -804,9 +704,8 @@ def make_kernel_multistep_stepper(grid: GridSpec, params: PhysicsParams,
     (the kernel has none, as in the JAX package)."""
     if float(params.viscosity) != 0.0:
         raise ValueError("swe_rk4_multistep has no viscosity term")
-    kw = dict(grid=grid, dt=float(dt), gravity=float(params.gravity),
-              coriolis_f=float(params.coriolis_f))
-    k = dict(rk4_constants(viscosity=0.0, **kw), fused=_fused(n_fused))
-    plain = functools.partial(swe_rk4_multistep, n_fused=n_fused, **kw)
-    return _ping_pong_stepper(_kernel_advance(grid, k, plain),
-                              f"rk4_kernel_x{n_fused}", 4 * n_fused)
+    k = dict(rk4_constants(grid, float(dt), float(params.gravity),
+                           float(params.coriolis_f), 0.0),
+             fused=_fused(n_fused))
+    return _ping_pong_stepper(grid, k, f"rk4_kernel_x{n_fused}",
+                              4 * n_fused)

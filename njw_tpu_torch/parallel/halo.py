@@ -45,14 +45,15 @@ from __future__ import annotations
 
 import numbers
 import time
+from functools import partial
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from njw_tpu_torch.ops import pe_stencil
+from njw_tpu_torch.ops import pe_stencil, stencil
+from njw_tpu_torch.ops._bound import BoundSteps, step
 from njw_tpu_torch.ops.stencil import HALO as SWE_HALO
-from njw_tpu_torch.ops.stencil import swe_rk4_step_padded
 from njw_tpu_torch.weather.barotropic import BarotropicState
 from njw_tpu_torch.weather.dynamics import (
     coriolis_field, scalar_bc, swe_tendencies_from_shifts,
@@ -260,9 +261,12 @@ def _check_shards(name: str, mesh, shards: Sequence, cls, fields: tuple,
 
 class ShardedStepper:
     """``step(shards) -> shards`` over ``n_steps`` steps (see the module
-    docstring). ``name``: the form. Each form loads shards into its
-    blocks (``_load``) and steps the blocks (``_steps``, which returns
-    the interior views of the new state)."""
+    docstring), under the rule of ``ops/_bound.py``. ``name``: the form.
+    Each form makes its blocks at the first call (``_make``) and binds
+    the cycle of its steps on them once: the exchanges, copies and kernel
+    launches of each step. Shards it did not hand out are checked and
+    copied into the interior views the cycle's first step reads
+    (``self._input``)."""
 
     name = ""
     stages = 4
@@ -273,8 +277,8 @@ class ShardedStepper:
         self.inner, self.halo = inner, halo
         self.cls, self.filler = cls, filler
         self.fields = SWE_FIELDS if cls is WeatherState else PEState.FIELDS
-        self._blocks = None
-        self._last = None     # the views ``advance`` returned last
+        self._bound, self._input = None, None
+        self._steps = BoundSteps()
 
     # padded states of every local shard, the halo filled with ``filler``
     # (ones for PE: a stale ps cell must never reach a log as 0)
@@ -293,37 +297,26 @@ class ShardedStepper:
         ly, lx = self.inner
         return st.map(lambda a: a[..., hy:hy + ly, hx:hx + lx])
 
-    def _check(self, shards: Sequence) -> None:
+    def _adopt(self, shards: tuple) -> list:
         _check_shards(self.name, self.mesh, shards, self.cls, self.fields,
                       self.inner)
-
-    def _enter(self, shards: Sequence) -> None:
-        self._check(shards)
-        if self._blocks is None:
-            self._blocks = self._make(shards)
-        self._load(shards)
+        if self._bound is None:
+            self._bound = self._make(shards)
+        _copies(self._input, shards)()
+        return self._bound
 
     def __call__(self, shards: Sequence) -> list:
-        self._enter(shards)
-        self._last = None
-        return [_copy(st) for st in self._steps()]
+        return [_copy(st) for st in self.advance(shards)]
 
     def advance(self, shards: Sequence) -> list:
         """``n_steps`` steps like a call, returning the stepper's own
         interior views in place of new states: they are overwritten by the
         step after next. Shards that are the views it returned last are
         stepped in place, with no copy into the blocks."""
-        last = self._last
-        if last is None or len(shards) != len(last) or any(
-                a is not b for a, b in zip(shards, last)):
-            self._enter(shards)
-        self._last = self._steps()
-        return self._last
-
-    def exchange(self) -> None:
-        """One halo exchange of the blocks a step starts from (what each
-        step does before its launches), for measurement."""
-        self._bands_of_input().refresh(self.mesh)
+        handed = tuple(shards)
+        for _ in range(self.n_steps):
+            handed = self._steps(handed, self._adopt)
+        return list(handed)
 
 
 def _fields(st) -> tuple:
@@ -335,6 +328,18 @@ def _copy(st):
     return st.map(lambda a: a.clone(memory_format=torch.contiguous_format))
 
 
+def _copies(dst: Sequence, src: Sequence) -> Callable[[], None]:
+    """The copy of every field of the states ``src`` into ``dst``."""
+    pairs = [(d, x) for a, b in zip(dst, src)
+             for d, x in zip(_fields(a), _fields(b))]
+
+    def run():
+        for d, x in pairs:
+            d.copy_(x)
+
+    return run
+
+
 class _CarryStepper(ShardedStepper):
     """The persistent padded carry (JAX's ``_carry`` and ``carry2d``
     forms): two padded blocks per shard ping-pong; each step refreshes the
@@ -342,68 +347,39 @@ class _CarryStepper(ShardedStepper):
 
     def _make(self, shards):
         pads = [self._padded(shards) for _ in range(2)]
-        bands = [_Bands([_fields(p) for p in ps], self.halo, self.inner)
-                 for ps in pads]
         inner = [[self._interior(p) for p in ps] for ps in pads]
-        return {"pads": pads, "bands": bands, "inner": inner, "turn": 0}
-
-    def _bands_of_input(self):
-        b = self._blocks
-        return b["bands"][b["turn"]]
-
-    def _load(self, shards):
-        b = self._blocks
-        for dst, s in zip(b["inner"][b["turn"]], shards):
-            for d, x in zip(_fields(dst), _fields(s)):
-                d.copy_(x)
-
-    def _steps(self):
-        b = self._blocks
-        t = b["turn"]
-        for _ in range(self.n_steps):
-            b["bands"][t].refresh(self.mesh)
-            for src, out in zip(b["pads"][t], b["inner"][1 - t]):
-                self._launch(src, out)
-            t = 1 - t
-        b["turn"] = t
-        return b["inner"][t]
+        self._input = inner[0]
+        steps = []
+        for t in (0, 1):
+            bands = _Bands([_fields(p) for p in pads[t]], self.halo,
+                           self.inner)
+            steps.append(step(
+                [partial(bands.refresh, self.mesh)] + [
+                    self._bind(src, out)
+                    for src, out in zip(pads[t], inner[1 - t])],
+                tuple(inner[1 - t])))
+        return steps
 
 
 class _ConcatStepper(ShardedStepper):
     """JAX's ``_local2d`` (concat) form: the state stays interior-shaped;
     each step copies it into one padded block per shard, refreshes the
-    bands, and the kernel writes the next interior-shaped state."""
+    bands, and the kernel writes the next interior-shaped state (two
+    such states ping-pong)."""
 
     def _make(self, shards):
         pads = self._padded(shards)
-        return {"pads": pads,
-                "bands": _Bands([_fields(p) for p in pads], self.halo,
-                                self.inner),
-                "inner": [self._interior(p) for p in pads],
-                "states": [[s.map(torch.empty_like) for s in shards]
-                           for _ in range(2)],
-                "cur": None, "turn": 0}
-
-    def _bands_of_input(self):
-        return self._blocks["bands"]
-
-    def _load(self, shards):
-        self._blocks["cur"] = list(shards)
-
-    def _steps(self):
-        b = self._blocks
-        cur = b["cur"]
-        for _ in range(self.n_steps):
-            for dst, s in zip(b["inner"], cur):
-                for d, x in zip(_fields(dst), _fields(s)):
-                    d.copy_(x)
-            b["bands"].refresh(self.mesh)
-            cur = b["states"][b["turn"]]
-            b["turn"] = 1 - b["turn"]
-            for src, out in zip(b["pads"], cur):
-                self._launch(src, out)
-        b["cur"] = cur
-        return cur
+        bands = _Bands([_fields(p) for p in pads], self.halo, self.inner)
+        inner = [self._interior(p) for p in pads]
+        states = [[s.map(torch.empty_like) for s in shards]
+                  for _ in range(2)]
+        self._input = states[1]
+        return [step([_copies(inner, states[1 - t]),
+                      partial(bands.refresh, self.mesh)]
+                     + [self._bind(src, out)
+                        for src, out in zip(pads, states[t])],
+                     tuple(states[t]))
+                for t in (0, 1)]
 
 
 # --------------------------------------------------------------------- SWE
@@ -415,9 +391,9 @@ class _SWEForm:
                        coriolis_f=float(params.coriolis_f),
                        viscosity=float(params.viscosity))
 
-    def _launch(self, src: WeatherState, out: WeatherState) -> None:
-        swe_rk4_step_padded(src.u, src.v, src.h, halo=self.halo,
-                            out=(out.u, out.v, out.h), **self.kw)
+    def _bind(self, src: WeatherState, out: WeatherState) -> Callable:
+        return stencil.bind_padded(src.u, src.v, src.h, halo=self.halo,
+                                   out=(out.u, out.v, out.h), **self.kw)
 
 
 class _SWECarry(_SWEForm, _CarryStepper):
@@ -470,8 +446,9 @@ class _PEFused:
         self.kw = dict(dt=float(dt), dx=float(grid.dx), dy=float(grid.dy),
                        coriolis_f=float(params.coriolis_f))
 
-    def _launch(self, src: PEState, out: PEState) -> None:
-        pe_stencil.pe_rk4_padded(src, halo=self.halo, out=out, **self.kw)
+    def _bind(self, src: PEState, out: PEState) -> Callable:
+        return pe_stencil.bind_rk4_padded(src, halo=self.halo, out=out,
+                                          **self.kw)
 
 
 class _PEFusedCarry(_PEFused, _CarryStepper):
@@ -497,7 +474,8 @@ class _PEStages(ShardedStepper):
     band of its input, reads the bases at interior shape (views of the
     padded states) and writes the next padded state's interior. The last
     stage writes s' over s1 (a base, read at each point before it is
-    written there)."""
+    written there). The four states' roles turn by one each step, so the
+    cycle is four steps."""
 
     def _setup(self, grid, params, dt):
         dt = float(dt)
@@ -509,50 +487,30 @@ class _PEStages(ShardedStepper):
 
     def _make(self, shards):
         pads = [self._padded(shards) for _ in range(4)]
-        return {"pads": pads,
-                "bands": [_Bands([_fields(p) for p in ps], self.halo,
-                                 self.inner) for ps in pads],
-                "inner": [[self._interior(p) for p in ps] for ps in pads],
-                "order": (0, 1, 2, 3), "launches": {}}
+        bands = [_Bands([_fields(p) for p in ps], self.halo, self.inner)
+                 for ps in pads]
+        inner = [[self._interior(p) for p in ps] for ps in pads]
+        self._input = inner[0]
 
-    def _bands_of_input(self):
-        b = self._blocks
-        return b["bands"][b["order"][0]]
+        def stage(k_in, bases, coeffs, k_out, c_dt):
+            return [partial(bands[k_in].refresh, self.mesh)] + [
+                pe_stencil.bind_stage_padded(
+                    cur, tuple(inner[g][j] for g in bases), halo=self.halo,
+                    c_dt=c_dt, base_coeffs=coeffs, out=inner[k_out][j],
+                    **self.kw)
+                for j, cur in enumerate(pads[k_in])]
 
-    def _stage(self, k_in: int, bases: tuple, coeffs: tuple, k_out: int,
-               c_dt: float) -> None:
-        b = self._blocks
-        b["bands"][k_in].refresh(self.mesh)
-        key = (k_in, bases, coeffs, k_out, c_dt)
-        launches = b["launches"].get(key)
-        if launches is None:   # the stage's checks, once per buffer order
-            launches = b["launches"][key] = [
-                pe_stencil.pe_stage_padded_launcher(
-                    cur, tuple(b["inner"][g][j] for g in bases),
-                    halo=self.halo, c_dt=c_dt, base_coeffs=coeffs,
-                    out=b["inner"][k_out][j], **self.kw)
-                for j, cur in enumerate(b["pads"][k_in])]
-        for launch in launches:
-            launch()
-
-    def _load(self, shards):
-        b = self._blocks
-        for dst, s in zip(b["inner"][b["order"][0]], shards):
-            for d, x in zip(_fields(dst), _fields(s)):
-                d.copy_(x)
-
-    def _steps(self):
-        b = self._blocks
-        s0, s1, s2, s3 = b["order"]
-        one = (1.0,)
-        for _ in range(self.n_steps):
-            self._stage(s0, (s0,), one, s1, self.c[0])
-            self._stage(s1, (s0,), one, s2, self.c[1])
-            self._stage(s2, (s0,), one, s3, self.c[2])
-            self._stage(s3, (s0, s1, s2, s3), self.combine, s1, self.c[3])
+        steps, one = [], (1.0,)
+        s0, s1, s2, s3 = range(4)
+        for _ in range(4):
+            steps.append(step(
+                stage(s0, (s0,), one, s1, self.c[0])
+                + stage(s1, (s0,), one, s2, self.c[1])
+                + stage(s2, (s0,), one, s3, self.c[2])
+                + stage(s3, (s0, s1, s2, s3), self.combine, s1, self.c[3]),
+                tuple(inner[s1])))
             s0, s1, s2, s3 = s1, s2, s3, s0
-        b["order"] = (s0, s1, s2, s3)
-        return b["inner"][s0]
+        return steps
 
 
 class _PEStages1d(_PEStages):

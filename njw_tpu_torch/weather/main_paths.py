@@ -45,9 +45,9 @@ full width, each a main path's configuration on a mesh:
               count; the JAX package's mesh sweep,
               njw_tpu/bench/scaling.py:136, checks one step per mesh).
               Config 5 also runs through ``Simulation.from_config(...,
-              mesh=)``: backend auto takes the K5 stage path there
-              (local2d on (2, 2), local on (py, 1)), and K4's fused form
-              only with ``pe_whole_step``
+              mesh=)``: backends auto and kernel take the K5 stage path
+              there (local2d on (2, 2), local on (py, 1)); K4's fused
+              forms are the sharded fused constructors'
 
 ``PLAIN_SHARDED_PATHS`` are the plain sharded steppers (no kernel of the
 port launches: the launch count is 0) at full width:

@@ -97,9 +97,6 @@ class SimConfig:
     diffusivity: float = 0.0
 
     backend: str = "auto"
-    # primitive on the kernel backend: the whole-step kernel K4 in place
-    # of the four stage launches of K5 (one card and mesh alike)
-    pe_whole_step: bool = False
     max_steps: int = 1000
     output_interval: int = 10
     random_seed: int = 0

@@ -258,8 +258,7 @@ def make_primitive_sim(sim_cls, config, initial_condition: str = "baroclinic",
     factory = kernel_stepper_factory(
         config, device, supported,
         lambda: make_pe_kernel_rk4_stepper(grid, params, config.dt,
-                                           phi_s=phi_s,
-                                           whole_step=config.pe_whole_step),
+                                           phi_s=phi_s),
         requirement)
     if config.integration_method == "semi_implicit":
         # after the kernel factory, which refuses backend='kernel' for SI
@@ -285,11 +284,11 @@ def _make_mesh_sim(sim_cls, config, grid, params, mesh, device, orography,
     (``LocalMesh`` or ``ProcessMesh``). Each local shard's initial state is
     built alone (``pe_initial_state(block=)``), on the mesh's device. The
     stepper follows the one-card rule (``kernel_stepper_factory``): the
-    sharded stage path K5 (``sharded_pe_step_kernel``; the whole-step
-    kernel K4 with ``pe_whole_step``), else the plain sharded stepper
-    (``sharded_pe_step``, any BC and explicit integrator). The state is
-    the one shard a ``ProcessMesh`` gives a rank, else the list of the
-    shards; a snapshot is this process's part, with its ``block``."""
+    sharded stage path K5 (``sharded_pe_step_kernel``), else the plain
+    sharded stepper (``sharded_pe_step``, any BC and explicit integrator).
+    The state is the one shard a ``ProcessMesh`` gives a rank, else the
+    list of the shards; a snapshot is this process's part, with its
+    ``block``."""
     from njw_tpu_torch.parallel import halo
     from njw_tpu_torch.weather.model import kernel_stepper_factory
 
@@ -308,12 +307,10 @@ def _make_mesh_sim(sim_cls, config, grid, params, mesh, device, orography,
         shards = [pe_initial_state(grid, device=mesh.device, block=b,
                                    **ic_params) for b in blocks]
 
-    fused = config.pe_whole_step
     kernel = kernel_stepper_factory(
         config, mesh.device, supported,
-        lambda: (halo.sharded_pe_step_kernel_fused if fused else
-                 halo.sharded_pe_step_kernel)(grid, params, mesh,
-                                              dt=config.dt),
+        lambda: halo.sharded_pe_step_kernel(grid, params, mesh,
+                                            dt=config.dt),
         requirement)
     sharded = (kernel(None) if kernel is not None else halo.sharded_pe_step(
         grid, params, mesh, dt=config.dt, method=config.integration_method))

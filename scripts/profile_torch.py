@@ -604,9 +604,22 @@ SWE_FORMS = (("swe_rk4", 1, False), ("swe_rk4_bf16", 1, True),
 def _swe_entry(lib, source: str):
     """call(ins, out, k, interior, halo, out_oy) of a built swe_rk4.cu's C
     entry: ``ins`` the (padded) input blocks, ``out`` the output arrays
-    whose interior rows start at row ``out_oy``. An entry without the stage
-    count (before PR 7's probe) runs whole steps only."""
+    whose interior rows start at row ``out_oy``. A source without the
+    one-call entry ``swe_rk4_launch`` goes through the wrapper's own
+    prepared launch (``stencil._launch``) on ``lib``; an entry without
+    the stage count runs whole steps only."""
     sig = re.search(r'extern "C" int swe_rk4_launch\((.*?)\)', source, re.S)
+    if sig is None:
+        from njw_tpu_torch.ops import _build, stencil
+
+        def prepared(ins, out, k, interior, halo=(0, 0), out_oy=0):
+            load, _build.load = _build.load, lambda name: lib
+            try:
+                stencil._launch(ins, tuple(o[out_oy:out_oy + interior[0]]
+                                           for o in out), halo, k)
+            finally:
+                _build.load = load
+        return prepared, True
     staged = "stages" in sig.group(1)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float

@@ -111,10 +111,10 @@ class TestKernelOnCard:
 
 @pytest.mark.cuda
 class TestBoundStepperOnCard:
-    """The kernel stepper's launch, bound once (``stencil.BoundLaunch``):
-    the same bits as the public wrapper's launches, one launch a step, at
-    most two operand checks a simulation, and a state put in from outside
-    checked again."""
+    """The kernel stepper under the rule of ``ops/_bound.py``: the same
+    bits as the public wrapper's launches, one launch a step, the state
+    checked once a simulation (both ways between its two buffers), and a
+    state put in from outside checked again."""
 
     @staticmethod
     def _sim(n=2048):
@@ -126,19 +126,23 @@ class TestBoundStepperOnCard:
         return sim, s0, cfg
 
     @staticmethod
-    def _counts():
-        return (swe_rk4_step_cuda.bound_launches,
-                swe_rk4_step_cuda.operand_checks, swe_rk4_step_cuda.launches)
+    def _checks(monkeypatch) -> list:
+        from njw_tpu_torch.ops import stencil
 
-    def test_200_steps_equal_200_wrapper_launches(self, cuda_device):
+        seen, real = [], stencil._check
+        monkeypatch.setattr(stencil, "_check",
+                            lambda *a: (seen.append(a), real(*a))[1])
+        return seen
+
+    def test_200_steps_equal_200_wrapper_launches(self, cuda_device,
+                                                  monkeypatch):
         sim, s0, cfg = self._sim()
         assert sim.stepper.name == "rk4_kernel"
-        before = self._counts()
+        seen = self._checks(monkeypatch)
+        before = swe_rk4_step_cuda.launches
         sim.step(200)
-        after = self._counts()
-        assert after[0] - before[0] == 200          # every step bound
-        assert after[2] - before[2] == 200          # and counted as K1
-        assert after[1] - before[1] <= 2            # the ping-pong pair
+        assert swe_rk4_step_cuda.launches - before == 200   # counted as K1
+        assert len(seen) == 2                   # the two launches it binds
         grid = GridSpec(nx=cfg.grid_width, ny=cfg.grid_height)
         state = (s0.u, s0.v, s0.h)
         for _ in range(200):
@@ -148,17 +152,17 @@ class TestBoundStepperOnCard:
         assert all(torch.equal(a, b) for a, b in
                    zip((sim.state.u, sim.state.v, sim.state.h), state))
 
-    def test_a_state_put_in_from_outside_is_checked_again(self,
-                                                          cuda_device):
+    def test_a_state_put_in_from_outside_is_checked_again(self, cuda_device,
+                                                          monkeypatch):
         sim, s0, cfg = self._sim(n=256)
         sim.step(4)
-        before = self._counts()
+        seen = self._checks(monkeypatch)
         sim.step(4)                              # the same two buffers
-        assert self._counts()[1] == before[1]
+        assert seen == []
         sim.state = WeatherState(u=s0.u.clone(), v=s0.v.clone(),
                                  h=s0.h.clone())
         sim.step(4)
-        assert self._counts()[1] - before[1] in (1, 2)
+        assert len(seen) == 2
         assert torch.isfinite(sim.state.h).all()
 
     def test_a_float64_state_raises_as_the_wrapper_does(self, cuda_device):
@@ -170,10 +174,10 @@ class TestBoundStepperOnCard:
             swe_rk4_step(bad.u, bad.v, bad.h, grid=grid, dt=cfg.dt,
                          out=tuple(torch.empty_like(s0.u) for _ in range(3)))
         sim.state = bad
-        before = self._counts()
+        before = swe_rk4_step_cuda.launches
         with pytest.raises(TypeError, match=str(want.value)):
             sim.step(1)
-        assert self._counts()[0] == before[0]
+        assert swe_rk4_step_cuda.launches == before
 
 
 @pytest.mark.cuda
@@ -1838,6 +1842,26 @@ def _mesh_forecast(mesh=None, steps=10, device="cuda", **cfg):
     return sim
 
 
+def _fused_mesh_forecast(mesh=None, steps=10):
+    """``_mesh_forecast`` on K4: on a mesh its sharded fused stepper
+    through ``halo.simulation_stepper``, else the whole-step stepper."""
+    from njw_tpu_torch.parallel import halo
+
+    cfg = SimConfig(**_MESH_PE, device="cuda")
+    grid, params = cfg.grid_spec(), cfg.physics()
+    sim = _mesh_forecast(mesh, steps=0)
+    if mesh is None:
+        stepper = make_pe_kernel_rk4_stepper(grid, params, cfg.dt,
+                                             whole_step=True)
+    else:
+        sim.state, stepper = halo.simulation_stepper(
+            halo.sharded_pe_step_kernel_fused(grid, params, mesh,
+                                              dt=cfg.dt), sim.state)
+    sim.stepper, sim._carry = stepper, stepper.init(sim.state)
+    sim.run(steps, output_interval=steps)
+    return sim
+
+
 def _same_fields(got: dict, want: dict) -> None:
     for name in PEState.FIELDS:
         assert got[name].tobytes() == want[name].tobytes(), name
@@ -1852,12 +1876,15 @@ class TestMeshOnCard:
         (False, "pe_stage_local2d"), (True, "pe_rk4_local2d")])
     def test_local_mesh_equals_the_whole_domain(self, cuda_device,
                                                 whole_step, name):
+        """K5 through the kernel backend; K4 through
+        ``halo.simulation_stepper`` (its sharded fused form) against the
+        whole-step stepper."""
         from njw_tpu_torch.parallel import LocalMesh
 
-        sim = _mesh_forecast(LocalMesh(2, 2), pe_whole_step=whole_step)
+        run = _fused_mesh_forecast if whole_step else _mesh_forecast
+        sim = run(LocalMesh(2, 2))
         assert sim.stepper.name == name
-        _same_fields(sim.snapshots[-1],
-                     _mesh_forecast(pe_whole_step=whole_step).snapshots[-1])
+        _same_fields(sim.snapshots[-1], run().snapshots[-1])
 
     def test_process_mesh_over_nccl_equals_the_whole_domain(self,
                                                             cuda_device,

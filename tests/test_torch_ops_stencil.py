@@ -13,7 +13,10 @@ import jax.numpy as jnp  # noqa: E402
 from njw_tpu.ops.stencil import swe_rk4_step_pallas  # noqa: E402
 from njw_tpu.weather import GridSpec as JGrid  # noqa: E402
 
-from njw_tpu_torch.ops import _build, stencil  # noqa: E402
+from njw_tpu_torch.ops import _bound, _build, pe_stencil, stencil  # noqa: E402
+from njw_tpu_torch.parallel import LocalMesh, halo  # noqa: E402
+from njw_tpu_torch.weather import primitive as tp  # noqa: E402
+from njw_tpu_torch.weather.grid import WeatherState  # noqa: E402
 from njw_tpu_torch.ops.stencil import (  # noqa: E402
     MAX_THREADS, SMEM_PER_BLOCK, SweLayout, kernel_supported,
     make_kernel_rk4_stepper, rk4_constants, swe_layout, swe_rk4_step,
@@ -145,86 +148,210 @@ class TestWrapper:
         assert k["iy2"] == float(np.float32(0.02 / 49.0))
 
 
+class _SweLib:
+    """Stands in for the built swe_rk4 library: records each prepared
+    launch's field pointers and stream, and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.prepared, self.calls = err, 0, []
+        for name in ("swe_rk4_prepared_bytes", "swe_rk4_prepare",
+                     "swe_rk4_launch_prepared", "swe_rk4_error_string"):
+            setattr(self, name, _Entry(getattr(self, name)))
+
+    def swe_rk4_prepared_bytes(self):
+        return 8
+
+    def swe_rk4_prepare(self, *args):
+        self.prepared += 1
+        return 0
+
+    def swe_rk4_launch_prepared(self, prepared, *ptrs_and_stream):
+        self.calls.append(ptrs_and_stream)
+        return self.err
+
+    def swe_rk4_error_string(self, err):
+        return b"invalid argument"
+
+
+def _swe_kernel_path(monkeypatch, err=0) -> _SweLib:
+    """The SWE stepper's kernel path on CPU tensors: the library, the
+    device and the stream replaced by stand-ins (nothing is built)."""
+    lib = _SweLib(err)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(stencil, "device_kind", lambda t, name: "cuda")
+    monkeypatch.setattr(_bound, "launch_on", lambda index, entry: entry(0))
+    return lib
+
+
+class _Entry:
+    """A stand-in C entry: takes ``argtypes`` and ``restype`` as ctypes'
+    functions do."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _pe_fields(seed=0):
+    return tp.pe_initial_state(GridSpec(nx=12, ny=10, levels=3, dx=1e5,
+                                        dy=1e5), device=CPU, u_jet=8.0,
+                               perturb=0.5, seed=seed)
+
+
+class _Form:
+    """A kernel stepper under the rule (``ops/_bound.py``) on CPU tensors,
+    driven as ``Simulation`` drives it: ``run(state) -> state`` keeps the
+    carry. ``check``: the module and name of the wrapper's check it
+    calls; ``per_state``: the checks it makes for a state it adopts (one
+    per launch it binds, or per call of a sharded stepper)."""
+
+    def __init__(self, name):
+        self.name = name
+        if name == "swe":
+            self.check, self.per_state = (stencil, "_check"), 2
+            self.st = make_kernel_rk4_stepper(
+                GridSpec(nx=16, ny=12), PhysicsParams(coriolis_f=1e-4), 0.01)
+        elif name == "pe_stage":
+            self.check, self.per_state = (pe_stencil, "_check"), 8
+            self.st = pe_stencil.make_pe_kernel_rk4_stepper(
+                GridSpec(nx=12, ny=10, levels=3, dx=1e5, dy=1e5),
+                PhysicsParams(coriolis_f=1e-4), 30.0)
+        else:
+            self.check, self.per_state = (halo, "_check_shards"), 1
+            self.mesh = LocalMesh(2, 1, device=CPU)
+            self.st = halo.sharded_swe_step_kernel(
+                GridSpec(nx=12, ny=16), PhysicsParams(coriolis_f=1e-4),
+                self.mesh, dt=0.01)
+        self.carry = None
+
+    def state(self, seed=0):
+        if self.name == "pe_stage":
+            return _pe_fields(seed)
+        ny, nx = (12, 16) if self.name == "swe" else (16, 12)
+        s = state_from_numpy(dict(zip("uvh", _fields(ny, nx, seed))), CPU)
+        return s if self.name == "swe" else self.mesh.shard_state(s)
+
+    def run(self, s):
+        if self.name == "sharded_swe":
+            return self.st.advance(s)
+        if self.carry is None:
+            self.carry = self.st.init(s)
+        self.carry, s = self.st.step(self.carry, s, None)
+        return s
+
+    @staticmethod
+    def changed(s, change):
+        """``s`` from outside: new buffers, with one field's view changed
+        in shape, dtype or strides unless ``change`` is "data_ptr"."""
+        if isinstance(s, list):       # the shards: change the first
+            return [_Form.changed(s[0], change)] + [
+                x.map(torch.clone) for x in s[1:]]
+        fresh = s.map(torch.clone)
+        if change == "data_ptr":
+            return fresh
+        name, t = next(fresh.items())
+        return fresh.replace(**{name: {
+            "shape": lambda: t.reshape(t.shape[:-2] + (-1, 2 * t.shape[-1])),
+            "dtype": lambda: t.view(torch.int32),
+            "stride": lambda: t.transpose(-1, -2).contiguous()
+            .transpose(-1, -2)}[change]()})
+
+
+FORMS = ("swe", "pe_stage", "sharded_swe")
+
+
+def _counting(monkeypatch, form: _Form) -> list:
+    module, name = form.check
+    seen, real = [], getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: (seen.append(a), real(*a, **k))[1])
+    return seen
+
+
 class TestBoundLaunch:
-    """A stepper's bound launch (``stencil.BoundLaunch``) with a stub entry
-    on CPU tensors: its operand checks, its counters and its errors."""
-
-    @staticmethod
-    def _bound(grid, calls=None, err=0):
-        k = rk4_constants(grid, 0.01, 9.81, 1e-4, 0.0)
-
-        def entry(*args):
-            if calls is not None:
-                calls.append(args)
-            return err
-
-        return stencil.BoundLaunch(grid, k, entry=entry, stream=lambda i: 0)
-
-    @staticmethod
-    def _counts():
-        return (swe_rk4_step_cuda.bound_launches,
-                swe_rk4_step_cuda.operand_checks, swe_rk4_step_cuda.launches)
+    """The rule of every kernel stepper (``ops/_bound.py``) on CPU
+    tensors: SWE's stepper on its kernel path (the library, device and
+    stream replaced by stand-ins), the PE stage stepper and a sharded SWE
+    form on their plain paths: its checks, its bindings, its counters and
+    its errors."""
 
     def test_counters_exist_and_start_at_zero(self):
         import subprocess
         import sys
-        code = ("from njw_tpu_torch.ops.stencil import swe_rk4_step_cuda as s;"
-                "print(s.bound_launches, s.operand_checks, s.launches)")
+        code = ("from njw_tpu_torch.ops.stencil import swe_rk4_step_cuda as s,"
+                " swe_rk4_multistep_cuda as m;"
+                "print(s.launches, s.bf16_launches, m.launches)")
         out = subprocess.run([sys.executable, "-c", code], check=True,
                              capture_output=True, text=True).stdout.split()
         assert out == ["0", "0", "0"]
 
-    def test_checks_once_per_operand_set_over_100_steps(self):
-        grid = GridSpec(nx=16, ny=12)
-        a = _torch(_fields(12, 16))
-        b = tuple(torch.empty_like(t) for t in a)
-        calls = []
-        bound = self._bound(grid, calls)
-        before = self._counts()
-        src, dst = a, b
+    @pytest.mark.parametrize("name", FORMS)
+    def test_checks_once_per_operand_set_over_100_steps(self, monkeypatch,
+                                                        name):
+        """A state from outside is checked once, each launch the step
+        repeats bound once; the stepper's own buffers are never checked
+        again, and the steps equal the public wrapper's."""
+        form = _Form(name)
+        lib = _swe_kernel_path(monkeypatch) if name == "swe" else None
+        seen = _counting(monkeypatch, form)
+        s0 = form.state()
+        before = swe_rk4_step_cuda.launches
+        s = s0
         for _ in range(100):
-            assert bound(*src, dst) is dst
-            src, dst = dst, src
-        # two operand sets: (a -> b) and (b -> a); every step launched once
-        assert self._counts() == (before[0] + 100, before[1] + 2,
-                                  before[2] + 100)
-        assert len(calls) == 100
-        ptrs = lambda x, y: tuple(t.data_ptr() for t in x + y)  # noqa: E731
-        assert calls[0] == (*ptrs(a, b), 0) and calls[1] == (*ptrs(b, a), 0)
-        assert set(calls) == {calls[0], calls[1]}
+            s = form.run(s)
+        assert len(seen) == form.per_state
+        if lib is not None:     # every step launched once, two pointer sets
+            assert swe_rk4_step_cuda.launches == before + 100
+            assert lib.prepared == 2 and len(lib.calls) == 100
+            assert len(set(lib.calls)) == 2 and lib.calls[0] != lib.calls[1]
+            assert lib.calls[0] == lib.calls[2] and lib.calls[0][-1] == 0
+            return
+        ref = _Form(name)
+        r = form.state()
+        for _ in range(100):
+            r = ref.run(form.changed(r, "data_ptr"))   # checked every step
+        for a, b in zip(s if isinstance(s, list) else [s],
+                        r if isinstance(r, list) else [r]):
+            for (n, x), (_, y) in zip(a.items(), b.items()):
+                assert torch.equal(x, y), n
 
+    @pytest.mark.parametrize("name", FORMS)
     @pytest.mark.parametrize("change", ["data_ptr", "shape", "dtype",
                                         "stride"])
-    def test_checks_again_when_an_operand_changes(self, monkeypatch, change):
-        grid = GridSpec(nx=12, ny=12)
-        u, v, h = _torch(_fields(12, 12))
-        out = tuple(torch.empty_like(t) for t in (u, v, h))
-        seen = []
-        real = stencil._check
-        monkeypatch.setattr(stencil, "_check",
-                            lambda *a: (seen.append(a), real(*a)))
-        bound = self._bound(grid)
-        bound(u, v, h, out)
-        bound(u, v, h, out)
-        assert len(seen) == 1
-        if change == "data_ptr":          # new buffers, checked and taken
-            u = u.clone()
-            bound(u, v, h, out)
+    def test_checks_again_when_an_operand_changes(self, monkeypatch, change,
+                                                  name):
+        """A state put in from outside is checked again: new buffers are
+        adopted, a field of another shape, dtype or strides is refused
+        (a sharded stepper copies the state into its blocks, so strides
+        are no concern of its)."""
+        form = _Form(name)
+        if name == "swe":
+            _swe_kernel_path(monkeypatch)
+        s = form.run(form.run(form.state()))
+        seen = _counting(monkeypatch, form)
+        s = form.run(s)
+        assert seen == []
+        bad = form.changed(s, change)
+        if change == "data_ptr" or (change == "stride"
+                                    and name == "sharded_swe"):
+            form.run(bad)
+            assert len(seen) == form.per_state
         else:
-            u0, u = u, {"shape": lambda t: t.view(6, 24),
-                        "dtype": lambda t: t.view(torch.int32),
-                        "stride": lambda t: t.t()}[change](u)
-            assert u.data_ptr() == u0.data_ptr()   # only `change` differs
             with pytest.raises((TypeError, ValueError)):
-                bound(u, v, h, out)
-        assert len(seen) == 2
+                form.run(bad)
+            assert len(seen) >= 1
 
     @pytest.mark.parametrize("bad", ["dtype", "alias", "out_shared",
                                      "contiguous"])
-    def test_raises_the_checks_errors(self, bad):
+    def test_raises_the_checks_errors(self, monkeypatch, bad):
         """A state put in from outside is refused as swe_rk4_step refuses
-        it, with the same error."""
+        it, with the same error, and nothing is launched."""
         grid = GridSpec(nx=8, ny=8)
+        st = make_kernel_rk4_stepper(grid, PhysicsParams(coriolis_f=1e-4),
+                                     0.01)
+        lib = _swe_kernel_path(monkeypatch)
         u, v, h = _torch(_fields(8, 8))
         out = tuple(torch.empty_like(t) for t in (u, v, h))
         if bad == "dtype":
@@ -238,39 +365,74 @@ class TestBoundLaunch:
         with pytest.raises((TypeError, ValueError)) as want:
             swe_rk4_step(u, v, h, grid=grid, dt=0.01, coriolis_f=1e-4,
                          out=out)
-        before = self._counts()
+        before = swe_rk4_step_cuda.launches
         with pytest.raises(want.type, match=str(want.value)):
-            self._bound(grid)(u, v, h, out)
-        assert self._counts()[0] == before[0]   # nothing launched
+            st.step(WeatherState(*out), WeatherState(u, v, h), 0.01)
+        assert swe_rk4_step_cuda.launches == before and lib.calls == []
 
     def test_raises_on_a_launch_error(self, monkeypatch):
-        monkeypatch.setattr(_build, "bind",
-                            lambda *a: (None, lambda e: b"invalid argument"))
-        grid = GridSpec(nx=8, ny=8)
-        f = _torch(_fields(8, 8))
-        bound = self._bound(grid, err=1)
-        before = self._counts()
+        st = make_kernel_rk4_stepper(GridSpec(nx=8, ny=8),
+                                     PhysicsParams(coriolis_f=1e-4), 0.01)
+        _swe_kernel_path(monkeypatch, err=1)
+        s = state_from_numpy(dict(zip("uvh", _fields(8, 8))), CPU)
+        before = swe_rk4_step_cuda.launches
         with pytest.raises(RuntimeError, match="invalid argument"):
-            bound(*f, tuple(torch.empty_like(t) for t in f))
-        assert self._counts()[0] == before[0]
+            st.step(st.init(s), s, 0.01)
+        assert swe_rk4_step_cuda.launches == before
 
-    def test_keeps_a_bounded_number_of_operand_sets(self):
-        grid = GridSpec(nx=8, ny=8)
-        f = _torch(_fields(8, 8))
-        bound = self._bound(grid)
-        for _ in range(3 * bound.MAX_OPERAND_SETS):
-            bound(*f, tuple(torch.empty_like(t) for t in f))
-        assert len(bound._checked) <= bound.MAX_OPERAND_SETS
+    @pytest.mark.parametrize("name", FORMS)
+    def test_keeps_a_bounded_number_of_operand_sets(self, monkeypatch, name):
+        """A replaced state drops its arrangement's bindings: of 24 states
+        put in from outside, the stepper keeps none but its own buffers
+        alive."""
+        import gc
+        import weakref
 
-    @pytest.mark.parametrize("k_extra,counter", [
-        ({}, "launches"), ({"bf16": True}, "bf16_launches"),
-        ({"fused": 2}, "multistep")])
-    def test_counts_each_form_on_its_counter(self, k_extra, counter):
-        grid = GridSpec(nx=8, ny=8)
-        k = dict(rk4_constants(grid, 0.01, 9.81, 0.0, 0.0,
-                               bf16=bool(k_extra.get("bf16"))), **k_extra)
-        bound = stencil.BoundLaunch(grid, k, entry=lambda *a: 0,
-                                    stream=lambda i: 0)
+        form = _Form(name)
+        if name == "swe":
+            _swe_kernel_path(monkeypatch)
+        refs = []
+        s = form.run(form.state())
+        for i in range(24):
+            new = form.changed(s, "data_ptr")
+            refs.append(weakref.ref(next((new[0] if isinstance(new, list)
+                                          else new).items())[1]))
+            s = form.run(form.run(new))
+        del new, s
+        gc.collect()
+        assert sum(r() is not None for r in refs) <= 2
+
+    @pytest.mark.parametrize("name", FORMS)
+    def test_a_released_stepper_frees_its_buffers(self, monkeypatch, name):
+        """A stepper holds no reference cycle: released, its buffers go at
+        once, with the garbage collector off (a sharded stepper's padded
+        blocks are several states' worth of a card's memory)."""
+        import gc
+        import weakref
+
+        form = _Form(name)
+        if name == "swe":
+            _swe_kernel_path(monkeypatch)
+        s = form.run(form.run(form.state()))
+        ref = weakref.ref(next((s[0] if isinstance(s, list) else s)
+                               .items())[1])
+        gc.disable()
+        try:
+            del form, s
+            assert ref() is None
+        finally:
+            gc.enable()
+
+    @pytest.mark.parametrize("variant,counter", [
+        ("slices", "launches"), ("bf16", "bf16_launches"),
+        ("x2", "multistep")])
+    def test_counts_each_form_on_its_counter(self, monkeypatch, variant,
+                                             counter):
+        grid, params = GridSpec(nx=8, ny=8), PhysicsParams()
+        st = stencil.make_kernel_multistep_stepper(grid, params, 0.01) \
+            if variant == "x2" else make_kernel_rk4_stepper(
+                grid, params, 0.01, variant=variant)
+        _swe_kernel_path(monkeypatch)
 
         def count():
             if counter == "multistep":
@@ -278,8 +440,8 @@ class TestBoundLaunch:
             return getattr(swe_rk4_step_cuda, counter)
 
         before = count()
-        f = _torch(_fields(8, 8))
-        bound(*f, tuple(torch.empty_like(t) for t in f))
+        s = state_from_numpy(dict(zip("uvh", _fields(8, 8))), CPU)
+        st.step(st.init(s), s, 0.01)
         assert count() == before + 1
 
 
@@ -405,7 +567,7 @@ class TestLayoutRule:
         def no_build(*args):
             raise AssertionError("nothing may be built for a bad layout")
 
-        monkeypatch.setattr(_build, "bind", no_build)
+        monkeypatch.setattr(_build, "load", no_build)
         monkeypatch.setitem(stencil._RULE, n_steps, SweLayout(*layout))
         f = _torch(_fields(8, 8))
         k = rk4_constants(GridSpec(nx=8, ny=8), 0.01, 9.81, 0.0, 0.0)

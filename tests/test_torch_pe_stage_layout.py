@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from njw_tpu_torch.ops import _build  # noqa: E402
+from njw_tpu_torch.ops import _bound, _build  # noqa: E402
 from njw_tpu_torch.ops import baro_stencil as bs  # noqa: E402
 from njw_tpu_torch.ops import pe_stencil as ps  # noqa: E402
 from njw_tpu_torch.ops.stencil import SMEM_PER_BLOCK  # noqa: E402
@@ -86,26 +86,22 @@ class TestStageTileRule:
 @contextlib.contextmanager
 def _recorded(name: str):
     """Replace ``name``'s bound launch by a recorder of its arguments and
-    CUDA's device context and stream by stand-ins, so that the launch path
-    runs on CPU tensors."""
+    CUDA's device and stream (``_bound.launch_on``) by a stand-in, so that
+    the launch path runs on CPU tensors."""
     calls = []
 
     def launch(*args):
         calls.append(args)
         return 0
 
-    class _Stream:
-        cuda_stream = 0
-
     saved = _build._bound.get(name)
     _build._bound[name] = (launch, lambda err: b"")
-    dev, cur = torch.cuda.device, torch.cuda.current_stream
-    torch.cuda.device = lambda d: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda *a: _Stream()
+    launch_on = _bound.launch_on
+    _bound.launch_on = lambda index, entry: entry(0)
     try:
         yield calls
     finally:
-        torch.cuda.device, torch.cuda.current_stream = dev, cur
+        _bound.launch_on = launch_on
         if saved is None:
             _build._bound.pop(name, None)
         else:

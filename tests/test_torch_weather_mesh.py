@@ -47,6 +47,29 @@ def _forecast(mesh=None, steps=5, **cfg):
     return sim
 
 
+def _fused_forecast(mesh=None, steps=5):
+    """The kernel-backend forecast with K4 in place of K5: on a mesh the
+    sharded fused stepper through ``halo.simulation_stepper``, else the
+    whole-step stepper."""
+    from njw_tpu_torch.ops.pe_stencil import make_pe_kernel_rk4_stepper
+    from njw_tpu_torch.parallel import halo
+
+    cfg = SimConfig(**PE, backend="kernel")
+    sim = _forecast(mesh, steps=0, backend="kernel")
+    grid, params = cfg.grid_spec(), cfg.physics()
+    if mesh is None:
+        stepper = make_pe_kernel_rk4_stepper(grid, params, cfg.dt,
+                                             whole_step=True)
+    else:
+        shards = sim.state
+        sim.state, stepper = halo.simulation_stepper(
+            halo.sharded_pe_step_kernel_fused(grid, params, mesh,
+                                              dt=cfg.dt), shards)
+    sim.stepper, sim._carry = stepper, stepper.init(sim.state)
+    sim.run(steps, output_interval=steps)
+    return sim
+
+
 def _equal(got: dict, want: dict) -> None:
     for name in FIELDS:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
@@ -59,13 +82,20 @@ class TestLocalMesh:
         ("auto", False, "sharded_pe_step"),
         ("plain", False, "sharded_pe_step")])
     def test_equals_the_whole_domain(self, backend, whole_step, name):
-        cfg = dict(backend=backend, pe_whole_step=whole_step)
+        """The backend's sharded stepper, and K4's fused form built
+        through ``halo.simulation_stepper`` (the kernel backend takes K5),
+        equal the whole-domain run bit for bit."""
         mesh = LocalMesh(2, 2, device="cpu")
-        sim = _forecast(mesh, **cfg)
+        if whole_step:
+            sim = _fused_forecast(mesh)
+            want = _fused_forecast()
+        else:
+            sim = _forecast(mesh, backend=backend)
+            want = _forecast(backend=backend)
         assert sim.stepper.name == name and isinstance(sim.state, list)
         snap = sim.snapshots[-1]
         assert snap["block"] == (0, 64, 0, 64) and snap["step"] == 5
-        _equal(snap, _forecast(**cfg).snapshots[-1])
+        _equal(snap, want.snapshots[-1])
 
     def test_row_mesh_takes_the_one_dimensional_form(self):
         sim = _forecast(LocalMesh(4, 1, device="cpu"), backend="kernel")

@@ -447,7 +447,7 @@ class TestStepper:
 
     @pytest.mark.parametrize("levels", [4, 20, 40, 87, 88, 227, 689])
     def test_auto_choice_is_the_stage_path(self, levels):
-        """whole_step None takes the four stage launches at every L: the
+        """The default takes the four stage launches at every L: the
         H100 timed the whole-step kernel slower at every L timed."""
         grid = GridSpec(nx=16, ny=12, levels=levels, dx=1e5, dy=1e5)
         params = PhysicsParams(coriolis_f=1e-4)
