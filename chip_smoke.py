@@ -83,7 +83,12 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 cost per launch (K1 and K5: with the padded
                 instantiation's registers, spill bytes, shared memory,
                 blocks per SM and tile)
-  11 sharded paths  every SHARDED_PATHS entry on a LocalMesh on cuda:0: SWE
+  11 sharded paths  first the halo's strip-copy kernel (halo_strips.cu) on
+                the pair lists a config-5 shard's refresh binds on (2, 2)
+                (each axis's LocalMesh unpack, rank 0's pack and unpack
+                through a buffer) against the torch copies, bit for bit,
+                one launch a list, with both device times; then
+                every SHARDED_PATHS entry on a LocalMesh on cuda:0: SWE
                 2048^2 on (4, 1) and (2, 2), PE config 5 (2048^2 x 40) fused
                 on (2, 2), (2, 2) with carry=True, (4, 1), and on the stage
                 path on (4, 1) and (2, 2); each held against the
@@ -91,7 +96,8 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
                 (Simulation, backend auto, at the JAX sharded tests'
                 tolerances; and the whole-domain run of the same kernel,
                 which K4's runs must equal exactly); launch
-                counts exactly shards x steps (x 4 on the stage path); ms
+                counts exactly shards x steps (x 4 on the stage path), and
+                halo_strips one an axis a refresh; ms
                 and grid-points/s per step by CUDA events beside the
                 whole-domain path's in this call, the host's and the
                 device's time per step (which of the two sets the pace),
@@ -2016,6 +2022,95 @@ def _step_costs(stepper, shards, reps: int = 3) -> tuple:
     return statistics.median(host), statistics.median(dev)
 
 
+def halo_strip_copies() -> dict:
+    """Phase 11, first: the strip-copy kernel (csrc/halo_strips.cu) on
+    the pair lists a config-5 shard's halo refresh binds on the 2 x 2
+    mesh (each axis's unpack on a LocalMesh, and rank 0's pack into a
+    send buffer and unpack from it, as a ProcessMesh binds them) against
+    copy_strips_plain, bit for bit over every tensor the lists touch;
+    launch counts reset just before each launch; device times of both."""
+    import torch
+    from njw_tpu_torch.ops.halo_strips import (
+        MAX_STRIPS, bind_strips, copy_strips_plain,
+    )
+    from njw_tpu_torch.parallel import LocalMesh, halo
+    from njw_tpu_torch.parallel.mesh import _views
+
+    p = _sharded_path("pe5_stage_2x2")
+    cfg = p.sim_config()
+    py, px = p.mesh
+    ly, lx, L = cfg.grid_height // py, cfg.grid_width // px, cfg.num_levels
+    mesh = LocalMesh(py, px)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def padded(*planes):
+        return torch.randn(*planes, ly + 2, lx + 2, generator=gen,
+                           device="cuda")
+
+    blocks = [tuple(padded(L) for _ in range(4)) + (padded(),)
+              for _ in range(mesh.size)]
+    bands = halo._Bands(blocks, (1, 1), (ly, lx))
+    bands.refresh(mesh)         # binds each axis's unpack
+    for field in (t for block in blocks for t in block):
+        field.normal_(generator=gen)        # what no copy has moved yet
+    lists = {}
+    for (axis, nxt, prv, lo, hi), fill in zip(bands.axes, bands._fills):
+        lists[f"{axis}_unpack_local"] = list(zip(fill.got, fill.bands))
+        strips = list(nxt[0] + prv[0])
+        send = torch.zeros(sum(t.numel() for t in strips), device="cuda")
+        views = _views(send, strips)
+        lists[f"{axis}_pack"] = list(zip(strips, views))
+        lists[f"{axis}_unpack"] = list(zip(views, lo[0] + hi[0]))
+    res, ok = {}, True
+    for name, pairs in lists.items():
+        touched = list({t.untyped_storage().data_ptr(): t._base
+                        if t._base is not None else t
+                        for pr in pairs for t in pr}.values())
+        before = [t.clone() for t in touched]
+        launches = bind_strips(pairs)
+        reset_counts()
+        for launch in launches:
+            launch()
+        torch.cuda.synchronize()
+        launched = counts()
+        got = [t.clone() for t in touched]
+        for t, b in zip(touched, before):
+            t.copy_(b)
+        copy_strips_plain(pairs)
+        equal = all(torch.equal(g, t) for g, t in zip(got, touched))
+        moved = any(not torch.equal(g, b) for g, b in zip(got, before))
+        want = {k: 0 for k in launched}
+        want["halo_strips"] = -(-len(pairs) // MAX_STRIPS)
+        kernel_us = 1e3 * _events_ms(lambda: [c() for c in launches], 20)
+        plain_us = 1e3 * _events_ms(lambda: copy_strips_plain(pairs), 20)
+        r = {"strips": len(pairs), "elements": sum(s.numel()
+                                                   for s, _ in pairs),
+             "bit_equal": equal, "moved": moved, "launches": launched,
+             "expected_launches": want, "kernel_us": kernel_us,
+             "plain_us": plain_us}
+        ok &= equal and moved and launched == want
+        res[name] = r
+        del before, got
+    emit("halo_strips", ok=ok, mesh=[py, px], shard=[L, ly, lx], **res)
+    if not ok:
+        fail("halo_strips", "the strip kernel disagrees with the torch "
+             "copies, or launched other than one a list")
+    del blocks, bands, lists
+    torch.cuda.empty_cache()
+    return res
+
+
+def _refresh_like(stepper, shards):
+    """One halo refresh of padded blocks shaped and laid out as the
+    kernel stepper's own (what each of its steps does before its
+    launches), as a callable, for timing."""
+    from njw_tpu_torch.parallel import halo
+
+    bands = halo._Bands([halo._fields(p) for p in stepper._padded(shards)],
+                        stepper.halo, stepper.inner)
+    return lambda: bands.refresh(stepper.mesh)
+
+
 def sharded_paths() -> dict:
     """Phase 11: every SHARDED_PATHS entry on a LocalMesh on cuda:0."""
     import torch
@@ -2061,6 +2156,10 @@ def sharded_paths() -> dict:
         launched = counts()
         want = {k: 0 for k in launched}
         want[p.kernel] = mesh.size * p.steps * p.launches_per_step
+        # a halo refresh before each round of launches, one strip-copy
+        # launch an axis (x, then y on a 2-D form; at most 40 strips)
+        want["halo_strips"] = p.steps * p.launches_per_step * (
+            2 if stepper.halo[1] else 1)
         diff_same = _max_abs(got, ref_same)
         diff_auto = _max_abs(got, ref_auto)
         tol = SHARD_TOL_PE if cfg.model == "primitive" else SHARD_TOL
@@ -2075,8 +2174,10 @@ def sharded_paths() -> dict:
         ms, call_host_ms = _time_steps(lambda: stepper(shards), p.steps)
         card_after = card_state()
         host_ms, device_ms = _step_costs(stepper, shards)
-        _events_ms(stepper.exchange, 2)
-        exchange_ms = _events_ms(stepper.exchange, 10)
+        exchange = _refresh_like(stepper, shards)
+        _events_ms(exchange, 2)
+        exchange_ms = _events_ms(exchange, 10)
+        del exchange
         # the stage path exchanges before each of its four stages
         exchange_ms_step = exchange_ms * p.launches_per_step
         n = cfg.grid_width * cfg.grid_height
@@ -2158,9 +2259,11 @@ def _scaling_rows() -> dict:
     pe = pe_mesh_shape_sweep(4, ny=512, nx=512, L=20, dt=240.0)
     torch.cuda.synchronize()
     launched = counts()
-    # two one-step calls a mesh shape (the first makes the padded blocks)
+    # two one-step calls a mesh shape (the first makes the padded blocks),
+    # each one halo refresh: a strip-copy launch an axis (px > 1: 2-D)
     want = {k: 0 for k in launched}
     want["pe_rk4"] = 2 * sum(r["mesh"][0] * r["mesh"][1] for r in pe)
+    want["halo_strips"] = 2 * sum(2 if r["mesh"][1] > 1 else 1 for r in pe)
     rows["pe_mesh_shape_sweep"] = pe
     for fn, rs in rows.items():
         for r in rs:
@@ -6017,6 +6120,7 @@ def main() -> int:
     main_path_fir("fir_suite")
     m8 = main_path_fir("fir_bf16")
     ks = sharded_kernels()
+    halo_strip_copies()
     sp = sharded_paths()
     kv = variant_kernels()
     mv = variant_paths(m1)

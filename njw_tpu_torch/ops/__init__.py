@@ -9,7 +9,8 @@ all.
 def launch_counters() -> dict:
     """{kernel: (the wrapper that carries its launch count, the count's
     attribute)} for every hand-written kernel of the port."""
-    from njw_tpu_torch.ops import baro_stencil, pe_stencil, stencil
+    from njw_tpu_torch.ops import baro_stencil, halo_strips, pe_stencil, \
+        stencil
     from njw_tpu_torch.signal import fir_cuda
 
     return {"swe_rk4": (stencil.swe_rk4_step_cuda, "launches"),
@@ -19,7 +20,8 @@ def launch_counters() -> dict:
             "pe_stage": (pe_stencil.pe_stage_cuda, "launches"),
             "pe_rk4": (pe_stencil.pe_rk4_step_cuda, "launches"),
             "fir_band": (fir_cuda.fir_band_cuda, "launches"),
-            "fir_band_bf16": (fir_cuda.fir_band_bf16_cuda, "launches")}
+            "fir_band_bf16": (fir_cuda.fir_band_bf16_cuda, "launches"),
+            "halo_strips": (halo_strips.copy_strips_cuda, "launches")}
 
 
 def launch_counts() -> dict:

@@ -23,11 +23,12 @@ padded blocks with exactly the halo its kernel reads (4 rows, and 4
 columns on a 2-D mesh, for the whole-step kernels K1 and K4; 1 for the
 stage kernel K5). Each step refreshes only those halo bands by exchange
 (x bands over the interior rows first, then y bands over the full padded
-width, so the corners ride along) and launches the kernel on every shard
-in turn. The blocks are made at the first call and reused: a step
-allocates nothing (on a ``ProcessMesh`` the exchange's send and receive
-buffers excepted). On ``LocalMesh`` the shards' launches follow one
-another on one stream.
+width, so the corners ride along; an axis is one ``mesh.pair_exchange``
+and one strip-copy launch of what arrives into the bands) and launches
+the kernel on every shard in turn. The blocks, and the exchange's
+buffers, are made at the first call and reused: a step allocates
+nothing. On ``LocalMesh`` the shards' launches follow one another on one
+stream.
 
 The kernel steppers, as in the JAX package: periodic BC and a numeric f
 only (``NotImplementedError`` otherwise); a mesh with px > 1 takes the 2-D
@@ -53,7 +54,9 @@ import torch
 
 from njw_tpu_torch.ops import pe_stencil, stencil
 from njw_tpu_torch.ops._bound import BoundSteps, step
+from njw_tpu_torch.ops.halo_strips import bind_strips, copy_strips_cuda
 from njw_tpu_torch.ops.stencil import HALO as SWE_HALO
+from njw_tpu_torch.parallel.mesh import ProcessMesh
 from njw_tpu_torch.weather.barotropic import BarotropicState
 from njw_tpu_torch.weather.dynamics import (
     coriolis_field, scalar_bc, swe_tendencies_from_shifts,
@@ -160,6 +163,28 @@ def interior_crop(halo: int, ly: int, lx: int) -> Callable:
     return crop
 
 
+class _Fill:
+    """One axis of a halo refresh: ``exchange`` (``mesh.pair_exchange``),
+    then one strip copy of what arrives into ``bands`` (``bind_strips``:
+    one launch of ``ops/csrc/halo_strips.cu`` on CUDA, a launch per 80
+    strips; ``_foreach_copy_`` on the CPU). The copy is bound to the
+    tensors the exchange returns (views valid until its next call, the
+    same tensors at every call on both meshes): at the first call, and
+    again should an exchange return other tensors."""
+
+    def __init__(self, exchange, bands: list):
+        self.exchange, self.bands = exchange, bands
+        self.got, self.copies = [], ()
+
+    def __call__(self) -> None:
+        got = [s for side in self.exchange() for src in side for s in src]
+        if not self.got or any(a is not b for a, b in zip(got, self.got)):
+            self.got = got
+            self.copies = bind_strips(list(zip(got, self.bands)))
+        for copy in self.copies:
+            copy()
+
+
 class _Bands:
     """The halo bands of every local shard's padded fields, and the
     interior strips that fill the neighbours' bands, as views made once.
@@ -186,29 +211,32 @@ class _Bands:
         return strips(n), strips(h), strips(0), strips(n + h)
 
     def refresh(self, mesh) -> None:
-        """Fill every band from its neighbour, one ``mesh.pair_exchange``
-        an axis (made at the first refresh on ``mesh``) and one
-        ``_foreach_copy_`` of what arrives into the bands. While a
-        profiler records, the refresh is a ``sim.step.exchange`` span
-        (from the first exchange to the last band's copy enqueued)
-        counting the mesh's own ``exchanges`` and ``exchange_bytes`` over
-        it."""
+        """Fill every band from its neighbour: a ``_Fill`` an axis (made at
+        the first refresh on ``mesh``). While a profiler records, the
+        refresh is a ``sim.step.exchange`` span (from the first exchange
+        to the last band's copy enqueued) counting the mesh's own
+        ``exchanges`` and ``exchange_bytes`` over it, and the device
+        operations it enqueued (``launches``: strip-copy launches, and on
+        a ``ProcessMesh`` its collectives, one an exchange)."""
         t0 = time.perf_counter()
         n0, b0 = mesh.exchanges, mesh.exchange_bytes
+        k0 = copy_strips_cuda.launches
         if self._mesh is not mesh:
             self._fills = [
-                (mesh.pair_exchange(last, first, axis),
-                 [d for bands in (band_lo, band_hi) for dst in bands
-                  for d in dst])
+                _Fill(mesh.pair_exchange(last, first, axis),
+                      [d for bands in (band_lo, band_hi) for dst in bands
+                       for d in dst])
                 for axis, last, first, band_lo, band_hi in self.axes]
             self._mesh = mesh
-        for exchange, bands in self._fills:
-            torch._foreach_copy_(bands, [s for got in exchange()
-                                         for src in got for s in src])
+        for fill in self._fills:
+            fill()
         if profiling.recording():
-            profiling.record("sim.step.exchange", t0, time.perf_counter(),
-                             exchanges=mesh.exchanges - n0,
-                             exchange_bytes=mesh.exchange_bytes - b0)
+            n = mesh.exchanges - n0
+            profiling.record(
+                "sim.step.exchange", t0, time.perf_counter(), exchanges=n,
+                exchange_bytes=mesh.exchange_bytes - b0,
+                launches=copy_strips_cuda.launches - k0
+                + (n if isinstance(mesh, ProcessMesh) else 0))
 
 
 # ------------------------------------------------------------ the steppers

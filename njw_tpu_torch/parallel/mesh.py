@@ -28,8 +28,10 @@ The exchanges:
 * ``ring_pair(to_next, to_prev, axis)``: ``ring_shift`` by +1 and by -1
   as one exchange (on ``ProcessMesh`` one ``all_to_all_single`` of packed
   float32 payloads). ``pair_exchange`` makes it a callable over payloads
-  that stay the same tensors, whose buffers ``ProcessMesh`` makes once:
-  the kernel steppers' halo refresh calls one an axis.
+  that stay the same tensors, whose buffers ``ProcessMesh`` makes once and
+  packs with one strip-copy launch (``ops/halo_strips.py``; the plain
+  copies on the CPU): the kernel steppers' halo refresh calls one an
+  axis.
 * ``all_to_all(blocks, axis, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=False)`` along 'y', 'x' or the combined ('y', 'x') axis (row-major
   index iy * px + ix).
@@ -46,6 +48,7 @@ from typing import Callable, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from njw_tpu_torch.ops.halo_strips import bind_strips
 from njw_tpu_torch.platform.device import require_device
 from njw_tpu_torch.weather.grid import FieldState
 
@@ -385,7 +388,7 @@ class ProcessMesh(_Mesh):
                       to_prev: Sequence[Payload], axis: str) -> Callable:
         """``_Mesh.pair_exchange`` with its buffers made once
         (``_PairExchange``): a call packs the payloads with one
-        ``_foreach_copy_``, makes the one ``all_to_all_single`` of
+        strip-copy launch, makes the one ``all_to_all_single`` of
         ``ring_pair`` and returns views of its receive buffer."""
         if self.axis_size(axis) == 1:
             return lambda: (list(to_next), list(to_prev))
@@ -473,9 +476,11 @@ def _views(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
 class _PairExchange:
     """``ProcessMesh.ring_pair`` of payloads that stay the same tensors:
     the send and receive buffers, and their views shaped as the payloads,
-    are made once. A call packs the payloads into the send buffer with one
-    ``_foreach_copy_``, makes the ``all_to_all_single`` and returns views
-    of the receive buffer, which the next call overwrites. The collective
+    are made once. A call packs the payloads into the send buffer with the
+    strip copy bound once (``bind_strips``: one launch of
+    ``csrc/halo_strips.cu`` on CUDA, ``_foreach_copy_`` on the CPU),
+    makes the ``all_to_all_single`` and returns views of the receive
+    buffer, which the next call overwrites. The collective
     is synchronous on the current stream, so the next pack and the
     caller's reads of the views are ordered after it."""
 
@@ -500,7 +505,8 @@ class _PairExchange:
         device = self.sources[0].device
         self.send = torch.empty(sum(self.counts), dtype=torch.float32,
                                 device=device)
-        self.targets = _views(self.send, self.sources)
+        self.pack = bind_strips(
+            list(zip(self.sources, _views(self.send, self.sources))))
         # a shard's previous shard sends it its to_next, the next its
         # to_prev, each shaped as this shard's own
         n_next = sum(t.numel() for t in nxt)
@@ -517,7 +523,8 @@ class _PairExchange:
         self.mesh, self.payload = mesh, [*nxt, *prv]
 
     def __call__(self) -> tuple[list, list]:
-        torch._foreach_copy_(self.targets, self.sources)
+        for copy in self.pack:
+            copy()
         self.mesh._count(self.payload)
         dist.all_to_all_single(self.recv, self.send, self.recv_counts,
                                self.counts, group=self.mesh.group)

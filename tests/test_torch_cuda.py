@@ -1949,3 +1949,176 @@ class TestMeshOnCard:
             got["block"] = tuple(int(b) for b in got["block"])
             parts.append(got)
         _same_fields(shards_to_numpy(parts), _mesh_forecast().snapshots[-1])
+
+    def test_config5_on_one_card_local_mesh_equals_the_whole_domain(
+            self, cuda_device):
+        """Config 5's shapes (2048² × 40, 2 × 2 shards of 1024²) on one
+        card: K5's local2d form, its bands refreshed by the strip kernel
+        (one launch an axis, two a stage), against the whole-domain K5
+        run, bit for bit."""
+        from njw_tpu_torch.ops import launch_counts
+        from njw_tpu_torch.parallel import LocalMesh
+
+        cfg = dict(grid_width=2048, grid_height=2048, num_levels=40)
+        before = launch_counts()["halo_strips"]
+        sim = _mesh_forecast(LocalMesh(2, 2), steps=4, **cfg)
+        torch.cuda.synchronize()
+        assert sim.stepper.name == "pe_stage_local2d"
+        assert launch_counts()["halo_strips"] - before == 4 * 4 * 2
+        got = sim.snapshots[-1]
+        del sim
+        torch.cuda.empty_cache()
+        _same_fields(got, _mesh_forecast(steps=4, **cfg).snapshots[-1])
+
+
+# ------------------------------------------- the halo exchange's strip copies
+
+_STRIP_FORMS = {
+    # form: (constructor, keywords, mesh shape, (ny, nx)); ragged shards,
+    # and 6 shards (120 strips a K5 refresh: two launches)
+    "pe_stage_local": ("sharded_pe_step_kernel", {}, (4, 1), (20, 13)),
+    "pe_stage_local2d": ("sharded_pe_step_kernel", {}, (2, 2), (14, 18)),
+    "pe_stage_local2d_3x2": ("sharded_pe_step_kernel", {}, (3, 2),
+                             (21, 10)),
+    "swe_rk4_carry": ("sharded_swe_step_kernel", {}, (4, 1), (24, 13)),
+    "swe_rk4_local2d": ("sharded_swe_step_kernel", {}, (2, 2), (14, 18)),
+    "pe_rk4_carry": ("sharded_pe_step_kernel_fused", {}, (4, 1), (24, 13)),
+    "pe_rk4_local2d": ("sharded_pe_step_kernel_fused", {}, (2, 2),
+                       (14, 18)),
+    "pe_rk4_carry2d": ("sharded_pe_step_kernel_fused_2d", {"carry": True},
+                       (2, 2), (14, 18)),
+}
+
+
+def _bound_strip_pairs(form: str, monkeypatch) -> list:
+    """Every pair list a form's refreshes bind on a CUDA LocalMesh (one
+    step run), with the strips of each also packed into a contiguous
+    buffer and unpacked from it, as a ProcessMesh binds them."""
+    from njw_tpu_torch.parallel import LocalMesh, halo, mesh as mesh_mod
+    from njw_tpu_torch.weather.primitive import pe_initial_state
+
+    bound, real = [], halo.bind_strips
+
+    def record(pairs):
+        bound.append(list(pairs))
+        return real(bound[-1])
+
+    monkeypatch.setattr(halo, "bind_strips", record)
+    ctor, kw, shape, (ny, nx) = _STRIP_FORMS[form]
+    mesh = LocalMesh(*shape)
+    if ctor == "sharded_swe_step_kernel":
+        cfg = SimConfig(grid_width=nx, grid_height=ny, dt=0.01,
+                        coriolis_f=1e-4, device="cuda")
+        s0 = Simulation.from_config(cfg, "vortex", strength=2.0).state
+        grid, params, dt = cfg.grid_spec(), cfg.physics(), 0.01
+    else:
+        grid = GridSpec(nx=nx, ny=ny, levels=3, dx=1e5, dy=1e5)
+        params, dt = PhysicsParams(coriolis_f=1e-4), 30.0
+        s0 = pe_initial_state(grid, device="cuda", u_jet=15.0, perturb=0.5)
+    getattr(halo, ctor)(grid, params, mesh, dt=dt, n_steps=2, **kw)(
+        mesh.shard_state(s0))
+    torch.cuda.synchronize()
+    assert bound
+    out = []
+    for pairs in bound:
+        strips = [s for s, _ in pairs]
+        send = torch.empty(sum(s.numel() for s in strips), device="cuda")
+        views = mesh_mod._views(send, strips)
+        out += [pairs, list(zip(strips, views)),
+                list(zip(views, [d for _, d in pairs]))]
+    return out
+
+
+def _kernel_equals_torch_copies(pairs) -> None:
+    """From storages of random values, the strip kernel and the torch
+    copies of ``pairs`` leave every storage the same, bit for bit."""
+    from njw_tpu_torch.ops.halo_strips import (
+        MAX_STRIPS, copy_strips_cuda, copy_strips_plain,
+    )
+
+    flats = {t.untyped_storage().data_ptr():
+             torch.empty(0, device="cuda").set_(t.untyped_storage())
+             for p in pairs for t in p}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    before = {k: torch.randn(f.numel(), generator=gen, device="cuda")
+              for k, f in flats.items()}
+    for k, f in flats.items():
+        f.copy_(before[k])
+    launches = copy_strips_cuda.launches
+    copy_strips_cuda(pairs)
+    torch.cuda.synchronize()
+    assert copy_strips_cuda.launches - launches == \
+        -(-len(pairs) // MAX_STRIPS)
+    got = {k: f.clone() for k, f in flats.items()}
+    for k, f in flats.items():
+        f.copy_(before[k])
+    copy_strips_plain(pairs)
+    for k, f in flats.items():
+        assert torch.equal(got[k], f)
+        assert not torch.isnan(got[k]).any()
+
+
+@pytest.mark.cuda
+class TestHaloStripsOnCard:
+    """csrc/halo_strips.cu against the torch copies of the same strips,
+    and K5's claim that it reads no halo corner."""
+
+    def test_layout_mirrors_the_built_kernel(self, cuda_device):
+        import ctypes
+
+        from njw_tpu_torch.ops import _build, halo_strips
+
+        out = (ctypes.c_int * 4)()
+        assert _build.load("halo_strips").halo_strips_layout(out) == 0
+        assert tuple(out) == (halo_strips.MAX_STRIPS, halo_strips.CHUNK,
+                              ctypes.sizeof(halo_strips._Strip),
+                              ctypes.sizeof(halo_strips._Strips))
+
+    @pytest.mark.parametrize("form", sorted(_STRIP_FORMS))
+    def test_strip_kernel_equals_the_torch_copies(self, cuda_device, form,
+                                                  monkeypatch):
+        for pairs in _bound_strip_pairs(form, monkeypatch):
+            _kernel_equals_torch_copies(pairs)
+
+    @pytest.mark.parametrize("L,ly,lx", [(40, 1024, 1024), (7, 33, 65),
+                                         (1, 3, 1)])
+    def test_strips_of_a_padded_block_round_trip(self, cuda_device, L, ly,
+                                                 lx):
+        """A stage refresh's packs and unpacks at config 5's shard (and
+        odd shapes): an axis's 10 strips of five padded fields into one
+        buffer, and back into the bands."""
+        from njw_tpu_torch.parallel import halo
+
+        pad = _pe_state(L, ly + 2, lx + 2, 9, cuda_device)
+        bands = halo._Bands([tuple(t for _, t in pad.items())], (1, 1),
+                            (ly, lx))
+        for _, nxt, prv, lo, hi in bands.axes:
+            strips = [t for s in (nxt, prv) for t in s[0]]
+            dests = [t for s in (lo, hi) for t in s[0]]
+            send = torch.empty(sum(t.numel() for t in strips),
+                               device="cuda")
+            views = [send[a:a + t.numel()].view(t.shape) for a, t in zip(
+                np.cumsum([0] + [t.numel() for t in strips[:-1]]), strips)]
+            _kernel_equals_torch_copies(list(zip(strips, views)))
+            _kernel_equals_torch_copies(list(zip(views, dests)))
+
+    def test_pe_stage_reads_no_halo_corner(self, cuda_device):
+        """K5's padded local2d form gives the same bits with NaN in its
+        halo's four corners as with finite values there."""
+        from njw_tpu_torch.ops.pe_stencil import pe_stage_padded
+
+        L, ly, lx = 40, 130, 70
+        cur = _padded_pe(L, ly, lx, (1, 1), 4, cuda_device)
+        bases = [_pe_state(L, ly, lx, 5 + g, cuda_device) for g in range(4)]
+        kw = dict(halo=(1, 1), c_dt=60.0, dx=1e5, dy=1e5, coriolis_f=1e-4,
+                  base_coeffs=(-1 / 3, 1 / 3, 2 / 3, 1 / 3))
+        want = pe_stage_padded(cur, bases, **kw)
+        for _, a in cur.items():
+            for r in (0, -1):
+                for c in (0, -1):
+                    a[..., r, c] = float("nan")
+        got = pe_stage_padded(cur, bases, **kw)
+        torch.cuda.synchronize()
+        for (name, a), (_, b) in zip(got.items(), want.items()):
+            assert torch.isfinite(a).all(), name
+            assert torch.equal(a, b), name

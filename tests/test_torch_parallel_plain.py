@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -506,12 +507,14 @@ def test_process_mesh_over_gloo_equals_local_mesh(tmp_path):
             np.testing.assert_array_equal(got[name + "_" + k], v)
 
 
-# a ProcessMesh on a process group of 4 ranks of a world of 6
+# a ProcessMesh on a process group of 4 ranks of a world of 6; the six
+# processes share one deadline (a run takes ~15 s on an idle host: the
+# rest is room for a host loaded by the other test workers, where six
+# processes must all start before any can join the world)
 _SUB_MEMBERS = (1, 2, 4, 5)
+_SUB_DEADLINE_S = 300
 _SUB_RUNS = textwrap.dedent('''
     import torch
-    from njw_tpu_torch.parallel import sharded_barotropic_step_2d
-    from njw_tpu_torch.weather import SimConfig, Simulation
 
     A2A = (("y", 0, 1), ("x", 1, 0), (("y", "x"), 0, 2))
 
@@ -521,6 +524,9 @@ _SUB_RUNS = textwrap.dedent('''
 
     def run(mesh):
         """{name: [array of each local shard]}"""
+        from njw_tpu_torch.parallel import sharded_barotropic_step_2d
+        from njw_tpu_torch.weather import SimConfig, Simulation
+
         res = {}
         for axis, split, concat in A2A:
             n = mesh.axis_size(axis)
@@ -538,16 +544,18 @@ _SUB_RUNS = textwrap.dedent('''
 ''')
 
 _SUB_WORKER = _SUB_RUNS + textwrap.dedent('''
-    import datetime, sys
+    import datetime, faulthandler, sys
     import numpy as np, torch.distributed as dist
-    from njw_tpu_torch.parallel import ProcessMesh
+    # a rank still running near the test's deadline prints where it is
+    faulthandler.dump_traceback_later(_SUB_DEADLINE_S - 30, exit=True)
     torch.set_num_threads(1)
     rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     members = [int(r) for r in sys.argv[4].split(",")]
-    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
-                            world_size=6,
-                            timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=6,
+        timeout=datetime.timedelta(seconds=_SUB_DEADLINE_S - 60))
     if rank in members:
+        from njw_tpu_torch.parallel import ProcessMesh
         group = dist.new_group(members, use_local_synchronization=True)
         mesh = ProcessMesh(2, 2, group=group, device="cpu")
         got = run(mesh)
@@ -566,20 +574,24 @@ def test_process_mesh_on_a_sub_group_equals_local_mesh(tmp_path):
     and sharded_barotropic_step_2d equal LocalMesh(2, 2) bit for bit, and
     so does a second mesh on the same ranks. The two ranks outside the
     group only join the world and leave it: a ring group whose making
-    needed them would hang the members until their 120 s ran out."""
+    needed them would hang the members until the deadline ran out. A rank
+    still running 30 s before the deadline prints its stack and exits."""
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(REPO),
                                            os.environ.get("PYTHONPATH", "")]))
     out = tmp_path / "shard"
     members = ",".join(str(r) for r in _SUB_MEMBERS)
+    worker = f"_SUB_DEADLINE_S = {_SUB_DEADLINE_S}\n" + _SUB_WORKER
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _SUB_WORKER, str(r), str(tmp_path / "store"),
+        [sys.executable, "-c", worker, str(r), str(tmp_path / "store"),
          str(out), members], env=env, cwd=tmp_path, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(6)]
+    deadline = time.monotonic() + _SUB_DEADLINE_S
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=120)[0])
+            left = max(1.0, deadline - time.monotonic())
+            logs.append(p.communicate(timeout=left)[0])
     finally:
         for p in procs:
             if p.poll() is None:

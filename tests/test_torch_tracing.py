@@ -251,6 +251,42 @@ def test_exchange_spans_count_the_mesh_bytes():
     assert len([s for s in mine if s.name == "sim.build.state"]) == 1
 
 
+@pytest.mark.parametrize("as_launches", [False, True])
+def test_exchange_spans_count_their_launches(monkeypatch, as_launches):
+    """Each ``sim.step.exchange`` span counts the strip-copy launches and
+    collectives its refresh enqueued: on a CPU ``LocalMesh`` none (the
+    plain copies, no collective); with each bound copy counted as a
+    launch of the kernel, as on the card, one an axis (K5's stage on
+    (2, 2): x, then y)."""
+    from njw_tpu_torch.ops.halo_strips import copy_strips_cuda
+    from njw_tpu_torch.parallel import halo
+
+    monkeypatch.setattr(copy_strips_cuda, "launches",
+                        copy_strips_cuda.launches)
+    if as_launches:
+        real = halo.bind_strips
+
+        def launched(copy):
+            def call():
+                copy_strips_cuda.launches += 1
+                copy()
+            return call
+
+        monkeypatch.setattr(halo, "bind_strips", lambda pairs: tuple(
+            launched(c) for c in real(pairs)))
+
+    def run():
+        sim, _ = _mesh_sim()
+        sim.run(2, output_interval=2)
+        return sim
+
+    sim, _ = _profiled(run)
+    ex = [s for s in profiling.spans()
+          if s.sim == sim.span_id and s.name == "sim.step.exchange"]
+    assert len(ex) == 4 * 2
+    assert [s.counters["launches"] for s in ex] == [2 * as_launches] * 8
+
+
 def test_exchange_spans_only_while_a_session_records(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a span was kept with no profiler recording")
