@@ -17,8 +17,8 @@ def frozen_step():
     integrators.INTEGRATORS["rk4"] = rk4
 
 
-def altered_answer():
-    """Each snapshot's h (or T) is altered at one point as it is stored,
+def altered_answer(field: str):
+    """Each snapshot's ``field`` is altered at one point as it is stored,
     by a hundredth of the field's largest magnitude."""
     from njw_tpu_torch.weather.model import Simulation
 
@@ -26,9 +26,7 @@ def altered_answer():
 
     def altered(self):
         store(self)
-        snap = self.snapshots[-1]
-        name = "h" if "h" in snap else "T"
-        a = snap[name]
+        a = self.snapshots[-1][field]
         a.flat[a.size // 3] += 0.01 * float(np.abs(a).max())
 
     Simulation._store_output = altered

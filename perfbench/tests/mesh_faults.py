@@ -29,9 +29,9 @@ def shifted_halo_column(rank: int) -> None:
 
 
 def altered_snapshot(rank: int) -> None:
-    """Rank 3's snapshot is altered at one point as it is stored."""
+    """Rank 3's snapshot of T is altered at one point as it is stored."""
     if rank == 3:
-        faults.altered_answer()
+        faults.altered_answer("T")
 
 
 def raises_in_the_window(rank: int) -> None:

